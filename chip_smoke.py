@@ -33,9 +33,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet and Hopper white paper), at 700 W:
-# HBM3 3.35 TB/s; int32: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost
-# (the data sheet's 67 TFLOP/s fp32 is 128 lanes x 2 flop x the same clock)
+# H100 SXM peaks (NVIDIA data sheet), at 700 W: HBM3 3.35 TB/s; int32:
+# 64 results per clock per SM for 32-bit integer add and compare (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz boost (the data sheet's 67 TFLOP/s fp32 is 128
+# lanes x 2 flop x the same clock)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
@@ -68,12 +70,13 @@ def _bound(ops: float, n_bytes: float) -> tuple[float, str]:
 
 def _join_work(r_keys, r_w, s_keys, s_w) -> tuple[float, float]:
     """(int32 operations, bytes) of one block join on these inputs: C
-    compares, a validity test and two adds per pair of valid slots; every
-    input read once and both [K] outputs written once."""
+    compares and two adds (count, weight) per pair of valid slots; a slot's
+    validity is tested once per row, not per pair.  Every input is read
+    once and both [K] outputs are written once."""
     c = r_keys.shape[-1]
     n_r = (r_w > 0).sum(dim=-1).double()
     n_s = (s_w > 0).sum(dim=-1).double()
-    ops = float((n_r * n_s).sum()) * (c + 3)
+    ops = float((n_r * n_s).sum()) * (c + 2)
     n_bytes = 4 * (r_keys.numel() + r_w.numel() + s_keys.numel() + s_w.numel()) + 8 * r_w.shape[0]
     return ops, float(n_bytes)
 

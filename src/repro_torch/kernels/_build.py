@@ -3,8 +3,9 @@
 Each source is compiled at first use into a shared library with a plain C
 interface, under ``build/`` at the root of the checkout.  The library's
 name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one nvcc per source, all at once.
-Nothing here runs at import time: this module imports on machines without
+rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one
+nvcc per source, all at once, so the kernels of later sources build side by
+side rather than one after another.  Nothing here runs at import time: this module imports on machines without
 nvcc or a card.
 """
 from __future__ import annotations

@@ -6,10 +6,11 @@
 // tiled_join_pallas / _tiled_join_kernel (repro/kernels/block_join.py).  The
 // flat join is the K = 1 launch of the same kernel.
 //
-// What bounds it on this card: integer operations.  A pair costs C compares,
-// a validity test and two adds: sum_k n_r(k) * n_s(k) * (C + 3) int32
-// operations over the valid slots (K * cap_r * cap_s * (C + 3) when every
-// slot is valid) against the int32 pipe, while the bytes are read once,
+// What bounds it on this card: integer operations.  A pair of valid slots
+// costs C compares and two adds (count, weight); validity is tested once per
+// row, not per pair.  That is sum_k n_r(k) * n_s(k) * (C + 2) int32
+// operations (K * cap_r * cap_s * (C + 2) when every slot is valid) against
+// the int32 pipe, while the bytes are read once,
 // K * (cap_r + cap_s) * (C + 1) * 4.  The design follows from that:
 //   * grid (K * ceil(cap_r / TILE_R), 1, ceil(cap_s / S_CHUNK)); a block
 //     keeps RPT R rows per thread in registers and streams its S rows
@@ -38,6 +39,9 @@ constexpr int RPT = 4;                  // R rows per thread, in registers
 constexpr int TILE_R = THREADS * RPT;   // R rows per block
 constexpr int TILE_S = 256;             // S rows per shared-memory tile
 constexpr int S_CHUNK = 2048;           // S rows per block (grid z)
+// Widest link instantiated.  The repo's binary queries join on one column,
+// but a two-relation query from make_query may share several; the eight
+// instantiations cost a few seconds of nvcc.
 constexpr int MAX_C = 8;
 
 __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
