@@ -15,7 +15,17 @@ Phases:
   5. each kernel at the shapes the main path gives it: time (CUDA events),
      its plain version's time and result, and the bound;
   6. the paper's 3-way query (§9.2, at the scale of
-     ``examples/multiway_join.py``) on the card against the host oracle.
+     ``examples/multiway_join.py``) on the card against the host oracle;
+  7. the streaming engine's fused path on the card: six micro-batches of
+     ``benchmarks/bench_stream.py``'s drifting Zipf stream at 100,000 R and
+     25,000 S rows each (q=1000), against the host group-by oracle, with
+     the kernels' launch counts, per-batch ingest times and the tracer's
+     time per span;
+  8. the baseline path (plain ``map_phase``, the block join, the Count-Min
+     kernel) on the first three of those batches: every report equals the
+     fused path's;
+  9. each stream kernel at the shapes the stream gave it: time (CUDA
+     events), its plain version's time and result, and the bound.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -62,6 +72,19 @@ def _events_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _plain_ms(fn):
+    """(result, ms) of one call of a plain version on the card, host clock
+    around a synchronised call, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
 def _bound(ops: float, n_bytes: float) -> tuple[float, str]:
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -82,7 +105,68 @@ def _join_work(r_keys, r_w, s_keys, s_w) -> tuple[float, float]:
 
 
 def _max_abs_err(got, want) -> int:
-    return max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    """Largest |got - want| over paired tensors (None pairs with None);
+    shapes must agree."""
+    err = 0
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is None:
+            continue
+        assert g.shape == w.shape, (tuple(g.shape), tuple(w.shape))
+        if w.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def _zipf_batch(rng, shift, n_r, n_s, domain, a):
+    """benchmarks/bench_stream.py's stream: R(A, B), S(B, C) with Zipf B."""
+    import numpy as np
+
+    b_r = ((rng.zipf(a, n_r) - 1) + shift) % domain
+    b_s = ((rng.zipf(a, n_s) - 1) + shift) % domain
+    r = np.stack([rng.integers(0, domain, n_r), b_r], 1).astype(np.int64)
+    s = np.stack([b_s, rng.integers(0, domain, n_s)], 1).astype(np.int64)
+    return {"R": r, "S": s}
+
+
+def _skewed_plan(query, q):
+    """A small plan with pinned heavy hitters, so pins and excludes route."""
+    import numpy as np
+
+    from repro_torch.core import plan_shares_skew
+
+    rng = np.random.default_rng(7)
+    data = {r.name: rng.integers(0, 50, (600, r.arity)).astype(np.int64)
+            for r in query.relations}
+    for r in query.relations:
+        data[r.name][:300, -1] = 7
+    return plan_shares_skew(query, data, q=q)
+
+
+def _ingest_work(rows, enc, dest, n_sketch_cols, depth, width, k_pad):
+    """(int32 operations, bytes) of one fused ingest pass on these inputs.
+
+    Operations: per (row, live column) one compare for each pin and each
+    exclude value that is on, and for each emission the row does make, 12
+    per hashed term (9 for mix32's xors, shifts and multiplies, then the
+    modulo, the multiply by the stride and the add) and 2 to rank and count
+    it; a padded column costs one compare per row; the Count-Min half
+    costs 11 per row, column and sketch row (mix32, modulo, add).  Bytes:
+    the rows and the encoding read once; dest and rank [N, Wp], counts
+    [k_pad] and the Count-Min tables written once."""
+    import numpy as np
+
+    n = rows.shape[0]
+    live = enc["col_valid"] != 0
+    checks = enc["p_on"].sum(-1) + enc["e_on"].sum((-1, -2))
+    hashed = (enc["h_stride"] != 0).sum(-1)
+    emitted = (dest >= 0).sum(0).cpu().numpy().astype(np.float64)
+    ops = float(n * (checks[live].sum() + (~live).sum()))
+    ops += float((emitted * (12 * hashed + 2)).sum())
+    ops += 11.0 * n * n_sketch_cols * depth
+    n_bytes = 4 * (rows.numel() + sum(np.asarray(v).size for v in enc.values())
+                   + 2 * dest.numel() + k_pad + n_sketch_cols * depth * width)
+    return ops, float(n_bytes)
 
 
 def main() -> int:
@@ -100,8 +184,12 @@ def main() -> int:
 
     from repro_torch.core import plan_shares_skew, three_way_paper, two_way
     from repro_torch.data import paper_2way, paper_3way
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, launches, reset_launches
     from repro_torch.kernels import block_join as bj
+    from repro_torch.kernels import ingest_fused as fi
+    from repro_torch.kernels import sketch_update as su
+    from repro_torch.mapreduce.keys import static_route_table
+    from repro_torch.stream import ObsPolicy, StreamConfig, StreamingJoinEngine
     from repro_torch.mapreduce import (
         LocalJoinSpec,
         binary_join_operands,
@@ -166,6 +254,90 @@ def main() -> int:
         assert err == 0
     _say("[check] flat_join wraparound 256x256 at weight 40000: ok")
 
+    # the fused ingest pass (K2 dense, K3 static) and the Count-Min update
+    # (K4): ragged and empty N, W = 1, pins and excludes with V = 8, k not a
+    # multiple of 128, hashed values at -2^31 and 2^31-1, seeds >= 2^31
+    i32 = np.iinfo(np.int32)
+    seeds = (11, 222, (1 << 31) + 5, (1 << 32) - 1)
+
+    def edge_rows(n, arity, seed):
+        rows = np.random.default_rng(seed).integers(0, 60, (n, arity)).astype(np.int32)
+        if n >= 4:
+            rows[-1], rows[-2], rows[-3, 0] = i32.min, i32.max, 7
+        return torch.from_numpy(rows).to(dev)
+
+    for query, q_small in [(two_way(), 8), (three_way_paper(), 8)]:
+        plan_s = _skewed_plan(query, q_small)
+        k_pad = -(-plan_s.total_reducers // 128) * 128
+        for rel in query.relations:
+            routes = static_route_table(plan_s, rel)
+            w = fi.route_width(routes)
+            enc = fi.dense_route_encoding(routes, rel.arity, 1 << max(0, (w - 1).bit_length()), 8)
+            for n in (0, 1, 4095, 4097, 100_003 if len(query.relations) == 2 else 30_011):
+                rows = edge_rows(n, rel.arity, n)
+                kw = dict(sketch_cols=(rel.arity - 1,), seeds=seeds, width=2048, k_pad=k_pad)
+                got = fi.fused_ingest_dense(rows, enc, **kw)
+                torch.cuda.synchronize()
+                err = _max_abs_err(got, fi.fused_ingest_dense_ref(rows, enc, **kw))
+                _say(f"[check] fused_ingest_dense {rel.name} of {len(query.relations)}-way "
+                     f"N={n} Wp={enc['col_base'].shape[0]} k={plan_s.total_reducers} "
+                     f"k_pad={k_pad}: max_abs_err={err}")
+                assert err == 0
+            kw = dict(routes=routes, sketch_cols=(0,), seeds=seeds, width=100,
+                      num_reducers=plan_s.total_reducers)
+            for mode, mkw in [("route", dict(kw, sketch_cols=())),
+                              ("sketch", dict(kw, routes=())), ("both", kw)]:
+                rows = edge_rows(10_007, rel.arity, 3)
+                got = fi.fused_ingest(rows, **mkw)
+                torch.cuda.synchronize()
+                err = _max_abs_err(got, fi.fused_ingest_ref(rows, **mkw))
+                _say(f"[check] fused_ingest ({mode}) {rel.name} N=10007 W={w} "
+                     f"k={plan_s.total_reducers}: max_abs_err={err}")
+                assert err == 0
+    one = plan_shares_skew(two_way(), {"R": np.zeros((20, 2), np.int64),
+                                       "S": np.ones((20, 2), np.int64)}, q=1000)
+    for rel in two_way().relations:
+        kw = dict(routes=static_route_table(one, rel), num_reducers=one.total_reducers)
+        assert fi.route_width(kw["routes"]) == 1
+        rows = edge_rows(999, 2, 5)
+        err = _max_abs_err(fi.fused_ingest(rows, **kw), fi.fused_ingest_ref(rows, **kw))
+        enc = fi.dense_route_encoding(kw["routes"], 2, 1, 8)
+        err = max(err, _max_abs_err(fi.fused_ingest_dense(rows, enc, k_pad=128),
+                                    fi.fused_ingest_dense_ref(rows, enc, k_pad=128)))
+        _say(f"[check] fused_ingest and fused_ingest_dense W=1 {rel.name} N=999: "
+             f"max_abs_err={err}")
+        assert err == 0
+    # destinations that repeat within a row and across rows, with a
+    # histogram of 65,536 destinations and with one of 128
+    for k_pad in (128, 65_536):
+        enc = fi.dense_route_encoding((), 3, 8, max_values=2)
+        rng_e = np.random.default_rng(k_pad)
+        enc["col_valid"][:7] = 1
+        enc["col_base"][:] = [0, 0, 3, 5, 5, 1, 2, 9]
+        enc["col_base"][:7] += k_pad - 20
+        enc["h_col"][:, 0] = rng_e.integers(0, 3, 8)
+        enc["h_seed"][:, 0] = rng_e.integers(i32.min, i32.max, 8)
+        enc["h_dim"][:, 0] = [2, 3, 1, 4, 4, 2, 1, 1]
+        enc["h_stride"][:, 0] = [1, 1, 0, 2, 2, 3, 0, 0]
+        enc["p_col"][3, 0], enc["p_val"][3, 0], enc["p_on"][3, 0] = 1, 2, 1
+        enc["e_col"][5, 1], enc["e_val"][5, 1], enc["e_on"][5, 1] = 2, [0, 4], [1, 1]
+        rows = torch.from_numpy(rng_e.integers(0, 5, (200_003, 3)).astype(np.int32)).to(dev)
+        err = _max_abs_err(fi.fused_ingest_dense(rows, enc, k_pad=k_pad),
+                           fi.fused_ingest_dense_ref(rows, enc, k_pad=k_pad))
+        _say(f"[check] fused_ingest_dense repeated destinations N=200003 k_pad={k_pad}: "
+             f"max_abs_err={err}")
+        assert err == 0
+    for width in (1, 251, 2048, 20_000):
+        vals = np.random.default_rng(width).integers(i32.min, i32.max, 100_003, dtype=np.int64,
+                                                     endpoint=True)
+        vals[:2], vals[2:60_000] = [i32.min, i32.max], 42
+        vals = torch.from_numpy(vals.astype(np.int32)).to(dev)
+        got = su.cms_update(vals, seeds, width)
+        torch.cuda.synchronize()
+        err = _max_abs_err([got], [su.cms_update_ref(vals, seeds, width)])
+        _say(f"[check] cms_update N=100003 width={width}: max_abs_err={err}")
+        assert err == 0
+
     # ---- 4. main path: the §9.1 join at full scale ----------------------------
     t = time.perf_counter()
     data = paper_2way(np.random.default_rng(0), n_r=1_000_000, n_s=100_000)
@@ -182,12 +354,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     phases: dict[str, float] = {}
-    bj.reset_launches()
+    reset_launches()
     t = time.perf_counter()
-    res = run_join(query, data, plan, cap_factor=3.0, device="cuda", phase_seconds=phases)
+    res = run_join(query, data, plan, cap_factor=3.0, device=dev, phase_seconds=phases)
     torch.cuda.synchronize()
     t_e2e = time.perf_counter() - t
-    launches = dict(bj.LAUNCHES)
+    main_launches = launches()
     peak = torch.cuda.max_memory_allocated()
 
     _say(f"[main] reducers={plan.total_reducers} count={res.count} checksum={res.checksum} "
@@ -199,15 +371,15 @@ def main() -> int:
     assert res.overflow == 0
     assert res.comm_tuples == predicted_comm(plan)
     assert int(res.reducer_loads.sum()) == res.total_comm
-    assert launches["reducer_join"] > 0, launches
-    _say(f"[main] launches during run_join: {launches}")
+    assert main_launches["reducer_join"] > 0, main_launches
+    _say(f"[main] launches during run_join: {main_launches}")
     _say("[main] seconds: data={:.3f} plan={:.3f} oracle(host)={:.3f} ".format(t_data, t_plan, t_oracle)
          + " ".join(f"{k}={v:.4f}" for k, v in phases.items())
          + f" run_join={t_e2e:.4f} plan+run_join={t_plan + t_e2e:.3f}")
     _say(f"[main] peak device memory: {peak} bytes ({peak / 2**30:.2f} GiB)")
 
     # ---- 5. each kernel at the main path's shapes ---------------------------
-    bins, valids = map_and_bin(query, data, plan, cap_factor=3.0, device="cuda")
+    bins, valids = map_and_bin(query, data, plan, cap_factor=3.0, device=dev)
     ops = binary_join_operands(LocalJoinSpec.from_query(query), bins, valids)
     _say(f"[K1a] reducer_join inputs: r_keys {tuple(ops[0].shape)} s_keys {tuple(ops[2].shape)}")
     got = bj.reducer_join(*ops)
@@ -229,7 +401,7 @@ def main() -> int:
         "name": "reducer_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_join.cu",
         "replaces": "src/repro/kernels/block_join.py:39",
-        "launches": launches["reducer_join"], "max_abs_err": err_a,
+        "launches": main_launches["reducer_join"], "max_abs_err": err_a,
         "ms": ms_a, "plain_ms": plain_ms, "bound_ms": bound_a, "bound_by": by_a,
         "library_ms": None,
     }]
@@ -258,7 +430,7 @@ def main() -> int:
         "name": "flat_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_join.cu",
         "replaces": "src/repro/kernels/block_join.py:102",
-        "launches": launches["flat_join"], "max_abs_err": err_b,
+        "launches": main_launches["flat_join"], "max_abs_err": err_b,
         "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": by_b,
         "library_ms": None,
     })
@@ -268,16 +440,169 @@ def main() -> int:
     q3 = three_way_paper()
     d3 = paper_3way(np.random.default_rng(0), n=2_000, domain=20_000)
     plan3 = plan_shares_skew(q3, d3, q=120)
-    bj.reset_launches()
+    reset_launches()
     t = time.perf_counter()
-    res3 = run_join(q3, d3, plan3, cap_factor=5.0, device="cuda")
+    res3 = run_join(q3, d3, plan3, cap_factor=5.0, device=dev)
     t3 = time.perf_counter() - t
     c3, k3, _, _ = oracle_join(q3, d3)
     _say(f"[3way] reducers={plan3.total_reducers} count={res3.count} checksum={res3.checksum} "
          f"oracle=({c3}, {k3}) overflow={res3.overflow} run_join={t3:.3f} s "
-         f"launches={dict(bj.LAUNCHES)}")
+         f"launches={launches()}")
     assert (res3.count, res3.checksum) == (c3, k3) and res3.overflow == 0
     assert res3.comm_tuples == predicted_comm(plan3)
+
+    # ---- 7. the streaming engine, fused path, at scale ----------------------
+    t = time.perf_counter()
+    rng_s = np.random.default_rng(0)
+    batches = [
+        _zipf_batch(rng_s, 0 if i < 2 else 33_333, 100_000, 25_000, 100_000,
+                    2.0 if i < 2 else 1.4)
+        for i in range(6)
+    ]
+    t_data = time.perf_counter() - t
+    cfg = StreamConfig(q=1000, decay=0.5, load_factor=2.0, fused_ingest=True,
+                       obs=ObsPolicy(trace=True))
+    eng = StreamingJoinEngine(two_way(), cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_stream = time.perf_counter()
+    ingest_ms = []
+    for batch in batches:
+        t = time.perf_counter()
+        rep = eng.ingest(batch)
+        ingest_ms.append((time.perf_counter() - t) * 1e3)
+        _say(f"[stream] batch {rep.batch}: {ingest_ms[-1]:.1f} ms epoch={rep.plan_epoch} "
+             f"replanned={rep.replanned} ({rep.drift_reason or '-'}) k={eng.plan.total_reducers} "
+             f"delta={rep.delta_count} comm={rep.comm_tuples} migrated={rep.migrated_tuples} "
+             f"max_load={rep.max_load} hh={rep.hh_values}")
+    t_stream = time.perf_counter() - t_stream
+    stream_launches = launches()
+    peak = torch.cuda.max_memory_allocated()
+    widths = {r.name: fi.route_width(static_route_table(eng.plan, r)) for r in two_way().relations}
+    t = time.perf_counter()
+    want_count, want_checksum = groupby_oracle_two_way(two_way(), eng.history_data())
+    t_oracle = time.perf_counter() - t
+    _say(f"[stream] total count={eng.total_count} checksum={eng.total_checksum}; oracle "
+         f"count={want_count} checksum={want_checksum} ({t_oracle:.2f} s on the host)")
+    _say(f"[stream] fused_batches={eng.fused_batches} replans={eng.replan_count} "
+         f"final k={eng.plan.total_reducers} W={widths} launches={stream_launches}")
+    _say("[stream] binned state on the host: " + ", ".join(
+        f"{nm} {tuple(b.shape)} ({b.nbytes + v.nbytes} bytes)"
+        for nm, (b, v, _) in eng._state.items()))
+    _say(f"[stream] seconds: data={t_data:.2f} six ingests={t_stream:.3f} "
+         f"ingest ms={[round(x, 1) for x in ingest_ms]}; peak device memory {peak} bytes")
+    spans: dict[str, list[float]] = {}
+    for ev in eng.obs.tracer.events:
+        if ev.get("ph") == "X":
+            spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    for name, durs in sorted(spans.items(), key=lambda kv: -sum(kv[1])):
+        _say(f"[stream] span {name}: {sum(durs):.1f} ms total over {len(durs)}")
+    assert (eng.total_count, eng.total_checksum) == (want_count, want_checksum)
+    assert eng.fused_batches == 6 and eng.replan_count >= 1
+    assert stream_launches["fused_ingest_dense"] > 0, stream_launches
+    assert stream_launches["fused_ingest"] > 0, stream_launches
+
+    # ---- 8. the baseline path on the first three batches --------------------
+    base = StreamingJoinEngine(two_way(), StreamConfig(
+        q=1000, decay=0.5, load_factor=2.0, use_device_sketch=True), device=dev)
+    reset_launches()
+    t = time.perf_counter()
+    base_ms = []
+    for i, batch in enumerate(batches[:3]):
+        t_b = time.perf_counter()
+        rep = base.ingest(batch)
+        base_ms.append((time.perf_counter() - t_b) * 1e3)
+        assert rep == eng.reports[i], f"baseline batch {i} differs from the fused path"
+    t_base = time.perf_counter() - t
+    base_launches = launches()
+    _say(f"[baseline] 3 batches equal the fused reports in {t_base:.3f} s "
+         f"(ingest ms {[round(x, 1) for x in base_ms]}); launches={base_launches}; "
+         f"total count after 3 batches={base.total_count} (2^31 = {1 << 31})")
+    assert base_launches["cms_update"] > 0 and base_launches["reducer_join"] > 0, base_launches
+    del base
+
+    # ---- 9. each stream kernel at the shapes the stream gave it -------------
+    seeds = eng.tracker.seeds
+    width = cfg.sketch_width
+    for rel in two_way().relations:
+        routes = static_route_table(eng.plan, rel)
+        enc, w_real, k_pad = eng._dense_routes(rel, routes)
+        cols = tuple(c for _, c in eng._sketch_cols[rel.name])
+        rows = torch.from_numpy(batches[-1][rel.name].astype(np.int32)).to(dev)
+        kw = dict(sketch_cols=cols, seeds=seeds, width=width, k_pad=k_pad)
+        got = fi.fused_ingest_dense(rows, enc, **kw)
+        want, plain_ms = _plain_ms(lambda: fi.fused_ingest_dense_ref(rows, enc, **kw))
+        err = _max_abs_err(got, want)
+        assert err == 0
+        ms = _events_ms(lambda: fi.fused_ingest_dense(rows, enc, **kw), reps=20)
+        ops, n_bytes = _ingest_work(rows, enc, got[0], len(cols), len(seeds), width, k_pad)
+        bound, by = _bound(ops, n_bytes)
+        _say(f"[K2] fused_ingest_dense {rel.name} N={rows.shape[0]} W={w_real} "
+             f"Wp={enc['col_base'].shape[0]} k_pad={k_pad}: kernel {ms:.4f} ms; plain "
+             f"{plain_ms:.1f} ms (max_abs_err={err}); bound {bound:.4f} ms by {by} "
+             f"({ops:.4g} int32 ops, {n_bytes:.4g} bytes)")
+        if rel.name == "R":  # the larger pass of the two goes in the kernels line
+            kernels.append({
+                "name": "fused_ingest_dense", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ingest_fused.cu",
+                "replaces": "src/repro/kernels/ingest_fused.py:535",
+                "launches": stream_launches["fused_ingest_dense"], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None,
+            })
+        if rel.name == "R":
+            # K3 as batch 0 ran it, before any plan: the sketch-only pass
+            rows0 = torch.from_numpy(batches[0]["R"].astype(np.int32)).to(dev)
+            kw3 = dict(sketch_cols=cols, seeds=seeds, width=width)
+            got = fi.fused_ingest(rows0, **kw3)
+            want, plain3 = _plain_ms(lambda: fi.fused_ingest_ref(rows0, **kw3))
+            err3 = _max_abs_err(got, want)
+            assert err3 == 0
+            ms3 = _events_ms(lambda: fi.fused_ingest(rows0, **kw3), reps=20)
+            ops3 = 11.0 * rows0.shape[0] * len(cols) * len(seeds)
+            bytes3 = 4.0 * (rows0.numel() + len(cols) * len(seeds) * width)
+            bound3, by3 = _bound(ops3, bytes3)
+            _say(f"[K3] fused_ingest sketch-only N={rows0.shape[0]}: kernel {ms3:.4f} ms; "
+                 f"plain {plain3:.1f} ms (max_abs_err={err3}); bound {bound3:.4f} ms by {by3}")
+            kernels.append({
+                "name": "fused_ingest", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ingest_fused.cu",
+                "replaces": "src/repro/kernels/ingest_fused.py:223",
+                "launches": stream_launches["fused_ingest"], "max_abs_err": err3,
+                "ms": ms3, "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
+                "library_ms": None,
+            })
+            # the static-table pass with routes and sketch, as
+            # fused_dynamic_routes=False runs it on every batch (printed only)
+            kws = dict(routes=routes, sketch_cols=cols, seeds=seeds, width=width,
+                       num_reducers=eng.plan.total_reducers)
+            err_s = _max_abs_err(fi.fused_ingest(rows, **kws), fi.fused_ingest_ref(rows, **kws))
+            assert err_s == 0
+            ms_s = _events_ms(lambda: fi.fused_ingest(rows, **kws), reps=20)
+            _say(f"[K3] fused_ingest routes+sketch R N={rows.shape[0]} W={w_real}: "
+                 f"kernel {ms_s:.4f} ms (max_abs_err={err_s})")
+            # K4 as the baseline tracker ran it: one column of R, 4 seeds
+            vals = rows0[:, 1].contiguous()
+            got = su.cms_update(vals, seeds, width)
+            want, plain4 = _plain_ms(lambda: su.cms_update_ref(vals, seeds, width))
+            err4 = _max_abs_err([got], [want])
+            assert err4 == 0
+            ms4 = _events_ms(lambda: su.cms_update(vals, seeds, width), reps=50)
+            ops4 = 11.0 * vals.shape[0] * len(seeds)
+            bytes4 = 4.0 * (vals.numel() + len(seeds) * width)
+            bound4, by4 = _bound(ops4, bytes4)
+            _say(f"[K4] cms_update N={vals.shape[0]} depth={len(seeds)} width={width}: "
+                 f"kernel {ms4:.4f} ms; plain {plain4:.1f} ms (max_abs_err={err4}); "
+                 f"bound {bound4:.4f} ms by {by4}")
+            kernels.append({
+                "name": "cms_update", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/cms_update.cu",
+                "replaces": "src/repro/kernels/sketch_update.py:48",
+                "launches": base_launches["cms_update"], "max_abs_err": err4,
+                "ms": ms4, "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4,
+                "library_ms": None,
+            })
 
     _say(f"[done] wall {time.perf_counter() - t_all:.1f} s")
     _say(json.dumps({"kernels": kernels}))

@@ -21,7 +21,11 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"block_join": _CSRC / "block_join.cu"}
+SOURCES = {
+    "block_join": _CSRC / "block_join.cu",
+    "cms_update": _CSRC / "cms_update.cu",
+    "ingest_fused": _CSRC / "ingest_fused.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -67,9 +67,12 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def mix32_torch(x: torch.Tensor, seed: int) -> torch.Tensor:
-    """mix32 of the 32-bit pattern of ``x``; int64 result in [0, 2^32)."""
-    x = _u32(x) ^ (int(seed) & _M32)
+def mix32_torch(x: torch.Tensor, seed: int | torch.Tensor) -> torch.Tensor:
+    """mix32 of the 32-bit pattern of ``x``; int64 result in [0, 2^32).
+    ``seed`` is an int or an integer tensor that broadcasts against ``x``
+    (one seed per element, by its 32-bit pattern)."""
+    s = _u32(seed) if isinstance(seed, torch.Tensor) else int(seed) & _M32
+    x = _u32(x) ^ s
     x = _mul32(x ^ (x >> 16), 0x7FEB352D)
     x = _mul32(x ^ (x >> 15), 0x846CA68B)
     return x ^ (x >> 16)

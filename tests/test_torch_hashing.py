@@ -106,4 +106,9 @@ def test_port_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert "repro_torch.kernels.block_join" in mods and len(mods) >= 20
+    for mod in ("repro_torch.kernels.block_join", "repro_torch.kernels.ingest_fused",
+                "repro_torch.kernels.sketch_update", "repro_torch.stream.engine",
+                "repro_torch.stream.sketch", "repro_torch.obs.trace",
+                "repro_torch.mapreduce.straggler"):
+        assert mod in mods
+    assert len(mods) >= 35
