@@ -19,13 +19,23 @@ Phases:
   7. the streaming engine's fused path on the card: six micro-batches of
      ``benchmarks/bench_stream.py``'s drifting Zipf stream at 100,000 R and
      25,000 S rows each (q=1000), against the host group-by oracle, with
-     the kernels' launch counts, per-batch ingest times and the tracer's
-     time per span;
+     the kernels' launch counts, per-batch ingest times, the tracer's
+     time per span and, from a profiler trace of the last batch, the
+     device's busy share;
   8. the baseline path (plain ``map_phase``, the block join, the Count-Min
      kernel) on the first three of those batches: every report equals the
      fused path's;
-  9. each stream kernel at the shapes the stream gave it: time (CUDA
-     events), its plain version's time and result, and the bound.
+  9. the fused path with static route tables (``fused_dynamic_routes=
+     False``, the static-table pass) on the same three batches: every
+     report equals the fused path's;
+ 10. each stream kernel at the shapes the stream gave it: its device time,
+     its wrapper's time, its plain version's time and result, and the
+     bound.
+
+Kernel times are device time per call of the kernel's own CUDA functions,
+from a ``torch.profiler`` trace of repeated calls (CUDA events around the
+wrapper where the trace shows no device time); the wrapper's time, host
+work included, is CUDA events around repeated calls.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -51,6 +61,11 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
+# the CUDA functions of each source, as the profiler names them
+JOIN_KERNELS = ("block_join_kernel",)
+CMS_KERNELS = ("cms_kernel",)
+INGEST_KERNELS = ("tile_kernel", "scan_kernel", "fix_kernel", "cms_kernel")
+
 
 def _say(*args) -> None:
     print(*args, flush=True)
@@ -70,6 +85,64 @@ def _events_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _traced(fn):
+    """(fn's result, device microseconds by CUDA function name) of one
+    call of ``fn`` under ``torch.profiler``; the dict is empty where the
+    trace holds no device events or the profiler fails (printed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.__enter__()
+    except Exception as e:  # the trace is optional: events time the kernels then
+        _say(f"[trace] the profiler does not start: {e!r}")
+        return fn(), {}
+    try:
+        out = fn()
+    finally:
+        prof.__exit__(None, None, None)
+    us: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    return out, us
+
+
+def _kernel_ms(fn, names, reps: int):
+    """(ms, source, wrapper ms, ms by function): the device time per call
+    of the CUDA functions whose names contain one of ``names``, from a
+    profiler trace of ``reps`` calls after one warm-up call; where the
+    trace holds none, CUDA events around the calls (source says which).
+    The wrapper's time is CUDA events around ``reps`` calls.
+    """
+    import torch
+
+    wrapper = _events_ms(fn, reps)
+
+    def calls():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
+    _, us = _traced(calls)
+    by_fn = {k: v / 1e3 / reps for k, v in us.items() if any(nm in k for nm in names)}
+    if not by_fn:
+        return wrapper, "events", wrapper, {}
+    return sum(by_fn.values()), "trace", wrapper, by_fn
+
+
+def _short(by_fn) -> str:
+    out = []
+    for k, v in by_fn.items():
+        nm = k.split("(")[0] if "(anonymous namespace)::" not in k else \
+            k.split("(anonymous namespace)::")[1].split("(")[0]
+        out.append(f"{nm} {v:.4f}")
+    return ", ".join(out)
 
 
 def _plain_ms(fn):
@@ -143,7 +216,7 @@ def _skewed_plan(query, q):
     return plan_shares_skew(query, data, q=q)
 
 
-def _ingest_work(rows, enc, dest, n_sketch_cols, depth, width, k_pad):
+def _ingest_work(rows, enc, dest, n_sketch_cols, depth, width, k):
     """(int32 operations, bytes) of one fused ingest pass on these inputs.
 
     Operations: per (row, live column) one compare for each pin and each
@@ -152,12 +225,12 @@ def _ingest_work(rows, enc, dest, n_sketch_cols, depth, width, k_pad):
     modulo, the multiply by the stride and the add) and 2 to rank and count
     it; a padded column costs one compare per row; the Count-Min half
     costs 11 per row, column and sketch row (mix32, modulo, add).  Bytes:
-    the rows and the encoding read once; dest and rank [N, Wp], counts
-    [k_pad] and the Count-Min tables written once."""
+    the rows and the encoding read once; dest and rank over the live
+    columns, counts [k] and the Count-Min tables written once."""
     import numpy as np
 
     n = rows.shape[0]
-    live = enc["col_valid"] != 0
+    live = np.asarray(enc["col_valid"]) != 0
     checks = enc["p_on"].sum(-1) + enc["e_on"].sum((-1, -2))
     hashed = (enc["h_stride"] != 0).sum(-1)
     emitted = (dest >= 0).sum(0).cpu().numpy().astype(np.float64)
@@ -165,7 +238,7 @@ def _ingest_work(rows, enc, dest, n_sketch_cols, depth, width, k_pad):
     ops += float((emitted * (12 * hashed + 2)).sum())
     ops += 11.0 * n * n_sketch_cols * depth
     n_bytes = 4 * (rows.numel() + sum(np.asarray(v).size for v in enc.values())
-                   + 2 * dest.numel() + k_pad + n_sketch_cols * depth * width)
+                   + 2 * n * int(live.sum()) + k + n_sketch_cols * depth * width)
     return ops, float(n_bytes)
 
 
@@ -391,12 +464,12 @@ def main() -> int:
     err_a = _max_abs_err(got, want)
     assert err_a == 0
     assert int(got[0].long().sum()) == res.count
-    ms_a = _events_ms(lambda: bj.reducer_join(*ops), reps=20)
+    ms_a, src_a, wrap_a, _ = _kernel_ms(lambda: bj.reducer_join(*ops), JOIN_KERNELS, reps=20)
     ops_a, bytes_a = _join_work(*ops)
     bound_a, by_a = _bound(ops_a, bytes_a)
-    _say(f"[K1a] kernel {ms_a:.4f} ms; plain {plain_ms:.1f} ms (all {ops[0].shape[0]} reducers, "
-         f"max_abs_err={err_a}); bound {bound_a:.4f} ms by {by_a} "
-         f"({ops_a:.4g} int32 ops, {bytes_a:.4g} bytes)")
+    _say(f"[K1a] kernel {ms_a:.4f} ms ({src_a}; wrapper {wrap_a:.4f} ms); plain {plain_ms:.1f} ms "
+         f"(all {ops[0].shape[0]} reducers, max_abs_err={err_a}); bound {bound_a:.4f} ms by "
+         f"{by_a} ({ops_a:.4g} int32 ops, {bytes_a:.4g} bytes)")
     kernels = [{
         "name": "reducer_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_join.cu",
@@ -421,11 +494,12 @@ def main() -> int:
     err_b = _max_abs_err(got, want)
     assert err_b == 0
     assert int(got[0]) == r_hh.shape[0] * s_hh.shape[0]
-    ms_b = _events_ms(lambda: bj.flat_join(*flat), reps=10)
+    ms_b, src_b, wrap_b, _ = _kernel_ms(lambda: bj.flat_join(*flat), JOIN_KERNELS, reps=10)
     ops_b, bytes_b = _join_work(*(x[None] for x in flat))
     bound_b, by_b = _bound(ops_b, bytes_b)
-    _say(f"[K1b] flat_join {r_hh.shape[0]} x {s_hh.shape[0]} (B={hh}): kernel {ms_b:.4f} ms; "
-         f"plain {plain_b:.1f} ms (max_abs_err={err_b}); bound {bound_b:.4f} ms by {by_b}")
+    _say(f"[K1b] flat_join {r_hh.shape[0]} x {s_hh.shape[0]} (B={hh}): kernel {ms_b:.4f} ms "
+         f"({src_b}; wrapper {wrap_b:.4f} ms); plain {plain_b:.1f} ms (max_abs_err={err_b}); "
+         f"bound {bound_b:.4f} ms by {by_b}")
     kernels.append({
         "name": "flat_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_join.cu",
@@ -468,10 +542,18 @@ def main() -> int:
     reset_launches()
     t_stream = time.perf_counter()
     ingest_ms = []
-    for batch in batches:
-        t = time.perf_counter()
-        rep = eng.ingest(batch)
-        ingest_ms.append((time.perf_counter() - t) * 1e3)
+    for i, batch in enumerate(batches):
+        def one():
+            t = time.perf_counter()
+            rep = eng.ingest(batch)
+            torch.cuda.synchronize()
+            ingest_ms.append((time.perf_counter() - t) * 1e3)
+            return rep
+
+        if i == len(batches) - 1:  # the last batch under the profiler
+            rep, busy = _traced(one)
+        else:
+            rep = one()
         _say(f"[stream] batch {rep.batch}: {ingest_ms[-1]:.1f} ms epoch={rep.plan_epoch} "
              f"replanned={rep.replanned} ({rep.drift_reason or '-'}) k={eng.plan.total_reducers} "
              f"delta={rep.delta_count} comm={rep.comm_tuples} migrated={rep.migrated_tuples} "
@@ -498,10 +580,20 @@ def main() -> int:
             spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
     for name, durs in sorted(spans.items(), key=lambda kv: -sum(kv[1])):
         _say(f"[stream] span {name}: {sum(durs):.1f} ms total over {len(durs)}")
+    busy_ms = sum(busy.values()) / 1e3
+    if busy:
+        _say(f"[stream] batch 5 under the profiler: device busy {busy_ms:.3f} ms of "
+             f"{ingest_ms[-1]:.1f} ms ({100 * busy_ms / ingest_ms[-1]:.3f} %, idle "
+             f"{100 - 100 * busy_ms / ingest_ms[-1]:.3f} %); by function (ms): "
+             + "; ".join(f"{k[:70]} {v / 1e3:.3f}" for k, v in
+                         sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
+    else:
+        _say("[stream] batch 5 under the profiler: no device events in the trace; "
+             "device busy share not measured")
     assert (eng.total_count, eng.total_checksum) == (want_count, want_checksum)
     assert eng.fused_batches == 6 and eng.replan_count >= 1
     assert stream_launches["fused_ingest_dense"] > 0, stream_launches
-    assert stream_launches["fused_ingest"] > 0, stream_launches
+    assert stream_launches["fused_ingest_sketch"] > 0, stream_launches
 
     # ---- 8. the baseline path on the first three batches --------------------
     base = StreamingJoinEngine(two_way(), StreamConfig(
@@ -522,87 +614,130 @@ def main() -> int:
     assert base_launches["cms_update"] > 0 and base_launches["reducer_join"] > 0, base_launches
     del base
 
-    # ---- 9. each stream kernel at the shapes the stream gave it -------------
+    # ---- 9. the static-table fused path on the first three batches ----------
+    stat = StreamingJoinEngine(two_way(), StreamConfig(
+        q=1000, decay=0.5, load_factor=2.0, fused_ingest=True,
+        fused_dynamic_routes=False), device=dev)
+    reset_launches()
+    t = time.perf_counter()
+    stat_ms = []
+    for i, batch in enumerate(batches[:3]):
+        t_b = time.perf_counter()
+        rep = stat.ingest(batch)
+        stat_ms.append((time.perf_counter() - t_b) * 1e3)
+        assert rep == eng.reports[i], f"static-table batch {i} differs from the fused path"
+    t_stat = time.perf_counter() - t
+    stat_launches = launches()
+    _say(f"[static] 3 batches equal the fused reports in {t_stat:.3f} s "
+         f"(ingest ms {[round(x, 1) for x in stat_ms]}); launches={stat_launches}")
+    assert stat_launches["fused_ingest"] > 0 and stat_launches["fused_ingest_sketch"] > 0, \
+        stat_launches
+    del stat
+
+    # ---- 10. each stream kernel at the shapes the stream gave it ------------
     seeds = eng.tracker.seeds
     width = cfg.sketch_width
+    k_fin = eng.plan.total_reducers
+    rows0 = torch.from_numpy(batches[0]["R"].astype(np.int32)).to(dev)
     for rel in two_way().relations:
         routes = static_route_table(eng.plan, rel)
-        enc, w_real, k_pad = eng._dense_routes(rel, routes)
+        packed = eng._dense_routes(rel, routes)  # what the engine launches K2 with
         cols = tuple(c for _, c in eng._sketch_cols[rel.name])
         rows = torch.from_numpy(batches[-1][rel.name].astype(np.int32)).to(dev)
-        kw = dict(sketch_cols=cols, seeds=seeds, width=width, k_pad=k_pad)
-        got = fi.fused_ingest_dense(rows, enc, **kw)
-        want, plain_ms = _plain_ms(lambda: fi.fused_ingest_dense_ref(rows, enc, **kw))
+        kw = dict(sketch_cols=cols, seeds=seeds, width=width, k_pad=k_fin)
+        got = fi.fused_ingest_dense(rows, packed, **kw)
+        want, plain_ms = _plain_ms(lambda: fi.fused_ingest_dense_ref(rows, packed.arrays, **kw))
         err = _max_abs_err(got, want)
         assert err == 0
-        ms = _events_ms(lambda: fi.fused_ingest_dense(rows, enc, **kw), reps=20)
-        ops, n_bytes = _ingest_work(rows, enc, got[0], len(cols), len(seeds), width, k_pad)
+        ms, how, wrap, by_fn = _kernel_ms(lambda: fi.fused_ingest_dense(rows, packed, **kw),
+                                          INGEST_KERNELS, reps=20)
+        ops, n_bytes = _ingest_work(rows, packed.arrays, got[0], len(cols), len(seeds), width,
+                                    k_fin)
         bound, by = _bound(ops, n_bytes)
-        _say(f"[K2] fused_ingest_dense {rel.name} N={rows.shape[0]} W={w_real} "
-             f"Wp={enc['col_base'].shape[0]} k_pad={k_pad}: kernel {ms:.4f} ms; plain "
-             f"{plain_ms:.1f} ms (max_abs_err={err}); bound {bound:.4f} ms by {by} "
+        _say(f"[K2] fused_ingest_dense {rel.name} N={rows.shape[0]} W={packed.dims[0]} "
+             f"k={k_fin}: kernel {ms:.4f} ms ({how}: {_short(by_fn)}; wrapper {wrap:.4f} ms); "
+             f"plain {plain_ms:.1f} ms (max_abs_err={err}); bound {bound:.4f} ms by {by} "
              f"({ops:.4g} int32 ops, {n_bytes:.4g} bytes)")
-        if rel.name == "R":  # the larger pass of the two goes in the kernels line
-            kernels.append({
-                "name": "fused_ingest_dense", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/ingest_fused.cu",
-                "replaces": "src/repro/kernels/ingest_fused.py:535",
-                "launches": stream_launches["fused_ingest_dense"], "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": None,
-            })
-        if rel.name == "R":
-            # K3 as batch 0 ran it, before any plan: the sketch-only pass
-            rows0 = torch.from_numpy(batches[0]["R"].astype(np.int32)).to(dev)
-            kw3 = dict(sketch_cols=cols, seeds=seeds, width=width)
-            got = fi.fused_ingest(rows0, **kw3)
-            want, plain3 = _plain_ms(lambda: fi.fused_ingest_ref(rows0, **kw3))
-            err3 = _max_abs_err(got, want)
-            assert err3 == 0
-            ms3 = _events_ms(lambda: fi.fused_ingest(rows0, **kw3), reps=20)
-            ops3 = 11.0 * rows0.shape[0] * len(cols) * len(seeds)
-            bytes3 = 4.0 * (rows0.numel() + len(cols) * len(seeds) * width)
-            bound3, by3 = _bound(ops3, bytes3)
-            _say(f"[K3] fused_ingest sketch-only N={rows0.shape[0]}: kernel {ms3:.4f} ms; "
-                 f"plain {plain3:.1f} ms (max_abs_err={err3}); bound {bound3:.4f} ms by {by3}")
-            kernels.append({
-                "name": "fused_ingest", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/ingest_fused.cu",
-                "replaces": "src/repro/kernels/ingest_fused.py:223",
-                "launches": stream_launches["fused_ingest"], "max_abs_err": err3,
-                "ms": ms3, "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
-                "library_ms": None,
-            })
-            # the static-table pass with routes and sketch, as
-            # fused_dynamic_routes=False runs it on every batch (printed only)
-            kws = dict(routes=routes, sketch_cols=cols, seeds=seeds, width=width,
-                       num_reducers=eng.plan.total_reducers)
-            err_s = _max_abs_err(fi.fused_ingest(rows, **kws), fi.fused_ingest_ref(rows, **kws))
-            assert err_s == 0
-            ms_s = _events_ms(lambda: fi.fused_ingest(rows, **kws), reps=20)
-            _say(f"[K3] fused_ingest routes+sketch R N={rows.shape[0]} W={w_real}: "
-                 f"kernel {ms_s:.4f} ms (max_abs_err={err_s})")
-            # K4 as the baseline tracker ran it: one column of R, 4 seeds
-            vals = rows0[:, 1].contiguous()
-            got = su.cms_update(vals, seeds, width)
-            want, plain4 = _plain_ms(lambda: su.cms_update_ref(vals, seeds, width))
-            err4 = _max_abs_err([got], [want])
-            assert err4 == 0
-            ms4 = _events_ms(lambda: su.cms_update(vals, seeds, width), reps=50)
-            ops4 = 11.0 * vals.shape[0] * len(seeds)
-            bytes4 = 4.0 * (vals.numel() + len(seeds) * width)
-            bound4, by4 = _bound(ops4, bytes4)
-            _say(f"[K4] cms_update N={vals.shape[0]} depth={len(seeds)} width={width}: "
-                 f"kernel {ms4:.4f} ms; plain {plain4:.1f} ms (max_abs_err={err4}); "
-                 f"bound {bound4:.4f} ms by {by4}")
-            kernels.append({
-                "name": "cms_update", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/cms_update.cu",
-                "replaces": "src/repro/kernels/sketch_update.py:48",
-                "launches": base_launches["cms_update"], "max_abs_err": err4,
-                "ms": ms4, "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4,
-                "library_ms": None,
-            })
+        if rel.name != "R":
+            continue
+        # the larger pass of the two goes in the kernels line
+        kernels.append({
+            "name": "fused_ingest_dense", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ingest_fused.cu",
+            "replaces": "src/repro/kernels/ingest_fused.py:535",
+            "launches": stream_launches["fused_ingest_dense"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+        })
+        # K3 with routes and sketch, as the static-table path (phase 9) ran it
+        kws = dict(routes=routes, sketch_cols=cols, seeds=seeds, width=width,
+                   num_reducers=k_fin)
+        got = fi.fused_ingest(rows, **kws)
+        want, plain_s = _plain_ms(lambda: fi.fused_ingest_ref(rows, **kws))
+        err_s = _max_abs_err(got, want)
+        assert err_s == 0
+        ms_s, how_s, wrap_s, by_s = _kernel_ms(lambda: fi.fused_ingest(rows, **kws),
+                                               INGEST_KERNELS, reps=20)
+        enc_s = fi._static_routes(routes, rel.arity, dev).arrays
+        ops_s, bytes_s = _ingest_work(rows, enc_s, got[0], len(cols), len(seeds), width, k_fin)
+        bound_s, by_bs = _bound(ops_s, bytes_s)
+        _say(f"[K3] fused_ingest routes+sketch R N={rows.shape[0]} W={got[0].shape[1]} "
+             f"k={k_fin}: kernel {ms_s:.4f} ms ({how_s}: {_short(by_s)}; wrapper {wrap_s:.4f} "
+             f"ms); plain {plain_s:.1f} ms (max_abs_err={err_s}); bound {bound_s:.4f} ms by "
+             f"{by_bs}")
+        kernels.append({
+            "name": "fused_ingest", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ingest_fused.cu",
+            "replaces": "src/repro/kernels/ingest_fused.py:223",
+            "launches": stat_launches["fused_ingest"], "max_abs_err": err_s,
+            "ms": ms_s, "plain_ms": plain_s, "bound_ms": bound_s, "bound_by": by_bs,
+            "library_ms": None,
+        })
+        # K3 as batch 0 ran it, before any plan: the sketch-only pass, whose
+        # one kernel is the Count-Min kernel
+        kw3 = dict(sketch_cols=cols, seeds=seeds, width=width)
+        got = fi.fused_ingest(rows0, **kw3)
+        want, plain3 = _plain_ms(lambda: fi.fused_ingest_ref(rows0, **kw3))
+        err3 = _max_abs_err(got, want)
+        assert err3 == 0
+        ms3, how3, wrap3, _ = _kernel_ms(lambda: fi.fused_ingest(rows0, **kw3), CMS_KERNELS,
+                                         reps=20)
+        ops3 = 11.0 * rows0.shape[0] * len(cols) * len(seeds)
+        bytes3 = 4.0 * (rows0.numel() + len(cols) * len(seeds) * width)
+        bound3, by3 = _bound(ops3, bytes3)
+        _say(f"[K3] fused_ingest sketch-only N={rows0.shape[0]}: kernel {ms3:.4f} ms ({how3}; "
+             f"wrapper {wrap3:.4f} ms); plain {plain3:.1f} ms (max_abs_err={err3}); bound "
+             f"{bound3:.4f} ms by {by3}")
+        kernels.append({
+            "name": "fused_ingest_sketch", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cms_update.cu",
+            "replaces": "src/repro/kernels/ingest_fused.py:223",
+            "launches": stream_launches["fused_ingest_sketch"], "max_abs_err": err3,
+            "ms": ms3, "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
+            "library_ms": None,
+        })
+        # K4 as the baseline tracker ran it: one column of R, 4 seeds
+        vals = rows0[:, 1].contiguous()
+        got = su.cms_update(vals, seeds, width)
+        want, plain4 = _plain_ms(lambda: su.cms_update_ref(vals, seeds, width))
+        err4 = _max_abs_err([got], [want])
+        assert err4 == 0
+        ms4, how4, wrap4, _ = _kernel_ms(lambda: su.cms_update(vals, seeds, width), CMS_KERNELS,
+                                         reps=50)
+        ops4 = 11.0 * vals.shape[0] * len(seeds)
+        bytes4 = 4.0 * (vals.numel() + len(seeds) * width)
+        bound4, by4 = _bound(ops4, bytes4)
+        _say(f"[K4] cms_update N={vals.shape[0]} depth={len(seeds)} width={width}: "
+             f"kernel {ms4:.4f} ms ({how4}; wrapper {wrap4:.4f} ms); plain {plain4:.1f} ms "
+             f"(max_abs_err={err4}); bound {bound4:.4f} ms by {by4}")
+        kernels.append({
+            "name": "cms_update", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cms_update.cu",
+            "replaces": "src/repro/kernels/sketch_update.py:48",
+            "launches": base_launches["cms_update"], "max_abs_err": err4,
+            "ms": ms4, "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4,
+            "library_ms": None,
+        })
 
     _say(f"[done] wall {time.perf_counter() - t_all:.1f} s")
     _say(json.dumps({"kernels": kernels}))

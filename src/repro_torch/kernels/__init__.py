@@ -13,11 +13,13 @@ Sources are compiled with nvcc at first use (``_build``), never at import.
 from . import block_join, ingest_fused, sketch_update
 from .block_join import block_join_ref, flat_join, reducer_join, tiled_join_ref
 from .ingest_fused import (
+    DenseRoutes,
     dense_route_encoding,
     fused_ingest,
     fused_ingest_dense,
     fused_ingest_dense_ref,
     fused_ingest_ref,
+    pack_routes,
     route_width,
 )
 from .sketch_update import cms_update, cms_update_ref
@@ -34,6 +36,7 @@ def reset_launches() -> None:
 
 
 __all__ = [
+    "DenseRoutes",
     "block_join_ref",
     "cms_update",
     "cms_update_ref",
@@ -44,6 +47,7 @@ __all__ = [
     "fused_ingest_dense_ref",
     "fused_ingest_ref",
     "launches",
+    "pack_routes",
     "reducer_join",
     "reset_launches",
     "route_width",

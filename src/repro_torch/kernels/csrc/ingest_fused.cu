@@ -15,7 +15,9 @@
 // (_dest_block, _rank_counts_block) of repro/kernels/ingest_fused.py.  The
 // static-table variant is the same kernel: its wrapper encodes the table
 // with dense_route_encoding (Wp = W, V = the longest exclude list) and
-// slices the counts back to num_reducers.
+// counts num_reducers destinations.  Wp and k_pad are any sizes the
+// caller needs (the TPU kernels' power-of-two Wp and k_pad % 128 == 0
+// are padding for their compiler, not needed here).
 //
 // The TPU kernels rank by a dense order comparison inside each block of B
 // rows ((B * W)^2 compares) and count by one-hot against every reducer.
@@ -113,7 +115,7 @@ tile_kernel(const int32_t* __restrict__ rows, int n, int arity, Enc enc, int wp,
   const int r1 = min(n, r0 + rows_per_tile);
   const int e_n = (r1 - r0) * wp;  // this tile's emissions, <= MAX_TILE
   const int64_t off = static_cast<int64_t>(r0) * wp;
-  for (int i = threadIdx.x; i < k_pad / 2; i += THREADS) cnt[i] = 0u;
+  for (int i = threadIdx.x; i < (k_pad + 1) / 2; i += THREADS) cnt[i] = 0u;
   for (int e = threadIdx.x; e < e_n; e += THREADS) {
     const int r = r0 + e / wp;
     dest[off + e] = dest_of(rows + static_cast<int64_t>(r) * arity, e % wp, enc);
@@ -234,8 +236,8 @@ int ingest_max_tile() { return MAX_TILE; }
 int ingest_launch(const void* rows, int n, int arity, const void* enc, int wp,
                   int h, int p, int v, int k_pad, int rows_per_tile, void* dest,
                   void* rank, void* counts, void* table, void* stream) {
-  if (n < 1 || arity < 1 || wp < 1 || h < 1 || p < 1 || v < 1 || k_pad < 2 ||
-      k_pad % 2 != 0 || k_pad > MAX_K_PAD || rows_per_tile < 1 ||
+  if (n < 1 || arity < 1 || wp < 1 || h < 1 || p < 1 || v < 1 || k_pad < 1 ||
+      k_pad > MAX_K_PAD || rows_per_tile < 1 ||
       static_cast<int64_t>(rows_per_tile) * wp > MAX_TILE ||
       static_cast<int64_t>(n) * wp >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -260,7 +262,7 @@ int ingest_launch(const void* rows, int n, int arity, const void* enc, int wp,
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (n + rows_per_tile - 1) / rows_per_tile;
-  const size_t smem = static_cast<size_t>(k_pad) * 2;
+  const size_t smem = static_cast<size_t>((k_pad + 1) / 2) * 4;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

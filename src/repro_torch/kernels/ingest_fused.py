@@ -15,15 +15,18 @@ needs from it:
     sketched columns (``kernels.sketch_update``).
 
 ``fused_ingest_dense`` takes the routes as data, the int32 arrays of
-``dense_route_encoding``; ``fused_ingest`` takes the static route table of
-``mapreduce.keys.static_route_table``, encodes it the same way (``Wp = W``,
-``V`` = its longest exclude list) and slices the counts back to
-``num_reducers``, so one kernel (``csrc/ingest_fused.cu``) serves both.  On
-CUDA tensors the wrappers launch it, and the Count-Min kernel
-(``csrc/cms_update.cu``) for the sketch half; on CPU tensors they take the
-plain versions ``fused_ingest_dense_ref`` / ``fused_ingest_ref``.  A CUDA
-tensor never falls back to a plain version.  ``LAUNCHES`` counts wrapper
-calls that launched kernels.
+``dense_route_encoding`` or the same checked once and packed on the card
+by ``pack_routes`` (what a caller that makes many passes under one table
+passes); ``fused_ingest`` takes the static route table of
+``mapreduce.keys.static_route_table`` and encodes it the same way
+(``Wp = W``, ``V`` = its longest exclude list, packed once per table), so
+one kernel (``csrc/ingest_fused.cu``) serves both.  On CUDA tensors the
+wrappers launch it, and the Count-Min kernel (``csrc/cms_update.cu``) for
+the sketch half; on CPU tensors they take the plain versions
+``fused_ingest_dense_ref`` / ``fused_ingest_ref``.  A CUDA tensor never
+falls back to a plain version.  ``LAUNCHES`` counts wrapper calls that
+launched ``ingest_fused.cu``; ``fused_ingest``'s sketch-only calls, which
+launch only the Count-Min kernel, count under ``fused_ingest_sketch``.
 
 Every destination id must lie below ``k_pad`` (``num_reducers`` for the
 static table): the wrappers bound the ids from the encoding and raise
@@ -32,6 +35,8 @@ otherwise, where a short histogram would corrupt ``counts`` and ``rank``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -42,7 +47,7 @@ from ._build import library
 from .block_join import _wrap_i32
 from .sketch_update import cms_tables, cms_tables_ref
 
-LAUNCHES = {"fused_ingest": 0, "fused_ingest_dense": 0}
+LAUNCHES = {"fused_ingest": 0, "fused_ingest_sketch": 0, "fused_ingest_dense": 0}
 
 _M32 = 0xFFFFFFFF
 _TILE_TARGET = 4096  # emissions per tile of the rank pass
@@ -255,9 +260,23 @@ def _check_sketch(sketch_cols, seeds) -> None:
         raise ValueError("sketching requires the Count-Min row seeds")
 
 
-def _check_enc(enc: dict, arity: int, limit: int) -> tuple[int, int, int, int]:
-    """Validate a dense encoding against the rows' arity and the number of
-    destination ids available (``limit``); returns (Wp, H, P, V)."""
+@dataclass(frozen=True, eq=False)
+class DenseRoutes:
+    """A dense encoding, checked once and (on the card) packed for the
+    kernel: ``fused_ingest_dense`` takes it in place of the array dict, so
+    a caller that makes many passes under one route table checks and
+    uploads it once."""
+
+    arrays: dict  # the dense_route_encoding arrays (host numpy)
+    dims: tuple  # (Wp, H, P, V)
+    ids: int  # destination ids the table can emit: k_pad must reach it
+    cols: int  # row columns the table reads: the rows' arity must reach it
+    packed: torch.Tensor | None  # int32, _ENC_KEYS order; None off the card
+
+
+def _check_enc(enc: dict) -> tuple[tuple[int, int, int, int], int, int]:
+    """Validate a dense encoding: ((Wp, H, P, V), destination ids it can
+    emit, row columns it reads)."""
     a = {k: np.asarray(enc[k]) for k in _ENC_KEYS}
     if a["col_base"].ndim != 1:
         raise ValueError("fused_ingest: col_base must be [Wp]")
@@ -273,25 +292,51 @@ def _check_enc(enc: dict, arity: int, limit: int) -> tuple[int, int, int, int]:
     for k, shape in shapes.items():
         if a[k].shape != shape or min(shape) < 1:
             raise ValueError(f"fused_ingest: encoding {k} has shape {a[k].shape}, wants {shape}")
-    for k in ("h_col", "p_col", "e_col"):
-        if a[k].size and not ((a[k] >= 0) & (a[k] < arity)).all():
-            raise ValueError(f"fused_ingest: {k} names a column outside the rows' {arity}")
+    if (a["h_col"] < 0).any() or (a["p_col"] < 0).any() or (a["e_col"] < 0).any():
+        raise ValueError("fused_ingest: a negative column index")
+    cols = 1 + max(int(a[k].max()) for k in ("h_col", "p_col", "e_col"))
     if (a["h_dim"] < 1).any():
         raise ValueError("fused_ingest: every h_dim must be >= 1")
     live = a["col_valid"] != 0
+    ids = 0
     if live.any():
         if (a["col_base"][live] < 0).any() or (a["h_stride"][live] < 0).any():
             raise ValueError("fused_ingest: negative col_base or h_stride")
         top = a["col_base"].astype(np.int64) + (
             (a["h_dim"].astype(np.int64) - 1) * a["h_stride"].astype(np.int64)
         ).sum(-1)
-        top = int(top[live].max())
-        if top >= limit:
-            raise ValueError(
-                f"fused_ingest: destination ids reach {top}, but only {limit} "
-                "are counted: k_pad (num_reducers) must cover every destination"
-            )
-    return wp, h, p, v
+        ids = int(top[live].max()) + 1
+    return (wp, h, p, v), ids, cols
+
+
+def pack_routes(enc, device) -> DenseRoutes:
+    """Check a ``dense_route_encoding`` once and, for a CUDA device, upload
+    it packed for the kernel."""
+    if isinstance(enc, DenseRoutes):
+        return enc
+    dims, ids, cols = _check_enc(enc)
+    packed = None
+    if torch.device(device).type == "cuda":
+        flat = np.concatenate([np.asarray(enc[k], np.int32).reshape(-1) for k in _ENC_KEYS])
+        packed = torch.from_numpy(flat).to(device)
+    return DenseRoutes(enc, dims, ids, cols, packed)
+
+
+def _check_fit(routes: DenseRoutes, rows: torch.Tensor, k_pad: int) -> None:
+    if routes.cols > rows.shape[1]:
+        raise ValueError(
+            f"fused_ingest: the routes read column {routes.cols - 1}, outside the "
+            f"rows' {rows.shape[1]}"
+        )
+    if routes.ids > k_pad:
+        raise ValueError(
+            f"fused_ingest: destination ids reach {routes.ids - 1}, but only {k_pad} "
+            "are counted: k_pad (num_reducers) must cover every destination"
+        )
+    if rows.device.type == "cuda" and (
+        routes.packed is None or routes.packed.device != rows.device
+    ):
+        raise ValueError(f"fused_ingest: routes not packed for {rows.device}")
 
 
 def _tiling(n: int, wp: int, k_pad: int, max_tile: int) -> int:
@@ -308,10 +353,10 @@ def _tiling(n: int, wp: int, k_pad: int, max_tile: int) -> int:
     return min(rpt, max_tile // wp)
 
 
-def _launch(rows, enc, dims, k_pad):
+def _launch(rows, routes: DenseRoutes, k_pad):
     """The destination/rank kernels on the card: (dest, rank, counts)."""
     n = rows.shape[0]
-    wp, h, p, v = dims
+    wp, h, p, v = routes.dims
     dev = rows.device
     lib = library("ingest_fused")
     if k_pad > lib.ingest_max_k_pad():
@@ -322,8 +367,6 @@ def _launch(rows, enc, dims, k_pad):
     if n * wp >= 1 << 31:
         raise ValueError(f"fused_ingest: {n} x {wp} emissions exceed 2^31")
     rpt = _tiling(n, wp, k_pad, lib.ingest_max_tile())
-    packed = np.concatenate([np.asarray(enc[k], np.int32).reshape(-1) for k in _ENC_KEYS])
-    enc_t = torch.from_numpy(packed).to(dev)
     dest = torch.empty((n, wp), dtype=torch.int32, device=dev)
     rank = torch.empty((n, wp), dtype=torch.int32, device=dev)
     counts = torch.empty(k_pad, dtype=torch.int32, device=dev)
@@ -337,7 +380,7 @@ def _launch(rows, enc, dims, k_pad):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            rows.data_ptr(), n, rows.shape[1], enc_t.data_ptr(), wp, h, p, v,
+            rows.data_ptr(), n, rows.shape[1], routes.packed.data_ptr(), wp, h, p, v,
             k_pad, rpt, dest.data_ptr(), rank.data_ptr(), counts.data_ptr(),
             table.data_ptr(), stream,
         )
@@ -348,7 +391,7 @@ def _launch(rows, enc, dims, k_pad):
 
 def fused_ingest_dense(
     rows: torch.Tensor,  # [N, arity] int32
-    enc: dict,  # dense_route_encoding arrays
+    enc,  # dense_route_encoding arrays, or pack_routes of them
     sketch_cols: tuple[int, ...] = (),
     seeds: tuple[int, ...] = (),
     width: int = 2048,
@@ -356,25 +399,33 @@ def fused_ingest_dense(
 ):
     """One fused pass with the routes as data: ``(dest [N, Wp], rank
     [N, Wp], counts [k_pad], cms [n_cols, depth, width] | None)``, int32.
-    ``k_pad`` is a multiple of 128 that exceeds every destination id; the
-    caller slices to the real (W, K)."""
+    ``k_pad`` exceeds every destination id."""
     _check_rows(rows)
     _check_sketch(sketch_cols, seeds)
-    if k_pad < 128 or k_pad % 128:
-        raise ValueError(f"fused_ingest_dense: k_pad={k_pad} must be a positive multiple of 128")
-    dims = _check_enc(enc, rows.shape[1], k_pad)
+    if k_pad < 1:
+        raise ValueError(f"fused_ingest_dense: k_pad={k_pad} must be positive")
+    routes = pack_routes(enc, rows.device)
+    _check_fit(routes, rows, k_pad)
     if rows.device.type == "cpu":
-        return fused_ingest_dense_ref(rows, enc, sketch_cols, seeds, width, k_pad)
+        return fused_ingest_dense_ref(rows, routes.arrays, sketch_cols, seeds, width, k_pad)
     rows = rows.contiguous()
-    n = rows.shape[0]
-    if n == 0:
-        z = torch.zeros((0, dims[0]), dtype=torch.int32, device=rows.device)
+    if rows.shape[0] == 0:
+        z = torch.zeros((0, routes.dims[0]), dtype=torch.int32, device=rows.device)
         cms = cms_tables(rows, sketch_cols, seeds, width) if sketch_cols else None
         return z, z.clone(), torch.zeros(k_pad, dtype=torch.int32, device=rows.device), cms
-    dest, rank, counts = _launch(rows, enc, dims, k_pad)
+    dest, rank, counts = _launch(rows, routes, k_pad)
     cms = cms_tables(rows, sketch_cols, seeds, width) if sketch_cols else None
     LAUNCHES["fused_ingest_dense"] += 1
     return dest, rank, counts, cms
+
+
+@functools.lru_cache(maxsize=16)
+def _static_routes(routes: RouteTable, arity: int, device: torch.device) -> DenseRoutes:
+    """A static table's dense encoding (``Wp = W``, ``V`` = its longest
+    exclude list), packed once per (table, arity, device)."""
+    longest = max((len(vs) for *_, ex in routes for _, vs in ex), default=1)
+    enc = dense_route_encoding(routes, arity, route_width(routes), max_values=longest)
+    return pack_routes(enc, device)
 
 
 def fused_ingest(
@@ -393,29 +444,25 @@ def fused_ingest(
         raise ValueError("fused ingest needs routes and/or sketch_cols")
     _check_rows(rows)
     _check_sketch(sketch_cols, seeds)
-    arity = rows.shape[1]
-    enc = dims = None
-    w = route_width(routes)
+    packed = None
     if routes:
-        longest = max((len(vs) for *_, ex in routes for _, vs in ex), default=1)
-        enc = dense_route_encoding(routes, arity, w, max_values=longest)
-        dims = _check_enc(enc, arity, num_reducers)
+        packed = _static_routes(routes, rows.shape[1], rows.device)
+        _check_fit(packed, rows, num_reducers)
     if rows.device.type == "cpu":
         return fused_ingest_ref(rows, routes, sketch_cols, seeds, width, num_reducers)
     rows = rows.contiguous()
     n = rows.shape[0]
     dest = rank = counts = cms = None
     if routes:
-        k_pad = max(-(-num_reducers // 128) * 128, 128)
         if n == 0:
-            dest = torch.zeros((0, w), dtype=torch.int32, device=rows.device)
+            dest = torch.zeros((0, packed.dims[0]), dtype=torch.int32, device=rows.device)
             rank = dest.clone()
             counts = torch.zeros(num_reducers, dtype=torch.int32, device=rows.device)
         else:
-            dest, rank, counts = _launch(rows, enc, dims, k_pad)
-            counts = counts[:num_reducers]
+            dest, rank, counts = _launch(rows, packed, num_reducers)
+            LAUNCHES["fused_ingest"] += 1
     if sketch_cols:
         cms = cms_tables(rows, sketch_cols, seeds, width)
-    if n:
-        LAUNCHES["fused_ingest"] += 1
+        if n and not routes:
+            LAUNCHES["fused_ingest_sketch"] += 1
     return dest, rank, counts, cms

@@ -65,9 +65,11 @@ import torch
 from repro_torch.core.planner import SharesSkewPlan, plan_with_hh
 from repro_torch.core.schema import JoinQuery
 from repro_torch.kernels.ingest_fused import (
+    DenseRoutes,
     dense_route_encoding,
     fused_ingest,
     fused_ingest_dense,
+    pack_routes,
     route_width,
 )
 from repro_torch.mapreduce.executor import _device
@@ -312,11 +314,9 @@ class StreamingJoinEngine:
             for rel in query.relations
         }
         self.fused_batches = 0
-        # dense route-encoding cache (fused_dynamic_routes): rebuilt per
-        # plan epoch; the padded width is a per-relation high-water mark, as
-        # in the reference
+        # dense route-encoding cache (fused_dynamic_routes): checked and
+        # packed on the device once per relation and plan epoch
         self._dense_enc: dict[str, tuple] = {}
-        self._dense_wp: dict[str, int] = {}
         # merge-join delta index (DESIGN.md §7): exact sorted-key evaluation
         # of the telescoping terms for binary single-column joins, replacing
         # the dense einsum whose cost is padded to the hottest reducer bin.
@@ -403,23 +403,19 @@ class StreamingJoinEngine:
         ok = flat_dest >= 0
         return flat_dest[ok].astype(np.int32), flat_rows[ok]
 
-    def _dense_routes(self, rel, routes: tuple):
-        """(enc, real_width, k_pad) for the dense fused pass, cached per
-        plan epoch.  The padded route width only ever grows (per-relation
-        high-water mark), as in the reference."""
+    def _dense_routes(self, rel, routes: tuple) -> DenseRoutes:
+        """The dense encoding of ``routes`` at their real width, packed
+        on the engine's device; cached per plan epoch."""
         cached = self._dense_enc.get(rel.name)
         if cached is not None and cached[0] == self.plan_epoch:
-            return cached[1], cached[2], cached[3]
-        w = route_width(routes)
-        wp = max(_pow2(max(w, 1)), self._dense_wp.get(rel.name, 1))
-        self._dense_wp[rel.name] = wp
-        k_pad = max(-(-self.plan.total_reducers // 128) * 128, 128)
+            return cached[1]
         enc = dense_route_encoding(
-            routes, rel.arity, wp,
+            routes, rel.arity, route_width(routes),
             max_values=max(1, self.config.max_hh_per_attr),
         )
-        self._dense_enc[rel.name] = (self.plan_epoch, enc, w, k_pad)
-        return enc, w, k_pad
+        packed = pack_routes(enc, self.device)
+        self._dense_enc[rel.name] = (self.plan_epoch, packed)
+        return packed
 
     def _fused_pass(
         self, rel, rows: np.ndarray, with_route: bool, with_sketch: bool
@@ -451,13 +447,10 @@ class StreamingJoinEngine:
 
         sketch_cols = tuple(c for _, c in cols)
         if routes and self.config.fused_dynamic_routes:
-            enc, w_real, k_pad = self._dense_routes(rel, routes)
             dest, rank, counts, cms = fused_ingest_dense(
-                self._upload(rows), enc, sketch_cols=sketch_cols, seeds=seeds,
-                width=width, k_pad=k_pad,
+                self._upload(rows), self._dense_routes(rel, routes),
+                sketch_cols=sketch_cols, seeds=seeds, width=width, k_pad=k,
             )
-            # the dense pass returns the padded (W_pad, k_pad) shapes
-            dest, rank, counts = dest[:, :w_real], rank[:, :w_real], counts[:k]
         else:
             dest, rank, counts, cms = fused_ingest(
                 self._upload(rows), routes=routes, sketch_cols=sketch_cols,
@@ -492,12 +485,7 @@ class StreamingJoinEngine:
         """Route one relation under the current plan — fused kernel or the
         baseline ``map_phase`` path, per config."""
         if self.config.fused_ingest:
-            # sketch mode stays ON even though the increments are discarded
-            # here, as in the reference (whose route-only calls then reuse
-            # the per-batch pass's compiled variant)
-            routed, _ = self._fused_pass(
-                rel, rows, True, bool(self._sketch_cols[rel.name])
-            )
+            routed, _ = self._fused_pass(rel, rows, True, False)
             return routed
         dest, emitted = self._route(rel, rows)
         counts = np.bincount(
@@ -594,18 +582,10 @@ class StreamingJoinEngine:
         for rel in self.query.relations:
             self._state[rel.name] = self._empty_state(rel.arity)
         total = 0
-        first_route = True
         for i, bid in enumerate(self._retained_ids):
             for rel in self.query.relations:
                 nm = rel.name
-                if first_route:
-                    # the first kernel invocation under the new plan,
-                    # clocked apart from migration as in the reference
-                    with self.obs.span("replan.compile", args={"rel": nm}):
-                        routed = self._route_any(rel, self._history[nm][i])
-                    first_route = False
-                else:
-                    routed = self._route_any(rel, self._history[nm][i])
+                routed = self._route_any(rel, self._history[nm][i])
                 self._state[nm] = self._scatter_any(self._state[nm], routed)
                 if keep_log:
                     self._routed_log[nm].append(routed)

@@ -150,10 +150,11 @@ def test_fused_ingest_static_kernel_matches_plain(cuda, mode):
         num_reducers=plan.total_reducers,
     )
     rows = torch.from_numpy(_rows(10_007, rel.arity, seed=3)).to(cuda)
-    before = fi.LAUNCHES["fused_ingest"]
+    counter = "fused_ingest_sketch" if mode == "sketch" else "fused_ingest"
+    before = fi.LAUNCHES[counter]
     got = fi.fused_ingest(rows, **kw)
     torch.cuda.synchronize()
-    assert fi.LAUNCHES["fused_ingest"] == before + 1
+    assert fi.LAUNCHES[counter] == before + 1
     _same(got, fi.fused_ingest_ref(rows, **kw))
 
 
@@ -171,7 +172,7 @@ def test_cms_update_kernel_matches_plain(cuda, width):
     assert torch.equal(got, su.cms_update_ref(vals, _CMS_SEEDS, width))
 
 
-def test_fused_stream_on_card_matches_oracle(cuda):
+def _stream_batches():
     rng = np.random.default_rng(0)
     batches = []
     for i in range(5):
@@ -182,13 +183,30 @@ def test_fused_stream_on_card_matches_oracle(cuda):
             "R": np.stack([rng.integers(0, 8000, 3000), b_r], 1).astype(np.int64),
             "S": np.stack([b_s, rng.integers(0, 8000, 800)], 1).astype(np.int64),
         })
+    return batches
+
+
+def test_fused_stream_on_card_matches_oracle(cuda):
+    batches = _stream_batches()
     cfg = tstream.StreamConfig(q=100, decay=0.5, load_factor=2.0, fused_ingest=True)
     fi.reset_launches()
     card = tstream.StreamingJoinEngine(tcore.two_way(), cfg, device=cuda)
     host = tstream.StreamingJoinEngine(tcore.two_way(), cfg, device="cpu")
     for b in batches:
         assert card.ingest(b) == host.ingest(b)
-    assert fi.LAUNCHES["fused_ingest_dense"] > 0 and fi.LAUNCHES["fused_ingest"] > 0
+    assert fi.LAUNCHES["fused_ingest_dense"] > 0 and fi.LAUNCHES["fused_ingest_sketch"] > 0
     assert card.fused_batches == len(batches) and card.replan_count >= 1
     want = tmr.groupby_oracle_two_way(tcore.two_way(), card.history_data())
     assert (card.total_count, card.total_checksum) == want
+
+
+def test_static_route_stream_on_card_matches_host(cuda):
+    """The static-table pass (``fused_dynamic_routes=False``) on the card."""
+    cfg = tstream.StreamConfig(q=100, decay=0.5, load_factor=2.0, fused_ingest=True,
+                               fused_dynamic_routes=False)
+    fi.reset_launches()
+    card = tstream.StreamingJoinEngine(tcore.two_way(), cfg, device=cuda)
+    host = tstream.StreamingJoinEngine(tcore.two_way(), cfg, device="cpu")
+    for b in _stream_batches():
+        assert card.ingest(b) == host.ingest(b)
+    assert fi.LAUNCHES["fused_ingest"] > 0 and fi.LAUNCHES["fused_ingest_dense"] == 0

@@ -214,11 +214,18 @@ def test_k_pad_guard_raises():
     t = torch.from_numpy(_rows(50, rel.arity, seed=12))
     with pytest.raises(ValueError, match="k_pad"):
         tfused.fused_ingest_dense(t, enc, k_pad=128)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        tfused.fused_ingest_dense(t, enc, k_pad=-(-k // 128) * 128 + 1)
+    with pytest.raises(ValueError, match="k_pad"):
+        tfused.fused_ingest_dense(t, enc, k_pad=0)
     with pytest.raises(ValueError, match="k_pad"):
         tfused.fused_ingest(t, routes=routes, num_reducers=k - 1)
-    tfused.fused_ingest(t, routes=routes, num_reducers=k)
+    want = tfused.fused_ingest(t, routes=routes, num_reducers=k)
+    # k_pad need not be a multiple of 128: the exact reducer count serves,
+    # and so does the encoding checked and packed once
+    _assert_same(tfused.fused_ingest_dense(t, enc, k_pad=k)[:3], want[:3])
+    packed = tfused.pack_routes(enc, t.device)
+    _assert_same(tfused.fused_ingest_dense(t, packed, k_pad=k)[:3], want[:3])
+    with pytest.raises(ValueError, match="k_pad"):
+        tfused.fused_ingest_dense(t, packed, k_pad=k - 1)
 
 
 def test_wrappers_reject_bad_calls():
