@@ -30,12 +30,38 @@ Phases:
      report equals the fused path's;
  10. each stream kernel at the shapes the stream gave it: its device time,
      its wrapper's time, its plain version's time and result, and the
-     bound.
+     bound;
+ 11. FlashAttention (K6) against its plain version on the card: the five
+     shapes of the reference kernel tests, a ragged L = 200, GQA 32:8 at
+     D = 128 in bf16, and OLMo-1B's [4, 16, 2048, 128] bf16 causal
+     (tolerance 2e-5 in fp32, 2e-2 in bf16);
+ 12. the histogram (K5) against its plain version, exactly: N of 0, 1 and
+     4,097 by 1, 513 and 100,000 bins with negative and out-of-range
+     values, and the heavy-hitter count of phase 4's R join column (10^6
+     values, 100,000 bins);
+ 13. OLMo-1B at full width (16 layers, d = 2048, random weights from seed
+     0) in fp32: the parallel ``prefill`` of [2, 256] prompts (K6 in every
+     layer) against ``scan_prefill`` (no K6), logits and one decode step
+     from each cache (2e-3); ``forward_hidden`` through K6 against the
+     same call with K6's plain version (2e-4);
+ 14. the same model behind ``BucketServer`` in fp32: six requests with
+     prompts of 16 and 32 tokens and max_new = 8, drained; each completion
+     equals ``greedy_generate`` of its prompt alone;
+ 15. bf16 serving, the LM main path: ``prefill`` of [4, 2048] prompts, then
+     32 greedy decode steps from that cache; prefill ms, ms per decode
+     step, peak device memory, the device's busy share of one prefill and
+     one decode step (``torch.profiler``), and K6's launches (16 per
+     prefill);
+ 16. K6 and K5 at the main path's shapes: device time, plain time, one
+     PyTorch call's time (``scaled_dot_product_attention``,
+     ``torch.bincount``; timed here, never called by the port), bound.
 
 Kernel times are device time per call of the kernel's own CUDA functions,
 from a ``torch.profiler`` trace of repeated calls (CUDA events around the
 wrapper where the trace shows no device time); the wrapper's time, host
-work included, is CUDA events around repeated calls.
+work included, is CUDA events around repeated calls.  K6's time is the
+wrapper's (its host work is microseconds against a millisecond kernel), the
+trace's printed beside it: the two disagreed by 2x in one run.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -60,11 +86,14 @@ SRC = ROOT / "src"
 # lanes x 2 flop x the same clock)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+BF16_FLOPS = 989e12  # dense tensor-core rate
 
 # the CUDA functions of each source, as the profiler names them
 JOIN_KERNELS = ("block_join_kernel",)
 CMS_KERNELS = ("cms_kernel",)
 INGEST_KERNELS = ("tile_kernel", "scan_kernel", "fix_kernel", "cms_kernel")
+FLASH_KERNELS = ("flash_fwd_",)
+HIST_KERNELS = ("histogram_kernel",)
 
 
 def _say(*args) -> None:
@@ -158,8 +187,8 @@ def _plain_ms(fn):
     return out, (time.perf_counter() - t) * 1e3
 
 
-def _bound(ops: float, n_bytes: float) -> tuple[float, str]:
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+def _bound(ops: float, n_bytes: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    t_ops = ops / ops_per_s * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -240,6 +269,263 @@ def _ingest_work(rows, enc, dest, n_sketch_cols, depth, width, k):
     n_bytes = 4 * (rows.numel() + sum(np.asarray(v).size for v in enc.values())
                    + 2 * n * int(live.sum()) + k + n_sketch_cols * depth * width)
     return ops, float(n_bytes)
+
+
+def _max_float_err(got, want) -> float:
+    assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
+    return float((got.float() - want.float()).abs().max())
+
+
+def _close(got, want, tol: float) -> bool:
+    """|got - want| <= tol + tol |want| everywhere: the JAX package's
+    kernel tests' rtol = atol = tol."""
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+def _flash_work(b, h, l, d, causal, elem_bytes):
+    """(operations, bytes) of one attention forward: 4 D per (query, key)
+    pair that the mask keeps (two products, a multiply and an add each),
+    q, k, v and o moved once."""
+    pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
+    return 4.0 * d * pairs, 4.0 * b * h * l * d * elem_bytes
+
+
+def _lm_phases(dev, r_col):
+    """Phases 11-16; returns the kernels line's K6 and K5 entries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import histogram as hg
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import build_model, layers
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve import BucketServer, Request, greedy_generate, scan_prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 phases: full fp32, no TF32
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    # ---- 11. K6 against its plain version -----------------------------------
+    olmo_qkv = None
+    for b, h, hkv, l, d, causal, dtype in [
+        (1, 2, 2, 128, 32, True, f32), (2, 4, 2, 128, 64, True, f32),
+        (1, 8, 1, 256, 32, True, f32), (2, 2, 2, 128, 32, False, f32),
+        (1, 4, 4, 64, 16, True, f32), (2, 4, 2, 200, 64, True, f32),
+        (1, 32, 8, 512, 128, True, bf16), (4, 16, 16, 2048, 128, True, bf16),
+    ]:
+        g = torch.Generator(device=dev).manual_seed(b * 1000 + h + l + d)
+        q, k, v = (torch.randn(s, generator=g, device=dev, dtype=f32).to(dtype)
+                   for s in ((b, h, l, d), (b, hkv, l, d), (b, hkv, l, d)))
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_ref(q, k, v, causal=causal)
+        err = _max_float_err(got, want)
+        tol = 2e-5 if dtype == f32 else 2e-2
+        _say(f"[check] flash_attention q {(b, h, l, d)} kv heads {hkv} causal={causal} "
+             f"{str(dtype)[6:]}: max_abs_err={err:.3g} (rtol = atol = {tol})")
+        assert _close(got, want, tol)
+        if l == 2048:
+            olmo_qkv, olmo_err = (q, k, v), err
+
+    # ---- 12. K5 against its plain version -----------------------------------
+    for n in (0, 1, 4097):
+        for bins in (1, 513, 100_000):
+            vals = np.random.default_rng(n + bins).integers(-3, bins + 5, n)
+            vals[: n // 4] = bins // 2
+            vals = torch.from_numpy(vals.astype(np.int32)).to(dev)
+            got = hg.histogram(vals, bins)
+            torch.cuda.synchronize()
+            err = _max_abs_err([got], [hg.histogram_ref(vals, bins)])
+            _say(f"[check] histogram N={n} bins={bins}: max_abs_err={err}")
+            assert err == 0
+    hh_vals = torch.from_numpy(r_col.astype(np.int32)).to(dev)
+    hh = hg.histogram(hh_vals, 100_000)
+    torch.cuda.synchronize()
+    hh_want, hist_plain = _plain_ms(lambda: hg.histogram_ref(hh_vals, 100_000))
+    hist_err = _max_abs_err([hh], [hh_want])
+    top = torch.topk(hh, 3)
+    _say(f"[check] histogram of the §9.1 R join column (N={hh_vals.shape[0]}, 100,000 bins): "
+         f"max_abs_err={hist_err}; heaviest values {top.indices.tolist()} with counts "
+         f"{top.values.tolist()}")
+    assert hist_err == 0 and int(top.indices[0]) == 7
+
+    # ---- 13. OLMo-1B at full width in fp32: prefill (K6) against scan ---------
+    cfg = get_config("olmo-1b")
+    model = build_model(cfg, device=dev)
+    t = time.perf_counter()
+    params = model.init_params(0, dtype=f32)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in [params["embed"]["table"]] + [
+        w for blk in params["blocks"] for part in ("attn", "mlp") for w in blk[part].values()])
+    _say(f"[lm] olmo-1b at full width: {cfg.n_layers} layers d={cfg.d_model} "
+         f"heads={cfg.n_heads}x{cfg.hd} ff={cfg.d_ff} vocab={cfg.vocab}; {n_params} "
+         f"parameters, fp32 init {time.perf_counter() - t:.2f} s")
+    gen = np.random.default_rng(0)
+    prompts = torch.from_numpy(gen.integers(0, cfg.vocab, (2, 256)).astype(np.int32)).to(dev)
+    nxt = torch.from_numpy(gen.integers(0, cfg.vocab, (2, 1)).astype(np.int32)).to(dev)
+    reset_launches()
+    cache_a = model.init_cache(2, 264, dtype=f32)
+    logits_a, _ = tt.prefill(cfg, params, prompts, cache_a, dtype=f32)
+    assert launches()["flash_attention"] == cfg.n_layers, launches()
+    t = time.perf_counter()
+    cache_b = model.init_cache(2, 264, dtype=f32)
+    logits_b, _ = scan_prefill(model, params, cache_b, prompts, dtype=f32)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t
+    assert launches()["flash_attention"] == cfg.n_layers, "scan_prefill reached K6"
+    err_logits = _max_float_err(logits_a, logits_b)
+    err_cache = _max_float_err(cache_a["k"], cache_b["k"])
+    step_a, _ = model.decode_step(params, cache_a, nxt, 256, dtype=f32)
+    step_b, _ = model.decode_step(params, cache_b, nxt, 256, dtype=f32)
+    err_step = _max_float_err(step_a, step_b)
+    _say(f"[lm] fp32 prefill {list(prompts.shape)} (K6) vs scan_prefill ({t_scan:.2f} s, "
+         f"{prompts.shape[1]} decode steps): "
+         f"logits max_abs_err={err_logits:.3g}, k cache {err_cache:.3g}, one decode step "
+         f"after {err_step:.3g} (tolerance 2e-3); logits scale "
+         f"{float(logits_a.abs().max()):.3g}")
+    assert torch.isfinite(logits_a).all() and logits_a.shape == (2, cfg.vocab)
+    assert max(err_logits, err_cache, err_step) <= 2e-3
+    hid = model.forward_hidden(params, {"tokens": prompts}, dtype=f32)
+    layers.flash_attention = fa.flash_attention_ref  # the same call, plain attention
+    try:
+        hid_plain = model.forward_hidden(params, {"tokens": prompts}, dtype=f32)
+    finally:
+        layers.flash_attention = fa.flash_attention
+    err_hid = _max_float_err(hid, hid_plain)
+    _say(f"[lm] fp32 forward_hidden {list(prompts.shape)} through K6 vs plain attention: "
+         f"max_abs_err={err_hid:.3g} (tolerance 2e-4)")
+    assert err_hid <= 2e-4
+
+    # ---- 14. BucketServer in fp32: every completion equals solo generation ----
+    server = BucketServer(model, params, max_batch=8, dtype=f32)
+    reqs = [Request(uid=i, prompt=gen.integers(0, cfg.vocab, 16 if i % 2 else 32)
+                    .astype(np.int32), max_new=8) for i in range(6)]
+    for r in reqs:
+        server.submit(r)
+    t = time.perf_counter()
+    done = server.drain()
+    t_drain = time.perf_counter() - t
+    assert sorted(c.uid for c in done) == list(range(6))
+    for c in done:
+        solo = greedy_generate(model, params, reqs[c.uid].prompt[None], 8, dtype=f32)
+        assert c.tokens.shape == (8,) and np.array_equal(c.tokens, solo[0]), \
+            (c.uid, c.tokens, solo[0])
+    _say(f"[lm] BucketServer fp32: 6 requests (prompts of 16 and 32 tokens, max_new=8) "
+         f"drained in two waves in {t_drain:.2f} s; each completion equals greedy_generate "
+         f"of its prompt alone")
+    del params, cache_a, cache_b, server
+
+    # ---- 15. bf16 serving: prefill [4, 2048] + 32 greedy decode steps ---------
+    torch.cuda.empty_cache()
+    params = model.init_params(0, dtype=bf16)
+    batch, l_prompt, n_new = 4, 2048, 32
+    prompts = torch.from_numpy(gen.integers(0, cfg.vocab, (batch, l_prompt))
+                               .astype(np.int32)).to(dev)
+    cache = model.init_cache(batch, l_prompt + n_new, dtype=bf16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def do_prefill():
+        t = time.perf_counter()
+        out, _ = tt.prefill(cfg, params, prompts, cache, dtype=bf16)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    reset_launches()
+    n_prefill = 0
+    prefill_ms = []
+    for _ in range(4):  # the first is a warm-up
+        logits, ms = do_prefill()
+        prefill_ms.append(ms)
+        n_prefill += 1
+    (logits, ms_traced), busy_pre = _traced(do_prefill)
+    n_prefill += 1
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    out = [tok]
+    step_ms = []
+    for pos in range(l_prompt, l_prompt + n_new - 1):
+        t = time.perf_counter()
+        logits, _ = model.decode_step(params, cache, tok[:, None], pos, dtype=bf16)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        out.append(tok)
+    lm_launches = launches()
+    peak = torch.cuda.max_memory_allocated()
+    gen_tokens = torch.stack(out, 1)
+
+    def one_step():
+        t = time.perf_counter()
+        lg, _ = model.decode_step(params, cache, tok[:, None], l_prompt + n_new - 1, dtype=bf16)
+        torch.cuda.synchronize()
+        return lg, (time.perf_counter() - t) * 1e3
+
+    (_, ms_step_traced), busy_dec = _traced(one_step)
+    _say(f"[lm] bf16 serving olmo-1b: prefill [{batch}, {l_prompt}] ms "
+         f"{[round(x, 3) for x in prefill_ms]} (first is the warm-up); {n_new} greedy tokens "
+         f"per sequence: first from the prefill, then {len(step_ms)} decode steps, ms per step "
+         f"({batch} sequences) median {float(np.median(step_ms)):.3f} min {min(step_ms):.3f} "
+         f"max {max(step_ms):.3f}; {float(np.median(step_ms)) / batch:.3f} ms per token")
+    _say(f"[lm] generated tokens (sequence 0): {gen_tokens[0].tolist()}")
+    _say(f"[lm] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); launches={lm_launches}")
+    for what, busy, wall in [("prefill", busy_pre, ms_traced), ("decode step", busy_dec,
+                                                                  ms_step_traced)]:
+        if busy:
+            b_ms = sum(busy.values()) / 1e3
+            _say(f"[lm] one {what} under the profiler: device busy {b_ms:.3f} ms of {wall:.3f} ms "
+                 f"({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} %); by function "
+                 "(ms): " + "; ".join(f"{k[:60]} {v / 1e3:.3f}" for k, v in
+                                      sorted(busy.items(), key=lambda kv: -kv[1])[:6]))
+        else:
+            _say(f"[lm] one {what} under the profiler: no device events; busy share not measured")
+    assert torch.isfinite(logits).all() and gen_tokens.shape == (batch, n_new)
+    assert lm_launches["flash_attention"] == cfg.n_layers * n_prefill, lm_launches
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # ---- 16. K6 and K5 at the main path's shapes -----------------------------
+    q, k, v = olmo_qkv
+    trace6, how6, ms6, _ = _kernel_ms(lambda: fa.flash_attention(q, k, v), FLASH_KERNELS, reps=10)
+    _, plain6 = _plain_ms(lambda: fa.flash_attention_ref(q, k, v))
+    lib6 = _events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=10)
+    ops6, bytes6 = _flash_work(*q.shape[:3], q.shape[3], True, q.element_size())
+    bound6, by6 = _bound(ops6, bytes6, BF16_FLOPS)
+    _say(f"[K6] flash_attention {tuple(q.shape)} bf16 causal: kernel {ms6:.4f} ms (CUDA events "
+         f"around the wrapper; {how6} {trace6:.4f} ms); plain {plain6:.2f} ms; scaled_dot_product_attention "
+         f"{lib6:.4f} ms; bound {bound6:.4f} ms by {by6} ({ops6:.4g} operations at 989 TFLOP/s, "
+         f"{bytes6:.4g} bytes); {100 * bound6 / ms6:.1f} % of the bound")
+    q32, k32, v32 = (x.float() for x in olmo_qkv)  # the fp32 kernel (CUDA cores), same shape
+    trace6f, how6f, ms6f, _ = _kernel_ms(lambda: fa.flash_attention(q32, k32, v32),
+                                         FLASH_KERNELS, reps=5)
+    _say(f"[K6] flash_attention {tuple(q.shape)} fp32 causal (CUDA cores): kernel {ms6f:.4f} ms "
+         f"(CUDA events around the wrapper; {how6f} {trace6f:.4f} ms)")
+    del q32, k32, v32
+    ms5, how5, wrap5, _ = _kernel_ms(lambda: hg.histogram(hh_vals, 100_000), HIST_KERNELS,
+                                     reps=20)
+    lib5 = _events_ms(lambda: torch.bincount(hh_vals, minlength=100_000), reps=20)
+    bound5, by5 = _bound(2.0 * hh_vals.shape[0], 4.0 * (hh_vals.shape[0] + 100_000))
+    _say(f"[K5] histogram N={hh_vals.shape[0]} bins=100000: kernel {ms5:.4f} ms ({how5}; "
+         f"wrapper {wrap5:.4f} ms); plain {hist_plain:.3f} ms; torch.bincount {lib5:.4f} ms; "
+         f"bound {bound5:.5f} ms by {by5}")
+    return [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:91",
+        "launches": lm_launches["flash_attention"], "max_abs_err": olmo_err,
+        "ms": ms6, "plain_ms": plain6, "bound_ms": bound6, "bound_by": by6,
+        "library_ms": lib6,
+    }, {
+        "name": "histogram", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/histogram.cu",
+        "replaces": "src/repro/kernels/histogram.py:35",
+        "launches": lm_launches["histogram"], "max_abs_err": hist_err,
+        "ms": ms5, "plain_ms": hist_plain, "bound_ms": bound5, "bound_by": by5,
+        "library_ms": lib5,
+    }]
 
 
 def main() -> int:
@@ -738,6 +1024,8 @@ def main() -> int:
             "ms": ms4, "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4,
             "library_ms": None,
         })
+
+    kernels += _lm_phases(dev, data["R"][:, 1])
 
     _say(f"[done] wall {time.perf_counter() - t_all:.1f} s")
     _say(json.dumps({"kernels": kernels}))

@@ -7,11 +7,20 @@ version (taken for CPU tensors) and a launch counter.
   * ``fused_ingest_dense`` / ``fused_ingest`` — the streaming engine's fused
     ingest pass (destinations, pack plan, Count-Min increment),
     ``csrc/ingest_fused.cu`` beside ``csrc/cms_update.cu``
+  * ``histogram.histogram`` — bincount of int32 values,
+    ``csrc/histogram.cu``
+  * ``flash_attention.flash_attention`` — attention forward with online
+    softmax and GQA, ``csrc/flash_attention.cu``
+
+(The last two wrappers share their module's name, so the package exports
+the modules under those names.)
 
 Sources are compiled with nvcc at first use (``_build``), never at import.
 """
-from . import block_join, ingest_fused, sketch_update
+from . import block_join, flash_attention, histogram, ingest_fused, sketch_update
 from .block_join import block_join_ref, flat_join, reducer_join, tiled_join_ref
+from .flash_attention import flash_attention_ref
+from .histogram import histogram_ref
 from .ingest_fused import (
     DenseRoutes,
     dense_route_encoding,
@@ -24,14 +33,16 @@ from .ingest_fused import (
 )
 from .sketch_update import cms_update, cms_update_ref
 
+_MODULES = (block_join, sketch_update, ingest_fused, histogram, flash_attention)
+
 
 def launches() -> dict[str, int]:
     """Kernel launches counted by every wrapper, by wrapper name."""
-    return {**block_join.LAUNCHES, **sketch_update.LAUNCHES, **ingest_fused.LAUNCHES}
+    return {n: c for m in _MODULES for n, c in m.LAUNCHES.items()}
 
 
 def reset_launches() -> None:
-    for module in (block_join, sketch_update, ingest_fused):
+    for module in _MODULES:
         module.reset_launches()
 
 
@@ -41,11 +52,13 @@ __all__ = [
     "cms_update",
     "cms_update_ref",
     "dense_route_encoding",
+    "flash_attention_ref",
     "flat_join",
     "fused_ingest",
     "fused_ingest_dense",
     "fused_ingest_dense_ref",
     "fused_ingest_ref",
+    "histogram_ref",
     "launches",
     "pack_routes",
     "reducer_join",

@@ -24,6 +24,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "block_join": _CSRC / "block_join.cu",
     "cms_update": _CSRC / "cms_update.cu",
+    "flash_attention": _CSRC / "flash_attention.cu",
+    "histogram": _CSRC / "histogram.cu",
     "ingest_fused": _CSRC / "ingest_fused.cu",
 }
 NVCC_FLAGS = (

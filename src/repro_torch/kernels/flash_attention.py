@@ -1,0 +1,148 @@
+"""FlashAttention forward: CUDA kernel and its plain PyTorch version.
+
+For ``q [B, H, Lq, D]`` and ``k, v [B, Hkv, Lk, D]`` (fp32 or bf16), the
+attention output ``[B, H, Lq, D]`` in q's dtype: softmax of ``q k^T / sqrt(D)``
+over the keys (fp32 arithmetic whatever the input dtype), times v, with
+query head h reading kv head ``h // (H // Hkv)``.  Under ``causal`` key j is
+masked for query i when ``j > i``: the mask is aligned at position 0 on both
+sides, as ``repro.kernels.flash_attention._flash_kernel`` does it, so the
+wrapper takes causal attention only with ``Lq == Lk`` (where that alignment
+and the end-aligned one of the jnp oracle agree) and raises otherwise.
+
+``flash_attention`` takes the hand-written CUDA kernel
+(``csrc/flash_attention.cu``) for CUDA tensors and the plain
+``flash_attention_ref`` for CPU tensors; a CUDA tensor never falls back to
+the plain version.  The kernel computes in fp32 on the CUDA cores for fp32
+inputs and on the tensor cores (bf16 products, fp32 sums, p rounded to bf16
+before P·V) for bf16 inputs.  It reads q, k and v through their strides,
+so the ``[B, L, H, D] -> [B, H, L, D]`` transpose of the attention layer is
+not copied, and writes its output
+as a ``[B, Lq, H, D]`` buffer seen as ``[B, H, Lq, D]``, so the layer's
+transpose back is free too.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ._build import library
+
+LAUNCHES = {"flash_attention": 0}
+
+MAX_HEAD_DIM = 256
+_MASKED = -1e30  # the TPU kernel's finite mask value
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+) -> torch.Tensor:
+    """Plain version: the same function in fp32 with a materialised score
+    matrix; returns [B, H, Lq, D] in q's dtype."""
+    h, hkv = q.shape[1], k.shape[1]
+    lq, lk, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    kk = k.float().repeat_interleave(h // hkv, dim=1)
+    vv = v.float().repeat_interleave(h // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if causal:
+        keep = torch.arange(lq, device=q.device)[:, None] >= torch.arange(lk, device=q.device)
+        s = torch.where(keep, s, torch.full_like(s, _MASKED))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k and v must be [B, H, L, D]")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(
+            f"flash_attention: q, k and v must all be float32 or bfloat16, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k and v must lie on one device")
+    b, h, lq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(
+            f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} do not fit q "
+            f"{tuple(q.shape)}"
+        )
+    hkv, lk = k.shape[1], k.shape[2]
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"flash_attention: H={h} is not a multiple of Hkv={hkv}")
+    if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: head dim {d} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]"
+        )
+    if lk < 1:
+        raise ValueError("flash_attention: needs at least one key")
+    if causal and lq != lk:
+        raise ValueError(
+            f"flash_attention: causal attention needs Lq == Lk (got {lq}, {lk}): the "
+            "kernel's mask is aligned at position 0, the oracle's at the end"
+        )
+
+
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel reads it, copied only where it cannot be: the
+    head dimension contiguous and, for bf16 (16-byte loads), every stride a
+    multiple of 8 elements and the base 16-byte aligned."""
+    ok = t.stride(-1) == 1
+    if t.dtype == torch.bfloat16:
+        ok = ok and t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    """The kernel on the card; counts no launch."""
+    b, h, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if b * h > 65535:
+        raise ValueError(f"flash_attention: B*H={b * h} exceeds the kernel's grid (65535)")
+    q, k, v = (_readable(t) for t in (q, k, v))
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if lq == 0 or b == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3])
+    )
+    fn = library("flash_attention").flash_attention_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            b, h, hkv, lq, lk, d, strides, 1.0 / math.sqrt(d), int(causal), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+) -> torch.Tensor:
+    """FlashAttention forward with grouped KV heads; [B, H, Lq, D] in q's dtype."""
+    _check(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    out = _launch(q, k, v, causal)
+    if out.numel():
+        LAUNCHES["flash_attention"] += 1
+    return out

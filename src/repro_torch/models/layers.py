@@ -1,0 +1,359 @@
+"""Shared model layers: norms, attention (GQA / sliding-window), MLPs, rotary.
+
+The counterpart of ``repro.models.layers``.  Parameters are plain dicts of
+tensors; ``apply``-style functions consume them.  Compute dtype is the
+caller's choice (params are cast on entry, a no-op where they are kept in
+that dtype); accumulation-sensitive ops (norms, softmax, losses) run in
+float32, and bf16 rounds at the places where the JAX package rounds it.
+
+Attention with no sliding window and no logit softcap goes through the
+FlashAttention kernel (K6, ``kernels.flash_attention``) for CUDA tensors;
+on the CPU, and for windowed or softcapped attention on either device, it
+takes the JAX package's default branches as written (the materialised
+``_sdpa``, the query-chunked ``_sdpa_chunked`` past
+``ATTN_CHUNK_THRESHOLD``, the windowed mask).  The JAX package's
+activation-sharding hooks (``set_activation_sharding``, ``constrain_*``) are
+not ported until ``launch/sharding.py`` is (ROADMAP).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attention
+
+Params = dict
+
+# When seq-len exceeds this, the plain attention switches to the chunked
+# (loop-over-query-blocks) path so [L, L] score matrices never materialize;
+# the JAX package's defaults.
+ATTN_CHUNK_THRESHOLD = 2048
+ATTN_CHUNK = 1024
+
+_MASKED = -1e30
+
+
+def _cast(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return p.to(dtype=like.dtype)
+
+
+# --------------------------------------------------------------------- norms
+def rms_norm(params: Params | None, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    if params is not None and "scale" in params:
+        y = y * params["scale"].float()
+    return y.to(x.dtype)
+
+
+def layer_norm(params: Params | None, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm; with params=None it is OLMo's non-parametric LN."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if params is not None:
+        if "scale" in params:
+            y = y * params["scale"].float()
+        if "bias" in params:
+            y = y + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def init_norm(kind: str, d: int, device, dtype=torch.float32) -> Params | None:
+    if kind == "rms":
+        return {"scale": torch.ones(d, dtype=dtype, device=device)}
+    if kind == "layer":
+        return {
+            "scale": torch.ones(d, dtype=dtype, device=device),
+            "bias": torch.zeros(d, dtype=dtype, device=device),
+        }
+    if kind == "nonparametric":  # OLMo
+        return None
+    raise ValueError(kind)
+
+
+def apply_norm(kind: str, params: Params | None, x: torch.Tensor) -> torch.Tensor:
+    if kind == "rms":
+        return rms_norm(params, x)
+    return layer_norm(params, x)
+
+
+# -------------------------------------------------------------------- rotary
+def rotary_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    half = head_dim // 2
+    # made on the device: a host tensor copied over would wait for the card
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs  # [..., L, half]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, H, L, D]; cos/sin: [L, D/2] (or broadcastable), cast to x's
+    dtype before the products, as the JAX package does."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos.to(x.dtype)
+    s = sin.to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ----------------------------------------------------------------- attention
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    rope_theta: float = 1e4
+    causal: bool = True
+    window: int | None = None  # sliding-window size (None = full)
+    qk_norm: bool = False
+    bias: bool = False
+    logit_softcap: float | None = None
+
+
+def _qkv(params: Params, cfg: AttnConfig, x: torch.Tensor):
+    """q [B, H, L, D], k and v [B, Hkv, L, D]: transposed views of the
+    projections (not copies)."""
+    b, l, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ _cast(params["wq"], x)).reshape(b, l, cfg.n_heads, hd)
+    k = (x @ _cast(params["wk"], x)).reshape(b, l, cfg.n_kv, hd)
+    v = (x @ _cast(params["wv"], x)).reshape(b, l, cfg.n_kv, hd)
+    if "bq" in params:
+        q = q + _cast(params["bq"], x).reshape(cfg.n_heads, hd)
+        k = k + _cast(params["bk"], x).reshape(cfg.n_kv, hd)
+        v = v + _cast(params["bv"], x).reshape(cfg.n_kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(params["q_norm"], q)
+        k = rms_norm(params["k_norm"], k)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _softcap(s: torch.Tensor, softcap: float | None) -> torch.Tensor:
+    return softcap * torch.tanh(s / softcap) if softcap else s
+
+
+def _sdpa(
+    q: torch.Tensor,  # [B, H, Lq, D]
+    k: torch.Tensor,  # [B, Hkv, Lk, D]
+    v: torch.Tensor,
+    causal: bool,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """The materialised attention of full-window layers (the JAX package's
+    ``_sdpa`` as ``attention`` calls it: no window, no query offset)."""
+    b, h, lq, d = q.shape
+    hkv = k.shape[1]
+    group = h // hkv
+    qg = q.reshape(b, hkv, group, lq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) / math.sqrt(d)
+    s = _softcap(s, softcap)
+    if causal:
+        pos_q = torch.arange(lq, device=q.device)
+        mask = pos_q[:, None] >= torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(mask, s, torch.full_like(s, _MASKED))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, h, lq, d).to(q.dtype)
+
+
+def _sdpa_chunked(
+    q: torch.Tensor,  # [B, H, L, D]
+    k: torch.Tensor,  # [B, Hkv, L, D]
+    v: torch.Tensor,
+    causal: bool,
+    eff_window: int | None,
+    chunk: int,
+    softcap: float | None,
+) -> torch.Tensor:
+    """A loop over query blocks: peak score memory is [B, H, chunk, L]
+    instead of [B, H, L, L] (forward only: no rematerialisation)."""
+    b, h, l, d = q.shape
+    hkv = k.shape[1]
+    group = h // hkv
+    qg = q.reshape(b, hkv, group, l, d)
+    kf = k.float()
+    vf = v.float()
+    k_pos = torch.arange(l, device=q.device)
+    scale = 1.0 / math.sqrt(d)
+    outs = []
+    for i in range(l // chunk):
+        qc = qg[:, :, :, i * chunk:(i + 1) * chunk]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc.float(), kf) * scale
+        s = _softcap(s, softcap)
+        q_pos = i * chunk + torch.arange(chunk, device=q.device)
+        mask = torch.ones((chunk, l), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if eff_window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < eff_window
+        s = torch.where(mask, s, torch.full_like(s, _MASKED))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(q.dtype))
+    return torch.cat(outs, dim=3).reshape(b, h, l, d)
+
+
+def _windowed(q, k, v, cfg: AttnConfig, eff_window: int) -> torch.Tensor:
+    """The JAX package's masked branch for sliding-window layers."""
+    b, _, l, hd = q.shape
+    hkv, group = cfg.n_kv, cfg.n_heads // cfg.n_kv
+    qg = q.reshape(b, hkv, group, l, hd)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) / math.sqrt(hd)
+    s = _softcap(s, cfg.logit_softcap)
+    pos = torch.arange(l, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    mask &= (pos[:, None] - pos[None, :]) < eff_window
+    s = torch.where(mask, s, torch.full_like(s, _MASKED))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hkv * group, l, hd).to(q.dtype)
+
+
+def attention_core(
+    q: torch.Tensor,  # [B, H, L, D], rotated
+    k: torch.Tensor,  # [B, Hkv, L, D], rotated
+    v: torch.Tensor,
+    cfg: AttnConfig,
+    is_global: bool = True,
+) -> torch.Tensor:
+    """Attention of rotated q, k, v; [B, H, L, D] in q's dtype.
+
+    Full-window, uncapped attention on the card is K6, at any L; everything
+    else takes the JAX package's default branches."""
+    l = q.shape[2]
+    if q.is_cuda and cfg.window is None and cfg.logit_softcap is None:
+        return flash_attention(q, k, v, causal=cfg.causal)
+    eff_window = None
+    if cfg.window is not None:
+        eff_window = l if is_global else cfg.window
+    if l > ATTN_CHUNK_THRESHOLD and l % ATTN_CHUNK == 0:
+        return _sdpa_chunked(q, k, v, cfg.causal, eff_window, ATTN_CHUNK, cfg.logit_softcap)
+    if eff_window is None:
+        return _sdpa(q, k, v, cfg.causal, softcap=cfg.logit_softcap)
+    return _windowed(q, k, v, cfg, eff_window)
+
+
+def attention(
+    params: Params,
+    cfg: AttnConfig,
+    x: torch.Tensor,  # [B, L, d_model]
+    is_global: bool = True,
+) -> torch.Tensor:
+    """Full attention; ``is_global=False`` applies cfg.window (Gemma-style
+    local layers)."""
+    q, k, v = rotated_qkv(params, cfg, x)
+    return attention_output(params, cfg, attention_core(q, k, v, cfg, is_global))
+
+
+def attention_output(params: Params, cfg: AttnConfig, out: torch.Tensor) -> torch.Tensor:
+    """[B, H, L, D] heads -> [B, L, d_model] through ``wo``."""
+    b, _, l, _ = out.shape
+    y = out.transpose(1, 2).reshape(b, l, cfg.n_heads * cfg.head_dim)
+    return y @ _cast(params["wo"], y)
+
+
+def rotated_qkv(params: Params, cfg: AttnConfig, x: torch.Tensor):
+    """``_qkv`` with rotary embeddings at positions 0..L-1 on q and k."""
+    q, k, v = _qkv(params, cfg, x)
+    cos, sin = rotary_angles(torch.arange(x.shape[1], device=x.device), cfg.head_dim,
+                             cfg.rope_theta)
+    return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+
+
+def attention_decode(
+    params: Params,
+    cfg: AttnConfig,
+    x: torch.Tensor,  # [B, 1, d_model] — one new token
+    k_cache: torch.Tensor,  # [B, Hkv, S, D]
+    v_cache: torch.Tensor,
+    pos: int,  # current position (number of tokens already cached)
+    is_global: bool = True,
+) -> torch.Tensor:
+    """One decode step against a KV cache; returns y.  Writes the new k and
+    v into the caches at ``pos`` in place.  ``is_global`` lifts the sliding
+    window for Gemma-style global layers."""
+    b = x.shape[0]
+    q, k, v = _qkv(params, cfg, x)  # q [B,H,1,D], k/v [B,Hkv,1,D]
+    cos, sin = rotary_angles(torch.full((1,), pos, device=x.device), cfg.head_dim,
+                             cfg.rope_theta)
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    k_cache[:, :, pos] = k[:, :, 0].to(k_cache.dtype)
+    v_cache[:, :, pos] = v[:, :, 0].to(v_cache.dtype)
+    s_max = k_cache.shape[2]
+    hkv, group = cfg.n_kv, cfg.n_heads // cfg.n_kv
+    qg = q.reshape(b, hkv, group, 1, cfg.head_dim)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k_cache.float()) / math.sqrt(cfg.head_dim)
+    s = _softcap(s, cfg.logit_softcap)
+    k_pos = torch.arange(s_max, device=x.device)
+    valid = k_pos <= pos
+    if cfg.window is not None and not is_global:
+        valid &= (pos - k_pos) < cfg.window
+    s = torch.where(valid, s, torch.full_like(s, _MASKED))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v_cache.float())
+    out = out.reshape(b, cfg.n_heads, 1, cfg.head_dim).to(x.dtype)
+    y = out.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return y @ _cast(params["wo"], x)
+
+
+# ---------------------------------------------------------------------- MLPs
+def _act(name: str):
+    # jax.nn.gelu defaults to the tanh approximation: "gelu" is that form too
+    return {
+        "silu": F.silu,
+        "gelu": lambda u: F.gelu(u, approximate="tanh"),
+        "gelu_tanh": lambda u: F.gelu(u, approximate="tanh"),
+        "relu": F.relu,
+    }[name]
+
+
+def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    a = _act(act)
+    up = x @ _cast(params["w_up"], x)
+    if "b_up" in params:
+        up = up + _cast(params["b_up"], x)
+    if "w_gate" in params:
+        h = a(x @ _cast(params["w_gate"], x)) * up
+    else:
+        h = a(up)
+    y = h @ _cast(params["w_down"], x)
+    if "b_down" in params:
+        y = y + _cast(params["b_down"], x)
+    return y
+
+
+# ----------------------------------------------------------------- embedding
+def embed(params: Params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return params["table"].to(dtype)[tokens]
+
+
+def chunked_cross_entropy(
+    x: torch.Tensor,  # [B, L, d] final hidden states
+    emb_table: torch.Tensor,  # [V, d] (tied) or lm_head [d, V] passed transposed
+    labels: torch.Tensor,  # [B, L]
+    chunk: int = 512,
+    logit_softcap: float | None = None,
+) -> torch.Tensor:
+    """Mean cross-entropy over labels >= 0, one sequence chunk of logits at
+    a time so [B, L, V] never materialises (forward only)."""
+    l = x.shape[1]
+    chunk = min(chunk, l)
+    table = emb_table.to(x.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = 0
+    for c0 in range(0, l, chunk):
+        xc, yc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        logits = (xc @ table.T).float()
+        logits = _softcap(logits, logit_softcap)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc.clamp(min=0).long()[..., None])[..., 0]
+        valid = yc >= 0
+        total = total + torch.where(valid, logz - gold, torch.zeros_like(logz)).sum()
+        count += int(valid.sum())
+    return total / max(count, 1)

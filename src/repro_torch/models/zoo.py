@@ -1,0 +1,89 @@
+"""Uniform model API over the architecture families: the counterpart of
+``repro.models.zoo``.
+
+``build_model(cfg)`` dispatches on ``cfg.family`` and returns a ``ModelApi``
+whose members share one signature per role, so the serving loop treats
+every architecture alike.  The model lives on one device, chosen here:
+``device="cuda"`` unless the caller asks for the CPU, and a CUDA device
+without a card raises.  ``dense``, ``vlm`` and ``audio`` run on
+``transformer``; ``moe``, ``ssm`` and ``hybrid`` are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.mapreduce.executor import _device
+
+from . import transformer
+
+_NOT_PORTED = {
+    "moe": "models/moe.py (ROADMAP queue 1, item 15)",
+    "ssm": "models/rwkv6.py with K7 (ROADMAP queue 1, item 16)",
+    "hybrid": "models/mamba2.py (ROADMAP queue 1, item 17)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    cfg: ArchConfig
+    device: torch.device
+    init_params: Callable[..., dict]  # (seed, dtype=float32) -> params
+    loss_fn: Callable[..., torch.Tensor]  # (params, batch, **kw) -> scalar
+    init_cache: Callable[..., dict] | None  # (batch, max_seq, dtype) -> cache
+    decode_step: Callable[..., tuple] | None  # (params, cache, tokens, pos, **kw)
+    forward_hidden: Callable[..., Any]  # (params, batch, **kw) -> hidden
+
+
+def build_model(cfg: ArchConfig, device: torch.device | str = "cuda") -> ModelApi:
+    dev = _device(device)
+    fam = cfg.family
+    if fam in _NOT_PORTED:
+        raise NotImplementedError(f"family {fam!r} is not ported yet: {_NOT_PORTED[fam]}")
+    if fam not in ("dense", "vlm", "audio"):
+        raise ValueError(f"unknown family {fam}")
+    decoder = fam != "audio"  # hubert is encoder-only
+    return ModelApi(
+        cfg=cfg,
+        device=dev,
+        init_params=lambda seed, dtype=torch.float32: transformer.init_params(
+            cfg, seed, dev, dtype),
+        loss_fn=lambda params, batch, **kw: transformer.loss_fn(cfg, params, batch, **kw),
+        init_cache=(lambda batch, max_seq, dtype=torch.bfloat16: transformer.init_kv_cache(
+            cfg, batch, max_seq, dtype, dev)) if decoder else None,
+        decode_step=(lambda params, cache, tokens, pos, **kw: transformer.decode_step(
+            cfg, params, cache, tokens, pos, **kw)) if decoder else None,
+        forward_hidden=lambda params, batch, **kw: transformer.forward_hidden(
+            cfg, params, batch.get("tokens"), batch.get("prefix_embeds"), **kw),
+    )
+
+
+def make_batch(
+    cfg: ArchConfig, rng: np.random.Generator, batch: int, seq: int,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """Synthetic batch with the right modality for the arch (stub frontends
+    provide precomputed frame/patch embeddings), drawn from ``rng`` in the
+    order the JAX package draws it, so one seed gives both packages the
+    same batch."""
+    dev = _device(device)
+
+    def put(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a)).to(device=dev, dtype=dtype)
+
+    out: dict = {}
+    if cfg.family == "audio":
+        out["prefix_embeds"] = put(rng.normal(size=(batch, seq, cfg.d_model)), torch.bfloat16)
+        out["labels"] = put(rng.integers(0, cfg.vocab, size=(batch, seq)), torch.int32)
+        return out
+    out["tokens"] = put(rng.integers(0, cfg.vocab, size=(batch, seq)), torch.int32)
+    if cfg.family == "vlm":
+        n_patch = min(64, max(8, seq // 4))
+        out["prefix_embeds"] = put(rng.normal(size=(batch, n_patch, cfg.d_model)),
+                                   torch.bfloat16)
+    return out

@@ -1,0 +1,105 @@
+"""The port's FlashAttention (K6) plain version against the JAX package's
+Pallas kernel (interpret mode on the CPU) and its jnp oracle, on the same
+seeded inputs; the wrapper's checks.  The CUDA kernel itself is held
+against the plain version in ``tests/test_torch_gpu.py`` on a card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jax_flash
+from repro.kernels.ref import attention_ref
+from repro_torch.kernels import flash_attention as fa
+
+_SHAPES = [  # tests/test_kernels.py's sweep
+    (1, 2, 2, 128, 32, True),
+    (2, 4, 2, 128, 64, True),
+    (1, 8, 1, 256, 32, True),  # MQA
+    (2, 2, 2, 128, 32, False),
+    (1, 4, 4, 64, 16, True),
+]
+
+
+def _inputs(b, h, hkv, lq, lk, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, h, lq, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, lk, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, lk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,h,hkv,l,d,causal", _SHAPES)
+def test_plain_matches_pallas_and_oracle(b, h, hkv, l, d, causal):
+    q, k, v = _inputs(b, h, hkv, l, l, d, b * 100 + h + l)
+    got = fa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    pallas = jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal, block_q=64, block_k=64)
+    oracle = attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, np.asarray(oracle), rtol=2e-5, atol=2e-5)
+
+
+def test_plain_bf16_matches_pallas():
+    rng = np.random.default_rng(7)
+    qkv = [jnp.asarray(rng.normal(size=(1, 2, 128, 32)), dtype=jnp.bfloat16) for _ in range(3)]
+    want = jax_flash(*qkv, causal=True, block_q=64, block_k=64)
+    got = fa.flash_attention(
+        *(torch.from_numpy(np.array(x, dtype=np.float32)).to(torch.bfloat16) for x in qkv),
+        causal=True,
+    )
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_plain_matches_pallas_with_uneven_blocks():
+    q, k, v = _inputs(1, 2, 2, 256, 256, 32, 9)
+    got = fa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True).numpy()
+    for bq, bk in [(64, 128), (128, 64)]:
+        want = jax_flash(*map(jnp.asarray, (q, k, v)), causal=True, block_q=bq, block_k=bk)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("lq,lk", [(200, 200), (77, 131)])
+def test_plain_ragged_lengths_match_oracle(lq, lk):
+    """Lengths that no block size divides (the Pallas kernel refuses them;
+    the port's kernel masks the ragged tile): causal only with Lq == Lk."""
+    causal = lq == lk
+    q, k, v = _inputs(2, 4, 2, lq, lk, 64, lq + lk)
+    got = fa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    want = attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_causal_needs_equal_lengths():
+    """The kernel's causal mask is aligned at position 0 (the Pallas
+    kernel's), the oracle's at the end: they part when Lq != Lk, so the
+    wrapper refuses it."""
+    q, k, v = map(torch.from_numpy, _inputs(1, 2, 2, 64, 128, 32, 0))
+    with pytest.raises(ValueError, match="Lq == Lk"):
+        fa.flash_attention(q, k, v, causal=True)
+    out = fa.flash_attention(q, k, v, causal=False)
+    assert out.shape == (1, 2, 64, 32)
+
+
+@pytest.mark.parametrize(
+    "shapes,dtype,match",
+    [
+        (((1, 2, 8, 24), (1, 2, 8, 24)), torch.float32, "multiple of 16"),
+        (((1, 2, 8, 272), (1, 2, 8, 272)), torch.float32, "multiple of 16"),
+        (((1, 3, 8, 32), (1, 2, 8, 32)), torch.float32, "not a multiple"),
+        (((1, 2, 8, 32), (1, 2, 8, 16)), torch.float32, "do not fit"),
+        (((1, 2, 8, 32), (1, 2, 0, 32)), torch.float32, "at least one key"),
+        (((1, 2, 8, 32), (1, 2, 8, 32)), torch.float16, "float32 or bfloat16"),
+    ],
+)
+def test_wrapper_rejects(shapes, dtype, match):
+    q = torch.zeros(shapes[0], dtype=dtype)
+    k = torch.zeros(shapes[1], dtype=dtype)
+    with pytest.raises((ValueError, TypeError), match=match):
+        fa.flash_attention(q, k, k, causal=False)
+
+
+def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
+    fa.reset_launches()
+    q, k, v = map(torch.from_numpy, _inputs(1, 2, 2, 64, 64, 16, 1))
+    fa.flash_attention(q, k, v)
+    assert fa.LAUNCHES["flash_attention"] == 0

@@ -1,5 +1,6 @@
 """Card-only tests: the CUDA kernels against their plain versions, and the
-port's join and stream engine on the card against their own CPU runs.  They carry the ``gpu``
+port's join, stream engine and dense transformer on the card against their
+own CPU runs.  They carry the ``gpu``
 marker and skip where no card is present; on a machine with one, run
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.  This file imports no
 JAX, so it runs where JAX is not installed."""
@@ -11,9 +12,14 @@ from repro_torch import core as tcore
 from repro_torch import data as tdata
 from repro_torch import mapreduce as tmr
 from repro_torch import stream as tstream
+from repro_torch import configs as tconfigs
+from repro_torch import models as tmodels
 from repro_torch.kernels import block_join as bj
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import histogram as hg
 from repro_torch.kernels import ingest_fused as fi
 from repro_torch.kernels import sketch_update as su
+from repro_torch.models import transformer as tt
 
 pytestmark = pytest.mark.gpu
 
@@ -210,3 +216,125 @@ def test_static_route_stream_on_card_matches_host(cuda):
     for b in _stream_batches():
         assert card.ingest(b) == host.ingest(b)
     assert fi.LAUNCHES["fused_ingest"] > 0 and fi.LAUNCHES["fused_ingest_dense"] == 0
+
+
+# ---- FlashAttention (K6) and the histogram (K5) ------------------------------
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize(
+    "b,h,hkv,lq,lk,d,causal,dtype",
+    [
+        (1, 2, 2, 128, 128, 32, True, _F32),
+        (2, 4, 2, 128, 128, 64, True, _F32),
+        (1, 8, 1, 256, 256, 32, True, _F32),  # MQA
+        (2, 2, 2, 128, 128, 32, False, _F32),
+        (1, 4, 4, 64, 64, 16, True, _F32),
+        (2, 4, 4, 200, 200, 64, True, _F32),  # ragged L
+        (1, 2, 2, 77, 131, 32, False, _F32),  # ragged, Lq != Lk
+        (2, 32, 8, 200, 200, 128, True, _BF16),  # Granite's 32:8 grouping
+        (1, 4, 2, 100, 100, 80, True, _F32),  # Zamba's head dim
+        (1, 4, 2, 300, 300, 128, True, _BF16),
+        (1, 4, 4, 130, 130, 256, True, _F32),  # Gemma's head dim
+        (1, 4, 4, 130, 130, 256, False, _BF16),
+    ],
+)
+def test_flash_attention_kernel_matches_plain(cuda, b, h, hkv, lq, lk, d, causal, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(b * 1000 + h * 10 + lq + d)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dtype)
+        for s in ((b, h, lq, d), (b, hkv, lk, d), (b, hkv, lk, d))
+    )
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, lq, d)
+    want = fa.flash_attention_ref(q, k, v, causal=causal)
+    tol = 2e-5 if dtype == _F32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_flash_attention_kernel_reads_strides(cuda, dtype):
+    """q, k, v as the attention layer hands them over: [B, L, H, D]
+    projections seen as [B, H, L, D], not copied; and a bf16 view whose
+    base is not 16-byte aligned, which the wrapper copies."""
+    rng = np.random.default_rng(3)
+    base = [torch.from_numpy(rng.normal(size=(2, 96, n, 64)).astype(np.float32)).to(cuda, dtype)
+            for n in (8, 2, 2)]
+    q, k, v = (t.transpose(1, 2) for t in base)
+    assert not q.is_contiguous()
+    flat = torch.zeros(v.numel() + 1, dtype=dtype, device=cuda)
+    v_off = flat[1:].view(2, 2, 96, 64)
+    v_off.copy_(v)
+    tol = 2e-5 if dtype == _F32 else 2e-2
+    want = fa.flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    for vv in (v, v_off):
+        got = fa.flash_attention(q, k, vv, causal=True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4097, 300_001])
+@pytest.mark.parametrize("num_bins", [1, 513, 100_000])
+def test_histogram_kernel_matches_plain(cuda, n, num_bins):
+    rng = np.random.default_rng(n + num_bins)
+    vals = rng.integers(-3, num_bins + 5, n)
+    vals[: n // 4] = num_bins // 2  # a heavy hitter
+    vals = torch.from_numpy(vals.astype(np.int32)).to(cuda)
+    before = hg.LAUNCHES["histogram"]
+    got = hg.histogram(vals, num_bins)
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["histogram"] == before + (1 if n else 0)
+    assert torch.equal(got, hg.histogram_ref(vals, num_bins))
+
+
+# ---- the dense transformer on the card ---------------------------------------
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "granite-3-8b", "gemma3-4b", "hubert-xlarge"])
+def test_transformer_on_card_matches_cpu(cuda, name):
+    """Reduced configs in fp32: the card (K6 for full-window layers) against
+    the CPU (the plain attention branches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_config(name).reduced()
+    rng = np.random.default_rng(1)
+    b, l = 2, 40
+    cpu = tmodels.build_model(cfg, device="cpu")
+    params = cpu.init_params(1)
+    card = tmodels.build_model(cfg, device=cuda)
+    params_card = _to(params, cuda)
+    batch = tmodels.make_batch(cfg, rng, b, l, device="cpu")
+    if "prefix_embeds" in batch:
+        batch["prefix_embeds"] = batch["prefix_embeds"].float()
+    fa.reset_launches()
+    got = card.forward_hidden(params_card, _to(batch, cuda), dtype=torch.float32)
+    want = cpu.forward_hidden(params, batch, dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    # a sliding-window config keeps the plain branches on every layer
+    assert fa.LAUNCHES["flash_attention"] == (0 if cfg.window else cfg.n_layers)
+    if card.init_cache is None:
+        return
+    toks = batch["tokens"]
+    c_card = card.init_cache(b, l + 4, dtype=torch.float32)
+    c_cpu = cpu.init_cache(b, l + 4, dtype=torch.float32)
+    lg_card, _ = tt.prefill(cfg, params_card, toks.to(cuda), c_card, dtype=torch.float32)
+    lg_cpu, _ = tt.prefill(cfg, params, toks, c_cpu, dtype=torch.float32)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(c_card["k"].cpu(), c_cpu["k"], rtol=2e-4, atol=2e-4)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32))
+    d_card, _ = card.decode_step(params_card, c_card, nxt.to(cuda), l, dtype=torch.float32)
+    d_cpu, _ = cpu.decode_step(params, c_cpu, nxt, l, dtype=torch.float32)
+    torch.testing.assert_close(d_card.cpu(), d_cpu, rtol=2e-4, atol=2e-4)
+
+
+def _to(tree, device):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
