@@ -464,6 +464,11 @@ def _lm_phases(dev, r_col):
         return lg, (time.perf_counter() - t) * 1e3
 
     (_, ms_step_traced), busy_dec = _traced(one_step)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        one_step()
+    n_calls = sum(1 for ev in prof.events() if ev.cpu_parent is None)
+    _say(f"[lm] one decode step makes {n_calls} top-level PyTorch calls on the host "
+         f"({cfg.n_layers} layers)")
     _say(f"[lm] bf16 serving olmo-1b: prefill [{batch}, {l_prompt}] ms "
          f"{[round(x, 3) for x in prefill_ms]} (first is the warm-up); {n_new} greedy tokens "
          f"per sequence: first from the prefill, then {len(step_ms)} decode steps, ms per step "
