@@ -54,14 +54,40 @@ Phases:
      prefill);
  16. K6 and K5 at the main path's shapes: device time, plain time, one
      PyTorch call's time (``scaled_dot_product_attention``,
-     ``torch.bincount``; timed here, never called by the port), bound.
+     ``torch.bincount``; timed here, never called by the port), bound;
+ 17. the wkv6 recurrence (K7) against its plain version on the card: five
+     shapes (ragged L, a given state, the decode shape [4, 1, 40, 64] and
+     rwkv6-3b's [4, 2048, 40, 64]) and one pass of L = 2048 against two of
+     1024 with the state carried in place (relative tolerance 2e-4);
+ 18. rwkv6-3b at full width (32 layers, d = 2560, 40 heads of 64, random
+     weights from seed 0; OLMo's freed first) in fp32, on [2, 64] prompts:
+     each block on the forward's own input, through K7 (L = 64 from zero)
+     against the plain recurrence and decoded token by token (K7 at L = 1,
+     the state carried in place) against the forward (2e-4); end to end,
+     ``forward_hidden`` logits against token-by-token ``decode_step``
+     logits at every position and ``forward_hidden`` through K7 against the
+     plain recurrence, on three prompts (5e-2: 32 random layers amplify
+     rounding; see the source);
+ 19. the same model behind ``BucketServer`` in fp32: six requests with
+     prompts of 16 and 32 tokens and max_new = 8; each completion equals
+     ``greedy_generate`` of its prompt alone;
+ 20. bf16 serving, the RWKV main path: a forward-only ``loss_fn`` over
+     [4, 2048] prompts (scoring long prompts, 32 K7 launches at L = 2048),
+     then ``greedy_generate`` of 4 prompts of 128 tokens with 32 new tokens
+     (``scan_prefill`` and ``decode_step``); forward ms, ms per decode step,
+     the host's PyTorch calls in one decode step, the device's busy share of
+     one forward and one decode step, peak device memory, K7's launches;
+ 21. K7 at the model's shapes, [4, 2048, 40, 64] from zero and [4, 1, 40, 64]
+     with a state: CUDA events and the profiler trace, plain time, bound.
 
 Kernel times are device time per call of the kernel's own CUDA functions,
 from a ``torch.profiler`` trace of repeated calls (CUDA events around the
 wrapper where the trace shows no device time); the wrapper's time, host
 work included, is CUDA events around repeated calls.  K6's time is the
 wrapper's (its host work is microseconds against a millisecond kernel), the
-trace's printed beside it: the two disagreed by 2x in one run.
+trace's printed beside it: the two disagreed by 2x in one run.  K7's time at
+the forward's shape is taken the same way; at the decode shape, where the
+wrapper's host work is as long as the kernel, it is the trace's.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -87,6 +113,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 BF16_FLOPS = 989e12  # dense tensor-core rate
+FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 
 # the CUDA functions of each source, as the profiler names them
 JOIN_KERNELS = ("block_join_kernel",)
@@ -94,6 +121,7 @@ CMS_KERNELS = ("cms_kernel",)
 INGEST_KERNELS = ("tile_kernel", "scan_kernel", "fix_kernel", "cms_kernel")
 FLASH_KERNELS = ("flash_fwd_",)
 HIST_KERNELS = ("histogram_kernel",)
+WKV_KERNELS = ("wkv6_kernel",)
 
 
 def _say(*args) -> None:
@@ -289,6 +317,19 @@ def _flash_work(b, h, l, d, causal, elem_bytes):
     q, k, v and o moved once."""
     pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
     return 4.0 * d * pairs, 4.0 * b * h * l * d * elem_bytes
+
+
+def _wkv_work(b, l, h, hd, with_state):
+    """(fp32 operations, bytes) of one wkv6 call: per (b, t, h), 5 hd^2 for
+    y's sums r_i S_ij (a multiply and an add) and the state update
+    w_i S_ij + k_i v_j (two multiplies and an add), and 5 hd for the bonus
+    (r_i u_i k_i: two multiplies and an add; v_j times it, added to y_j).
+    Bytes: r, k, v, w read and y written once, u read, the final state
+    written once and, when given, the initial state read once."""
+    n = b * l * h
+    state = 4.0 * b * h * hd * hd
+    return float(n * (5 * hd * hd + 5 * hd)), 20.0 * n * hd + 4.0 * h * hd + state * (
+        2 if with_state else 1)
 
 
 def _lm_phases(dev, r_col):
@@ -531,6 +572,288 @@ def _lm_phases(dev, r_col):
         "ms": ms5, "plain_ms": hist_plain, "bound_ms": bound5, "bound_by": by5,
         "library_ms": lib5,
     }]
+
+
+def _rwkv_phases(dev):
+    """Phases 17-21; returns the kernels line's K7 entry."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import build_model, layers, rwkv6
+    from repro_torch.serve import BucketServer, Request, greedy_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = 2e-4  # the JAX package's wkv6 kernel tests
+
+    @contextlib.contextmanager
+    def plain_recurrence():
+        """The model's recurrence through the plain version, not K7."""
+        rwkv6.wkv6 = lambda r, k, v, w, u, s0=None, state_out=None: wk.wkv6_ref(
+            r, k, v, w, u, s0)
+        try:
+            yield
+        finally:
+            rwkv6.wkv6 = wk.wkv6
+
+    def wkv_inputs(b, l, h, hd, seed):
+        """r, k, v, w, u, s0 drawn as the JAX kernel tests draw them: k
+        scaled by 0.3, w in (0.6, 0.999), u != 0."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        r, k, v = (torch.randn((b, l, h, hd), generator=g, device=dev) for _ in range(3))
+        w = 0.6 + 0.399 * torch.rand((b, l, h, hd), generator=g, device=dev)
+        u = 0.1 * torch.randn((h, hd), generator=g, device=dev)
+        s0 = 0.5 * torch.randn((b, h, hd, hd), generator=g, device=dev)
+        return r, 0.3 * k, v, w, u, s0
+
+    # ---- 17. K7 against its plain version -----------------------------------
+    for b, l, h, hd, with_s0 in [(1, 64, 2, 16, False), (2, 100, 4, 16, False),
+                                 (2, 128, 4, 32, True), (4, 1, 40, 64, True),
+                                 (4, 2048, 40, 64, False)]:
+        r, k, v, w, u, s0 = wkv_inputs(b, l, h, hd, b * 1000 + l + hd)
+        s0 = s0 if with_s0 else None
+        y, s = wk.wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+        err = max(_max_float_err(y, y_want), _max_float_err(s, s_want))
+        _say(f"[check] wkv6 {(b, l, h, hd)} s0={'given' if with_s0 else 'zero'}: "
+             f"max_abs_err={err:.3g} over y and the state (|y| up to "
+             f"{float(y_want.abs().max()):.3g}; rtol = atol = {tol})")
+        assert _close(y, y_want, tol) and _close(s, s_want, tol)
+        if l == 2048:
+            fwd_in, fwd_err = (r, k, v, w, u), err
+    r, k, v, w, u = fwd_in
+    y, s = wk.wkv6(r, k, v, w, u)
+    half = r.shape[1] // 2
+    state = torch.zeros_like(s)
+    y1, _ = wk.wkv6(r[:, :half], k[:, :half], v[:, :half], w[:, :half], u, state,
+                    state_out=state)
+    y2, _ = wk.wkv6(r[:, half:], k[:, half:], v[:, half:], w[:, half:], u, state,
+                    state_out=state)
+    torch.cuda.synchronize()
+    err2 = max(_max_float_err(torch.cat([y1, y2], 1), y), _max_float_err(state, s))
+    _say(f"[check] wkv6 one pass of L={r.shape[1]} vs two of {half} with the state carried "
+         f"in place: max_abs_err={err2:.3g}")
+    assert _close(torch.cat([y1, y2], 1), y, tol) and _close(state, s, tol)
+    dec_in = wkv_inputs(4, 1, 40, 64, 7)
+
+    # ---- 18. rwkv6-3b at full width in fp32: forward (K7) against decode ------
+    cfg = get_config("rwkv6-3b")
+    model = build_model(cfg, device=dev)
+
+    def end_to_end(params, prompts):
+        """Max |error| over every position between forward_hidden's logits
+        and token-by-token decode_step's, and between forward_hidden through
+        K7 and through the plain recurrence; the logits' scale."""
+        hid = model.forward_hidden(params, {"tokens": prompts}, dtype=f32)
+        want = hid @ params["lm_head"]["w"]  # [B, L, V]
+        assert torch.isfinite(want).all() and want.shape == (*prompts.shape, cfg.vocab)
+        state = model.init_cache(prompts.shape[0], dtype=f32)
+        err_dec = 0.0
+        for pos in range(prompts.shape[1]):
+            logits, state = model.decode_step(params, state, prompts[:, pos:pos + 1], pos,
+                                              dtype=f32)
+            err_dec = max(err_dec, _max_float_err(logits, want[:, pos]))
+        with plain_recurrence():
+            hid_plain = model.forward_hidden(params, {"tokens": prompts}, dtype=f32)
+        return err_dec, _max_float_err(hid, hid_plain), float(want.abs().max())
+
+    t = time.perf_counter()
+    params = model.init_params(0, dtype=f32)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    _say(f"[rwkv] rwkv6-3b at full width: {cfg.n_layers} layers d={cfg.d_model} "
+         f"heads={cfg.n_heads}x{cfg.hd} ff={cfg.d_ff} vocab={cfg.vocab}; {n_params} parameters, "
+         f"fp32 init {time.perf_counter() - t:.2f} s")
+    gen = np.random.default_rng(1)
+    prompts = torch.from_numpy(gen.integers(0, cfg.vocab, (2, 64)).astype(np.int32)).to(dev)
+    # Layer by layer, each block fed the forward's own input: its output
+    # through K7 (L = 64 from zero) against the plain recurrence, and
+    # token-by-token decoding of the block (K7 at L = 1, the layer's state
+    # carried in place) against the forward.
+    reset_launches()
+    x = layers.layer_norm(params["ln0"], layers.embed(params["embed"], prompts, f32))
+    state = model.init_cache(2, dtype=f32)
+    err_plain = err_step = 0.0
+    t = time.perf_counter()
+    for i, blk in enumerate(params["blocks"]):
+        out = rwkv6._block_apply(cfg, blk, x)
+        with plain_recurrence():
+            out_plain = rwkv6._block_apply(cfg, blk, x)
+        steps = torch.cat([rwkv6._block_step(cfg, blk, x[:, pos:pos + 1], state, i)
+                           for pos in range(prompts.shape[1])], dim=1)
+        torch.cuda.synchronize()
+        assert _close(out, out_plain, tol) and _close(steps, out, tol), i
+        err_plain = max(err_plain, _max_float_err(out, out_plain))
+        err_step = max(err_step, _max_float_err(steps, out))
+        x = out
+    assert launches()["wkv6"] == cfg.n_layers * (1 + prompts.shape[1]), launches()
+    _say(f"[rwkv] fp32 each of the {cfg.n_layers} blocks on the forward's own input "
+         f"{list(prompts.shape)} ({time.perf_counter() - t:.2f} s): through K7 vs the plain "
+         f"recurrence max_abs_err={err_plain:.3g}; token-by-token (K7 at L = 1, the state "
+         f"carried in place) vs the forward max_abs_err={err_step:.3g} (|x| up to "
+         f"{float(x.abs().max()):.3g}; rtol = atol = {tol})")
+    # End to end, 32 layers of random weights carry a rounding difference
+    # from one layer into the next and multiply it: the same comparisons on
+    # three prompts part by 1e-4 to 1e-2 with every block within 2e-4
+    # above.  So the end-to-end bound, 5e-2, catches a fault of structure
+    # (a state carried wrongly parts the logits by their own scale) and not
+    # the depth's amplification of rounding.
+    for seed in (1, 2, 3):
+        p_seed = prompts if seed == 1 else torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (2, 64)).astype(np.int32)).to(dev)
+        t = time.perf_counter()
+        err_dec, err_hid, scale = end_to_end(params, p_seed)
+        _say(f"[rwkv] fp32 end to end, prompt seed {seed}: forward_hidden (K7 from zero) vs "
+             f"token-by-token decode_step logits at every position max_abs_err={err_dec:.3g}; "
+             f"forward_hidden through K7 vs the plain recurrence max_abs_err={err_hid:.3g} "
+             f"(tolerance 5e-2; logits scale {scale:.3g}; {time.perf_counter() - t:.2f} s)")
+        assert err_dec <= 5e-2 and err_hid <= 5e-2
+    del x, out, out_plain, steps, state
+
+    # ---- 19. BucketServer in fp32: every completion equals solo generation ----
+    server = BucketServer(model, params, max_batch=8, dtype=f32)
+    reqs = [Request(uid=i, prompt=gen.integers(0, cfg.vocab, 16 if i % 2 else 32)
+                    .astype(np.int32), max_new=8) for i in range(6)]
+    for req in reqs:
+        server.submit(req)
+    t = time.perf_counter()
+    done = server.drain()
+    t_drain = time.perf_counter() - t
+    assert sorted(c.uid for c in done) == list(range(6))
+    for c in done:
+        solo = greedy_generate(model, params, reqs[c.uid].prompt[None], 8, dtype=f32)
+        assert c.tokens.shape == (8,) and np.array_equal(c.tokens, solo[0]), \
+            (c.uid, c.tokens, solo[0])
+    _say(f"[rwkv] BucketServer fp32: 6 requests (prompts of 16 and 32 tokens, max_new=8) "
+         f"drained in two waves in {t_drain:.2f} s; each completion equals greedy_generate "
+         f"of its prompt alone")
+    del params, server
+    torch.cuda.empty_cache()
+
+    # ---- 20. bf16 serving: loss_fn [4, 2048], then greedy generation ---------
+    params = model.init_params(0, dtype=bf16)
+    batch, l_long, l_prompt, n_new = 4, 2048, 128, 32
+    long = torch.from_numpy(gen.integers(0, cfg.vocab, (batch, l_long)).astype(np.int32)).to(dev)
+    prompts = gen.integers(0, cfg.vocab, (batch, l_prompt)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def do_forward():
+        t = time.perf_counter()
+        out = model.loss_fn(params, {"tokens": long}, dtype=bf16)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    step_ms = []
+
+    def timed_step(*args, **kw):
+        t = time.perf_counter()
+        out = model.decode_step(*args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    reset_launches()
+    fwd_ms = [do_forward()[1] for _ in range(4)]  # the first is a warm-up
+    (loss, ms_traced), busy_fwd = _traced(do_forward)
+    t = time.perf_counter()
+    tokens = greedy_generate(dataclasses.replace(model, decode_step=timed_step), params,
+                             prompts, n_new, dtype=bf16)
+    t_gen = time.perf_counter() - t
+    rwkv_launches = launches()
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = step_ms[l_prompt:]  # after the prompt's scan
+    state = model.init_cache(batch, dtype=bf16)
+    tok = torch.from_numpy(prompts[:, :1]).to(dev)
+
+    def one_step():
+        t = time.perf_counter()
+        lg, _ = model.decode_step(params, state, tok, dtype=bf16)
+        torch.cuda.synchronize()
+        return lg, (time.perf_counter() - t) * 1e3
+
+    one_step()
+    (_, ms_step_traced), busy_dec = _traced(one_step)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        one_step()
+    n_calls = sum(1 for ev in prof.events() if ev.cpu_parent is None)
+    _say(f"[rwkv] one decode step makes {n_calls} top-level PyTorch calls on the host "
+         f"({cfg.n_layers} layers)")
+    _say(f"[rwkv] bf16 serving rwkv6-3b: loss_fn [{batch}, {l_long}] = {float(loss):.4f}, ms "
+         f"{[round(x, 3) for x in fwd_ms]} (first is the warm-up); greedy_generate of "
+         f"[{batch}, {l_prompt}] prompts, {n_new} new tokens in {t_gen:.2f} s: {len(step_ms)} "
+         f"decode steps ({l_prompt} of the prompt's scan), ms per step ({batch} sequences) "
+         f"after the prompt median {float(np.median(decode_ms)):.3f} min {min(decode_ms):.3f} "
+         f"max {max(decode_ms):.3f}, over all median {float(np.median(step_ms)):.3f}; "
+         f"{float(np.median(decode_ms)) / batch:.3f} ms per token")
+    _say(f"[rwkv] generated tokens (sequence 0): {tokens[0].tolist()}")
+    _say(f"[rwkv] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); "
+         f"launches={rwkv_launches}")
+    for what, busy, wall in [("forward", busy_fwd, ms_traced),
+                             ("decode step", busy_dec, ms_step_traced)]:
+        if busy:
+            b_ms = sum(busy.values()) / 1e3
+            _say(f"[rwkv] one {what} under the profiler: device busy {b_ms:.3f} ms of "
+                 f"{wall:.3f} ms ({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} "
+                 "%); by function (ms): " + "; ".join(
+                     f"{k[:60]} {v / 1e3:.3f}" for k, v in
+                     sorted(busy.items(), key=lambda kv: -kv[1])[:6]))
+        else:
+            _say(f"[rwkv] one {what} under the profiler: no device events; busy share not "
+                 "measured")
+    # K7 inside the model: device ms a call, from the two traces above
+    in_model = [sum(v for k, v in busy.items() if WKV_KERNELS[0] in k) / 1e3 / cfg.n_layers
+                for busy in (busy_fwd, busy_dec)]
+    assert np.isfinite(float(loss)) and tokens.shape == (batch, n_new)
+    assert len(step_ms) == l_prompt + n_new - 1
+    assert rwkv_launches["wkv6"] == cfg.n_layers * (5 + len(step_ms)), rwkv_launches
+    del params, state
+    torch.cuda.empty_cache()
+
+    # ---- 21. K7 at the model's shapes ------------------------------------------
+    r, k, v, w, u = fwd_in
+    trace7, how7, ms7, _ = _kernel_ms(lambda: wk.wkv6(r, k, v, w, u), WKV_KERNELS, reps=10)
+    _, plain7 = _plain_ms(lambda: wk.wkv6_ref(r, k, v, w, u))
+    ops7, bytes7 = _wkv_work(*r.shape, False)
+    bound7, by7 = _bound(ops7, bytes7, FP32_FLOPS)
+    _say(f"[K7] wkv6 {tuple(r.shape)} from zero: kernel {ms7:.4f} ms (CUDA events around the "
+         f"wrapper; {how7} {trace7:.4f} ms); plain {plain7:.2f} ms; bound {bound7:.4f} ms by "
+         f"{by7} ({ops7:.4g} fp32 operations at 67 TFLOP/s, {bytes7:.4g} bytes); "
+         f"{100 * bound7 / ms7:.1f} % of the bound; in the forward's trace "
+         f"{in_model[0]:.4f} ms a call")
+    rd, kd, vd, wd, ud, sd = dec_in
+    ms7d, how7d, wrap7d, _ = _kernel_ms(lambda: wk.wkv6(rd, kd, vd, wd, ud, sd, state_out=sd),
+                                        WKV_KERNELS, reps=50)
+    _, plain7d = _plain_ms(lambda: wk.wkv6_ref(rd, kd, vd, wd, ud, sd))
+    ops7d, bytes7d = _wkv_work(*rd.shape, True)
+    bound7d, by7d = _bound(ops7d, bytes7d, FP32_FLOPS)
+    _say(f"[K7] wkv6 {tuple(rd.shape)} with the state in place: kernel {ms7d:.4f} ms ({how7d}; "
+         f"wrapper {wrap7d:.4f} ms by CUDA events); plain {plain7d:.3f} ms; bound {bound7d:.5f} "
+         f"ms by {by7d}; {100 * bound7d / ms7d:.1f} % of the bound; in the decode step's trace "
+         f"{in_model[1]:.4f} ms a call")
+    return [{
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:51",
+        "launches": rwkv_launches["wkv6"], "max_abs_err": fwd_err,
+        "ms": ms7, "plain_ms": plain7, "bound_ms": bound7, "bound_by": by7,
+        "library_ms": None,
+    }]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
 
 
 def main() -> int:
@@ -1031,6 +1354,8 @@ def main() -> int:
         })
 
     kernels += _lm_phases(dev, data["R"][:, 1])
+    torch.cuda.empty_cache()
+    kernels += _rwkv_phases(dev)
 
     _say(f"[done] wall {time.perf_counter() - t_all:.1f} s")
     _say(json.dumps({"kernels": kernels}))

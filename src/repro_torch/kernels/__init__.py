@@ -11,13 +11,15 @@ version (taken for CPU tensors) and a launch counter.
     ``csrc/histogram.cu``
   * ``flash_attention.flash_attention`` — attention forward with online
     softmax and GQA, ``csrc/flash_attention.cu``
+  * ``wkv6.wkv6`` — the RWKV-6 wkv recurrence with its state carried in and
+    out, ``csrc/wkv6.cu``
 
-(The last two wrappers share their module's name, so the package exports
+(The last three wrappers share their module's name, so the package exports
 the modules under those names.)
 
 Sources are compiled with nvcc at first use (``_build``), never at import.
 """
-from . import block_join, flash_attention, histogram, ingest_fused, sketch_update
+from . import block_join, flash_attention, histogram, ingest_fused, sketch_update, wkv6
 from .block_join import block_join_ref, flat_join, reducer_join, tiled_join_ref
 from .flash_attention import flash_attention_ref
 from .histogram import histogram_ref
@@ -32,8 +34,9 @@ from .ingest_fused import (
     route_width,
 )
 from .sketch_update import cms_update, cms_update_ref
+from .wkv6 import wkv6_ref
 
-_MODULES = (block_join, sketch_update, ingest_fused, histogram, flash_attention)
+_MODULES = (block_join, sketch_update, ingest_fused, histogram, flash_attention, wkv6)
 
 
 def launches() -> dict[str, int]:
@@ -65,4 +68,5 @@ __all__ = [
     "reset_launches",
     "route_width",
     "tiled_join_ref",
+    "wkv6_ref",
 ]

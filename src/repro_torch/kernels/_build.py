@@ -27,6 +27,7 @@ SOURCES = {
     "flash_attention": _CSRC / "flash_attention.cu",
     "histogram": _CSRC / "histogram.cu",
     "ingest_fused": _CSRC / "ingest_fused.cu",
+    "wkv6": _CSRC / "wkv6.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

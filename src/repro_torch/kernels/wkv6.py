@@ -1,0 +1,134 @@
+"""RWKV-6 wkv recurrence: CUDA kernel and its plain PyTorch version.
+
+For r, k, v, w ``[B, L, H, hd]`` fp32, the bonus ``u [H, hd]`` and an
+optional initial state ``s0 [B, H, hd, hd]`` (zero when omitted), per
+(b, h) and token t::
+
+    y_t = r_t · (S + u ∘ (k_t ⊗ v_t));   S <- diag(w_t) S + k_t ⊗ v_t
+
+returning ``(y [B, L, H, hd], S_final [B, H, hd, hd])``.  From zero it is
+``repro.kernels.wkv6.wkv6_pallas``'s function; with a state it is what the
+model's ``repro.models.rwkv6._wkv_scan`` takes and returns, in the same
+layout, so ``time_mix`` needs no transpose and ``u`` is indexed by head
+rather than broadcast to ``[B*H, hd]``.
+
+``wkv6`` takes the hand-written CUDA kernel (``csrc/wkv6.cu``) for CUDA
+tensors and the plain ``wkv6_ref`` for CPU tensors; a CUDA tensor never
+falls back to the plain version.  The kernel reads r, k, v and w through
+their strides (the reshapes of ``time_mix``'s projections are not copied)
+and takes any ``L >= 1``.  ``state_out``, when given, is a contiguous
+buffer that receives the final state and may be ``s0`` itself: a decode
+step updates its state in place.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import library
+
+LAUNCHES = {"wkv6": 0}
+
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # the kernel's instantiations
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def wkv6_ref(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+    s0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: a loop over t with the state carried, in fp32, in the
+    order of the JAX package's scan; returns (y, final state)."""
+    b, l, h, hd = r.shape
+    s = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device) if s0 is None \
+        else s0.float()
+    uu = u.float()[None, :, :, None]
+    ys = []
+    for t in range(l):
+        kv = k[:, t].float()[..., :, None] * v[:, t].float()[..., None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t].float(), s + uu * kv))
+        s = w[:, t].float()[..., :, None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
+def _check(r, k, v, w, u, s0, state_out) -> None:
+    if any(t.dim() != 4 for t in (r, k, v, w)):
+        raise ValueError("wkv6: r, k, v and w must be [B, L, H, hd]")
+    if not r.shape == k.shape == v.shape == w.shape:
+        raise ValueError(
+            f"wkv6: r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} and "
+            f"w {tuple(w.shape)} differ"
+        )
+    b, l, h, hd = r.shape
+    if u.shape != (h, hd):
+        raise ValueError(f"wkv6: u must be [H, hd] = {(h, hd)}, got {tuple(u.shape)}")
+    for name, s in (("s0", s0), ("state_out", state_out)):
+        if s is not None and s.shape != (b, h, hd, hd):
+            raise ValueError(
+                f"wkv6: {name} must be [B, H, hd, hd] = {(b, h, hd, hd)}, got {tuple(s.shape)}"
+            )
+    if state_out is not None and not state_out.is_contiguous():
+        raise ValueError("wkv6: state_out must be contiguous (it is written in place)")
+    given = [t for t in (r, k, v, w, u, s0, state_out) if t is not None]
+    if any(t.dtype != torch.float32 for t in given):
+        raise TypeError(
+            "wkv6: every input must be float32, got " + ", ".join(str(t.dtype) for t in given)
+        )
+    if any(t.device != r.device for t in given):
+        raise ValueError("wkv6: every input must lie on one device")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"wkv6: head dim {hd} must be a multiple of 16 in [16, 128]")
+    if l < 1:
+        raise ValueError("wkv6: needs at least one token")
+
+
+def _launch(r, k, v, w, u, s0, state_out) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on the card; counts no launch."""
+    b, l, h, hd = r.shape
+    r, k, v, w = (t if t.stride(-1) == 1 else t.contiguous() for t in (r, k, v, w))
+    u = u.contiguous()
+    if s0 is not None:
+        s0 = s0.contiguous()
+    s_out = state_out
+    if s_out is None:
+        s_out = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    y = torch.empty((b, l, h, hd), dtype=torch.float32, device=r.device)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (r, k, v, w) for s in t.stride()[:3]))
+    fn = library("wkv6").wkv6_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = fn(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            None if s0 is None else s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+            b, l, h, hd, strides, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"wkv6 kernel launch failed: cudaError {err}")
+    return y, s_out
+
+
+def wkv6(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+    s0: torch.Tensor | None = None, state_out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wkv recurrence over ``[B, L, H, hd]``; returns (y, final state),
+    the final state written into ``state_out`` when it is given."""
+    _check(r, k, v, w, u, s0, state_out)
+    if r.device.type == "cpu":
+        y, s = wkv6_ref(r, k, v, w, u, s0)
+        if state_out is not None:
+            s = state_out.copy_(s)
+        return y, s
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6: no kernel for device {r.device}")
+    out = _launch(r, k, v, w, u, s0, state_out)
+    LAUNCHES["wkv6"] += 1
+    return out

@@ -1,10 +1,12 @@
 """Carry the JAX package's parameters into the port.
 
 ``params_from_jax(cfg, params)`` takes the parameter tree of
-``repro.models.transformer.init_params`` with numpy (or array-like) leaves,
-its blocks stacked on axis 0, and returns the port's parameters: the same
-nested keys with ``blocks`` as a list of per-layer dicts.  It imports
-nothing of JAX; a caller hands it ``jax.tree.map(np.asarray, params)``.
+``repro.models.transformer.init_params`` or ``repro.models.rwkv6.init_params``
+with numpy (or array-like) leaves, its blocks stacked on axis 0, and returns
+the port's parameters: the same nested keys (``ln0``, the nested ``tm`` /
+``cm`` / ``ln_x`` dicts and all) with ``blocks`` as a list of per-layer
+dicts.  It imports nothing of JAX; a caller hands it
+``jax.tree.map(np.asarray, params)``.
 Tests use it to run both packages on identical weights, since
 ``jax.random`` and ``torch.Generator`` draw different numbers.
 """
@@ -27,21 +29,16 @@ def _tree(node, fn):
 
 def params_from_jax(cfg: ArchConfig, params: dict, device: torch.device | str = "cuda") -> dict:
     """The port's parameters, float32 on ``device`` as the JAX package
-    keeps them, from the JAX package's tree (dense, vlm and audio
+    keeps them, from the JAX package's tree (dense, vlm, audio and ssm
     families)."""
     dev = _device(device)
 
     def put(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    blocks = params["blocks"]
-    out = {
-        "embed": _tree(params["embed"], put),
-        "blocks": [
-            _tree(blocks, lambda a, i=i: put(np.asarray(a)[i])) for i in range(cfg.n_layers)
-        ],
-        "final_norm": _tree(params.get("final_norm"), put),
-    }
-    if "lm_head" in params:
-        out["lm_head"] = _tree(params["lm_head"], put)
+    out = {key: _tree(node, put) for key, node in params.items() if key != "blocks"}
+    out["blocks"] = [
+        _tree(params["blocks"], lambda a, i=i: put(np.asarray(a)[i]))
+        for i in range(cfg.n_layers)
+    ]
     return out

@@ -6,8 +6,8 @@ whose members share one signature per role, so the serving loop treats
 every architecture alike.  The model lives on one device, chosen here:
 ``device="cuda"`` unless the caller asks for the CPU, and a CUDA device
 without a card raises.  ``dense``, ``vlm`` and ``audio`` run on
-``transformer``; ``moe``, ``ssm`` and ``hybrid`` are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+``transformer``, ``ssm`` (RWKV-6) on ``rwkv6``; ``moe`` and ``hybrid`` are
+not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,11 +20,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.mapreduce.executor import _device
 
-from . import transformer
+from . import rwkv6, transformer
 
 _NOT_PORTED = {
     "moe": "models/moe.py (ROADMAP queue 1, item 15)",
-    "ssm": "models/rwkv6.py with K7 (ROADMAP queue 1, item 16)",
     "hybrid": "models/mamba2.py (ROADMAP queue 1, item 17)",
 }
 
@@ -45,6 +44,20 @@ def build_model(cfg: ArchConfig, device: torch.device | str = "cuda") -> ModelAp
     fam = cfg.family
     if fam in _NOT_PORTED:
         raise NotImplementedError(f"family {fam!r} is not ported yet: {_NOT_PORTED[fam]}")
+    if fam == "ssm":
+        return ModelApi(
+            cfg=cfg,
+            device=dev,
+            init_params=lambda seed, dtype=torch.float32: rwkv6.init_params(
+                cfg, seed, dev, dtype),
+            loss_fn=lambda params, batch, **kw: rwkv6.loss_fn(cfg, params, batch, **kw),
+            init_cache=lambda batch, max_seq=0, dtype=torch.bfloat16: rwkv6.init_state(
+                cfg, batch, dtype, dev),
+            decode_step=lambda params, cache, tokens, pos=None, **kw: rwkv6.decode_step(
+                cfg, params, cache, tokens, pos, **kw),
+            forward_hidden=lambda params, batch, **kw: rwkv6.forward_hidden(
+                cfg, params, batch["tokens"], **kw),
+        )
     if fam not in ("dense", "vlm", "audio"):
         raise ValueError(f"unknown family {fam}")
     decoder = fam != "audio"  # hubert is encoder-only

@@ -2,10 +2,13 @@
 counterpart of ``repro.serve.engine``.
 
 The engine builds on a model's ``(init_cache, decode_step)`` pair alone, as
-the JAX package's does: ``greedy_generate`` prefills token by token through
-``scan_prefill``.  (The parallel prefill, which runs FlashAttention, is
-``models.transformer.prefill``; a dense model's caller may use it and
-continue with ``decode_step``.)  Caches are updated in place.
+the JAX package's does, so it serves the dense transformer (a KV cache,
+position by position) and RWKV-6 (a recurrent state of fixed size, whose
+``decode_step`` ignores the position) alike: ``greedy_generate`` prefills
+token by token through ``scan_prefill``.  (The parallel prefill, which runs
+FlashAttention, is ``models.transformer.prefill``; a dense model's caller
+may use it and continue with ``decode_step``.)  Caches and states are
+updated in place.
 
 Scheduling: requests are grouped by prompt-length bucket into waves of at
 most ``max_batch``; a wave is one prefill plus ``max_new - 1`` decode steps

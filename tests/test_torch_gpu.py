@@ -1,6 +1,6 @@
 """Card-only tests: the CUDA kernels against their plain versions, and the
-port's join, stream engine and dense transformer on the card against their
-own CPU runs.  They carry the ``gpu``
+port's join, stream engine, dense transformer and RWKV-6 on the card against
+their own CPU runs.  They carry the ``gpu``
 marker and skip where no card is present; on a machine with one, run
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.  This file imports no
 JAX, so it runs where JAX is not installed."""
@@ -19,6 +19,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import histogram as hg
 from repro_torch.kernels import ingest_fused as fi
 from repro_torch.kernels import sketch_update as su
+from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import transformer as tt
 
 pytestmark = pytest.mark.gpu
@@ -328,6 +329,110 @@ def test_transformer_on_card_matches_cpu(cuda, name):
     d_card, _ = card.decode_step(params_card, c_card, nxt.to(cuda), l, dtype=torch.float32)
     d_cpu, _ = cpu.decode_step(params, c_cpu, nxt, l, dtype=torch.float32)
     torch.testing.assert_close(d_card.cpu(), d_cpu, rtol=2e-4, atol=2e-4)
+
+
+# ---- the wkv6 recurrence (K7) and RWKV-6 on the card --------------------------
+
+
+def _wkv_inputs(b, l, h, hd, seed, device):
+    """r, k, v, w, u, s0 as the JAX kernel tests draw them: u != 0, w in
+    (0.6, 0.999), k scaled by 0.3."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, l, h, hd)) for _ in range(3))
+    w = rng.uniform(0.6, 0.999, size=(b, l, h, hd))
+    u = rng.normal(size=(h, hd)) * 0.1
+    s0 = rng.normal(size=(b, h, hd, hd)) * 0.5
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (r, k * 0.3, v, w, u, s0)]
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("l", [1, 100, 512])
+@pytest.mark.parametrize("hd", [16, 64])
+def test_wkv6_kernel_matches_plain(cuda, hd, l, with_s0):
+    r, k, v, w, u, s0 = _wkv_inputs(2, l, 3, hd, hd + l, cuda)
+    s0 = s0 if with_s0 else None
+    before = wk.LAUNCHES["wkv6"]
+    y, s = wk.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6"] == before + 1
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("hd", [32, 48, 128])
+def test_wkv6_kernel_other_head_dims(cuda, hd):
+    r, k, v, w, u, s0 = _wkv_inputs(1, 77, 2, hd, hd, cuda)
+    y, s = wk.wkv6(r, k, v, w, u, s0)
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
+
+
+def test_wkv6_kernel_reads_strides(cuda):
+    """r as a slice of a wider buffer, k as a transposed [B, H, L, hd] view,
+    v with a last-dimension stride of 2 (the wrapper copies it)."""
+    b, l, h, hd = 2, 70, 3, 16
+    r, k, v, w, u, _ = _wkv_inputs(b, l, h, hd, 5, cuda)
+    wide = torch.zeros((b, l, h, 2 * hd), device=cuda)
+    wide[..., :hd] = r
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+    vs = torch.zeros((b, l, h, hd, 2), device=cuda)
+    vs[..., 0] = v
+    views = (wide[..., :hd], kt, vs[..., 0])
+    assert not any(t.is_contiguous() for t in views)
+    y, s = wk.wkv6(*views, w, u)
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
+
+
+def test_wkv6_kernel_updates_state_in_place(cuda):
+    """s0 and state_out one buffer, as a decode step passes them: a layer's
+    slice of the model's stacked state."""
+    r, k, v, w, u, s0 = _wkv_inputs(4, 1, 5, 64, 11, cuda)
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+    stack = torch.zeros((3, 4, 5, 64, 64), device=cuda)
+    buf = stack[1]
+    buf.copy_(s0)
+    y, s = wk.wkv6(r, k, v, w, u, buf, state_out=buf)
+    assert s.data_ptr() == buf.data_ptr()
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(buf, s_want, rtol=2e-4, atol=2e-4)
+    assert not stack[0].any() and not stack[2].any()
+    with pytest.raises(TypeError, match="float32"):
+        wk.wkv6(r.bfloat16(), k, v, w, u)
+
+
+def test_rwkv6_on_card_matches_cpu(cuda):
+    """Reduced rwkv6-3b in fp32: forward_hidden (K7 from zero in every layer)
+    and decode steps (K7 at L = 1, the state updated in place) on the card
+    against the CPU (the plain recurrence)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_config("rwkv6-3b").reduced()
+    rng = np.random.default_rng(2)
+    b, l = 2, 40
+    cpu = tmodels.build_model(cfg, device="cpu")
+    params = cpu.init_params(1)
+    params["blocks"][0]["tm"]["u"].normal_(0, 0.1, generator=torch.Generator().manual_seed(1))
+    card = tmodels.build_model(cfg, device=cuda)
+    params_card = _to(params, cuda)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, l)).astype(np.int32))
+    wk.reset_launches()
+    got = card.forward_hidden(params_card, {"tokens": toks.to(cuda)}, dtype=torch.float32)
+    want = cpu.forward_hidden(params, {"tokens": toks}, dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    assert wk.LAUNCHES["wkv6"] == cfg.n_layers
+    s_card, s_cpu = card.init_cache(b, dtype=torch.float32), cpu.init_cache(b, dtype=torch.float32)
+    for t in range(4):
+        lg_card, _ = card.decode_step(params_card, s_card, toks[:, t:t + 1].to(cuda),
+                                      dtype=torch.float32)
+        lg_cpu, _ = cpu.decode_step(params, s_cpu, toks[:, t:t + 1], dtype=torch.float32)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=2e-4, atol=2e-4)
+    for key in ("wkv", "x_tm", "x_cm"):
+        torch.testing.assert_close(s_card[key].cpu(), s_cpu[key], rtol=2e-4, atol=2e-4)
+    assert wk.LAUNCHES["wkv6"] == cfg.n_layers * 5
 
 
 def _to(tree, device):

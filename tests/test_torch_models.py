@@ -182,7 +182,7 @@ def test_configs_are_a_copy_of_the_reference():
         16, 2048, 16, 128, 8192, 50304)
 
 
-@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "rwkv6-3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "zamba2-2.7b"])
 def test_unported_families_raise(name):
     cfg = tconfigs.get_config(name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,0 +1,117 @@
+"""The port's wkv6 recurrence (K7) plain version against the JAX package's
+Pallas kernel (interpret mode on the CPU), its jnp oracle and the model's
+chunked scan ``repro.models.rwkv6._wkv_scan``, on the same seeded inputs;
+the state carried from one call to the next; the wrapper's checks.  The
+CUDA kernel itself is held against the plain version in
+``tests/test_torch_gpu.py`` on a card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.wkv6 import wkv6_pallas
+from repro.kernels.wkv6 import wkv6_ref as jax_wkv6_ref
+from repro.models.rwkv6 import _wkv_scan
+from repro_torch.kernels import wkv6 as wk
+
+_TOL = dict(rtol=2e-4, atol=2e-4)  # the JAX package's wkv6 kernel tests
+
+
+def _inputs(b, l, h, hd, seed, s0_scale=0.0):
+    """r, k, v, w, u, s0 as ``tests/test_kernels.py`` draws them: k scaled
+    by 0.3, w in (0.6, 0.999), u != 0."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, l, h, hd)).astype(np.float32) for _ in range(3))
+    w = rng.uniform(0.6, 0.999, size=(b, l, h, hd)).astype(np.float32)
+    u = (rng.normal(size=(h, hd)) * 0.1).astype(np.float32)
+    s0 = (rng.normal(size=(b, h, hd, hd)) * s0_scale).astype(np.float32)
+    return r, k * np.float32(0.3), v, w, u, s0
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("bh,l,hd,chunk", [(2, 32, 8, 16), (4, 64, 16, 64), (1, 128, 32, 32)])
+def test_plain_matches_pallas_and_oracle(bh, l, hd, chunk):
+    """The JAX kernel's [BH, L, hd] layout is the port's [1, L, H, hd] with
+    H = BH, and its per-row u the port's per-head u."""
+    r, k, v, w, u, _ = _inputs(1, l, bh, hd, bh * 100 + l)
+    y, s = wk.wkv6_ref(*_t(r, k, v, w, u))
+    flat = [jnp.asarray(a[0].transpose(1, 0, 2)) for a in (r, k, v, w)]
+    pallas = wkv6_pallas(*flat, jnp.asarray(u), chunk=chunk)
+    oracle = jax_wkv6_ref(*flat, jnp.asarray(u))
+    got = y[0].transpose(0, 1).numpy()
+    np.testing.assert_allclose(got, np.asarray(pallas), **_TOL)
+    np.testing.assert_allclose(got, np.asarray(oracle), **_TOL)
+    assert s.shape == (1, bh, hd, hd)
+
+
+@pytest.mark.parametrize("b,l,h,hd,chunk,unroll", [
+    (2, 64, 3, 16, 16, 4),
+    (1, 50, 2, 16, 16, 8),  # L no multiple of the chunk: the scan pads
+    (2, 1, 4, 32, 1, 1),  # a decode step
+])
+def test_plain_matches_model_scan_with_state(b, l, h, hd, chunk, unroll):
+    r, k, v, w, u, s0 = _inputs(b, l, h, hd, l + hd, s0_scale=0.5)
+    want_y, want_s = _wkv_scan(*map(jnp.asarray, (r, k, v, w, u, s0)), chunk=chunk,
+                               unroll=unroll)
+    for fn in (wk.wkv6_ref, wk.wkv6):
+        y, s = fn(*_t(r, k, v, w, u, s0))
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **_TOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **_TOL)
+
+
+def test_state_carries_across_calls():
+    """One pass over L equals two passes with the state carried, the second
+    updating it in place as a decode step does."""
+    r, k, v, w, u, s0 = _t(*_inputs(2, 96, 2, 16, 3, s0_scale=0.2))
+    y, s = wk.wkv6(r, k, v, w, u, s0)
+    y1, s1 = wk.wkv6(r[:, :40], k[:, :40], v[:, :40], w[:, :40], u, s0)
+    buf = s1.clone()
+    y2, s2 = wk.wkv6(r[:, 40:], k[:, 40:], v[:, 40:], w[:, 40:], u, buf, state_out=buf)
+    assert s2 is buf
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), y.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(buf.numpy(), s.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_zero_state_is_the_default():
+    r, k, v, w, u, _ = _t(*_inputs(1, 20, 2, 16, 4))
+    y, s = wk.wkv6(r, k, v, w, u)
+    y0, s0 = wk.wkv6(r, k, v, w, u, torch.zeros_like(s))
+    assert torch.equal(y, y0) and torch.equal(s, s0)
+
+
+def test_wrapper_reads_strided_views():
+    r, k, v, w, u, _ = _t(*_inputs(2, 30, 3, 16, 6))
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+    y, s = wk.wkv6(r, kt, v, w, u)
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u)
+    assert torch.equal(y, y_want) and torch.equal(s, s_want)
+
+
+def test_wrapper_checks_its_arguments():
+    r, k, v, w, u, s0 = _t(*_inputs(2, 8, 2, 16, 7))
+    with pytest.raises(TypeError, match="float32"):
+        wk.wkv6(r.bfloat16(), k, v, w, u)
+    with pytest.raises(TypeError, match="float32"):
+        wk.wkv6(r, k, v, w, u, s0.double())
+    with pytest.raises(ValueError, match="differ"):
+        wk.wkv6(r, k[:, :4], v, w, u)
+    with pytest.raises(ValueError, match=r"\[B, L, H, hd\]"):
+        wk.wkv6(r[0], k[0], v[0], w[0], u)
+    with pytest.raises(ValueError, match="u must be"):
+        wk.wkv6(r, k, v, w, u[:1])
+    with pytest.raises(ValueError, match="s0 must be"):
+        wk.wkv6(r, k, v, w, u, s0[:1])
+    with pytest.raises(ValueError, match="state_out must be"):
+        wk.wkv6(r, k, v, w, u, state_out=s0[:, :1])
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wkv6(r, k, v, w, u, state_out=s0.transpose(2, 3))
+    with pytest.raises(ValueError, match="at least one token"):
+        wk.wkv6(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u)
+    r8, k8, v8, w8, u8, _ = _t(*_inputs(1, 4, 2, 8, 8))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        wk.wkv6(r8, k8, v8, w8, u8)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        wk.wkv6(*(t.to("meta") for t in (r, k, v, w, u)))
