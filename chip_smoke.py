@@ -31,10 +31,13 @@ Phases:
  10. each stream kernel at the shapes the stream gave it: its device time,
      its wrapper's time, its plain version's time and result, and the
      bound;
- 11. FlashAttention (K6) against its plain version on the card: the five
-     shapes of the reference kernel tests, a ragged L = 200, GQA 32:8 at
-     D = 128 in bf16, and OLMo-1B's [4, 16, 2048, 128] bf16 causal
-     (tolerance 2e-5 in fp32, 2e-2 in bf16);
+ 11. FlashAttention (K6) against its plain version on the card, each case
+     naming the kernel ``kernel_variant`` picks: the five shapes of the
+     reference kernel tests and a ragged L = 200 in fp32; in bf16 the wgmma
+     kernel at D = 64 and 128 with ragged L (200, 1000), GQA 32:8 and 4:1,
+     Lq != Lk both ways and the layer's [B, L, H, D] views, the mma.sync
+     kernel at D = 96, and OLMo-1B's [4, 16, 2048, 128] causal (tolerance
+     2e-5 in fp32, 2e-2 in bf16);
  12. the histogram (K5) against its plain version, exactly: N of 0, 1 and
      4,097 by 1, 513 and 100,000 bins with negative and out-of-range
      values, and the heavy-hitter count of phase 4's R join column (10^6
@@ -54,11 +57,15 @@ Phases:
      prefill);
  16. K6 and K5 at the main path's shapes: device time, plain time, one
      PyTorch call's time (``scaled_dot_product_attention``,
-     ``torch.bincount``; timed here, never called by the port), bound;
- 17. the wkv6 recurrence (K7) against its plain version on the card: five
-     shapes (ragged L, a given state, the decode shape [4, 1, 40, 64] and
-     rwkv6-3b's [4, 2048, 40, 64]) and one pass of L = 2048 against two of
-     1024 with the state carried in place (relative tolerance 2e-4);
+     ``torch.bincount``; timed here, never called by the port), bound; K6's
+     mma.sync kernel at the same shape beside its wgmma kernel;
+ 17. the wkv6 recurrence (K7) against its plain version on the card, each
+     case naming its launch geometry: eight shapes (ragged L = 77 at hd =
+     16, 48 and 128, a given state, the decode shape [4, 1, 40, 64] and
+     rwkv6-3b's [4, 2048, 40, 64]), L = 1 with the state in place at every
+     hd through the step kernel and through the split kernel, and one pass
+     of L = 2048 against two of 1024 with the state carried in place
+     (relative tolerance 2e-4);
  18. rwkv6-3b at full width (32 layers, d = 2560, 40 heads of 64, random
      weights from seed 0; OLMo's freed first) in fp32, on [2, 64] prompts:
      each block on the forward's own input, through K7 (L = 64 from zero)
@@ -78,16 +85,20 @@ Phases:
      the host's PyTorch calls in one decode step, the device's busy share of
      one forward and one decode step, peak device memory, K7's launches;
  21. K7 at the model's shapes, [4, 2048, 40, 64] from zero and [4, 1, 40, 64]
-     with a state: CUDA events and the profiler trace, plain time, bound.
+     with a state: CUDA events and the profiler trace, plain time, bound;
+     every launch geometry compiled for hd = 64, checked and timed, with
+     its registers; the decode shape through the split kernel too.
 
 Kernel times are device time per call of the kernel's own CUDA functions,
 from a ``torch.profiler`` trace of repeated calls (CUDA events around the
 wrapper where the trace shows no device time); the wrapper's time, host
 work included, is CUDA events around repeated calls.  K6's time is the
 wrapper's (its host work is microseconds against a millisecond kernel), the
-trace's printed beside it: the two disagreed by 2x in one run.  K7's time at
-the forward's shape is taken the same way; at the decode shape, where the
-wrapper's host work is as long as the kernel, it is the trace's.
+trace's printed beside it: the short trace holds fewer kernel events than
+calls, so its sum over the calls reads low (each ``[trace]`` line prints
+the count).  K7's time at the forward's shape is taken the same way; at
+the decode shape, where the wrapper's host work is longer than the kernel,
+it is the trace's.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -119,9 +130,9 @@ FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 JOIN_KERNELS = ("block_join_kernel",)
 CMS_KERNELS = ("cms_kernel",)
 INGEST_KERNELS = ("tile_kernel", "scan_kernel", "fix_kernel", "cms_kernel")
-FLASH_KERNELS = ("flash_fwd_",)
+FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
 HIST_KERNELS = ("histogram_kernel",)
-WKV_KERNELS = ("wkv6_kernel",)
+WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
 
 
 def _say(*args) -> None:
@@ -144,10 +155,11 @@ def _events_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _traced(fn):
+def _traced(fn, counts=None):
     """(fn's result, device microseconds by CUDA function name) of one
     call of ``fn`` under ``torch.profiler``; the dict is empty where the
-    trace holds no device events or the profiler fails (printed)."""
+    trace holds no device events or the profiler fails (printed).  A dict
+    given as ``counts`` receives the number of device events by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -165,6 +177,8 @@ def _traced(fn):
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            if counts is not None:
+                counts[ev.name] = counts.get(ev.name, 0) + 1
     return out, us
 
 
@@ -173,7 +187,8 @@ def _kernel_ms(fn, names, reps: int):
     of the CUDA functions whose names contain one of ``names``, from a
     profiler trace of ``reps`` calls after one warm-up call; where the
     trace holds none, CUDA events around the calls (source says which).
-    The wrapper's time is CUDA events around ``reps`` calls.
+    The wrapper's time is CUDA events around ``reps`` calls.  Prints how
+    many of the kernels' device events the trace holds against the calls.
     """
     import torch
 
@@ -186,8 +201,15 @@ def _kernel_ms(fn, names, reps: int):
 
     fn()
     torch.cuda.synchronize()
-    _, us = _traced(calls)
+    counts: dict[str, int] = {}
+    _, us = _traced(calls, counts)
     by_fn = {k: v / 1e3 / reps for k, v in us.items() if any(nm in k for nm in names)}
+    if us:
+        n_ev = sum(c for k, c in counts.items() if any(nm in k for nm in names))
+        _say(f"[trace] {n_ev} device events of {'/'.join(names)} in the trace of {reps} calls "
+             f"({sum(counts.values())} device events in all); "
+             + "; ".join(f"{_short({k: us[k] / 1e3 / max(counts[k], 1)})} ms each over "
+                         f"{counts[k]}" for k in us if any(nm in k for nm in names)))
     if not by_fn:
         return wrapper, "events", wrapper, {}
     return sum(by_fn.values()), "trace", wrapper, by_fn
@@ -311,6 +333,22 @@ def _close(got, want, tol: float) -> bool:
     return bool(((g - w).abs() <= tol + tol * w.abs()).all())
 
 
+def _ptxas_regs(log: str, kernel: str):
+    """Registers a thread of the first kernel whose mangled name contains
+    ``kernel``, from ``nvcc -Xptxas -v``'s lines (None if absent)."""
+    import re
+
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name:
+            return int(m.group(1))
+    return None
+
+
 def _flash_work(b, h, l, d, causal, elem_bytes):
     """(operations, bytes) of one attention forward: 4 D per (query, key)
     pair that the mask keeps (two products, a multiply and an add each),
@@ -338,6 +376,7 @@ def _lm_phases(dev, r_col):
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import histogram as hg
     from repro_torch.kernels import launches, reset_launches
@@ -351,24 +390,40 @@ def _lm_phases(dev, r_col):
 
     # ---- 11. K6 against its plain version -----------------------------------
     olmo_qkv = None
-    for b, h, hkv, l, d, causal, dtype in [
-        (1, 2, 2, 128, 32, True, f32), (2, 4, 2, 128, 64, True, f32),
-        (1, 8, 1, 256, 32, True, f32), (2, 2, 2, 128, 32, False, f32),
-        (1, 4, 4, 64, 16, True, f32), (2, 4, 2, 200, 64, True, f32),
-        (1, 32, 8, 512, 128, True, bf16), (4, 16, 16, 2048, 128, True, bf16),
+    for b, h, hkv, lq, lk, d, causal, dtype, view in [
+        (1, 2, 2, 128, 128, 32, True, f32, False), (2, 4, 2, 128, 128, 64, True, f32, False),
+        (1, 8, 1, 256, 256, 32, True, f32, False), (2, 2, 2, 128, 128, 32, False, f32, False),
+        (1, 4, 4, 64, 64, 16, True, f32, False), (2, 4, 2, 200, 200, 64, True, f32, False),
+        (1, 32, 8, 512, 512, 128, True, bf16, False),
+        # the wgmma kernel: D = 64 and 128, ragged L, GQA 4, Lq != Lk, the
+        # attention layer's [B, L, H, D] views
+        (2, 4, 4, 200, 200, 64, True, bf16, False), (1, 8, 8, 1000, 1000, 128, True, bf16, False),
+        (2, 16, 4, 256, 256, 128, True, bf16, False), (2, 8, 2, 1000, 1000, 64, True, bf16, False),
+        (2, 4, 4, 77, 300, 128, False, bf16, False), (1, 4, 2, 300, 77, 64, False, bf16, False),
+        (2, 16, 4, 333, 333, 128, True, bf16, True), (2, 8, 2, 200, 200, 64, True, bf16, True),
+        (2, 4, 4, 200, 200, 96, True, bf16, False),  # a head dim for mma.sync
+        (4, 16, 16, 2048, 2048, 128, True, bf16, False),
     ]:
-        g = torch.Generator(device=dev).manual_seed(b * 1000 + h + l + d)
-        q, k, v = (torch.randn(s, generator=g, device=dev, dtype=f32).to(dtype)
-                   for s in ((b, h, l, d), (b, hkv, l, d), (b, hkv, l, d)))
+        g = torch.Generator(device=dev).manual_seed(b * 1000 + h + lq + lk + d)
+        if view:  # [B, L, H, D] projections seen as [B, H, L, D], as the layer passes them
+            q, k, v = (torch.randn(s, generator=g, device=dev, dtype=f32).to(dtype).transpose(1, 2)
+                       for s in ((b, lq, h, d), (b, lk, hkv, d), (b, lk, hkv, d)))
+        else:
+            q, k, v = (torch.randn(s, generator=g, device=dev, dtype=f32).to(dtype)
+                       for s in ((b, h, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)))
+        n0 = launches()["flash_attention"]
         got = fa.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        assert launches()["flash_attention"] == n0 + 1
         want = fa.flash_attention_ref(q, k, v, causal=causal)
         err = _max_float_err(got, want)
         tol = 2e-5 if dtype == f32 else 2e-2
-        _say(f"[check] flash_attention q {(b, h, l, d)} kv heads {hkv} causal={causal} "
-             f"{str(dtype)[6:]}: max_abs_err={err:.3g} (rtol = atol = {tol})")
+        _say(f"[check] flash_attention ({fa.kernel_variant(dtype, d)}) q {(b, h, lq, d)} "
+             f"k {(b, hkv, lk, d)} causal={causal} {str(dtype)[6:]}"
+             f"{' [B, L, H, D] views' if view else ''}: max_abs_err={err:.3g} "
+             f"(rtol = atol = {tol})")
         assert _close(got, want, tol)
-        if l == 2048:
+        if lq == 2048:
             olmo_qkv, olmo_err = (q, k, v), err
 
     # ---- 12. K5 against its plain version -----------------------------------
@@ -529,6 +584,15 @@ def _lm_phases(dev, r_col):
             _say(f"[lm] one {what} under the profiler: no device events; busy share not measured")
     assert torch.isfinite(logits).all() and gen_tokens.shape == (batch, n_new)
     assert lm_launches["flash_attention"] == cfg.n_layers * n_prefill, lm_launches
+    # K6 in the prefill's trace, by CUDA function: the wgmma kernel, once a layer
+    k6_pre = {k: v for k, v in busy_pre.items() if any(nm in k for nm in FLASH_KERNELS)}
+    k6_in_prefill = sum(k6_pre.values()) / 1e3 / cfg.n_layers if busy_pre else float("nan")
+    if busy_pre:
+        assert k6_pre and all("flash_fwd_wgmma_kernel" in k for k in k6_pre), k6_pre
+        _say(f"[lm] K6 in the prefill's trace: {_short({k: v / 1e3 for k, v in k6_pre.items()})} "
+             f"ms over {cfg.n_layers} layers, {k6_in_prefill:.4f} ms a call, "
+             f"{100 * sum(k6_pre.values()) / sum(busy_pre.values()):.2f} % of the device's busy "
+             "time")
     del params, cache
     torch.cuda.empty_cache()
 
@@ -538,12 +602,20 @@ def _lm_phases(dev, r_col):
     _, plain6 = _plain_ms(lambda: fa.flash_attention_ref(q, k, v))
     lib6 = _events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps=10)
+    mma6 = _events_ms(lambda: fa._launch(q, k, v, True, "bf16_mma_sync"), reps=10)
     ops6, bytes6 = _flash_work(*q.shape[:3], q.shape[3], True, q.element_size())
     bound6, by6 = _bound(ops6, bytes6, BF16_FLOPS)
-    _say(f"[K6] flash_attention {tuple(q.shape)} bf16 causal: kernel {ms6:.4f} ms (CUDA events "
-         f"around the wrapper; {how6} {trace6:.4f} ms); plain {plain6:.2f} ms; scaled_dot_product_attention "
+    regs6 = _ptxas_regs(_build.build_all(["flash_attention"])["flash_attention"].ptxas,
+                        "flash_fwd_wgmma_kernelILi128E")
+    _say(f"[K6] flash_attention {tuple(q.shape)} bf16 causal "
+         f"({fa.kernel_variant(q.dtype, q.shape[3])}, {regs6} registers a thread at launch): "
+         f"kernel {ms6:.4f} ms (CUDA events around the wrapper; {how6} {trace6:.4f} ms; in the "
+         f"prefill's trace {k6_in_prefill:.4f} ms a call); plain {plain6:.2f} ms; "
+         f"scaled_dot_product_attention "
          f"{lib6:.4f} ms; bound {bound6:.4f} ms by {by6} ({ops6:.4g} operations at 989 TFLOP/s, "
-         f"{bytes6:.4g} bytes); {100 * bound6 / ms6:.1f} % of the bound")
+         f"{bytes6:.4g} bytes); {100 * bound6 / ms6:.1f} % of the bound; the mma.sync kernel it "
+         f"replaces (0.8505-0.8798 ms in PERF.md's earlier runs) {mma6:.4f} ms in this run, "
+         f"{mma6 / ms6:.2f}x")
     q32, k32, v32 = (x.float() for x in olmo_qkv)  # the fp32 kernel (CUDA cores), same shape
     trace6f, how6f, ms6f, _ = _kernel_ms(lambda: fa.flash_attention(q32, k32, v32),
                                          FLASH_KERNELS, reps=5)
@@ -583,7 +655,7 @@ def _rwkv_phases(dev):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels import _build, launches, reset_launches
     from repro_torch.kernels import wkv6 as wk
     from repro_torch.models import build_model, layers, rwkv6
     from repro_torch.serve import BucketServer, Request, greedy_generate
@@ -614,20 +686,34 @@ def _rwkv_phases(dev):
 
     # ---- 17. K7 against its plain version -----------------------------------
     for b, l, h, hd, with_s0 in [(1, 64, 2, 16, False), (2, 100, 4, 16, False),
-                                 (2, 128, 4, 32, True), (4, 1, 40, 64, True),
-                                 (4, 2048, 40, 64, False)]:
+                                 (2, 128, 4, 32, True), (2, 77, 3, 16, True),
+                                 (2, 77, 3, 48, True), (2, 77, 3, 128, True),
+                                 (4, 1, 40, 64, True), (4, 2048, 40, 64, False)]:
         r, k, v, w, u, s0 = wkv_inputs(b, l, h, hd, b * 1000 + l + hd)
         s0 = s0 if with_s0 else None
         y, s = wk.wkv6(r, k, v, w, u, s0)
         torch.cuda.synchronize()
         y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
         err = max(_max_float_err(y, y_want), _max_float_err(s, s_want))
-        _say(f"[check] wkv6 {(b, l, h, hd)} s0={'given' if with_s0 else 'zero'}: "
-             f"max_abs_err={err:.3g} over y and the state (|y| up to "
-             f"{float(y_want.abs().max()):.3g}; rtol = atol = {tol})")
+        _say(f"[check] wkv6 {(b, l, h, hd)} (JC, P, C) = {wk.launch_geometry(hd, l)} "
+             f"s0={'given' if with_s0 else 'zero'}: max_abs_err={err:.3g} over y and the state "
+             f"(|y| up to {float(y_want.abs().max()):.3g}; rtol = atol = {tol})")
         assert _close(y, y_want, tol) and _close(s, s_want, tol)
         if l == 2048:
-            fwd_in, fwd_err = (r, k, v, w, u), err
+            fwd_in, fwd_err, fwd_want = (r, k, v, w, u), err, (y_want, s_want)
+    for hd in wk.HEAD_DIMS:  # the decode step's L = 1, the state in place, every hd
+        r, k, v, w, u, s0 = wkv_inputs(2, 1, 3, hd, 17 + hd)
+        y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+        for geo in (None, wk.launch_geometry(hd)):  # the step kernel, then the split one
+            buf = s0.clone()
+            y, s = (wk.wkv6(r, k, v, w, u, buf, state_out=buf) if geo is None else
+                    wk._launch(r, k, v, w, u, buf, buf, geometry=geo))
+            torch.cuda.synchronize()
+            err = max(_max_float_err(y, y_want), _max_float_err(buf, s_want))
+            _say(f"[check] wkv6 (2, 1, 3, {hd}) (JC, P, C) = {geo or wk.launch_geometry(hd, 1)}"
+                 f" with the state in place: max_abs_err={err:.3g}")
+            assert s.data_ptr() == buf.data_ptr()
+            assert _close(y, y_want, tol) and _close(buf, s_want, tol)
     r, k, v, w, u = fwd_in
     y, s = wk.wkv6(r, k, v, w, u)
     half = r.shape[1] // 2
@@ -809,8 +895,8 @@ def _rwkv_phases(dev):
             _say(f"[rwkv] one {what} under the profiler: no device events; busy share not "
                  "measured")
     # K7 inside the model: device ms a call, from the two traces above
-    in_model = [sum(v for k, v in busy.items() if WKV_KERNELS[0] in k) / 1e3 / cfg.n_layers
-                for busy in (busy_fwd, busy_dec)]
+    in_model = [sum(v for k, v in busy.items() if any(nm in k for nm in WKV_KERNELS)) / 1e3 /
+                cfg.n_layers for busy in (busy_fwd, busy_dec)]
     assert np.isfinite(float(loss)) and tokens.shape == (batch, n_new)
     assert len(step_ms) == l_prompt + n_new - 1
     assert rwkv_launches["wkv6"] == cfg.n_layers * (5 + len(step_ms)), rwkv_launches
@@ -823,11 +909,26 @@ def _rwkv_phases(dev):
     _, plain7 = _plain_ms(lambda: wk.wkv6_ref(r, k, v, w, u))
     ops7, bytes7 = _wkv_work(*r.shape, False)
     bound7, by7 = _bound(ops7, bytes7, FP32_FLOPS)
-    _say(f"[K7] wkv6 {tuple(r.shape)} from zero: kernel {ms7:.4f} ms (CUDA events around the "
-         f"wrapper; {how7} {trace7:.4f} ms); plain {plain7:.2f} ms; bound {bound7:.4f} ms by "
-         f"{by7} ({ops7:.4g} fp32 operations at 67 TFLOP/s, {bytes7:.4g} bytes); "
-         f"{100 * bound7 / ms7:.1f} % of the bound; in the forward's trace "
-         f"{in_model[0]:.4f} ms a call")
+    _say(f"[K7] wkv6 {tuple(r.shape)} from zero, (JC, P, C) = {wk.launch_geometry(r.shape[3])}: "
+         f"kernel {ms7:.4f} ms (CUDA events around the wrapper; {how7} {trace7:.4f} ms); plain "
+         f"{plain7:.2f} ms; bound {bound7:.4f} ms by {by7} ({ops7:.4g} fp32 operations at 67 "
+         f"TFLOP/s, {bytes7:.4g} bytes); {100 * bound7 / ms7:.1f} % of the bound; in the forward's "
+         f"trace {in_model[0]:.4f} ms a call; the earlier kernel (one block of hd threads a head) "
+         f"took 0.7507-0.7620 ms")
+    # the launch geometries compiled for hd = 64, each checked and timed
+    log7 = _build.build_all(["wkv6"])["wkv6"].ptxas
+    y_want, s_want = fwd_want
+    for geo in [g for g in wk.GEOMETRIES if g[0] == r.shape[3]]:
+        y, s = wk._launch(r, k, v, w, u, None, None, geometry=geo[1:])
+        torch.cuda.synchronize()
+        assert _close(y, y_want, tol) and _close(s, s_want, tol), geo
+        ms_geo = _events_ms(lambda: wk._launch(r, k, v, w, u, None, None, geometry=geo[1:]),
+                            reps=10)
+        jc, p, c = geo[1:]
+        regs = _ptxas_regs(log7, f"wkv6_split_kernelILi{geo[0]}ELi{jc}ELi{p}ELi{c}E")
+        _say(f"[K7] geometry JC={jc} P={p} C={c} ({r.shape[0] * r.shape[2] * r.shape[3] // jc} "
+             f"blocks of {jc // c * p} threads, {r.shape[3] // p * c} state floats and {regs} "
+             f"registers a thread): {ms_geo:.4f} ms by CUDA events")
     rd, kd, vd, wd, ud, sd = dec_in
     ms7d, how7d, wrap7d, _ = _kernel_ms(lambda: wk.wkv6(rd, kd, vd, wd, ud, sd, state_out=sd),
                                         WKV_KERNELS, reps=50)
@@ -837,7 +938,13 @@ def _rwkv_phases(dev):
     _say(f"[K7] wkv6 {tuple(rd.shape)} with the state in place: kernel {ms7d:.4f} ms ({how7d}; "
          f"wrapper {wrap7d:.4f} ms by CUDA events); plain {plain7d:.3f} ms; bound {bound7d:.5f} "
          f"ms by {by7d}; {100 * bound7d / ms7d:.1f} % of the bound; in the decode step's trace "
-         f"{in_model[1]:.4f} ms a call")
+         f"{in_model[1]:.4f} ms a call (the earlier kernel: 0.0042 ms a call there, 0.0025-0.0026 "
+         "in the short trace)")
+    geo = wk.launch_geometry(rd.shape[3])
+    ms7s, how7s, _, _ = _kernel_ms(lambda: wk._launch(rd, kd, vd, wd, ud, sd, sd, geometry=geo),
+                                   WKV_KERNELS, reps=50)
+    _say(f"[K7] the same step through the split kernel, (JC, P, C) = {geo}: {ms7s:.4f} ms "
+         f"({how7s})")
     return [{
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",

@@ -15,28 +15,42 @@
 //
 // What differs: the TPU grid walks the key blocks in order and carries the
 // running max, denominator and accumulator in VMEM scratch across grid
-// steps.  Blocks here run in parallel in no order, so one block owns 64
-// queries of one (batch, head) and loops over the key tiles itself, with the
-// running max, denominator and accumulator in registers.  GQA is the
-// block's own index arithmetic; ragged lengths are masked in the kernel (no
-// padding to the block size).
+// steps.  Blocks here run in parallel in no order, so each block owns a
+// tile of queries of one (batch, head) and loops over the key tiles itself,
+// with the running max, denominator and accumulator in registers.  GQA is
+// the block's own index arithmetic; ragged lengths are masked in the kernel
+// (no padding to the block size).
 //
 // What bounds it on this card: operations, 4 * D per (query, key) pair that
-// the mask keeps (two products), against q, k, v and o moved once.  Two
-// kernels share the tiling (64 queries a block, 64-key tiles staged in
-// shared memory):
-//   * fp32: FMAs on the CUDA cores (67 TFLOP/s at most), 4 x 4 scores per
-//     thread; no TF32, so it agrees with the plain version to 2e-5;
-//   * bf16: the tensor cores through mma.sync m16n8k16 with fp32
-//     accumulation, one warp per 16 queries, fragments loaded with
-//     ldmatrix.  The scores are exact products of the bf16 inputs summed in
-//     fp32, as the TPU kernel's fp32 products of widened inputs are; p is
-//     rounded to bf16 before P.V (the TPU kernel keeps it fp32), a relative
-//     error of at most 2^-9 per weight, while the row sums l stay fp32.
-// wgmma and TMA are later work.
-#include <cstdint>
+// the mask keeps (two products), against q, k, v and o moved once.  Three
+// kernels; the wrapper chooses by dtype and D (kernels/flash_attention.py,
+// kernel_variant) and passes the choice on:
+//   * fp32, any D: FMAs on the CUDA cores (67 TFLOP/s at most), 64 queries a
+//     block, 4 x 4 scores per thread; no TF32, so it agrees with the plain
+//     version to 2e-5.  The parity path of the fp32 checks;
+//   * bf16, D = 64 or 128 (the FlashAttention-3 shape, namespace wg below):
+//     128 queries a block, two consumer warpgroups of 64 rows and a
+//     producer warpgroup whose one thread issues the TMA loads: Q once, K
+//     and V through a ring of three 128-key stages with full and empty
+//     mbarriers, so the next tiles are in flight while the consumers
+//     compute.  S = Q K^T and O += P V are wgmma.mma_async m64n128k16 /
+//     m64nDk16 with fp32 accumulators, Q, K and V read from shared memory in
+//     the 128-byte swizzle that TMA writes, P from registers; setmaxnreg
+//     moves registers from the producer to the consumers.  The online
+//     softmax works in log2 units (exp2 with scale * log2(e) folded into one
+//     multiply), masks only the diagonal and the ragged last tile, and the
+//     epilogue stages O in the warpgroup's Q rows for 16-byte stores;
+//   * bf16, other D (16 to 256): mma.sync m16n8k16 with ldmatrix fragments,
+//     64 queries a block and 64-key tiles loaded by every thread.
+// In both bf16 kernels the scores are exact products of the bf16 inputs
+// summed in fp32, as the TPU kernel's fp32 products of widened inputs are;
+// p is rounded to bf16 before P.V (the TPU kernel keeps it fp32), a relative
+// error of at most 2^-9 per weight, while the row sums l stay fp32.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -380,6 +394,408 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- bf16, D in {64, 128}: wgmma, TMA and a ring of K/V tiles ---------------
+// One block owns 128 queries of one (batch, head): warpgroups 0 and 1
+// (threads 0-255) consume, 64 query rows each; warpgroup 2 produces, and of
+// it one thread issues every TMA load.  setmaxnreg moves registers from the
+// producer (24 a thread) to the consumers (240).  Q is loaded once; K and V
+// tiles of 128 keys go through a ring of STAGES stages, each with a "K full",
+// a "V full" and an "empty" mbarrier, so the producer keeps the next tiles in
+// flight while the consumers compute.  Every tile is stored as D / 64 column
+// chunks of [128 rows][64 bf16] with the 128-byte swizzle, the layout that
+// the TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and the wgmma descriptors read
+// (layout type 1).
+namespace wg {
+
+constexpr int BM = 128;       // queries a block (two consumer warpgroups of 64)
+constexpr int BN = 128;       // keys a tile
+constexpr int STAGES = 3;     // K/V tiles in the ring
+constexpr int THREADS = 384;  // two consumer warpgroups and one producer
+constexpr int CHUNK = 64;     // bf16 columns of one 128-byte swizzled row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// Wait for the phase of `bar` with this parity to complete.  A wait longer
+// than ten seconds means an arrival was lost: trap (a launch error the
+// wrapper's caller sees) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t now = globaltimer_ns();
+    if (t0 == 0) t0 = now;
+    if (now - t0 > 10000000000ull) __trap();
+  }
+}
+
+// rows [c1, c1 + 128) and columns [c0, c0 + 64) of one (head c2, batch c3)
+// into `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (PTX ISA, matrix descriptor; all in 16-byte units)
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// d (64 x 128, fp32) {+}= A (smem, K-major) * B (smem, K-major); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
+        "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]),
+        "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) += A (registers, bf16 fragments) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
+        "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (registers, bf16 fragments) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
+        "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]),
+        "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void pv_mma(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void pv_mma<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void pv_mma<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+
+// Online softmax of one 64 x 128 score tile held as a wgmma accumulator:
+// this thread holds rows row0 and row0 + 8, keys n0 + 8 j + 2 t4 + {0, 1}
+// for j < 16 (element 4 j + e: row row0 + 8 (e >> 1), key ... + (e & 1)).
+// MASK: the tile holds masked keys (the diagonal or the ragged last tile);
+// other tiles skip the test.  Writes p, rounded to bf16, as the A fragments
+// of P V, and returns the factor that rescales the old accumulator.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_r)[2], float (&l_r)[2],
+                                             float (&alpha)[2], uint32_t (&pa)[8][4], int n0,
+                                             int row0, int t4, int Lk, int causal, float sl2) {
+  float mx[2] = {kMasked, kMasked};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (MASK) {
+      const int key = n0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      if (key >= Lk || (causal && key > row)) sc[i] = kMasked;
+    }
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = mx[r];
+    x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
+    const float m_new = fmaxf(m_r[r], x * sl2);  // in units of log2, scale folded in
+    alpha[r] = ex2(m_r[r] - m_new);
+    m_r[r] = m_new;
+    l_r[r] *= alpha[r];  // this thread's share of the row sum; the quad adds at the end
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      p[e] = ex2(fmaf(sc[i], sl2, -m_r[e >> 1]));
+      if (MASK) {
+        const int key = n0 + 8 * j + 2 * t4 + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        if (key >= Lk || (causal && key > row)) p[e] = 0.f;
+      }
+      l_r[e >> 1] += p[e];
+    }
+    pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                       const Shape s) {
+  constexpr int NCH = D / CHUNK;                // swizzled column chunks of a row
+  constexpr int TILE = BN * D;                  // elements of a K, V (or the Q) tile
+  constexpr uint32_t TILE_BYTES = TILE * 2;
+  static_assert(BM == BN, "Q and a K/V tile share the chunk layout");
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, full_k[STAGES], full_v[STAGES], empty[STAGES];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on 1024
+  bf16* sq = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                     ~static_cast<uintptr_t>(1023));
+  bf16* sk = sq + TILE;              // stage st: sk + 2 st TILE
+  bf16* sv = sq + 2 * TILE;          // stage st: sv + 2 st TILE
+
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * BM;  // the longest causal blocks first
+  const int bh = blockIdx.y;
+  const int b = bh / s.H, h = bh % s.H, g_kv = h / s.group;
+  // keys past the block's last query are masked for every row: skip them
+  const int n_end = s.causal ? min(s.Lk, m0 + BM) : s.Lk;
+  const int n_tiles = (n_end + BN - 1) / BN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full_k[st], 1);
+      mbar_init(&full_v[st], 1);
+      mbar_init(&empty[st], 256);  // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(&bar_q, TILE_BYTES);  // rows past Lq arrive as zeros and count
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) tma_load(sq + c * BM * CHUNK, &tq, &bar_q, c * CHUNK, m0, h, b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % STAGES;
+        mbar_wait(&empty[st], ((n / STAGES) & 1) ^ 1);  // the first round passes at once
+        bf16* dk = sk + 2 * st * TILE;
+        bf16* dv = sv + 2 * st * TILE;
+        mbar_expect_tx(&full_k[st], TILE_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load(dk + c * BN * CHUNK, &tk, &full_k[st], c * CHUNK, n * BN, g_kv, b);
+        mbar_expect_tx(&full_v[st], TILE_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load(dv + c * BN * CHUNK, &tv, &full_v[st], c * CHUNK, n * BN, g_kv, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns query rows m0 + 64 wg .. + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row0 = m0 + wg * 64 + warp * 16 + g;  // and row0 + 8
+  const float sl2 = s.scale * 1.4426950408889634f;  // scale * log2(e)
+  const bf16* sq_w = sq + wg * 64 * CHUNK;           // this warpgroup's rows, chunk 0
+
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m_r[2] = {kMasked, kMasked}, l_r[2] = {0.f, 0.f};
+
+  mbar_wait(&bar_q, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = n % STAGES;
+    const uint32_t parity = (n / STAGES) & 1;
+    const int n0 = n * BN;
+    const bf16* ck = sk + 2 * st * TILE;
+    const bf16* cv = sv + 2 * st * TILE;
+
+    // S = Q K^T: 64 x 128, both operands K-major; k steps of 16 walk 32 bytes
+    // along a swizzled row, then to the next 64-column chunk
+    float sc[64];
+    mbar_wait(&full_k[st], parity);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * BM * CHUNK + (kk % 4) * 16;
+      wgmma_ss_n128(sc, desc(sq_w + off, 16, 1024), desc(ck + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+
+    float alpha[2];
+    uint32_t pa[8][4];
+    const bool need_mask = n0 + BN > s.Lk || (s.causal && n0 + BN - 1 > m0 + wg * 64);
+    if (need_mask) {
+      softmax_tile<true>(sc, m_r, l_r, alpha, pa, n0, row0, t4, s.Lk, s.causal, sl2);
+    } else {
+      softmax_tile<false>(sc, m_r, l_r, alpha, pa, n0, row0, t4, s.Lk, s.causal, sl2);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V: A = p from registers, B = V, MN-major (transposed): k steps
+    // of 16 keys are 2048 bytes apart, the 64-column chunks 16 KB (LBO)
+    mbar_wait(&full_v[st], parity);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pv_mma<D>(oacc, pa[kk], desc(cv + kk * 16 * CHUNK, BN * CHUNK * 2, 1024));
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(oacc);
+    mbar_arrive(&empty[st]);
+  }
+
+  // ---- epilogue: O / l in bf16, staged in this warpgroup's Q rows (the same
+  // swizzled layout), then 16-byte stores through the output's strides ----
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xFFFFFFFFu, l, 1);
+    l += __shfl_xor_sync(0xFFFFFFFFu, l, 2);
+    inv[r] = 1.f / (l > 0.f ? l : 1.f);  // safe_l: a row with no live key divides by 1
+  }
+  named_sync(1 + wg);  // every warp of this warpgroup is done reading its Q rows
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = warp * 16 + g + 8 * r;  // row within the warpgroup
+      const int unit = (j % 8) ^ (rl & 7);
+      bf16* dst = sq + (j / 8) * BM * CHUNK + (wg * 64 + rl) * CHUNK + unit * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack_bf16(oacc[4 * j + 2 * r] * inv[r], oacc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+  named_sync(1 + wg);
+  bf16* ob = o + b * s.os[0] + h * s.os[1];
+  for (int u = tid; u < 64 * (D / 8); u += 128) {
+    const int rl = u / (D / 8), cu = u % (D / 8);
+    const int row = m0 + wg * 64 + rl;
+    if (row >= s.Lq) continue;
+    const bf16* src =
+        sq + (cu / 8) * BM * CHUNK + (wg * 64 + rl) * CHUNK + (((cu % 8) ^ (rl & 7)) * 8);
+    *reinterpret_cast<uint4*>(ob + row * s.os[2] + cu * 8) = *reinterpret_cast<const uint4*>(src);
+  }
+}
+
+}  // namespace wg
+
 // ---- launch -----------------------------------------------------------------
 template <typename T, typename Kernel>
 int launch(Kernel fn, int threads, size_t bytes, const void* q, const void* k, const void* v,
@@ -408,21 +824,100 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, con
   return launch<bf16>(flash_fwd_bf16_kernel<DMAX>, MMA_THREADS, bytes, q, k, v, o, B, s, st);
 }
 
+// cuTensorMapEncodeTiled lives in libcuda: reached through the runtime's
+// entry-point query, so the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A bf16 [B, heads, L, D] tensor with element strides st = (batch, head,
+// position), the head dimension contiguous, as a rank-4 map over (D, L,
+// heads, B): boxes of 64 columns by 128 rows, 128-byte swizzle, rows past L
+// read as zeros.
+CUresult make_map(CUtensorMap* map, const void* ptr, int B, int heads, int L, int D,
+                  const long long* st) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const long long elem[3] = {st[2], st[1], st[0]};
+  cuuint64_t strides[3];
+  long long packed = D;
+  for (int i = 0; i < 3; ++i) {
+    // a dimension of size 1 is never stepped over: give it a valid stride
+    const long long e = dims[i + 1] == 1 ? packed : elem[i];
+    strides[i] = static_cast<cuuint64_t>(e) * sizeof(bf16);
+    packed = e * static_cast<long long>(dims[i + 1]);
+  }
+  const cuuint32_t box[4] = {wg::CHUNK, wg::BN, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int kTensorMapError = 10000;  // + the CUresult of a refused tensor map
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hkv,
+                 const Shape& s, cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  CUresult res = make_map(&mq, q, B, s.H, s.Lq, D, s.qs);
+  if (res == CUDA_SUCCESS) res = make_map(&mk, k, B, Hkv, s.Lk, D, s.ks);
+  if (res == CUDA_SUCCESS) res = make_map(&mv, v, B, Hkv, s.Lk, D, s.vs);
+  if (res != CUDA_SUCCESS) return kTensorMapError + static_cast<int>(res);
+  const size_t bytes =
+      static_cast<size_t>(1 + 2 * wg::STAGES) * wg::BN * D * sizeof(bf16) + 1024;  // + alignment
+  const auto fn = wg::flash_fwd_wgmma_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((s.Lq + wg::BM - 1) / wg::BM),
+                  static_cast<unsigned>(B * s.H));
+  fn<<<grid, wg::THREADS, bytes, st>>>(mq, mk, mv, static_cast<bf16*>(o), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: device pointers; dtype 0 = fp32, 1 = bf16 (all four alike).
+// q, k, v, o: device pointers, all fp32 (variant 0) or all bf16 (1, 2).
+// variant (kernels/flash_attention.py, kernel_variant): 0 = fp32 on the
+// CUDA cores, 1 = bf16 with mma.sync (D a multiple of 16 up to 256),
+// 2 = bf16 with wgmma and TMA (D = 64 or 128).
 // strides: 12 element strides, (batch, head, position) of q, k, v and o in
 // turn; the head dimension is contiguous in all four.  For bf16 every
 // stride is a multiple of 8 and every pointer 16-byte aligned.  Returns the
-// launch's cudaError_t (0 = launched).
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
+// launch's cudaError_t (0 = launched), or 10000 + the CUresult of a tensor
+// map that was refused.
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int variant,
                            int B, int H, int Hkv, int Lq, int Lk, int D,
                            const long long* strides, float scale, int causal, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Lq < 1 || Lk < 1 || D < 16 ||
       D > 256 || D % 16 != 0 || (causal && Lq != Lk) || static_cast<long long>(B) * H > 65535 ||
-      (dtype != 0 && dtype != 1)) {
+      variant < 0 || variant > 2 || (variant == 2 && D != 64 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Shape s{};
@@ -440,10 +935,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     s.os[i] = strides[9 + i];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (variant == 0) {
     if (D <= 64) return launch_f32<64>(q, k, v, o, B, s, st);
     if (D <= 128) return launch_f32<128>(q, k, v, o, B, s, st);
     return launch_f32<256>(q, k, v, o, B, s, st);
+  }
+  if (variant == 2) {
+    return D == 64 ? launch_wgmma<64>(q, k, v, o, B, Hkv, s, st)
+                   : launch_wgmma<128>(q, k, v, o, B, Hkv, s, st);
   }
   if (D <= 64) return launch_bf16<64>(q, k, v, o, B, s, st);
   if (D <= 128) return launch_bf16<128>(q, k, v, o, B, s, st);

@@ -9,12 +9,14 @@ sides, as ``repro.kernels.flash_attention._flash_kernel`` does it, so the
 wrapper takes causal attention only with ``Lq == Lk`` (where that alignment
 and the end-aligned one of the jnp oracle agree) and raises otherwise.
 
-``flash_attention`` takes the hand-written CUDA kernel
+``flash_attention`` takes the hand-written CUDA kernels
 (``csrc/flash_attention.cu``) for CUDA tensors and the plain
 ``flash_attention_ref`` for CPU tensors; a CUDA tensor never falls back to
-the plain version.  The kernel computes in fp32 on the CUDA cores for fp32
-inputs and on the tensor cores (bf16 products, fp32 sums, p rounded to bf16
-before P·V) for bf16 inputs.  It reads q, k and v through their strides,
+the plain version.  ``kernel_variant(dtype, d)`` chooses the kernel: fp32
+inputs compute in fp32 on the CUDA cores; bf16 inputs on the tensor cores
+(bf16 products, fp32 sums, p rounded to bf16 before P·V), through wgmma
+with TMA loads for D = 64 and 128 and through mma.sync for the other head
+dims.  The kernels read q, k and v through their strides,
 so the ``[B, L, H, D] -> [B, H, L, D]`` transpose of the attention layer is
 not copied, and writes its output
 as a ``[B, Lq, H, D]`` buffer seen as ``[B, H, Lq, D]``, so the layer's
@@ -33,7 +35,25 @@ LAUNCHES = {"flash_attention": 0}
 
 MAX_HEAD_DIM = 256
 _MASKED = -1e30  # the TPU kernel's finite mask value
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# the kernels of csrc/flash_attention.cu, by the index its entry point takes
+VARIANTS = ("fp32_cuda_cores", "bf16_mma_sync", "bf16_wgmma")
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def kernel_variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel for inputs of ``dtype`` with head dim ``d``: fp32 on the
+    CUDA cores (the fp32 parity path: full fp32 products, no TF32), bf16 with
+    wgmma and TMA for D = 64 and 128, bf16 with mma.sync for the other D."""
+    if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: head dim {d} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]"
+        )
+    if dtype == torch.float32:
+        return "fp32_cuda_cores"
+    if dtype == torch.bfloat16:
+        return "bf16_wgmma" if d in WGMMA_HEAD_DIMS else "bf16_mma_sync"
+    raise TypeError(f"flash_attention: no kernel for {dtype}")
 
 
 def reset_launches() -> None:
@@ -102,9 +122,14 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
-    """The kernel on the card; counts no launch."""
+def _launch(q, k, v, causal: bool, variant: str | None = None) -> torch.Tensor:
+    """The kernel on the card; counts no launch.  ``variant`` overrides
+    ``kernel_variant``'s choice (bf16 at D = 64 or 128 may take mma.sync)."""
     b, h, lq, d = q.shape
+    chosen = kernel_variant(q.dtype, d)
+    variant = chosen if variant is None else variant
+    if variant != chosen and not (chosen == "bf16_wgmma" and variant == "bf16_mma_sync"):
+        raise ValueError(f"flash_attention: no {variant} kernel for {q.dtype} with D={d}")
     hkv, lk = k.shape[1], k.shape[2]
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H={b * h} exceeds the kernel's grid (65535)")
@@ -125,11 +150,12 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), VARIANTS.index(variant),
             b, h, hkv, lq, lk, d, strides, 1.0 / math.sqrt(d), int(causal), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        what = f"CUresult {err - 10000} for a tensor map" if err >= 10000 else f"cudaError {err}"
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed: {what}")
     return out
 
 

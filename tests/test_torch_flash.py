@@ -103,3 +103,36 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     q, k, v = map(torch.from_numpy, _inputs(1, 2, 2, 64, 64, 16, 1))
     fa.flash_attention(q, k, v)
     assert fa.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("d", list(range(16, fa.MAX_HEAD_DIM + 1, 16)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_variant_by_dtype_and_head_dim(dtype, d):
+    """fp32 stays on the CUDA cores (no TF32); bf16 takes wgmma and TMA at
+    D = 64 and 128 and mma.sync at every other head dim."""
+    got = fa.kernel_variant(dtype, d)
+    assert got in fa.VARIANTS
+    if dtype == torch.float32:
+        assert got == "fp32_cuda_cores"
+    else:
+        assert got == ("bf16_wgmma" if d in (64, 128) else "bf16_mma_sync")
+
+
+@pytest.mark.parametrize("dtype,d,err", [
+    (torch.float16, 64, TypeError), (torch.float64, 128, TypeError),
+    (torch.bfloat16, 24, ValueError), (torch.bfloat16, 272, ValueError),
+    (torch.float32, 0, ValueError),
+])
+def test_kernel_variant_rejects(dtype, d, err):
+    with pytest.raises(err):
+        fa.kernel_variant(dtype, d)
+
+
+def test_olmo_attention_takes_the_wgmma_kernel():
+    """OLMo-1B's heads (128) in bf16 reach the wgmma kernel; its fp32 parity
+    path stays on the CUDA cores."""
+    from repro_torch.configs import get_config
+
+    hd = get_config("olmo-1b").hd
+    assert fa.kernel_variant(torch.bfloat16, hd) == "bf16_wgmma"
+    assert fa.kernel_variant(torch.float32, hd) == "fp32_cuda_cores"

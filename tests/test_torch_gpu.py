@@ -278,6 +278,58 @@ def test_flash_attention_kernel_reads_strides(cuda, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize(
+    "b,h,hkv,lq,lk,d,causal",
+    [
+        (1, 2, 2, 128, 128, 64, True),
+        (1, 2, 2, 128, 128, 128, True),
+        (2, 4, 4, 200, 200, 64, True),  # ragged: no multiple of the 128-row tile
+        (1, 4, 4, 1000, 1000, 128, True),
+        (2, 16, 4, 256, 256, 128, True),  # GQA, H / Hkv = 4
+        (2, 8, 2, 300, 300, 64, True),
+        (2, 4, 4, 77, 300, 128, False),  # Lq != Lk
+        (1, 4, 2, 300, 77, 64, False),
+        (1, 2, 2, 1, 1, 128, True),
+    ],
+)
+def test_flash_attention_wgmma_kernel_matches_plain(cuda, b, h, hkv, lq, lk, d, causal):
+    """bf16 at D = 64 and 128 takes the wgmma kernel (TMA, K/V ring): ragged
+    lengths, whose last tile TMA fills with zero keys that must still be
+    masked, GQA through the kv head's tensor map, and Lq != Lk."""
+    assert fa.kernel_variant(_BF16, d) == "bf16_wgmma"
+    rng = np.random.default_rng(b * 1000 + h * 10 + lq + lk + d)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, _BF16)
+        for s in ((b, h, lq, d), (b, hkv, lk, d), (b, hkv, lk, d))
+    )
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == _BF16 and got.shape == (b, h, lq, d)
+    want = fa.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    mma = fa._launch(q, k, v, causal, "bf16_mma_sync")  # the kernel it replaces at this D
+    torch.testing.assert_close(mma.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_wgmma_kernel_reads_layer_views(cuda, d):
+    """q, k, v as the attention layer passes them: [B, L, H, D] projections
+    seen as [B, H, L, D]; the tensor maps take their strides, no copy."""
+    rng = np.random.default_rng(d)
+    base = [torch.from_numpy(rng.normal(size=(2, 333, n, d)).astype(np.float32)).to(cuda, _BF16)
+            for n in (8, 2, 2)]
+    q, k, v = (t.transpose(1, 2) for t in base)
+    assert not q.is_contiguous() and fa._readable(q) is q
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.parametrize("n", [0, 1, 4097, 300_001])
 @pytest.mark.parametrize("num_bins", [1, 513, 100_000])
 def test_histogram_kernel_matches_plain(cuda, n, num_bins):
@@ -370,6 +422,43 @@ def test_wkv6_kernel_other_head_dims(cuda, hd):
     torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("hd", wk.HEAD_DIMS)
+def test_wkv6_kernel_every_head_dim(cuda, hd):
+    """Every head dim's geometry: L = 77 (a ragged last tile) from a state,
+    and the decode step's L = 1 with the state updated in place."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, 77, 3, hd, 3 * hd, cuda)
+    before = wk.LAUNCHES["wkv6"]
+    y, s = wk.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6"] == before + 1
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
+    r1, k1, v1, w1 = (t[:, :1] for t in (r, k, v, w))
+    y1_want, s1_want = wk.wkv6_ref(r1, k1, v1, w1, u, s0)
+    for geometry in (None, wk.launch_geometry(hd)):  # the step kernel, then the split one
+        buf = s0.clone()
+        before = wk.LAUNCHES["wkv6"]
+        y1, s1 = (wk.wkv6(r1, k1, v1, w1, u, buf, state_out=buf) if geometry is None else
+                  wk._launch(r1, k1, v1, w1, u, buf, buf, geometry=geometry))
+        torch.cuda.synchronize()
+        assert wk.LAUNCHES["wkv6"] == before + (geometry is None)
+        assert s1.data_ptr() == buf.data_ptr()
+        torch.testing.assert_close(y1, y1_want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(buf, s1_want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("geometry", [g for g in wk.GEOMETRIES if g[0] == 64])
+def test_wkv6_kernel_every_geometry(cuda, geometry):
+    """Every instantiated (hd, JC, P, C), the timing candidates too."""
+    hd = geometry[0]
+    r, k, v, w, u, s0 = _wkv_inputs(2, 100, 3, hd, 9, cuda)
+    y, s = wk._launch(r, k, v, w, u, s0, None, geometry=geometry[1:])
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
+
+
 def test_wkv6_kernel_reads_strides(cuda):
     """r as a slice of a wider buffer, k as a transposed [B, H, L, hd] view,
     v with a last-dimension stride of 2 (the wrapper copies it)."""
@@ -403,6 +492,24 @@ def test_wkv6_kernel_updates_state_in_place(cuda):
     assert not stack[0].any() and not stack[2].any()
     with pytest.raises(TypeError, match="float32"):
         wk.wkv6(r.bfloat16(), k, v, w, u)
+
+
+def test_wkv6_kernel_state_not_16_byte_aligned(cuda):
+    """A contiguous state one float off a 16-byte boundary: the kernel reads
+    and writes it a float at a time, in place."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, 9, 3, 64, 13, cuda)
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+    flat = torch.zeros(s0.numel() + 1, device=cuda)
+    buf = flat[1:].view(s0.shape)
+    buf.copy_(s0)
+    assert buf.is_contiguous() and buf.data_ptr() % 16
+    before = wk.LAUNCHES["wkv6"]
+    y, s = wk.wkv6(r, k, v, w, u, buf, state_out=buf)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6"] == before + 1
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(buf, s_want, rtol=2e-4, atol=2e-4)
+    assert flat[0] == 0
 
 
 def test_rwkv6_on_card_matches_cpu(cuda):

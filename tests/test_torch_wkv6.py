@@ -115,3 +115,56 @@ def test_wrapper_checks_its_arguments():
         wk.wkv6(r8, k8, v8, w8, u8)
     with pytest.raises(ValueError, match="no kernel for device"):
         wk.wkv6(*(t.to("meta") for t in (r, k, v, w, u)))
+
+
+def _geometry_fits(hd, jc, p, c):
+    """The static_asserts of csrc/wkv6.cu's kernel, with its T = 8 tokens a
+    tile: whole column blocks and groups, 16-byte copies of v, float4 row
+    groups, a power-of-two P inside a warp, whole warps, a bonus reduction
+    within a warp."""
+    nt = jc // c * p
+    return (hd % jc == 0 and jc % c == 0 and jc % 4 == 0 and c in (2, 4)
+            and hd % (4 * p) == 0 and 32 % p == 0 and nt % 32 == 0
+            and nt % 8 == 0 and nt // 8 <= 32
+            and (8 * c) % p == 0)
+
+
+@pytest.mark.parametrize("hd", wk.HEAD_DIMS)
+def test_launch_geometry_covers_every_head_dim(hd):
+    jc, p, c = wk.launch_geometry(hd)
+    assert hd % jc == 0 and hd % p == 0 and jc % c == 0
+    assert (hd, jc, p, c) in wk.GEOMETRIES and _geometry_fits(hd, jc, p, c)
+
+
+@pytest.mark.parametrize("geometry", wk.GEOMETRIES)
+def test_every_instantiated_geometry_fits(geometry):
+    assert _geometry_fits(*geometry)
+
+
+def test_geometries_match_the_cuda_source():
+    """GEOMETRIES lists exactly the kernels csrc/wkv6.cu instantiates."""
+    import re
+    from pathlib import Path
+
+    src = (Path(wk.__file__).parent / "csrc" / "wkv6.cu").read_text()
+    block = src[src.index("#define WKV_GEOMETRIES"):]
+    block = block[:block.index("\n\n")]
+    found = tuple(tuple(map(int, m)) for m in
+                  re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)", block))
+    assert found == wk.GEOMETRIES
+
+
+@pytest.mark.parametrize("hd", [8, 24, 144])
+def test_launch_geometry_rejects(hd):
+    with pytest.raises(ValueError, match="multiple of 16"):
+        wk.launch_geometry(hd)
+
+
+@pytest.mark.parametrize("hd", wk.HEAD_DIMS)
+def test_decode_step_takes_its_own_kernel(hd):
+    """L = 1 (a decode step) launches the step kernel at every head dim; any
+    longer sequence the split kernel's geometry."""
+    assert wk.launch_geometry(hd, 1) == wk.STEP == (0, 0, 0)
+    assert wk.launch_geometry(hd, 2) == wk.launch_geometry(hd) == wk.launch_geometry(hd, 2048)
+    with pytest.raises(ValueError, match="at least one token"):
+        wk.launch_geometry(hd, 0)
