@@ -57,13 +57,13 @@ Phases:
      prefill);
  16. K6 and K5 at the main path's shapes: device time, plain time, one
      PyTorch call's time (``scaled_dot_product_attention``,
-     ``torch.bincount``; timed here, never called by the port), bound; K6's
-     mma.sync kernel at the same shape beside its wgmma kernel;
+     ``torch.bincount``; timed here, never called by the port), bound;
  17. the wkv6 recurrence (K7) against its plain version on the card, each
      case naming its launch geometry: eight shapes (ragged L = 77 at hd =
      16, 48 and 128, a given state, the decode shape [4, 1, 40, 64] and
      rwkv6-3b's [4, 2048, 40, 64]), L = 1 with the state in place at every
-     hd through the step kernel and through the split kernel, and one pass
+     hd (the step kernel), each hd's split kernel found in the library
+     with its registers, and one pass
      of L = 2048 against two of 1024 with the state carried in place
      (relative tolerance 2e-4);
  18. rwkv6-3b at full width (32 layers, d = 2560, 40 heads of 64, random
@@ -85,20 +85,20 @@ Phases:
      the host's PyTorch calls in one decode step, the device's busy share of
      one forward and one decode step, peak device memory, K7's launches;
  21. K7 at the model's shapes, [4, 2048, 40, 64] from zero and [4, 1, 40, 64]
-     with a state: CUDA events and the profiler trace, plain time, bound;
-     every launch geometry compiled for hd = 64, checked and timed, with
-     its registers; the decode shape through the split kernel too.
+     with a state: CUDA events and the profiler trace, plain time, bound.
 
 Kernel times are device time per call of the kernel's own CUDA functions,
-from a ``torch.profiler`` trace of repeated calls (CUDA events around the
-wrapper where the trace shows no device time); the wrapper's time, host
-work included, is CUDA events around repeated calls.  K6's time is the
-wrapper's (its host work is microseconds against a millisecond kernel), the
-trace's printed beside it: the short trace holds fewer kernel events than
-calls, so its sum over the calls reads low (each ``[trace]`` line prints
-the count).  K7's time at the forward's shape is taken the same way; at
-the decode shape, where the wrapper's host work is longer than the kernel,
-it is the trace's.
+from a ``torch.profiler`` trace of repeated calls: each function's device
+time over its events in the trace, times its events per call.  The short
+trace may drop events (each ``[trace]`` line prints the count against the
+calls); where it holds a count that is not a whole number per call, or no
+device time, the time is CUDA events around the wrapper instead.  The
+wrapper's time, host work included, is CUDA events around repeated calls.
+K6's and K7's times at the forward's shapes are the wrapper's (host work of
+microseconds against a kernel of a fraction of a millisecond), the trace's
+printed beside them; at the decode shape, where the wrapper's host work is
+longer than K7's kernel, K7's kernel is also given as its time an event in
+the trace.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -185,10 +185,13 @@ def _traced(fn, counts=None):
 def _kernel_ms(fn, names, reps: int):
     """(ms, source, wrapper ms, ms by function): the device time per call
     of the CUDA functions whose names contain one of ``names``, from a
-    profiler trace of ``reps`` calls after one warm-up call; where the
-    trace holds none, CUDA events around the calls (source says which).
-    The wrapper's time is CUDA events around ``reps`` calls.  Prints how
-    many of the kernels' device events the trace holds against the calls.
+    profiler trace of ``reps`` calls after one warm-up call, each function's
+    time divided by its events in the trace.  Where the trace holds none of
+    them, or holds of one of them a count of events that is not a whole
+    number of events per call (the trace dropped some), it is CUDA events
+    around the calls instead (source says which).  The wrapper's time is
+    CUDA events around ``reps`` calls.  ms by function is device time per
+    event.  Prints the trace's events against the calls.
     """
     import torch
 
@@ -203,16 +206,15 @@ def _kernel_ms(fn, names, reps: int):
     torch.cuda.synchronize()
     counts: dict[str, int] = {}
     _, us = _traced(calls, counts)
-    by_fn = {k: v / 1e3 / reps for k, v in us.items() if any(nm in k for nm in names)}
+    mine = [k for k in us if any(nm in k for nm in names)]
+    per_event = {k: us[k] / 1e3 / counts[k] for k in mine}
     if us:
-        n_ev = sum(c for k, c in counts.items() if any(nm in k for nm in names))
-        _say(f"[trace] {n_ev} device events of {'/'.join(names)} in the trace of {reps} calls "
-             f"({sum(counts.values())} device events in all); "
-             + "; ".join(f"{_short({k: us[k] / 1e3 / max(counts[k], 1)})} ms each over "
-                         f"{counts[k]}" for k in us if any(nm in k for nm in names)))
-    if not by_fn:
-        return wrapper, "events", wrapper, {}
-    return sum(by_fn.values()), "trace", wrapper, by_fn
+        _say(f"[trace] {sum(counts[k] for k in mine)} device events of {'/'.join(names)} in the "
+             f"trace of {reps} calls ({sum(counts.values())} device events in all); "
+             + "; ".join(f"{_short({k: per_event[k]})} ms each over {counts[k]}" for k in mine))
+    if not mine or any(counts[k] % reps for k in mine):
+        return wrapper, "events", wrapper, per_event
+    return sum(per_event[k] * counts[k] / reps for k in mine), "trace", wrapper, per_event
 
 
 def _short(by_fn) -> str:
@@ -537,7 +539,8 @@ def _lm_phases(dev, r_col):
         logits, ms = do_prefill()
         prefill_ms.append(ms)
         n_prefill += 1
-    (logits, ms_traced), busy_pre = _traced(do_prefill)
+    n_ev_pre: dict[str, int] = {}
+    (logits, ms_traced), busy_pre = _traced(do_prefill, n_ev_pre)
     n_prefill += 1
     tok = torch.argmax(logits, -1).to(torch.int32)
     out = [tok]
@@ -584,15 +587,16 @@ def _lm_phases(dev, r_col):
             _say(f"[lm] one {what} under the profiler: no device events; busy share not measured")
     assert torch.isfinite(logits).all() and gen_tokens.shape == (batch, n_new)
     assert lm_launches["flash_attention"] == cfg.n_layers * n_prefill, lm_launches
-    # K6 in the prefill's trace, by CUDA function: the wgmma kernel, once a layer
+    # K6 in the prefill's trace, by CUDA function: the wgmma kernel, one event a layer
+    assert busy_pre, "the bf16 prefill's profiler trace holds no device events"
     k6_pre = {k: v for k, v in busy_pre.items() if any(nm in k for nm in FLASH_KERNELS)}
-    k6_in_prefill = sum(k6_pre.values()) / 1e3 / cfg.n_layers if busy_pre else float("nan")
-    if busy_pre:
-        assert k6_pre and all("flash_fwd_wgmma_kernel" in k for k in k6_pre), k6_pre
-        _say(f"[lm] K6 in the prefill's trace: {_short({k: v / 1e3 for k, v in k6_pre.items()})} "
-             f"ms over {cfg.n_layers} layers, {k6_in_prefill:.4f} ms a call, "
-             f"{100 * sum(k6_pre.values()) / sum(busy_pre.values()):.2f} % of the device's busy "
-             "time")
+    assert k6_pre and all("flash_fwd_wgmma_kernel" in k for k in k6_pre), k6_pre
+    n_k6_pre = sum(n_ev_pre[k] for k in k6_pre)
+    assert n_k6_pre == cfg.n_layers, (n_k6_pre, cfg.n_layers)
+    k6_in_prefill = sum(k6_pre.values()) / 1e3 / n_k6_pre
+    _say(f"[lm] K6 in the prefill's trace: {_short({k: v / 1e3 for k, v in k6_pre.items()})} "
+         f"ms over {n_k6_pre} events ({cfg.n_layers} layers), {k6_in_prefill:.4f} ms a call, "
+         f"{100 * sum(k6_pre.values()) / sum(busy_pre.values()):.2f} % of the device's busy time")
     del params, cache
     torch.cuda.empty_cache()
 
@@ -602,7 +606,6 @@ def _lm_phases(dev, r_col):
     _, plain6 = _plain_ms(lambda: fa.flash_attention_ref(q, k, v))
     lib6 = _events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps=10)
-    mma6 = _events_ms(lambda: fa._launch(q, k, v, True, "bf16_mma_sync"), reps=10)
     ops6, bytes6 = _flash_work(*q.shape[:3], q.shape[3], True, q.element_size())
     bound6, by6 = _bound(ops6, bytes6, BF16_FLOPS)
     regs6 = _ptxas_regs(_build.build_all(["flash_attention"])["flash_attention"].ptxas,
@@ -614,8 +617,7 @@ def _lm_phases(dev, r_col):
          f"scaled_dot_product_attention "
          f"{lib6:.4f} ms; bound {bound6:.4f} ms by {by6} ({ops6:.4g} operations at 989 TFLOP/s, "
          f"{bytes6:.4g} bytes); {100 * bound6 / ms6:.1f} % of the bound; the mma.sync kernel it "
-         f"replaces (0.8505-0.8798 ms in PERF.md's earlier runs) {mma6:.4f} ms in this run, "
-         f"{mma6 / ms6:.2f}x")
+         f"replaces took 0.8505-0.8798 ms (PERF.md)")
     q32, k32, v32 = (x.float() for x in olmo_qkv)  # the fp32 kernel (CUDA cores), same shape
     trace6f, how6f, ms6f, _ = _kernel_ms(lambda: fa.flash_attention(q32, k32, v32),
                                          FLASH_KERNELS, reps=5)
@@ -701,19 +703,24 @@ def _rwkv_phases(dev):
         assert _close(y, y_want, tol) and _close(s, s_want, tol)
         if l == 2048:
             fwd_in, fwd_err, fwd_want = (r, k, v, w, u), err, (y_want, s_want)
+    built7 = _build.build_all(["wkv6"])["wkv6"]
+    log7, lib7 = built7.ptxas, built7.path.read_bytes()
     for hd in wk.HEAD_DIMS:  # the decode step's L = 1, the state in place, every hd
         r, k, v, w, u, s0 = wkv_inputs(2, 1, 3, hd, 17 + hd)
         y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
-        for geo in (None, wk.launch_geometry(hd)):  # the step kernel, then the split one
-            buf = s0.clone()
-            y, s = (wk.wkv6(r, k, v, w, u, buf, state_out=buf) if geo is None else
-                    wk._launch(r, k, v, w, u, buf, buf, geometry=geo))
-            torch.cuda.synchronize()
-            err = max(_max_float_err(y, y_want), _max_float_err(buf, s_want))
-            _say(f"[check] wkv6 (2, 1, 3, {hd}) (JC, P, C) = {geo or wk.launch_geometry(hd, 1)}"
-                 f" with the state in place: max_abs_err={err:.3g}")
-            assert s.data_ptr() == buf.data_ptr()
-            assert _close(y, y_want, tol) and _close(buf, s_want, tol)
+        buf = s0.clone()
+        y, s = wk.wkv6(r, k, v, w, u, buf, state_out=buf)
+        torch.cuda.synchronize()
+        err = max(_max_float_err(y, y_want), _max_float_err(buf, s_want))
+        jc, p, c = wk.launch_geometry(hd)
+        name = f"wkv6_split_kernelILi{hd}ELi{jc}ELi{p}ELi{c}E"
+        assert name.encode() in lib7, f"no split kernel <{hd}, {jc}, {p}, {c}> in wkv6's library"
+        regs = _ptxas_regs(log7, name)
+        _say(f"[check] wkv6 (2, 1, 3, {hd}) with the state in place (the step kernel, "
+             f"{_ptxas_regs(log7, f'wkv6_step_kernelILi{hd}E')} registers): max_abs_err="
+             f"{err:.3g}; hd={hd} sequences take (JC, P, C) = {(jc, p, c)}, {regs} registers")
+        assert s.data_ptr() == buf.data_ptr()
+        assert _close(y, y_want, tol) and _close(buf, s_want, tol)
     r, k, v, w, u = fwd_in
     y, s = wk.wkv6(r, k, v, w, u)
     half = r.shape[1] // 2
@@ -848,7 +855,8 @@ def _rwkv_phases(dev):
 
     reset_launches()
     fwd_ms = [do_forward()[1] for _ in range(4)]  # the first is a warm-up
-    (loss, ms_traced), busy_fwd = _traced(do_forward)
+    n_ev_fwd: dict[str, int] = {}
+    (loss, ms_traced), busy_fwd = _traced(do_forward, n_ev_fwd)
     t = time.perf_counter()
     tokens = greedy_generate(dataclasses.replace(model, decode_step=timed_step), params,
                              prompts, n_new, dtype=bf16)
@@ -866,7 +874,8 @@ def _rwkv_phases(dev):
         return lg, (time.perf_counter() - t) * 1e3
 
     one_step()
-    (_, ms_step_traced), busy_dec = _traced(one_step)
+    n_ev_dec: dict[str, int] = {}
+    (_, ms_step_traced), busy_dec = _traced(one_step, n_ev_dec)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         one_step()
     n_calls = sum(1 for ev in prof.events() if ev.cpu_parent is None)
@@ -894,9 +903,14 @@ def _rwkv_phases(dev):
         else:
             _say(f"[rwkv] one {what} under the profiler: no device events; busy share not "
                  "measured")
-    # K7 inside the model: device ms a call, from the two traces above
-    in_model = [sum(v for k, v in busy.items() if any(nm in k for nm in WKV_KERNELS)) / 1e3 /
-                cfg.n_layers for busy in (busy_fwd, busy_dec)]
+    # K7 inside the model: device ms an event, and the events, from the two traces above
+    in_model = []
+    for what, busy, n_ev in (("forward", busy_fwd, n_ev_fwd), ("decode step", busy_dec, n_ev_dec)):
+        mine = [k for k in busy if any(nm in k for nm in WKV_KERNELS)]
+        n7 = sum(n_ev[k] for k in mine)
+        in_model.append(sum(busy[k] for k in mine) / 1e3 / n7 if n7 else float("nan"))
+        _say(f"[rwkv] K7 in one {what}'s trace: {n7} events ({cfg.n_layers} layers), "
+             f"{in_model[-1]:.4f} ms each")
     assert np.isfinite(float(loss)) and tokens.shape == (batch, n_new)
     assert len(step_ms) == l_prompt + n_new - 1
     assert rwkv_launches["wkv6"] == cfg.n_layers * (5 + len(step_ms)), rwkv_launches
@@ -913,38 +927,21 @@ def _rwkv_phases(dev):
          f"kernel {ms7:.4f} ms (CUDA events around the wrapper; {how7} {trace7:.4f} ms); plain "
          f"{plain7:.2f} ms; bound {bound7:.4f} ms by {by7} ({ops7:.4g} fp32 operations at 67 "
          f"TFLOP/s, {bytes7:.4g} bytes); {100 * bound7 / ms7:.1f} % of the bound; in the forward's "
-         f"trace {in_model[0]:.4f} ms a call; the earlier kernel (one block of hd threads a head) "
+         f"trace {in_model[0]:.4f} ms an event; the earlier kernel (one block of hd threads a head) "
          f"took 0.7507-0.7620 ms")
-    # the launch geometries compiled for hd = 64, each checked and timed
-    log7 = _build.build_all(["wkv6"])["wkv6"].ptxas
-    y_want, s_want = fwd_want
-    for geo in [g for g in wk.GEOMETRIES if g[0] == r.shape[3]]:
-        y, s = wk._launch(r, k, v, w, u, None, None, geometry=geo[1:])
-        torch.cuda.synchronize()
-        assert _close(y, y_want, tol) and _close(s, s_want, tol), geo
-        ms_geo = _events_ms(lambda: wk._launch(r, k, v, w, u, None, None, geometry=geo[1:]),
-                            reps=10)
-        jc, p, c = geo[1:]
-        regs = _ptxas_regs(log7, f"wkv6_split_kernelILi{geo[0]}ELi{jc}ELi{p}ELi{c}E")
-        _say(f"[K7] geometry JC={jc} P={p} C={c} ({r.shape[0] * r.shape[2] * r.shape[3] // jc} "
-             f"blocks of {jc // c * p} threads, {r.shape[3] // p * c} state floats and {regs} "
-             f"registers a thread): {ms_geo:.4f} ms by CUDA events")
     rd, kd, vd, wd, ud, sd = dec_in
-    ms7d, how7d, wrap7d, _ = _kernel_ms(lambda: wk.wkv6(rd, kd, vd, wd, ud, sd, state_out=sd),
-                                        WKV_KERNELS, reps=50)
+    ms7d, how7d, wrap7d, ev7d = _kernel_ms(lambda: wk.wkv6(rd, kd, vd, wd, ud, sd, state_out=sd),
+                                           WKV_KERNELS, reps=50)
+    ev7d = sum(ev7d.values())  # one kernel a call: the step kernel's ms an event
     _, plain7d = _plain_ms(lambda: wk.wkv6_ref(rd, kd, vd, wd, ud, sd))
     ops7d, bytes7d = _wkv_work(*rd.shape, True)
     bound7d, by7d = _bound(ops7d, bytes7d, FP32_FLOPS)
-    _say(f"[K7] wkv6 {tuple(rd.shape)} with the state in place: kernel {ms7d:.4f} ms ({how7d}; "
-         f"wrapper {wrap7d:.4f} ms by CUDA events); plain {plain7d:.3f} ms; bound {bound7d:.5f} "
-         f"ms by {by7d}; {100 * bound7d / ms7d:.1f} % of the bound; in the decode step's trace "
-         f"{in_model[1]:.4f} ms a call (the earlier kernel: 0.0042 ms a call there, 0.0025-0.0026 "
-         "in the short trace)")
-    geo = wk.launch_geometry(rd.shape[3])
-    ms7s, how7s, _, _ = _kernel_ms(lambda: wk._launch(rd, kd, vd, wd, ud, sd, sd, geometry=geo),
-                                   WKV_KERNELS, reps=50)
-    _say(f"[K7] the same step through the split kernel, (JC, P, C) = {geo}: {ms7s:.4f} ms "
-         f"({how7s})")
+    _say(f"[K7] wkv6 {tuple(rd.shape)} with the state in place: {ms7d:.4f} ms a call "
+         f"({how7d}; wrapper {wrap7d:.4f} ms by CUDA events); {ev7d:.4f} ms an event in the "
+         f"trace; plain {plain7d:.3f} ms; bound {bound7d:.5f} ms by {by7d}; "
+         f"{100 * bound7d / ev7d:.1f} % of the bound an event; in the decode step's trace "
+         f"{in_model[1]:.4f} ms an event, {100 * bound7d / in_model[1]:.1f} % of the bound (the "
+         "earlier kernel: 0.0042 ms a call there)")
     return [{
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
@@ -1376,7 +1373,8 @@ def main() -> int:
                                     k_fin)
         bound, by = _bound(ops, n_bytes)
         _say(f"[K2] fused_ingest_dense {rel.name} N={rows.shape[0]} W={packed.dims[0]} "
-             f"k={k_fin}: kernel {ms:.4f} ms ({how}: {_short(by_fn)}; wrapper {wrap:.4f} ms); "
+             f"k={k_fin}: kernel {ms:.4f} ms ({how}; ms an event {_short(by_fn)}; wrapper {wrap:.4f} "
+             f"ms); "
              f"plain {plain_ms:.1f} ms (max_abs_err={err}); bound {bound:.4f} ms by {by} "
              f"({ops:.4g} int32 ops, {n_bytes:.4g} bytes)")
         if rel.name != "R":
@@ -1403,7 +1401,7 @@ def main() -> int:
         ops_s, bytes_s = _ingest_work(rows, enc_s, got[0], len(cols), len(seeds), width, k_fin)
         bound_s, by_bs = _bound(ops_s, bytes_s)
         _say(f"[K3] fused_ingest routes+sketch R N={rows.shape[0]} W={got[0].shape[1]} "
-             f"k={k_fin}: kernel {ms_s:.4f} ms ({how_s}: {_short(by_s)}; wrapper {wrap_s:.4f} "
+             f"k={k_fin}: kernel {ms_s:.4f} ms ({how_s}; ms an event {_short(by_s)}; wrapper {wrap_s:.4f} "
              f"ms); plain {plain_s:.1f} ms (max_abs_err={err_s}); bound {bound_s:.4f} ms by "
              f"{by_bs}")
         kernels.append({

@@ -53,11 +53,11 @@
 //     row's C columns as one 16-byte word.  s0 and s_out may be one buffer:
 //     each block reads its columns of its (b, h) before it writes them, and
 //     no other block touches them.
-// JC, P and C are template parameters; the wrapper chooses them by hd
-// (kernels/wkv6.py, launch_geometry) from WKV_GEOMETRIES below, at hd = 64
-// by chip_smoke.py's timing of the candidates listed there.  A decode step
-// (L = 1) has no sequence to spread: it takes wkv6_step_kernel, one block
-// of hd threads a head, each holding a column.
+// JC, P and C are template parameters, one geometry a head dim, chosen in
+// wkv6_launch below (kernels/wkv6.py's launch_geometry names the same).  At
+// hd = 64 it is the fastest of five geometries timed on the card (PERF.md).
+// A decode step (L = 1) has no sequence to spread: it takes
+// wkv6_step_kernel, one block of hd threads a head, each holding a column.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -449,25 +449,19 @@ int launch_step(const Args& a, int bh, cudaStream_t stream) {
 
 }  // namespace
 
-// (hd, JC, P, C) instantiated: the default of every hd first, then the other
-// candidates at hd = 64; kernels/wkv6.py's GEOMETRIES lists the same
-#define WKV_GEOMETRIES(X)                                                              \
-  X(16, 16, 4, 2) X(32, 32, 8, 4) X(48, 16, 4, 2) X(64, 16, 16, 4) X(80, 16, 4, 2)     \
-  X(96, 32, 8, 4) X(112, 16, 4, 2) X(128, 32, 16, 4) X(64, 32, 16, 4) X(64, 32, 8, 4)   \
-  X(64, 16, 16, 2) X(64, 32, 8, 2)
-
 extern "C" {
 
 // r, k, v, w: fp32 on the card, element (b, t, h, i) at
 //   base + b * strides[3q] + t * strides[3q + 1] + h * strides[3q + 2] + i
 // for q = 0..3 in that order, every base 16-byte aligned and every stride a
 // multiple of 4; u [H, hd], s0 (may be null) and s_out [B, H, hd, hd] and
-// y [B, L, H, hd] contiguous; s_out may equal s0.  (hd, jc, p, c) must be one
-// of WKV_GEOMETRIES, or jc = 0 for the decode step's kernel (L = 1).
-// Returns the launch's cudaError_t (0 = launched).
+// y [B, L, H, hd] contiguous; s_out may equal s0; hd a multiple of 16 in
+// [16, 128].  L = 1 takes the decode step's kernel, any longer L the split
+// kernel at hd's geometry (JC, P, C).  Returns the launch's cudaError_t
+// (0 = launched).
 int wkv6_launch(const void* r, const void* k, const void* v, const void* w, const void* u,
-                const void* s0, void* y, void* s_out, int B, int L, int H, int hd, int jc,
-                int p, int c, const long long* strides, void* stream) {
+                const void* s0, void* y, void* s_out, int B, int L, int H, int hd,
+                const long long* strides, void* stream) {
   if (B < 1 || L < 1 || H < 1 || static_cast<long long>(B) * H > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -485,8 +479,7 @@ int wkv6_launch(const void* r, const void* k, const void* v, const void* w, cons
   a.H = H;
   const int bh = B * H;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (jc == 0) {  // the decode step's kernel
-    if (L != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (L == 1) {  // the decode step
     switch (hd) {
       case 16: return launch_step<16>(a, bh, st);
       case 32: return launch_step<32>(a, bh, st);
@@ -499,11 +492,17 @@ int wkv6_launch(const void* r, const void* k, const void* v, const void* w, cons
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-#define WKV_CASE(HD, JC, P, C) \
-  if (hd == HD && jc == JC && p == P && c == C) return launch<HD, JC, P, C>(a, bh, st);
-  WKV_GEOMETRIES(WKV_CASE)
-#undef WKV_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {  // <HD, JC, P, C>
+    case 16: return launch<16, 16, 4, 2>(a, bh, st);
+    case 32: return launch<32, 32, 8, 4>(a, bh, st);
+    case 48: return launch<48, 16, 4, 2>(a, bh, st);
+    case 64: return launch<64, 16, 16, 4>(a, bh, st);
+    case 80: return launch<80, 16, 4, 2>(a, bh, st);
+    case 96: return launch<96, 32, 8, 4>(a, bh, st);
+    case 112: return launch<112, 16, 4, 2>(a, bh, st);
+    case 128: return launch<128, 32, 16, 4>(a, bh, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

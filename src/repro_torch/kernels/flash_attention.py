@@ -122,14 +122,10 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(q, k, v, causal: bool, variant: str | None = None) -> torch.Tensor:
-    """The kernel on the card; counts no launch.  ``variant`` overrides
-    ``kernel_variant``'s choice (bf16 at D = 64 or 128 may take mma.sync)."""
+def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    """The kernel on the card; counts no launch."""
     b, h, lq, d = q.shape
-    chosen = kernel_variant(q.dtype, d)
-    variant = chosen if variant is None else variant
-    if variant != chosen and not (chosen == "bf16_wgmma" and variant == "bf16_mma_sync"):
-        raise ValueError(f"flash_attention: no {variant} kernel for {q.dtype} with D={d}")
+    variant = kernel_variant(q.dtype, d)
     hkv, lk = k.shape[1], k.shape[2]
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H={b * h} exceeds the kernel's grid (65535)")

@@ -18,11 +18,10 @@ falls back to the plain version.  The kernel reads r, k, v and w through
 their strides (the reshapes of ``time_mix``'s projections are not copied)
 and takes any ``L >= 1``.  It splits each (b, h) over ``hd / JC`` blocks of
 JC state columns and, inside a block, gives each thread C columns of
-``hd / P`` rows; ``launch_geometry(hd, L)`` chooses (JC, P, C), and a decode
-step (``L == 1``) takes a kernel of its own.  ``state_out``,
-when given, is a contiguous
-buffer that receives the final state and may be ``s0`` itself: a decode
-step updates its state in place.
+``hd / P`` rows, one geometry a head dim (``launch_geometry(hd, L)`` names
+it); a decode step (``L == 1``) takes a kernel of its own.  ``state_out``,
+when given, is a contiguous buffer that receives the final state and may be
+``s0`` itself: a decode step updates its state in place.
 """
 from __future__ import annotations
 
@@ -35,32 +34,27 @@ from ._build import library
 LAUNCHES = {"wkv6": 0}
 
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
-# (hd, JC, P, C) that csrc/wkv6.cu instantiates (its WKV_GEOMETRIES): JC
-# state columns a block, P threads (adjacent lanes) share a group of C
-# columns, each holding hd / P of its rows.  The hd = 64 entries after the
-# first eight are the candidates chip_smoke.py times against each other.
-GEOMETRIES = (
-    (16, 16, 4, 2), (32, 32, 8, 4), (48, 16, 4, 2), (64, 16, 16, 4), (80, 16, 4, 2),
-    (96, 32, 8, 4), (112, 16, 4, 2), (128, 32, 16, 4), (64, 32, 16, 4), (64, 32, 8, 4),
-    (64, 16, 16, 2), (64, 32, 8, 2),
-)
-_DEFAULT = {g[0]: g[1:] for g in GEOMETRIES[:8]}
+# (JC, P, C) of each head dim, as csrc/wkv6.cu's wkv6_launch instantiates
+# them: JC state columns a block, P threads (adjacent lanes) share a group of
+# C columns, each holding hd / P of its rows.
+_GEOMETRY = {16: (16, 4, 2), 32: (32, 8, 4), 48: (16, 4, 2), 64: (16, 16, 4),
+             80: (16, 4, 2), 96: (32, 8, 4), 112: (16, 4, 2), 128: (32, 16, 4)}
 STEP = (0, 0, 0)  # the decode step's kernel
 
 
 def launch_geometry(hd: int, l: int = 2) -> tuple[int, int, int]:
-    """(JC, P, C) for head dim ``hd`` over ``l`` tokens: blocks of JC state
-    columns (hd / JC blocks a head), each column's rows split over P threads
-    in adjacent lanes, each thread holding C columns of hd / P rows; whole
-    warps a block.  At rwkv6-3b's hd = 64: (16, 16, 4), the fastest of the
-    hd = 64 candidates on the card (chip_smoke.py times them all).  A decode
-    step (``l == 1``) has no sequence to pipeline: (0, 0, 0) names the
-    csrc/wkv6.cu kernel for it, one block of hd threads a head."""
+    """(JC, P, C) that csrc/wkv6.cu launches for head dim ``hd`` over ``l``
+    tokens: blocks of JC state columns (hd / JC blocks a head), each column's
+    rows split over P threads in adjacent lanes, each thread holding C
+    columns of hd / P rows; whole warps a block.  At rwkv6-3b's hd = 64:
+    (16, 16, 4), the fastest of five geometries timed on the card (PERF.md).
+    A decode step (``l == 1``) has no sequence to pipeline: (0, 0, 0) names
+    the kernel for it, one block of hd threads a head."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"wkv6: head dim {hd} must be a multiple of 16 in [16, 128]")
     if l < 1:
         raise ValueError("wkv6: needs at least one token")
-    return STEP if l == 1 else _DEFAULT[hd]
+    return STEP if l == 1 else _GEOMETRY[hd]
 
 
 def reset_launches() -> None:
@@ -126,13 +120,9 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(r, k, v, w, u, s0, state_out, geometry=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on the card; counts no launch.  ``geometry`` overrides
-    ``launch_geometry``'s (JC, P, C): a split geometry at L = 1 too."""
+def _launch(r, k, v, w, u, s0, state_out) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on the card; counts no launch."""
     b, l, h, hd = r.shape
-    jc, p, c = launch_geometry(hd, l) if geometry is None else geometry
-    if (hd, jc, p, c) not in GEOMETRIES and not ((jc, p, c) == STEP and l == 1):
-        raise ValueError(f"wkv6: no kernel for hd={hd}, L={l}, JC={jc}, P={p}, C={c}")
     r, k, v, w = (_readable(t) for t in (r, k, v, w))
     u = u if u.is_contiguous() and u.data_ptr() % 16 == 0 else u.clone(
         memory_format=torch.contiguous_format)
@@ -144,7 +134,7 @@ def _launch(r, k, v, w, u, s0, state_out, geometry=None) -> tuple[torch.Tensor, 
     y = torch.empty((b, l, h, hd), dtype=torch.float32, device=r.device)
     strides = (ctypes.c_longlong * 12)(*(s for t in (r, k, v, w) for s in t.stride()[:3]))
     fn = library("wkv6").wkv6_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(r.device):
@@ -152,7 +142,7 @@ def _launch(r, k, v, w, u, s0, state_out, geometry=None) -> tuple[torch.Tensor, 
         err = fn(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             None if s0 is None else s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-            b, l, h, hd, jc, p, c, strides, stream,
+            b, l, h, hd, strides, stream,
         )
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: cudaError {err}")

@@ -4,6 +4,8 @@ their own CPU runs.  They carry the ``gpu``
 marker and skip where no card is present; on a machine with one, run
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.  This file imports no
 JAX, so it runs where JAX is not installed."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from repro_torch import mapreduce as tmr
 from repro_torch import stream as tstream
 from repro_torch import configs as tconfigs
 from repro_torch import models as tmodels
+from repro_torch.kernels import _build
 from repro_torch.kernels import block_join as bj
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import histogram as hg
@@ -309,8 +312,6 @@ def test_flash_attention_wgmma_kernel_matches_plain(cuda, b, h, hkv, lq, lk, d, 
     assert got.dtype == _BF16 and got.shape == (b, h, lq, d)
     want = fa.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
-    mma = fa._launch(q, k, v, causal, "bf16_mma_sync")  # the kernel it replaces at this D
-    torch.testing.assert_close(mma.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -436,27 +437,23 @@ def test_wkv6_kernel_every_head_dim(cuda, hd):
     torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
     r1, k1, v1, w1 = (t[:, :1] for t in (r, k, v, w))
     y1_want, s1_want = wk.wkv6_ref(r1, k1, v1, w1, u, s0)
-    for geometry in (None, wk.launch_geometry(hd)):  # the step kernel, then the split one
-        buf = s0.clone()
-        before = wk.LAUNCHES["wkv6"]
-        y1, s1 = (wk.wkv6(r1, k1, v1, w1, u, buf, state_out=buf) if geometry is None else
-                  wk._launch(r1, k1, v1, w1, u, buf, buf, geometry=geometry))
-        torch.cuda.synchronize()
-        assert wk.LAUNCHES["wkv6"] == before + (geometry is None)
-        assert s1.data_ptr() == buf.data_ptr()
-        torch.testing.assert_close(y1, y1_want, rtol=2e-4, atol=2e-4)
-        torch.testing.assert_close(buf, s1_want, rtol=2e-4, atol=2e-4)
+    buf = s0.clone()
+    before = wk.LAUNCHES["wkv6"]
+    y1, s1 = wk.wkv6(r1, k1, v1, w1, u, buf, state_out=buf)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6"] == before + 1
+    assert s1.data_ptr() == buf.data_ptr()
+    torch.testing.assert_close(y1, y1_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(buf, s1_want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("geometry", [g for g in wk.GEOMETRIES if g[0] == 64])
-def test_wkv6_kernel_every_geometry(cuda, geometry):
-    """Every instantiated (hd, JC, P, C), the timing candidates too."""
-    hd = geometry[0]
-    r, k, v, w, u, s0 = _wkv_inputs(2, 100, 3, hd, 9, cuda)
-    y, s = wk._launch(r, k, v, w, u, s0, None, geometry=geometry[1:])
-    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
-    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
-    torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
+@pytest.mark.parametrize("hd", wk.HEAD_DIMS)
+def test_wkv6_launch_geometry_is_the_compiled_one(cuda, hd):
+    """The library holds one split kernel for hd, the geometry
+    launch_geometry names."""
+    lib = _build.build_all(["wkv6"])["wkv6"].path.read_bytes()
+    found = set(re.findall(rb"wkv6_split_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", lib))
+    assert {tuple(map(int, g[1:])) for g in found if int(g[0]) == hd} == {wk.launch_geometry(hd)}
 
 
 def test_wkv6_kernel_reads_strides(cuda):

@@ -133,25 +133,63 @@ def _geometry_fits(hd, jc, p, c):
 def test_launch_geometry_covers_every_head_dim(hd):
     jc, p, c = wk.launch_geometry(hd)
     assert hd % jc == 0 and hd % p == 0 and jc % c == 0
-    assert (hd, jc, p, c) in wk.GEOMETRIES and _geometry_fits(hd, jc, p, c)
+    assert _geometry_fits(hd, jc, p, c)
 
 
-@pytest.mark.parametrize("geometry", wk.GEOMETRIES)
-def test_every_instantiated_geometry_fits(geometry):
-    assert _geometry_fits(*geometry)
+@pytest.mark.parametrize("hd", wk.HEAD_DIMS)
+def test_launch_geometry_partitions_the_state(hd):
+    """csrc/wkv6.cu's index arithmetic at hd's geometry: over the hd / JC
+    blocks of a head, thread tid holds the C columns of group tid / P and
+    the rows 4 (p + P m) + e (p = tid % P), so every state element is held
+    by exactly one thread; the reduce-scatter over the P lanes of a column
+    group leaves each (token, column) total of a tile with exactly one lane;
+    the bonus reduction's lanes of a token fit inside a warp."""
+    jc, p, c = wk.launch_geometry(hd)
+    nt, t_tile = jc // c * p, 8
+    held = np.zeros((hd, hd), dtype=np.int64)
+    for by in range(hd // jc):
+        for tid in range(nt):
+            lane, g = tid % p, tid // p
+            j0 = by * jc + g * c
+            for m in range(hd // p // 4):
+                for e in range(4):
+                    held[4 * (lane + p * m) + e, j0:j0 + c] += 1
+    assert (held == 1).all()
+    kept = np.zeros(t_tile * c, dtype=np.int64)
+    for lane in range(p):
+        n, o, base = t_tile * c, p // 2, 0
+        while o > 0:  # Scatter<N, O>::run
+            if lane & o:
+                base += n // 2
+            n, o = n // 2, o // 2
+        kept[base:base + t_tile * c // p] += 1
+    assert (kept == 1).all()
+    tpt = nt // t_tile
+    assert tpt * t_tile == nt and 32 % tpt == 0
 
 
-def test_geometries_match_the_cuda_source():
-    """GEOMETRIES lists exactly the kernels csrc/wkv6.cu instantiates."""
-    import re
-    from pathlib import Path
-
-    src = (Path(wk.__file__).parent / "csrc" / "wkv6.cu").read_text()
-    block = src[src.index("#define WKV_GEOMETRIES"):]
-    block = block[:block.index("\n\n")]
-    found = tuple(tuple(map(int, m)) for m in
-                  re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)", block))
-    assert found == wk.GEOMETRIES
+@pytest.mark.parametrize("hd", wk.HEAD_DIMS)
+def test_launch_geometry_copies_each_tile_word_once(hd):
+    """csrc/wkv6.cu's ``Copies`` at hd's geometry: the tile's 16-byte words
+    (r, k and w over every row, v over the block's JC columns, 8 tokens),
+    dealt out as copy s = tid + NT i, land each at its own offset of a
+    stage, every offset of the stage written once."""
+    jc, p, c = wk.launch_geometry(hd)
+    nt, t_tile, row4, v4 = jc // c * p, 8, hd // 4, jc // 4
+    n = 3 * t_tile * row4 + t_tile * v4
+    per = -(-n // nt)
+    dst = []
+    for tid in range(nt):
+        for i in range(per):
+            s_ = tid + nt * i
+            if s_ < 3 * t_tile * row4:
+                qq, t, col = s_ // (t_tile * row4), (s_ // row4) % t_tile, s_ % row4
+                dst.append(4 * ((qq * t_tile + t) * hd + 4 * col))
+            elif s_ < n:
+                e = s_ - 3 * t_tile * row4
+                dst.append(4 * (3 * t_tile * hd + (e // v4) * jc + 4 * (e % v4)))
+    stage_bytes = 4 * (3 * t_tile * hd + t_tile * jc)
+    assert sorted(dst) == list(range(0, stage_bytes, 16))
 
 
 @pytest.mark.parametrize("hd", [8, 24, 144])
