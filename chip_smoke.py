@@ -7,13 +7,18 @@ Phases:
      one process per source, all at once);
   3. hold each kernel against its plain PyTorch version on the card:
      random and ragged shapes, zero and negative weights, checksum
-     wraparound;
+     wraparound; the block join at C = 9 and 12 key columns (R spanning
+     several chunks), the fused ingest pass at k_pad 131,075 and 1,048,576
+     (dense) and a static table of as many reducers;
   4. the main path at the paper's §9.1 scale (|R| = 10^6, |S| = 10^5, one
      heavy hitter B=7 in 10% of tuples, q = 1000) through ``run_join`` on
      the card, checked against a host group-by oracle, with the kernels'
      launch counts;
-  5. each kernel at the shapes the main path gives it: time (CUDA events),
-     its plain version's time and result, and the bound;
+  5. each kernel at the shapes the main path gives it: device time (a CUDA
+     graph of repeated calls), its plain version's time and result, and the
+     bound, the function's (every input read once; C + 3 operations a valid
+     row) beside the earlier nested-loop kernel's (C + 2 a pair of
+     valid rows);
   6. the paper's 3-way query (§9.2, at the scale of
      ``examples/multiway_join.py``) on the card against the host oracle;
   7. the streaming engine's fused path on the card: six micro-batches of
@@ -28,9 +33,9 @@ Phases:
   9. the fused path with static route tables (``fused_dynamic_routes=
      False``, the static-table pass) on the same three batches: every
      report equals the fused path's;
- 10. each stream kernel at the shapes the stream gave it: its device time,
-     its wrapper's time, its plain version's time and result, and the
-     bound;
+ 10. each stream kernel at the shapes the stream gave it: its device time
+     (a CUDA graph), its wrapper's time, its plain version's time and
+     result, and the bound;
  11. FlashAttention (K6) against its plain version on the card, each case
      naming the kernel ``kernel_variant`` picks: the five shapes of the
      reference kernel tests and a ragged L = 200 in fp32; in bf16 the wgmma
@@ -87,13 +92,20 @@ Phases:
  21. K7 at the model's shapes, [4, 2048, 40, 64] from zero and [4, 1, 40, 64]
      with a state: CUDA events and the profiler trace, plain time, bound.
 
-Kernel times are device time per call of the kernel's own CUDA functions,
-from a ``torch.profiler`` trace of repeated calls: each function's device
-time over its events in the trace, times its events per call.  The short
-trace may drop events (each ``[trace]`` line prints the count against the
-calls); where it holds a count that is not a whole number per call, or no
-device time, the time is CUDA events around the wrapper instead.  The
-wrapper's time, host work included, is CUDA events around repeated calls.
+The join-side kernels' times (K1a, K1b, K2, K3, K4) are device time per
+call of everything the wrapper launches, from CUDA events around the replay
+of a CUDA graph of repeated calls: no host gaps and no trace.  Beside it a
+``torch.profiler`` trace of the same calls gives each CUDA function's time
+an event and the count of its events against the calls (each ``[trace]``
+line); each trace opens with a few tiny kernels that are left out of it,
+since a trace taken after a long one loses its first few device events.
+The other kernels'
+times are device time per call of the kernel's own CUDA functions, from
+such a trace: each function's device time over its events in the trace,
+times its events per call; where the trace holds a count that is not a
+whole number per call, or no device time, the time is CUDA events around
+the wrapper instead.  The wrapper's time, host work included, is CUDA
+events around repeated calls.
 K6's and K7's times at the forward's shapes are the wrapper's (host work of
 microseconds against a kernel of a fraction of a millisecond), the trace's
 printed beside them; at the decode shape, where the wrapper's host work is
@@ -127,9 +139,10 @@ BF16_FLOPS = 989e12  # dense tensor-core rate
 FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 
 # the CUDA functions of each source, as the profiler names them
-JOIN_KERNELS = ("block_join_kernel",)
+JOIN_KERNELS = ("hash_join_kernel",)
 CMS_KERNELS = ("cms_kernel",)
-INGEST_KERNELS = ("tile_kernel", "scan_kernel", "fix_kernel", "cms_kernel")
+INGEST_KERNELS = ("ingest_count_kernel", "ingest_scan_kernel", "ingest_rank_kernel", "cms_kernel")
+TRACE_WARMUP = 16  # tiny kernels (torch.cuda._sleep's spin_kernel) that open every trace
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
 HIST_KERNELS = ("histogram_kernel",)
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
@@ -157,9 +170,13 @@ def _events_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def _traced(fn, counts=None):
     """(fn's result, device microseconds by CUDA function name) of one
-    call of ``fn`` under ``torch.profiler``; the dict is empty where the
-    trace holds no device events or the profiler fails (printed).  A dict
-    given as ``counts`` receives the number of device events by name."""
+    call of ``fn`` under ``torch.profiler``.  The trace opens with
+    TRACE_WARMUP tiny kernels, left out of the result: a trace taken after
+    a long one loses its first few device events (how many of these it
+    kept is printed when it lost any).  The dict is empty where the trace
+    holds no device events or the profiler fails (printed).  A dict given
+    as ``counts`` receives the number of device events by name."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -170,15 +187,23 @@ def _traced(fn, counts=None):
         _say(f"[trace] the profiler does not start: {e!r}")
         return fn(), {}
     try:
+        for _ in range(TRACE_WARMUP):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         out = fn()
     finally:
         prof.__exit__(None, None, None)
     us: dict[str, float] = {}
+    warm = 0
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and "spin_kernel" in ev.name:
+            warm += 1
+        elif ev.device_type == DeviceType.CUDA:
             us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
             if counts is not None:
                 counts[ev.name] = counts.get(ev.name, 0) + 1
+    if warm < TRACE_WARMUP:
+        _say(f"[trace] the trace kept {warm} of its {TRACE_WARMUP} opening warm-up kernels")
     return out, us
 
 
@@ -189,7 +214,8 @@ def _kernel_ms(fn, names, reps: int):
     time divided by its events in the trace.  Where the trace holds none of
     them, or holds of one of them a count of events that is not a whole
     number of events per call (the trace dropped some), it is CUDA events
-    around the calls instead (source says which).  The wrapper's time is
+    around the calls instead (source says which, with the trace's events
+    of each function against the calls).  The wrapper's time is
     CUDA events around ``reps`` calls.  ms by function is device time per
     event.  Prints the trace's events against the calls.
     """
@@ -212,9 +238,35 @@ def _kernel_ms(fn, names, reps: int):
         _say(f"[trace] {sum(counts[k] for k in mine)} device events of {'/'.join(names)} in the "
              f"trace of {reps} calls ({sum(counts.values())} device events in all); "
              + "; ".join(f"{_short({k: per_event[k]})} ms each over {counts[k]}" for k in mine))
+    held = f"{'/'.join(str(counts[k]) for k in mine) or 0} events of {reps} calls"
     if not mine or any(counts[k] % reps for k in mine):
-        return wrapper, "events", wrapper, per_event
-    return sum(per_event[k] * counts[k] / reps for k in mine), "trace", wrapper, per_event
+        return wrapper, f"events (the trace held {held})", wrapper, per_event
+    return (sum(per_event[k] * counts[k] / reps for k in mine), f"trace ({held})", wrapper,
+            per_event)
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``, host gaps excluded: ``reps`` calls
+    captured in a CUDA graph after a warm-up call, the graph replayed once
+    to warm it and once between CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / reps
 
 
 def _short(by_fn) -> str:
@@ -245,17 +297,36 @@ def _bound(ops: float, n_bytes: float, ops_per_s: float = INT32_OPS_PER_S) -> tu
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _join_work(r_keys, r_w, s_keys, s_w) -> tuple[float, float]:
-    """(int32 operations, bytes) of one block join on these inputs: C
-    compares and two adds (count, weight) per pair of valid slots; a slot's
-    validity is tested once per row, not per pair.  Every input is read
-    once and both [K] outputs are written once."""
+def _join_work(r_keys, r_w, s_keys, s_w) -> tuple[float, float, float]:
+    """(int32 operations, bytes, nested-loop operations) of one block join
+    on these inputs.  The function's work: an aggregate by key, about C + 3
+    operations a valid row of either side (hash the C columns, compare
+    them, add the count and the weight, or multiply-add on a hit).  Every
+    input is read once and both [K] outputs are written once.  The nested
+    loop's, the bound of the earlier kernel: C compares and two adds a pair
+    of valid slots."""
     c = r_keys.shape[-1]
     n_r = (r_w > 0).sum(dim=-1).double()
     n_s = (s_w > 0).sum(dim=-1).double()
-    ops = float((n_r * n_s).sum()) * (c + 2)
+    ops = float((n_r + n_s).sum()) * (c + 3)
     n_bytes = 4 * (r_keys.numel() + r_w.numel() + s_keys.numel() + s_w.numel()) + 8 * r_w.shape[0]
-    return ops, float(n_bytes)
+    return ops, float(n_bytes), float((n_r * n_s).sum()) * (c + 2)
+
+
+def _sm_count() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _wide_routes(k):
+    """A static route table whose destinations reach k - 1, with a pin, an
+    exclude list and two hashed terms (``tests/test_torch_gpu.py``'s)."""
+    return (
+        (k - 40_000, ((0, 0x9E3779B9, 20_000, 2),), (0, 1), (), ((1, (3, 4)),)),
+        (5, ((1, 12_345, 7, 1), (0, 999, 3, 7)), (0,), ((0, 7),), ()),
+        (k - 1, (), (0,), (), ()),
+    )
 
 
 def _max_abs_err(got, want) -> int:
@@ -936,10 +1007,11 @@ def _rwkv_phases(dev):
     _, plain7d = _plain_ms(lambda: wk.wkv6_ref(rd, kd, vd, wd, ud, sd))
     ops7d, bytes7d = _wkv_work(*rd.shape, True)
     bound7d, by7d = _bound(ops7d, bytes7d, FP32_FLOPS)
+    an_event = (f"{ev7d:.4f} ms an event in the trace, {100 * bound7d / ev7d:.1f} % of the "
+                "bound" if ev7d else "no event of it in the trace (not measured)")
     _say(f"[K7] wkv6 {tuple(rd.shape)} with the state in place: {ms7d:.4f} ms a call "
-         f"({how7d}; wrapper {wrap7d:.4f} ms by CUDA events); {ev7d:.4f} ms an event in the "
-         f"trace; plain {plain7d:.3f} ms; bound {bound7d:.5f} ms by {by7d}; "
-         f"{100 * bound7d / ev7d:.1f} % of the bound an event; in the decode step's trace "
+         f"({how7d}; wrapper {wrap7d:.4f} ms by CUDA events); {an_event}; plain "
+         f"{plain7d:.3f} ms; bound {bound7d:.5f} ms by {by7d}; in the decode step's trace "
          f"{in_model[1]:.4f} ms an event, {100 * bound7d / in_model[1]:.1f} % of the bound (the "
          "earlier kernel: 0.0042 ms a call there)")
     return [{
@@ -1021,7 +1093,8 @@ def main() -> int:
     # ---- 3. kernels against their plain versions, assorted shapes -----------
     rng = np.random.default_rng(0)
     for k, cap_r, cap_s, c in [(1, 8, 8, 1), (3, 100, 77, 1), (5, 513, 1030, 2),
-                               (2, 2049, 4100, 3), (6, 3008, 3008, 1), (4, 700, 9, 8)]:
+                               (2, 2049, 4100, 3), (6, 3008, 3008, 1), (4, 700, 9, 8),
+                               (3, 2500, 700, 9), (2, 1100, 3000, 12)]:
         ops = [rng.integers(0, 5, (k, cap_r, c)), rng.integers(-1, 4, (k, cap_r)),
                rng.integers(0, 5, (k, cap_s, c)), rng.integers(-1, 4, (k, cap_s))]
         ops = [torch.from_numpy(o.astype(np.int32)).to(dev) for o in ops]
@@ -1029,14 +1102,15 @@ def main() -> int:
         torch.cuda.synchronize()
         want = bj.block_join_ref(*ops)
         err = _max_abs_err(got, want)
-        _say(f"[check] reducer_join K={k} cap_r={cap_r} cap_s={cap_s} C={c}: max_abs_err={err}")
+        _say(f"[check] reducer_join K={k} cap_r={cap_r} cap_s={cap_s} C={c} "
+             f"(chunk, slots)={bj.chunk_geometry(cap_r, c)}: max_abs_err={err}")
         assert err == 0
     n = 256  # the wraparound case of the reference kernel tests
     z = torch.zeros((n, 1), dtype=torch.int32, device=dev)
     w = torch.full((n,), 40_000, dtype=torch.int32, device=dev)
     cnt, chk = bj.flat_join(z, w, z, w)
     assert int(cnt) == n * n and int(chk) & 0xFFFFFFFF == (40_000 * 40_000 * n * n) % (1 << 32)
-    for n_r, n_s, c in [(5000, 3001, 2), (1, 1, 1), (70_000, 1_000, 1)]:
+    for n_r, n_s, c in [(5000, 3001, 2), (1, 1, 1), (70_000, 1_000, 1), (10_000, 3_000, 12)]:
         ops = [rng.integers(0, 50, (n_r, c)), rng.integers(0, 1 << 31, n_r),
                rng.integers(0, 50, (n_s, c)), rng.integers(0, 1 << 31, n_s)]
         ops = [torch.from_numpy(o.astype(np.int32)).to(dev) for o in ops]
@@ -1098,9 +1172,11 @@ def main() -> int:
         _say(f"[check] fused_ingest and fused_ingest_dense W=1 {rel.name} N=999: "
              f"max_abs_err={err}")
         assert err == 0
-    # destinations that repeat within a row and across rows, with a
-    # histogram of 65,536 destinations and with one of 128
-    for k_pad in (128, 65_536):
+    # destinations that repeat within a row and across rows, with
+    # histograms of 128 and 65,536 destinations and wider than one block's
+    # range of counters (131,075 and 1,048,576; the first kernels stopped
+    # at 114,688)
+    for k_pad in (128, 65_536, 131_075, 1_048_576):
         enc = fi.dense_route_encoding((), 3, 8, max_values=2)
         rng_e = np.random.default_rng(k_pad)
         enc["col_valid"][:7] = 1
@@ -1115,9 +1191,21 @@ def main() -> int:
         rows = torch.from_numpy(rng_e.integers(0, 5, (200_003, 3)).astype(np.int32)).to(dev)
         err = _max_abs_err(fi.fused_ingest_dense(rows, enc, k_pad=k_pad),
                            fi.fused_ingest_dense_ref(rows, enc, k_pad=k_pad))
-        _say(f"[check] fused_ingest_dense repeated destinations N=200003 k_pad={k_pad}: "
+        _say(f"[check] fused_ingest_dense repeated destinations N=200003 k_pad={k_pad} "
+             f"rows a tile={fi.launch_geometry(200_003, 8, 3, k_pad, _sm_count())}: "
              f"max_abs_err={err}")
         assert err == 0
+    # a static table of as many reducers: a pin, an exclude list, two
+    # hashed terms, destinations up to k - 1
+    for k in (131_075, 1_048_576):
+        kw = dict(routes=_wide_routes(k), sketch_cols=(1,), seeds=seeds, width=64,
+                  num_reducers=k)
+        rows = edge_rows(100_003, 2, k)
+        got = fi.fused_ingest(rows, **kw)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, fi.fused_ingest_ref(rows, **kw))
+        _say(f"[check] fused_ingest (both) static table N=100003 W=4 k={k}: max_abs_err={err}")
+        assert err == 0 and int(got[0].max()) == k - 1
     for width in (1, 251, 2048, 20_000):
         vals = np.random.default_rng(width).integers(i32.min, i32.max, 100_003, dtype=np.int64,
                                                      endpoint=True)
@@ -1182,12 +1270,18 @@ def main() -> int:
     err_a = _max_abs_err(got, want)
     assert err_a == 0
     assert int(got[0].long().sum()) == res.count
-    ms_a, src_a, wrap_a, _ = _kernel_ms(lambda: bj.reducer_join(*ops), JOIN_KERNELS, reps=20)
-    ops_a, bytes_a = _join_work(*ops)
+    ms_a = _graph_ms(lambda: bj.reducer_join(*ops), reps=20)
+    tr_a, src_a, wrap_a, ev_a = _kernel_ms(lambda: bj.reducer_join(*ops), JOIN_KERNELS, reps=20)
+    ops_a, bytes_a, pairs_a = _join_work(*ops)
     bound_a, by_a = _bound(ops_a, bytes_a)
-    _say(f"[K1a] kernel {ms_a:.4f} ms ({src_a}; wrapper {wrap_a:.4f} ms); plain {plain_ms:.1f} ms "
-         f"(all {ops[0].shape[0]} reducers, max_abs_err={err_a}); bound {bound_a:.4f} ms by "
-         f"{by_a} ({ops_a:.4g} int32 ops, {bytes_a:.4g} bytes)")
+    nested_a, _ = _bound(pairs_a, bytes_a)
+    _say(f"[K1a] kernel {ms_a:.4f} ms (CUDA graph of 20 calls; {src_a} {tr_a:.4f} ms, "
+         f"{_short(ev_a)} ms an event; wrapper {wrap_a:.4f} ms); plain {plain_ms:.1f} ms "
+         f"(all {ops[0].shape[0]} reducers, (chunk, slots)="
+         f"{bj.chunk_geometry(ops[0].shape[1], ops[0].shape[2])}, max_abs_err={err_a}); bound "
+         f"{bound_a:.4f} ms by {by_a} ({ops_a:.4g} int32 ops, {bytes_a:.4g} bytes); the "
+         f"nested loop's bound (the earlier kernel's) {nested_a:.4f} ms by operations "
+         f"({pairs_a:.4g})")
     kernels = [{
         "name": "reducer_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_join.cu",
@@ -1212,12 +1306,16 @@ def main() -> int:
     err_b = _max_abs_err(got, want)
     assert err_b == 0
     assert int(got[0]) == r_hh.shape[0] * s_hh.shape[0]
-    ms_b, src_b, wrap_b, _ = _kernel_ms(lambda: bj.flat_join(*flat), JOIN_KERNELS, reps=10)
-    ops_b, bytes_b = _join_work(*(x[None] for x in flat))
+    ms_b = _graph_ms(lambda: bj.flat_join(*flat), reps=10)
+    tr_b, src_b, wrap_b, ev_b = _kernel_ms(lambda: bj.flat_join(*flat), JOIN_KERNELS, reps=10)
+    ops_b, bytes_b, pairs_b = _join_work(*(x[None] for x in flat))
     bound_b, by_b = _bound(ops_b, bytes_b)
+    nested_b, _ = _bound(pairs_b, bytes_b)
     _say(f"[K1b] flat_join {r_hh.shape[0]} x {s_hh.shape[0]} (B={hh}): kernel {ms_b:.4f} ms "
-         f"({src_b}; wrapper {wrap_b:.4f} ms); plain {plain_b:.1f} ms (max_abs_err={err_b}); "
-         f"bound {bound_b:.4f} ms by {by_b}")
+         f"(CUDA graph of 10 calls; {src_b} {tr_b:.4f} ms, {_short(ev_b)} ms an event; wrapper "
+         f"{wrap_b:.4f} ms); plain {plain_b:.1f} ms (max_abs_err={err_b}); bound {bound_b:.4f} "
+         f"ms by {by_b}; the nested loop's bound (the earlier kernel's) {nested_b:.4f} ms by "
+         "operations")
     kernels.append({
         "name": "flat_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_join.cu",
@@ -1367,16 +1465,19 @@ def main() -> int:
         want, plain_ms = _plain_ms(lambda: fi.fused_ingest_dense_ref(rows, packed.arrays, **kw))
         err = _max_abs_err(got, want)
         assert err == 0
-        ms, how, wrap, by_fn = _kernel_ms(lambda: fi.fused_ingest_dense(rows, packed, **kw),
+        ms = _graph_ms(lambda: fi.fused_ingest_dense(rows, packed, **kw), reps=20)
+        tr, how, wrap, by_fn = _kernel_ms(lambda: fi.fused_ingest_dense(rows, packed, **kw),
                                           INGEST_KERNELS, reps=20)
         ops, n_bytes = _ingest_work(rows, packed.arrays, got[0], len(cols), len(seeds), width,
                                     k_fin)
         bound, by = _bound(ops, n_bytes)
-        _say(f"[K2] fused_ingest_dense {rel.name} N={rows.shape[0]} W={packed.dims[0]} "
-             f"k={k_fin}: kernel {ms:.4f} ms ({how}; ms an event {_short(by_fn)}; wrapper {wrap:.4f} "
-             f"ms); "
-             f"plain {plain_ms:.1f} ms (max_abs_err={err}); bound {bound:.4f} ms by {by} "
-             f"({ops:.4g} int32 ops, {n_bytes:.4g} bytes)")
+        rpt = fi.launch_geometry(rows.shape[0], packed.wp, rows.shape[1], k_fin,
+                                 _sm_count())
+        _say(f"[K2] fused_ingest_dense {rel.name} N={rows.shape[0]} W={packed.wp} "
+             f"k={k_fin} ({-(-rows.shape[0] // rpt)} tiles of {rpt} rows): kernel {ms:.4f} ms "
+             f"(CUDA graph of 20 calls; {how} {tr:.4f} ms; ms an event {_short(by_fn)}; wrapper "
+             f"{wrap:.4f} ms); plain {plain_ms:.1f} ms (max_abs_err={err}); bound {bound:.4f} ms "
+             f"by {by} ({ops:.4g} int32 ops, {n_bytes:.4g} bytes)")
         if rel.name != "R":
             continue
         # the larger pass of the two goes in the kernels line
@@ -1395,15 +1496,16 @@ def main() -> int:
         want, plain_s = _plain_ms(lambda: fi.fused_ingest_ref(rows, **kws))
         err_s = _max_abs_err(got, want)
         assert err_s == 0
-        ms_s, how_s, wrap_s, by_s = _kernel_ms(lambda: fi.fused_ingest(rows, **kws),
+        ms_s = _graph_ms(lambda: fi.fused_ingest(rows, **kws), reps=20)
+        tr_s, how_s, wrap_s, by_s = _kernel_ms(lambda: fi.fused_ingest(rows, **kws),
                                                INGEST_KERNELS, reps=20)
         enc_s = fi._static_routes(routes, rel.arity, dev).arrays
         ops_s, bytes_s = _ingest_work(rows, enc_s, got[0], len(cols), len(seeds), width, k_fin)
         bound_s, by_bs = _bound(ops_s, bytes_s)
         _say(f"[K3] fused_ingest routes+sketch R N={rows.shape[0]} W={got[0].shape[1]} "
-             f"k={k_fin}: kernel {ms_s:.4f} ms ({how_s}; ms an event {_short(by_s)}; wrapper {wrap_s:.4f} "
-             f"ms); plain {plain_s:.1f} ms (max_abs_err={err_s}); bound {bound_s:.4f} ms by "
-             f"{by_bs}")
+             f"k={k_fin}: kernel {ms_s:.4f} ms (CUDA graph of 20 calls; {how_s} {tr_s:.4f} ms; "
+             f"ms an event {_short(by_s)}; wrapper {wrap_s:.4f} ms); plain {plain_s:.1f} ms "
+             f"(max_abs_err={err_s}); bound {bound_s:.4f} ms by {by_bs}")
         kernels.append({
             "name": "fused_ingest", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ingest_fused.cu",
@@ -1419,14 +1521,15 @@ def main() -> int:
         want, plain3 = _plain_ms(lambda: fi.fused_ingest_ref(rows0, **kw3))
         err3 = _max_abs_err(got, want)
         assert err3 == 0
-        ms3, how3, wrap3, _ = _kernel_ms(lambda: fi.fused_ingest(rows0, **kw3), CMS_KERNELS,
-                                         reps=20)
+        ms3 = _graph_ms(lambda: fi.fused_ingest(rows0, **kw3), reps=20)
+        tr3, how3, wrap3, ev3 = _kernel_ms(lambda: fi.fused_ingest(rows0, **kw3), CMS_KERNELS,
+                                           reps=20)
         ops3 = 11.0 * rows0.shape[0] * len(cols) * len(seeds)
         bytes3 = 4.0 * (rows0.numel() + len(cols) * len(seeds) * width)
         bound3, by3 = _bound(ops3, bytes3)
-        _say(f"[K3] fused_ingest sketch-only N={rows0.shape[0]}: kernel {ms3:.4f} ms ({how3}; "
-             f"wrapper {wrap3:.4f} ms); plain {plain3:.1f} ms (max_abs_err={err3}); bound "
-             f"{bound3:.4f} ms by {by3}")
+        _say(f"[K3] fused_ingest sketch-only N={rows0.shape[0]}: kernel {ms3:.4f} ms (CUDA graph "
+             f"of 20 calls; {how3} {tr3:.4f} ms, {_short(ev3)} ms an event; wrapper {wrap3:.4f} "
+             f"ms); plain {plain3:.1f} ms (max_abs_err={err3}); bound {bound3:.4f} ms by {by3}")
         kernels.append({
             "name": "fused_ingest_sketch", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/cms_update.cu",
@@ -1441,14 +1544,16 @@ def main() -> int:
         want, plain4 = _plain_ms(lambda: su.cms_update_ref(vals, seeds, width))
         err4 = _max_abs_err([got], [want])
         assert err4 == 0
-        ms4, how4, wrap4, _ = _kernel_ms(lambda: su.cms_update(vals, seeds, width), CMS_KERNELS,
-                                         reps=50)
+        ms4 = _graph_ms(lambda: su.cms_update(vals, seeds, width), reps=50)
+        tr4, how4, wrap4, ev4 = _kernel_ms(lambda: su.cms_update(vals, seeds, width),
+                                           CMS_KERNELS, reps=50)
         ops4 = 11.0 * vals.shape[0] * len(seeds)
         bytes4 = 4.0 * (vals.numel() + len(seeds) * width)
         bound4, by4 = _bound(ops4, bytes4)
         _say(f"[K4] cms_update N={vals.shape[0]} depth={len(seeds)} width={width}: "
-             f"kernel {ms4:.4f} ms ({how4}; wrapper {wrap4:.4f} ms); plain {plain4:.1f} ms "
-             f"(max_abs_err={err4}); bound {bound4:.4f} ms by {by4}")
+             f"kernel {ms4:.4f} ms (CUDA graph of 50 calls; {how4} {tr4:.4f} ms, {_short(ev4)} ms "
+             f"an event; wrapper {wrap4:.4f} ms); plain {plain4:.1f} ms (max_abs_err={err4}); "
+             f"bound {bound4:.4f} ms by {by4}")
         kernels.append({
             "name": "cms_update", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/cms_update.cu",

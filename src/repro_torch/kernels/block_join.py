@@ -8,13 +8,15 @@ wraparound (mod 2^32).  Weight 0 marks an invalid (padding) slot; valid
 tuples carry weight >= 1 (``repro_torch.mapreduce.hashing.row_weight_torch``).
 
 ``reducer_join`` / ``flat_join`` take the hand-written CUDA kernel
-(``csrc/block_join.cu``) for CUDA tensors and the plain versions
+(``csrc/block_join.cu``, an aggregate-by-key hash join whose R chunks
+``chunk_geometry`` sizes) for CUDA tensors and the plain versions
 ``block_join_ref`` / ``tiled_join_ref`` for CPU tensors; a CUDA tensor never
 falls back to the plain version.  ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,6 +26,7 @@ LAUNCHES = {"reducer_join": 0, "flat_join": 0}
 
 _PAIR_LIMIT = 1 << 31  # per-reducer count must stay below 2^31
 _REF_CHUNK = 1 << 24  # pairs per step of the plain version
+_SMEM = 72 * 1024  # shared memory a block of the kernel aims for: three an SM
 
 
 def reset_launches() -> None:
@@ -106,33 +109,54 @@ def _check(r_keys, r_weights, s_keys, s_weights) -> None:
         )
 
 
+def chunk_geometry(cap_r: int, c: int) -> tuple[int, int]:
+    """(chunk, slots) of the kernel for R bins of ``cap_r`` rows and keys of
+    ``c`` columns: R rows a block and the size of its hash table, a power
+    of two above ``chunk``.  A block holds ``slots`` table entries of three
+    words and ``chunk`` rows of ``c + 1`` words in ``_SMEM`` bytes of shared
+    memory; the chunk is the largest that fits, or all of ``cap_r``."""
+    best, slots = 0, 2
+    while 12 * slots < _SMEM:
+        best = max(best, min(slots - 1, (_SMEM - 12 * slots) // (4 * (c + 1))))
+        slots *= 2
+    if best < 1:
+        raise ValueError(
+            f"block_join: a key of {c} columns does not fit in the kernel's "
+            f"{_SMEM} bytes of shared memory a block"
+        )
+    chunk = max(1, min(cap_r, best))
+    return chunk, 1 << chunk.bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, typed once."""
+    fn = library("block_join").block_join_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(name, r_keys, r_weights, s_keys, s_weights) -> tuple[torch.Tensor, torch.Tensor]:
     k, cap_r, c = r_keys.shape
     cap_s = s_keys.shape[1]
-    cnt = torch.zeros(k, dtype=torch.int32, device=r_keys.device)
-    chk = torch.zeros(k, dtype=torch.int32, device=r_keys.device)
+    out = torch.zeros((2, k), dtype=torch.int32, device=r_keys.device)  # cnt, chk
     if k == 0 or cap_r == 0 or cap_s == 0:
-        return cnt, chk
-    lib = library("block_join")
-    if not 1 <= c <= lib.block_join_max_c():
-        raise ValueError(f"block_join: C={c} key columns not supported by the kernel")
-    tile_r, s_chunk = lib.block_join_tile_r(), lib.block_join_s_chunk()
-    if k * -(-cap_r // tile_r) >= 1 << 31 or -(-cap_s // s_chunk) > 65535:
+        return out[0], out[1]
+    chunk, slots = chunk_geometry(cap_r, c)
+    if k * -(-cap_r // chunk) >= 1 << 31:
         raise ValueError(f"block_join: shape {(k, cap_r, cap_s)} exceeds the launch grid")
-    fn = lib.block_join_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(r_keys.device):
         stream = torch.cuda.current_stream(r_keys.device).cuda_stream
-        err = fn(
+        err = _entry()(
             r_keys.data_ptr(), r_weights.data_ptr(), s_keys.data_ptr(),
-            s_weights.data_ptr(), cnt.data_ptr(), chk.data_ptr(),
-            k, cap_r, cap_s, c, stream,
+            s_weights.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            k, cap_r, cap_s, c, chunk, slots, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
-    return cnt, chk
+    return out[0], out[1]
 
 
 def reducer_join(
@@ -157,7 +181,7 @@ def flat_join(
     s_weights: torch.Tensor,  # [M] int32
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Single flat join: int32 scalars (count, checksum) — the K = 1 launch
-    of the block-join kernel, its grid split over both sides."""
+    of the block-join kernel, its grid over the chunks of R."""
     args = (r_keys[None], r_weights[None], s_keys[None], s_weights[None])
     _check(*args)
     if r_keys.device.type == "cpu":

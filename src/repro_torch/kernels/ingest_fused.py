@@ -17,10 +17,12 @@ needs from it:
 ``fused_ingest_dense`` takes the routes as data, the int32 arrays of
 ``dense_route_encoding`` or the same checked once and packed on the card
 by ``pack_routes`` (what a caller that makes many passes under one table
-passes); ``fused_ingest`` takes the static route table of
-``mapreduce.keys.static_route_table`` and encodes it the same way
-(``Wp = W``, ``V`` = its longest exclude list, packed once per table), so
-one kernel (``csrc/ingest_fused.cu``) serves both.  On CUDA tensors the
+passes: the ``route_program`` the kernels read); ``fused_ingest`` takes the
+static route table of ``mapreduce.keys.static_route_table`` and encodes it
+the same way (``Wp = W``, ``V`` = its longest exclude list, packed once per
+table), so one set of kernels (``csrc/ingest_fused.cu``) serves both, at
+any ``k_pad`` that device memory holds (``launch_geometry`` sizes their
+tiles).  On CUDA tensors the
 wrappers launch it, and the Count-Min kernel (``csrc/cms_update.cu``) for
 the sketch half; on CPU tensors they take the plain versions
 ``fused_ingest_dense_ref`` / ``fused_ingest_ref``.  A CUDA tensor never
@@ -50,8 +52,11 @@ from .sketch_update import cms_tables, cms_tables_ref
 LAUNCHES = {"fused_ingest": 0, "fused_ingest_sketch": 0, "fused_ingest_dense": 0}
 
 _M32 = 0xFFFFFFFF
-_TILE_TARGET = 4096  # emissions per tile of the rank pass
-_TABLE_MAX = 1 << 26  # [tiles, k_pad] count-table entries past which tiles grow
+MAX_TILE = 65535  # emissions per tile: the rank kernel's 16-bit counters (ingest_max_tile)
+MAX_ROW_WORDS = 8192  # words of rows per tile, staged by the count kernel (ingest_max_row_words)
+_MIN_TILE = 2048  # emissions per tile below which a tile's fixed costs dominate
+_TILES_PER_SM = 4  # tiles the passes aim for, per streaming multiprocessor
+_TABLE_MAX = 1 << 24  # [tiles, k_pad] count-table entries past which tiles grow
 
 # Route table entry (all static, as mapreduce.keys.static_route_table gives):
 #   (offset, hashed, replica_offsets, pins, excludes)
@@ -268,10 +273,10 @@ class DenseRoutes:
     uploads it once."""
 
     arrays: dict  # the dense_route_encoding arrays (host numpy)
-    dims: tuple  # (Wp, H, P, V)
+    wp: int  # route columns
     ids: int  # destination ids the table can emit: k_pad must reach it
     cols: int  # row columns the table reads: the rows' arity must reach it
-    packed: torch.Tensor | None  # int32, _ENC_KEYS order; None off the card
+    packed: torch.Tensor | None  # int32, route_program(arrays); None off the card
 
 
 def _check_enc(enc: dict) -> tuple[tuple[int, int, int, int], int, int]:
@@ -309,17 +314,89 @@ def _check_enc(enc: dict) -> tuple[tuple[int, int, int, int], int, int]:
     return (wp, h, p, v), ids, cols
 
 
+def divisor_magic(d: int) -> tuple[int, int]:
+    """(magic, shift) for the unsigned 32-bit division x // d, 2 <= d < 2^32,
+    as ``(hi + ((x - hi) >> 1)) >> shift`` with ``hi = (x * magic) >> 32``
+    (Granlund and Montgomery 1994, figure 4.1): the kernels' modulo by a
+    hashed dimension."""
+    if not 2 <= d < 1 << 32:
+        raise ValueError(f"divisor_magic: d={d} outside [2, 2^32)")
+    lg = (d - 1).bit_length()  # ceil(log2 d)
+    return ((1 << 32) * ((1 << lg) - d)) // d + 1, lg - 1
+
+
+def route_program(enc: dict) -> np.ndarray:
+    """The route program the kernels read: a checked dense encoding
+    compiled into int32 words, four at a time (int4).
+
+    Columns are compiled in groups: a run of consecutive columns with the
+    same tests and hashed terms (the replicas of one residual, which differ
+    only in their base), or a run of padded columns, so a row's terms are
+    evaluated once a group.  int4 0 is ``(groups, Wp, bases, owners)``;
+    int4s ``1 + 2g`` and ``2 + 2g`` are group g's ``(first column,
+    columns, tests, hashed)`` and ``(first term, 0, 0, 0)``, ``tests = -1``
+    for padded columns; from int4 ``bases`` the Wp columns' bases, from
+    int4 ``owners`` each column's group (Wp words each, padded to whole
+    int4s); then the groups' terms, tests first.  A test is ``(col, value,
+    must_equal, 0)``: a pin that is on (the row's value must equal it) or
+    an exclude value that is on (it must not).  A hashed term is ``(col,
+    seed, dim, stride), (magic, shift, 0, 0)`` (``divisor_magic(dim)``);
+    terms whose stride is 0 or whose dim is 1 add 0 to the destination and
+    are left out."""
+    a = {k: np.asarray(enc[k]).astype(np.int64) for k in _ENC_KEYS}
+    wp, h = a["h_col"].shape
+    p, v = a["e_val"].shape[1:]
+    groups = []  # [first column, columns, (tests, hashed terms) or None]
+    for w in range(wp):
+        terms = None
+        if a["col_valid"][w] != 0:
+            tests = [(a["p_col"][w, j], a["p_val"][w, j], 1, 0)
+                     for j in range(p) if a["p_on"][w, j]]
+            tests += [(a["e_col"][w, j], a["e_val"][w, j, t], 0, 0)
+                      for j in range(p) for t in range(v) if a["e_on"][w, j, t]]
+            hashed = []
+            for j in range(h):
+                dim, stride = int(a["h_dim"][w, j]), int(a["h_stride"][w, j])
+                if stride != 0 and dim != 1:
+                    hashed += [(a["h_col"][w, j], a["h_seed"][w, j], dim, stride),
+                               (*divisor_magic(dim), 0, 0)]
+            terms = (tuple(tuple(map(int, x)) for x in tests),
+                     tuple(tuple(map(int, x)) for x in hashed))
+        if groups and groups[-1][2] == terms:
+            groups[-1][1] += 1
+        else:
+            groups.append([w, 1, terms])
+    n_g, quads = len(groups), -(-wp // 4)
+    bases_at, owners_at = 1 + 2 * n_g, 1 + 2 * n_g + quads
+    head = [(n_g, wp, bases_at, owners_at)]
+    owners = np.zeros(4 * quads, np.int64)
+    body = []
+    for g, (first, count, terms) in enumerate(groups):
+        owners[first:first + count] = g
+        if terms is None:
+            head += [(first, count, -1, 0), (0, 0, 0, 0)]
+            continue
+        tests, hashed = terms
+        head += [(first, count, len(tests), len(hashed) // 2),
+                 (owners_at + quads + len(body), 0, 0, 0)]
+        body += list(tests) + list(hashed)
+    bases = np.zeros(4 * quads, np.int64)
+    bases[:wp] = a["col_base"]
+    words = np.concatenate([np.asarray(head, np.int64).reshape(-1, 4), bases.reshape(-1, 4),
+                            owners.reshape(-1, 4), np.asarray(body, np.int64).reshape(-1, 4)])
+    return (words & _M32).astype(np.uint32).view(np.int32).reshape(-1)
+
+
 def pack_routes(enc, device) -> DenseRoutes:
     """Check a ``dense_route_encoding`` once and, for a CUDA device, upload
-    it packed for the kernel."""
+    its ``route_program`` for the kernels."""
     if isinstance(enc, DenseRoutes):
         return enc
-    dims, ids, cols = _check_enc(enc)
+    (wp, *_), ids, cols = _check_enc(enc)
     packed = None
     if torch.device(device).type == "cuda":
-        flat = np.concatenate([np.asarray(enc[k], np.int32).reshape(-1) for k in _ENC_KEYS])
-        packed = torch.from_numpy(flat).to(device)
-    return DenseRoutes(enc, dims, ids, cols, packed)
+        packed = torch.from_numpy(route_program(enc)).to(device)
+    return DenseRoutes(enc, wp, ids, cols, packed)
 
 
 def _check_fit(routes: DenseRoutes, rows: torch.Tensor, k_pad: int) -> None:
@@ -339,50 +416,60 @@ def _check_fit(routes: DenseRoutes, rows: torch.Tensor, k_pad: int) -> None:
         raise ValueError(f"fused_ingest: routes not packed for {rows.device}")
 
 
-def _tiling(n: int, wp: int, k_pad: int, max_tile: int) -> int:
-    """Rows per tile of the rank pass: about _TILE_TARGET emissions; more
-    where the [tiles, k_pad] count table would outgrow _TABLE_MAX, up to
-    the kernel's ``max_tile`` emissions, past which the table grows."""
-    if wp > max_tile:
+def launch_geometry(n: int, wp: int, arity: int, k_pad: int, sms: int) -> int:
+    """Rows per tile of the count and rank kernels, for ``n`` rows of
+    ``arity`` values, ``wp`` route columns, ``k_pad`` destinations and a
+    card of ``sms`` multiprocessors: about ``_TILES_PER_SM`` tiles an SM,
+    none under ``_MIN_TILE`` emissions; fewer, larger tiles where the
+    [tiles, k_pad] count table would outgrow ``_TABLE_MAX``; never more than
+    ``MAX_TILE`` emissions or ``MAX_ROW_WORDS`` words of rows a tile, past
+    which the table grows instead."""
+    if wp > MAX_TILE or arity > MAX_ROW_WORDS:
         raise ValueError(
-            f"fused_ingest: {wp} columns exceed the kernel's {max_tile} emissions per tile"
+            f"fused_ingest: {wp} columns or rows of {arity} values exceed the kernel's "
+            f"{MAX_TILE} emissions and {MAX_ROW_WORDS} words of rows per tile"
         )
-    rpt = max(1, _TILE_TARGET // wp)
-    if -(-n // rpt) * k_pad > _TABLE_MAX:
-        rpt = -(-n // max(1, _TABLE_MAX // k_pad))
-    return min(rpt, max_tile // wp)
+    rpt = max(-(-n // (_TILES_PER_SM * sms)), -(-_MIN_TILE // wp))
+    rpt = max(rpt, -(-n // max(1, _TABLE_MAX // k_pad)))
+    return max(1, min(rpt, n, MAX_TILE // wp, MAX_ROW_WORDS // arity))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point of the count, scan and rank kernels, typed once."""
+    fn = library("ingest_fused").ingest_launch
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+    )
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(rows, routes: DenseRoutes, k_pad):
-    """The destination/rank kernels on the card: (dest, rank, counts)."""
+    """The destination/rank kernels on the card: (dest, rank, counts).  The
+    [tiles, k_pad] count table is scratch; a k_pad whose table device
+    memory cannot hold raises PyTorch's out-of-memory error here."""
     n = rows.shape[0]
-    wp, h, p, v = routes.dims
+    wp = routes.wp
     dev = rows.device
-    lib = library("ingest_fused")
-    if k_pad > lib.ingest_max_k_pad():
-        raise ValueError(
-            f"fused_ingest: k_pad={k_pad} exceeds the kernel's limit of "
-            f"{lib.ingest_max_k_pad()} destinations"
-        )
     if n * wp >= 1 << 31:
         raise ValueError(f"fused_ingest: {n} x {wp} emissions exceed 2^31")
-    rpt = _tiling(n, wp, k_pad, lib.ingest_max_tile())
+    rpt = launch_geometry(n, wp, rows.shape[1], k_pad, _sm_count(dev))
     dest = torch.empty((n, wp), dtype=torch.int32, device=dev)
     rank = torch.empty((n, wp), dtype=torch.int32, device=dev)
     counts = torch.empty(k_pad, dtype=torch.int32, device=dev)
     table = torch.empty((-(-n // rpt), k_pad), dtype=torch.int32, device=dev)
-    fn = lib.ingest_launch
-    fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
-    )
-    fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            rows.data_ptr(), n, rows.shape[1], routes.packed.data_ptr(), wp, h, p, v,
-            k_pad, rpt, dest.data_ptr(), rank.data_ptr(), counts.data_ptr(),
-            table.data_ptr(), stream,
+        err = _entry()(
+            rows.data_ptr(), n, rows.shape[1], routes.packed.data_ptr(), wp, k_pad, rpt,
+            dest.data_ptr(), rank.data_ptr(), counts.data_ptr(), table.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_ingest kernel launch failed: cudaError {err}")
@@ -410,7 +497,7 @@ def fused_ingest_dense(
         return fused_ingest_dense_ref(rows, routes.arrays, sketch_cols, seeds, width, k_pad)
     rows = rows.contiguous()
     if rows.shape[0] == 0:
-        z = torch.zeros((0, routes.dims[0]), dtype=torch.int32, device=rows.device)
+        z = torch.zeros((0, routes.wp), dtype=torch.int32, device=rows.device)
         cms = cms_tables(rows, sketch_cols, seeds, width) if sketch_cols else None
         return z, z.clone(), torch.zeros(k_pad, dtype=torch.int32, device=rows.device), cms
     dest, rank, counts = _launch(rows, routes, k_pad)
@@ -455,7 +542,7 @@ def fused_ingest(
     dest = rank = counts = cms = None
     if routes:
         if n == 0:
-            dest = torch.zeros((0, packed.dims[0]), dtype=torch.int32, device=rows.device)
+            dest = torch.zeros((0, packed.wp), dtype=torch.int32, device=rows.device)
             rank = dest.clone()
             counts = torch.zeros(num_reducers, dtype=torch.int32, device=rows.device)
         else:

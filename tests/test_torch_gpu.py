@@ -37,7 +37,8 @@ def cuda():
 
 @pytest.mark.parametrize(
     "k,cap_r,cap_s,c",
-    [(1, 8, 8, 1), (4, 32, 16, 1), (3, 600, 700, 2), (8, 128, 2100, 3), (5, 1000, 3, 1)],
+    [(1, 8, 8, 1), (4, 32, 16, 1), (3, 600, 700, 2), (8, 128, 2100, 3), (5, 1000, 3, 1),
+     (3, 2500, 700, 9), (2, 1100, 900, 12)],
 )
 def test_reducer_join_kernel_matches_plain(cuda, k, cap_r, cap_s, c):
     rng = np.random.default_rng(k + cap_r + cap_s + c)
@@ -53,6 +54,119 @@ def test_reducer_join_kernel_matches_plain(cuda, k, cap_r, cap_s, c):
     want = bj.block_join_ref(*ops)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _same_join(cuda, name, ops):
+    """One counted launch of ``name`` on ``ops``, equal to the plain version."""
+    ops = [torch.from_numpy(np.ascontiguousarray(o).astype(np.int32)).to(cuda) for o in ops]
+    before = bj.LAUNCHES[name]
+    if name == "reducer_join":
+        got, want = bj.reducer_join(*ops), bj.block_join_ref(*ops)
+    else:
+        got, want = bj.flat_join(*ops), bj.tiled_join_ref(*ops)
+    torch.cuda.synchronize()
+    assert bj.LAUNCHES[name] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_reducer_join_kernel_heavy_hitter(cuda, c):
+    """Reducers whose every key is equal (a heavy hitter's, cap >= 3,000):
+    one hash-table slot takes every row, with weights near 2^31 so the
+    checksum wraps."""
+    rng = np.random.default_rng(c)
+    k, cap_r, cap_s = 3, 3008, 3100
+    rk = np.full((k, cap_r, c), 7)
+    sk = np.full((k, cap_s, c), 7)
+    rk[2, ::2], sk[2, ::3] = -5, -5  # reducer 2: two keys
+    rw = rng.integers(1, 1 << 31, (k, cap_r))
+    sw = rng.integers(1, 1 << 31, (k, cap_s))
+    rw[1, ::2], sw[1, 1::2] = 0, -3  # reducer 1: half its slots invalid
+    cnt, _ = _same_join(cuda, "reducer_join", [rk, rw, sk, sw])
+    assert int(cnt[0]) == cap_r * cap_s
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_reducer_join_kernel_colliding_keys(cuda, c):
+    """Thousands of distinct keys a reducer, so the hash table probes past
+    occupied slots, among them INT32_MIN, INT32_MAX and negative keys."""
+    rng = np.random.default_rng(10 + c)
+    k, cap_r, cap_s = 4, 3000, 2000
+    pool = np.concatenate([rng.integers(_I32.min, _I32.max, 2500, endpoint=True),
+                           [_I32.min, _I32.max, -1, 0, 1, -2]])
+    rk = rng.choice(pool, (k, cap_r, c))
+    sk = rng.choice(pool, (k, cap_s, c))
+    rk[:, :6], sk[:, :6] = pool[-6:, None], pool[-6:, None]  # the extremes match
+    rw = rng.integers(-1, 1 << 31, (k, cap_r))
+    sw = rng.integers(-1, 1 << 31, (k, cap_s))
+    rw[:, :6], sw[:, :6] = 1 << 30, 3
+    cnt, _ = _same_join(cuda, "reducer_join", [rk, rw, sk, sw])
+    assert int(cnt.sum()) > 0
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _fmix32(h):
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _M32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def _fmix32_inverse(h):
+    h ^= h >> 16
+    h = (h * pow(0xC2B2AE35, -1, 1 << 32)) & _M32
+    h ^= (h >> 13) ^ (h >> 26)
+    h = (h * pow(0x85EBCA6B, -1, 1 << 32)) & _M32
+    return h ^ (h >> 16)
+
+
+def _key_hash(key):
+    """csrc/block_join.cu's key_hash of a key tuple."""
+    h = 0x9E3779B9
+    for k in key:
+        h = _fmix32(h ^ (int(k) & _M32))
+    return h
+
+
+@pytest.mark.parametrize("c", [2, 3])
+def test_reducer_join_kernel_hash_collisions(cuda, c):
+    """Distinct key tuples with one hash, side by side in a warp: the warp's
+    lanes of one hash are checked column by column, and a lane that differs
+    from its group's leader inserts alone."""
+    rng = np.random.default_rng(20 + c)
+    k, cap = 2, 300
+    rk = rng.integers(-50, 50, (k, cap, c))
+    for i in range(0, 64, 4):  # four tuples of one hash at rows i .. i + 3
+        target = _key_hash(rk[0, i])
+        for j in range(1, 4):
+            rk[0, i + j, :-1] = rk[0, i, :-1] + j
+            h = 0x9E3779B9
+            for x in rk[0, i + j, :-1]:
+                h = _fmix32(h ^ (int(x) & _M32))
+            last = _fmix32_inverse(target) ^ h
+            rk[0, i + j, -1] = last - (1 << 32) if last >= 1 << 31 else last
+            assert _key_hash(rk[0, i + j]) == target
+    rk[0, 64:128] = rk[0, :64]  # each tuple twice: groups of equal keys too
+    sk = rk[:, rng.permutation(cap)]
+    rw = rng.integers(1, 1 << 31, (k, cap))
+    sw = rng.integers(1, 1 << 31, (k, cap))
+    cnt, _ = _same_join(cuda, "reducer_join", [rk, rw, sk, sw])
+    assert int(cnt[0]) > 0
+
+
+@pytest.mark.parametrize("n,m,c", [(10_000, 5_000, 1), (4_000, 300, 12)])
+def test_flat_join_kernel_spans_chunks(cuda, n, m, c):
+    """A flat join whose R side spans several blocks' chunks."""
+    assert n > bj.chunk_geometry(n, c)[0]
+    rng = np.random.default_rng(n + c)
+    ops = [rng.integers(-20, 20, (n, c)), rng.integers(-1, 1 << 31, n),
+           rng.integers(-20, 20, (m, c)), rng.integers(-1, 1 << 31, m)]
+    _same_join(cuda, "flat_join", ops)
 
 
 def test_flat_join_kernel_wraparound(cuda):
@@ -127,10 +241,11 @@ def test_fused_ingest_dense_kernel_matches_plain(cuda, name, n):
         _same(got, fi.fused_ingest_dense_ref(rows, enc, **kw))
 
 
-@pytest.mark.parametrize("k_pad", [128, 65_536])
+@pytest.mark.parametrize("k_pad", [128, 65_536, 131_075, 1_048_576])
 def test_fused_ingest_dense_kernel_repeated_destinations(cuda, k_pad):
-    """Columns that collide within a row and across rows, and a histogram
-    as wide as 65,536 destinations."""
+    """Columns that collide within a row and across rows, and histograms
+    as wide as 65,536 destinations and wider than one block's range of
+    counters (131,075 and 1,048,576)."""
     rng = np.random.default_rng(k_pad)
     wp, arity = 8, 3
     enc = fi.dense_route_encoding((), arity, wp, max_values=2)
@@ -144,8 +259,42 @@ def test_fused_ingest_dense_kernel_repeated_destinations(cuda, k_pad):
     enc["p_col"][3, 0], enc["p_val"][3, 0], enc["p_on"][3, 0] = 1, 2, 1
     enc["e_col"][5, 1], enc["e_val"][5, 1], enc["e_on"][5, 1] = 2, [0, 4], [1, 1]
     rows = torch.from_numpy(rng.integers(0, 5, (50_001, arity)).astype(np.int32)).to(cuda)
-    _same(fi.fused_ingest_dense(rows, enc, k_pad=k_pad),
-          fi.fused_ingest_dense_ref(rows, enc, k_pad=k_pad))
+    before = fi.LAUNCHES["fused_ingest_dense"]
+    got = fi.fused_ingest_dense(rows, enc, k_pad=k_pad)
+    torch.cuda.synchronize()
+    assert fi.LAUNCHES["fused_ingest_dense"] == before + 1
+    _same(got, fi.fused_ingest_dense_ref(rows, enc, k_pad=k_pad))
+
+
+def _wide_routes(k):
+    """A static route table whose destinations reach k - 1, with a pin, an
+    exclude list and two hashed terms."""
+    return (
+        (k - 40_000, ((0, 0x9E3779B9, 20_000, 2),), (0, 1), (), ((1, (3, 4)),)),
+        (5, ((1, 12_345, 7, 1), (0, 999, 3, 7)), (0,), ((0, 7),), ()),
+        (k - 1, (), (0,), (), ()),
+    )
+
+
+@pytest.mark.parametrize("k", [131_075, 1_048_576])
+def test_fused_ingest_static_kernel_many_reducers(cuda, k):
+    """The static-table pass above 114,688 reducers, where the first
+    kernels' shared-memory counters stopped."""
+    kw = dict(routes=_wide_routes(k), sketch_cols=(1,), seeds=_CMS_SEEDS, width=64,
+              num_reducers=k)
+    rows = torch.from_numpy(_rows(40_003, 2, seed=k)).to(cuda)
+    before = fi.LAUNCHES["fused_ingest"]
+    got = fi.fused_ingest(rows, **kw)
+    torch.cuda.synchronize()
+    assert fi.LAUNCHES["fused_ingest"] == before + 1
+    _same(got, fi.fused_ingest_ref(rows, **kw))
+    assert int(got[2].sum()) == int((got[0] >= 0).sum()) > 0
+
+
+def test_ingest_tile_limits_are_the_wrappers(cuda):
+    """launch_geometry sizes tiles with the kernels' own limits."""
+    lib = _build.build_all(["ingest_fused"])["ingest_fused"].lib
+    assert (lib.ingest_max_tile(), lib.ingest_max_row_words()) == (fi.MAX_TILE, fi.MAX_ROW_WORDS)
 
 
 @pytest.mark.parametrize("mode", ["route", "sketch", "both"])

@@ -200,6 +200,241 @@ def test_dense_route_encoding_matches_jax(name):
                 np.testing.assert_array_equal(got[key], want[key])
 
 
+def _wide_routes(k):
+    """A static route table whose destinations reach k - 1, with a pin, an
+    exclude list and two hashed terms."""
+    return (
+        (k - 40_000, ((0, 0x9E3779B9, 20_000, 2),), (0, 1), (), ((1, (3, 4)),)),
+        (5, ((1, 12_345, 7, 1), (0, 999, 3, 7)), (0,), ((0, 7),), ()),
+        (k - 1, (), (0,), (), ()),
+    )
+
+
+@pytest.mark.parametrize("k", [131_075, 1_048_576])
+def test_many_reducers_match_jax_ref(k):
+    """More reducers than the first CUDA kernels could count (114,688): the
+    plain versions and the CPU route against the JAX package's oracle."""
+    routes = _wide_routes(k)
+    rows = _rows(301, 2, seed=k)
+    rows[:50, 0] = 7  # the pin holds on these
+    kw = dict(routes=routes, sketch_cols=(1,), seeds=_SEEDS, width=64, num_reducers=k)
+    want = jref.fused_ingest_ref(jnp.asarray(rows), **kw)
+    t = torch.from_numpy(rows)
+    _assert_same(tfused.fused_ingest_ref(t, **kw), want)
+    _assert_same(tfused.fused_ingest(t, **kw), want)
+    assert int(np.asarray(want[0]).max()) == k - 1
+    enc = tfused.dense_route_encoding(routes, 2, tfused.route_width(routes), max_values=2)
+    got = tfused.fused_ingest_dense(t, enc, sketch_cols=(1,), seeds=_SEEDS, width=64, k_pad=k)
+    _assert_same(got, want)
+
+
+def _mix32(x, seed):
+    x = (x ^ np.uint64(seed)) & np.uint64(_M32)
+    x = ((x ^ (x >> np.uint64(16))) * np.uint64(0x7FEB352D)) & np.uint64(_M32)
+    x = ((x ^ (x >> np.uint64(15))) * np.uint64(0x846CA68B)) & np.uint64(_M32)
+    return x ^ (x >> np.uint64(16))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _run_program(prog, rows, wp):
+    """The count kernel's evaluation of a route program, group by group, in
+    numpy: the destinations it gives."""
+    words = prog.reshape(-1, 4).astype(np.int64)
+    uwords = prog.view(np.uint32).reshape(-1, 4).astype(np.uint64)
+    n_g, width, bases_at, owners_at = words[0]
+    assert width == wp
+    bases = prog.view(np.uint32)[4 * bases_at:4 * bases_at + wp].astype(np.uint64)
+    owners = prog[4 * owners_at:4 * owners_at + wp]
+    r = rows.astype(np.int64)
+    out = np.full((rows.shape[0], wp), -7, np.int64)
+    for g in range(n_g):
+        first, count, tests, hashed = words[1 + 2 * g]
+        assert (owners[first:first + count] == g).all()
+        if tests < 0:
+            out[:, first:first + count] = -1
+            continue
+        at = words[2 + 2 * g][0]
+        ok = np.ones(rows.shape[0], bool)
+        for col, value, must_equal, _ in words[at:at + tests]:
+            ok &= (r[:, col] == value) == bool(must_equal)
+        acc = np.zeros(rows.shape[0], np.uint64)
+        for j in range(hashed):
+            col, seed, dim, stride = uwords[at + tests + 2 * j]
+            magic, shift = uwords[at + tests + 2 * j + 1][:2]
+            x = _mix32(r[:, int(col)].astype(np.uint64) & np.uint64(_M32), seed)
+            hi = (x * magic) >> np.uint64(32)
+            q = (hi + ((x - hi) >> np.uint64(1))) >> shift
+            acc = (acc + (x - q * dim) * stride) & np.uint64(_M32)
+        for c in range(first, first + count):
+            d = ((acc + bases[c]) & np.uint64(_M32)).astype(np.int64)
+            out[:, c] = np.where(ok, np.where(d >= 1 << 31, d - (1 << 32), d), -1)
+    assert (out != -7).all()
+    return out
+
+
+def _repeated_destinations_enc(seed, k_pad=128):
+    rng = np.random.default_rng(seed)
+    enc = tfused.dense_route_encoding((), 3, 8, max_values=2)
+    enc["col_valid"][:7] = 1
+    enc["col_base"][:] = [0, 0, 3, 5, 5, 1, 2, 9]
+    enc["col_base"][:7] += k_pad - 20
+    enc["h_col"][:, 0] = rng.integers(0, 3, 8)
+    enc["h_seed"][:, 0] = rng.integers(_I32.min, _I32.max, 8)
+    enc["h_dim"][:, 0] = [2, 3, 1, 4, 4, 2, 1, 1]
+    enc["h_stride"][:, 0] = [1, 1, 0, 2, 2, 3, 0, 0]
+    enc["p_col"][3, 0], enc["p_val"][3, 0], enc["p_on"][3, 0] = 1, 2, 1
+    enc["e_col"][5, 1], enc["e_val"][5, 1], enc["e_on"][5, 1] = 2, [0, 4], [1, 1]
+    return enc
+
+
+@pytest.mark.parametrize("name", ["2way", "3way", "repeated", "wide"])
+def test_route_program_gives_the_encodings_destinations(name):
+    """The program the kernels read, evaluated group by group as the count
+    kernel does, against the dense encoding's plain destinations: pins,
+    excludes, padded columns, replicas sharing their terms and hashed
+    dimensions of every size, at extreme row values."""
+    if name in _QUERIES:
+        query = _QUERIES[name]()
+        plan = _skewed_plan(query, seed=18)
+        cases = [(static_route_table(plan, rel), rel.arity) for rel in query.relations]
+        encs = [tfused.dense_route_encoding(r, a, tfused.route_width(r) + 3, 8)
+                for r, a in cases]
+    elif name == "repeated":
+        encs = [_repeated_destinations_enc(19)]
+    else:
+        routes = _wide_routes(1_048_576)
+        encs = [tfused.dense_route_encoding(routes, 2, tfused.route_width(routes), 2)]
+    for enc in encs:
+        arity = 1 + max(int(np.max(enc[k])) for k in ("h_col", "p_col", "e_col"))
+        rows = _rows(2000, max(arity, 2), seed=20)
+        rows[:40, 0] = 7
+        want = tfused._dense_dest_ref(torch.from_numpy(rows), tfused._enc_tensors(enc, "cpu"))
+        prog = tfused.route_program(enc)
+        assert prog.dtype == np.int32 and prog.size % 4 == 0
+        got = _run_program(prog, rows, enc["col_base"].shape[0])
+        np.testing.assert_array_equal(got, want.numpy())
+        assert (got >= 0).any()
+        groups = int(prog[0])
+        assert groups < enc["col_base"].shape[0] or name == "repeated"
+
+
+def test_divisor_magic_divides_exactly():
+    """The kernels' x // d by multiply-high and shifts equals the division
+    for every tested 32-bit x and 2 <= d < 2^32."""
+    rng = np.random.default_rng(21)
+    ds = np.concatenate([np.arange(2, 1025), 1 << np.arange(1, 32),
+                         rng.integers(2, 1 << 32, 500), [(1 << 31) - 1, (1 << 32) - 1]])
+    xs = np.concatenate([rng.integers(0, 1 << 32, 4000), [0, 1, _M32, 1 << 31, (1 << 31) - 1]])
+    xs = xs.astype(np.uint64)
+    for d in ds.tolist():
+        magic, shift = tfused.divisor_magic(d)
+        assert 0 <= magic < 1 << 32 and 0 <= shift < 32
+        edges = np.array([d - 1, d, d + 1, 2 * d - 1], np.uint64) & np.uint64(_M32)
+        x = np.concatenate([xs, edges])
+        hi = (x * np.uint64(magic)) >> np.uint64(32)
+        q = (hi + ((x - hi) >> np.uint64(1))) >> np.uint64(shift)
+        np.testing.assert_array_equal(q, x // np.uint64(d))
+    for bad in (0, 1, 1 << 32):
+        with pytest.raises(ValueError):
+            tfused.divisor_magic(bad)
+
+
+@pytest.mark.parametrize("n,wp,arity,k_pad,sms", [
+    (100_000, 45, 2, 3_907, 132),  # the stream's R pass
+    (100_000, 32, 2, 1_271, 132),
+    (25_000, 85, 2, 3_907, 132),
+    (50_001, 8, 3, 1_048_576, 132),
+    (200_003, 8, 3, 1_048_576, 132),
+    (1, 3, 3, 128, 132),
+    (4_097, 1, 2, 131_075, 2),
+    (1_000_000, 1, 40, 128, 132),  # wide rows: the staged words bind
+    (10, 70_000, 2, 5, 132),
+    (10, 2, 9_000, 5, 132),
+])
+def test_launch_geometry(n, wp, arity, k_pad, sms):
+    """Tiles of at most MAX_TILE emissions and MAX_ROW_WORDS words of rows,
+    about four an SM where the rows allow, none smaller than _MIN_TILE
+    emissions unless the rows run out or a limit binds, and a count table
+    of at most _TABLE_MAX entries unless a limit binds."""
+    if wp > tfused.MAX_TILE or arity > tfused.MAX_ROW_WORDS:
+        with pytest.raises(ValueError, match="per tile"):
+            tfused.launch_geometry(n, wp, arity, k_pad, sms)
+        return
+    rpt = tfused.launch_geometry(n, wp, arity, k_pad, sms)
+    tiles = -(-n // rpt)
+    bound = rpt == tfused.MAX_TILE // wp or rpt == tfused.MAX_ROW_WORDS // arity
+    assert 1 <= rpt <= n and rpt * wp <= tfused.MAX_TILE and rpt * arity <= tfused.MAX_ROW_WORDS
+    assert tiles * k_pad <= tfused._TABLE_MAX or bound
+    assert rpt * wp >= tfused._MIN_TILE or rpt == n or bound
+    if (n, wp, k_pad) == (100_000, 45, 3_907):
+        assert (rpt, tiles) == (190, 527)  # 8,550 emissions a tile, ~4 an SM
+    if k_pad < 100_000 and n * wp >= 4 * sms * tfused._MIN_TILE and not bound:
+        assert tiles <= 4 * sms
+
+
+def _emulate_rank_kernels(dest, k_pad, rpt, range_=12_288, warps=8):
+    """csrc/ingest_fused.cu's count, scan and rank kernels in numpy, block by
+    block: per (tile, range) the warps' segments, their counters' prefix
+    and the walk in 32-lane steps."""
+    n, wp = dest.shape
+    flat = dest.reshape(-1).astype(np.int64)
+    tiles = -(-n // rpt)
+    table = np.zeros((tiles, k_pad), np.int64)
+    for t in range(tiles):
+        seg = flat[t * rpt * wp:min(n, (t + 1) * rpt) * wp]
+        table[t] = np.bincount(seg[seg >= 0], minlength=k_pad)
+    counts = table.sum(0)
+    base = np.cumsum(table, 0) - table
+    rank = np.full(flat.shape, -7, np.int64)
+    for t, lo in np.ndindex(tiles, -(-k_pad // range_)):
+        lo *= range_
+        width = min(range_, k_pad - lo)
+        off = t * rpt * wp
+        e_n = (min(n, (t + 1) * rpt) - t * rpt) * wp
+        step = -(-(-(-e_n // warps)) // 32) * 32
+        keys = flat[off:off + e_n] - lo
+        keys = np.where((flat[off:off + e_n] >= 0) & (keys >= 0) & (keys < width), keys, -1)
+        wcnt = np.zeros((warps, width), np.int64)
+        for w in range(warps):
+            k = keys[w * step:(w + 1) * step]
+            wcnt[w] = np.bincount(k[k >= 0], minlength=width)
+        assert wcnt.sum(0).max(initial=0) <= 0xFFFF
+        wcnt = np.cumsum(wcnt, 0) - wcnt
+        for w in range(warps):
+            for b in range(w * step, min(e_n, (w + 1) * step), 32):
+                k = keys[b:min(e_n, (w + 1) * step, b + 32)]
+                for lane, key in enumerate(k):
+                    if key >= 0:
+                        peers = int((k[:lane] == key).sum())
+                        rank[off + b + lane] = base[t, lo + key] + wcnt[w, key] + peers
+                    elif lo == 0 and flat[off + b + lane] < 0:
+                        rank[off + b + lane] = -1
+                for key in np.unique(k[k >= 0]):
+                    wcnt[w, key] += int((k == key).sum())
+    return rank.reshape(n, wp), counts
+
+
+@pytest.mark.parametrize("n,wp,k_pad,range_,rpt", [
+    (301, 8, 128, 12_288, None),  # one tile, one range
+    (1_000, 7, 300, 64, None),  # five ranges
+    (1_000, 7, 300, 64, 9),  # many tiles, ragged last tile
+    (80, 45, 3_907, 1_000, 3),  # the stream's width
+])
+def test_rank_kernels_decomposition_gives_the_stable_rank(n, wp, k_pad, range_, rpt):
+    """The kernels' split of the rank into tiles, destination ranges, warp
+    segments and 32-lane steps gives the stable-sort rank and the counts."""
+    rng = np.random.default_rng(n + wp)
+    dest = rng.integers(0, min(k_pad, 40 if k_pad == 128 else k_pad), (n, wp))
+    dest[rng.random((n, wp)) < 0.5] = -1
+    rpt = rpt or tfused.launch_geometry(n, wp, 2, k_pad, 2)
+    got_r, got_c = _emulate_rank_kernels(dest, k_pad, rpt, range_)
+    want_r, want_c = tfused._rank_counts(torch.from_numpy(dest.astype(np.int32)), k_pad)
+    np.testing.assert_array_equal(got_r, want_r.numpy())
+    np.testing.assert_array_equal(got_c, want_c.numpy())
+
+
 def test_k_pad_guard_raises():
     """A histogram narrower than the destination ids must raise: the TPU
     kernel would silently corrupt counts and ranks."""
