@@ -142,7 +142,7 @@ FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 JOIN_KERNELS = ("hash_join_kernel",)
 CMS_KERNELS = ("cms_kernel",)
 INGEST_KERNELS = ("ingest_count_kernel", "ingest_scan_kernel", "ingest_rank_kernel", "cms_kernel")
-TRACE_WARMUP = 16  # tiny kernels (torch.cuda._sleep's spin_kernel) that open every trace
+TRACE_WARMUP = 16  # tiny kernels in the profiler's warm-up step before every trace
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
 HIST_KERNELS = ("histogram_kernel",)
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
@@ -170,79 +170,34 @@ def _events_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def _traced(fn, counts=None):
     """(fn's result, device microseconds by CUDA function name) of one
-    call of ``fn`` under ``torch.profiler``.  The trace opens with
-    TRACE_WARMUP tiny kernels, left out of the result: a trace taken after
-    a long one loses its first few device events (how many of these it
-    kept is printed when it lost any).  The dict is empty where the trace
-    holds no device events or the profiler fails (printed).  A dict given
-    as ``counts`` receives the number of device events by name."""
+    call of ``fn`` under ``torch.profiler``.  The profiler's own warm-up
+    step, TRACE_WARMUP tiny kernels whose events it drops, comes first:
+    without it a trace taken after a long one loses its first device
+    records.  A dict given as ``counts`` receives the number of device
+    events by name."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    try:
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        prof.__enter__()
-    except Exception as e:  # the trace is optional: events time the kernels then
-        _say(f"[trace] the profiler does not start: {e!r}")
-        return fn(), {}
-    try:
+    ready = []
+    warm = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: ready.append(p.events())) as prof:
         for _ in range(TRACE_WARMUP):
-            torch.cuda._sleep(1)
+            warm.add_(1)
         torch.cuda.synchronize()
+        prof.step()
         out = fn()
-    finally:
-        prof.__exit__(None, None, None)
+        prof.step()
     us: dict[str, float] = {}
-    warm = 0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and "spin_kernel" in ev.name:
-            warm += 1
-        elif ev.device_type == DeviceType.CUDA:
+    for ev in ready[0]:
+        # the step's own span is an annotation, not device work
+        if ev.device_type == DeviceType.CUDA and not ev.name.startswith("ProfilerStep"):
             us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
             if counts is not None:
                 counts[ev.name] = counts.get(ev.name, 0) + 1
-    if warm < TRACE_WARMUP:
-        _say(f"[trace] the trace kept {warm} of its {TRACE_WARMUP} opening warm-up kernels")
     return out, us
-
-
-def _kernel_ms(fn, names, reps: int):
-    """(ms, source, wrapper ms, ms by function): the device time per call
-    of the CUDA functions whose names contain one of ``names``, from a
-    profiler trace of ``reps`` calls after one warm-up call, each function's
-    time divided by its events in the trace.  Where the trace holds none of
-    them, or holds of one of them a count of events that is not a whole
-    number of events per call (the trace dropped some), it is CUDA events
-    around the calls instead (source says which, with the trace's events
-    of each function against the calls).  The wrapper's time is
-    CUDA events around ``reps`` calls.  ms by function is device time per
-    event.  Prints the trace's events against the calls.
-    """
-    import torch
-
-    wrapper = _events_ms(fn, reps)
-
-    def calls():
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-
-    fn()
-    torch.cuda.synchronize()
-    counts: dict[str, int] = {}
-    _, us = _traced(calls, counts)
-    mine = [k for k in us if any(nm in k for nm in names)]
-    per_event = {k: us[k] / 1e3 / counts[k] for k in mine}
-    if us:
-        _say(f"[trace] {sum(counts[k] for k in mine)} device events of {'/'.join(names)} in the "
-             f"trace of {reps} calls ({sum(counts.values())} device events in all); "
-             + "; ".join(f"{_short({k: per_event[k]})} ms each over {counts[k]}" for k in mine))
-    held = f"{'/'.join(str(counts[k]) for k in mine) or 0} events of {reps} calls"
-    if not mine or any(counts[k] % reps for k in mine):
-        return wrapper, f"events (the trace held {held})", wrapper, per_event
-    return (sum(per_event[k] * counts[k] / reps for k in mine), f"trace ({held})", wrapper,
-            per_event)
 
 
 def _graph_ms(fn, reps: int) -> float:
@@ -267,6 +222,35 @@ def _graph_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(stop) / reps
+
+
+def _kernel_ms(fn, names, reps: int):
+    """(ms, ms an event by function, wrapper ms) of the CUDA functions of
+    ``fn`` whose names contain one of ``names``.  ms is device time a call,
+    by replaying a CUDA graph of ``reps`` calls (``_graph_ms``).  ms an
+    event is each function's device time over its events in a profiler
+    trace of ``reps`` calls, which must hold one event of each function a
+    call (printed, and asserted).  The wrapper's time is CUDA events
+    around ``reps`` calls, host gaps included."""
+    import torch
+
+    ms = _graph_ms(fn, reps)
+    wrapper = _events_ms(fn, reps)
+
+    def calls():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    counts: dict[str, int] = {}
+    _, us = _traced(calls, counts)
+    mine = [k for k in us if any(nm in k for nm in names)]
+    per_event = {k: us[k] / 1e3 / counts[k] for k in mine}
+    _say(f"[trace] {sum(counts[k] for k in mine)} device events of {'/'.join(names)} in the "
+         f"trace of {reps} calls ({sum(counts.values())} device events in all); "
+         + "; ".join(f"{_short({k: per_event[k]})} ms each over {counts[k]}" for k in mine))
+    assert mine and all(counts[k] == reps for k in mine), (counts, reps)
+    return ms, per_event, wrapper
 
 
 def _short(by_fn) -> str:
@@ -297,36 +281,25 @@ def _bound(ops: float, n_bytes: float, ops_per_s: float = INT32_OPS_PER_S) -> tu
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _join_work(r_keys, r_w, s_keys, s_w) -> tuple[float, float, float]:
-    """(int32 operations, bytes, nested-loop operations) of one block join
-    on these inputs.  The function's work: an aggregate by key, about C + 3
-    operations a valid row of either side (hash the C columns, compare
-    them, add the count and the weight, or multiply-add on a hit).  Every
-    input is read once and both [K] outputs are written once.  The nested
-    loop's, the bound of the earlier kernel: C compares and two adds a pair
-    of valid slots."""
+def _join_work(r_keys, r_w, s_keys, s_w) -> tuple[float, float, float, float]:
+    """(int32 operations, bytes, bytes of every slot, nested-loop
+    operations) of one block join on these inputs.  The function's work: an
+    aggregate by key, about C + 3 operations a valid row of either side
+    (hash the C columns, compare them, add the count and the weight, or
+    multiply-add on a hit); every weight read once, the C keys of the valid
+    rows only (a padding slot's key is never needed), both [K] outputs
+    written once.  Every slot's keys and weights, the earlier statement of
+    the bytes, and the nested loop's operations, the bound of the earlier
+    kernel (C compares and two adds a pair of valid slots), are returned
+    for comparison."""
     c = r_keys.shape[-1]
     n_r = (r_w > 0).sum(dim=-1).double()
     n_s = (s_w > 0).sum(dim=-1).double()
-    ops = float((n_r + n_s).sum()) * (c + 3)
-    n_bytes = 4 * (r_keys.numel() + r_w.numel() + s_keys.numel() + s_w.numel()) + 8 * r_w.shape[0]
-    return ops, float(n_bytes), float((n_r * n_s).sum()) * (c + 2)
-
-
-def _sm_count() -> int:
-    import torch
-
-    return torch.cuda.get_device_properties(0).multi_processor_count
-
-
-def _wide_routes(k):
-    """A static route table whose destinations reach k - 1, with a pin, an
-    exclude list and two hashed terms (``tests/test_torch_gpu.py``'s)."""
-    return (
-        (k - 40_000, ((0, 0x9E3779B9, 20_000, 2),), (0, 1), (), ((1, (3, 4)),)),
-        (5, ((1, 12_345, 7, 1), (0, 999, 3, 7)), (0,), ((0, 7),), ()),
-        (k - 1, (), (0,), (), ()),
-    )
+    rows = float((n_r + n_s).sum())
+    out = 8 * r_w.shape[0]
+    n_bytes = 4 * (r_w.numel() + s_w.numel()) + 4 * c * rows + out
+    all_slots = 4 * (r_keys.numel() + r_w.numel() + s_keys.numel() + s_w.numel()) + out
+    return rows * (c + 3), float(n_bytes), float(all_slots), float((n_r * n_s).sum()) * (c + 2)
 
 
 def _max_abs_err(got, want) -> int:
@@ -648,18 +621,15 @@ def _lm_phases(dev, r_col):
     _say(f"[lm] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); launches={lm_launches}")
     for what, busy, wall in [("prefill", busy_pre, ms_traced), ("decode step", busy_dec,
                                                                   ms_step_traced)]:
-        if busy:
-            b_ms = sum(busy.values()) / 1e3
-            _say(f"[lm] one {what} under the profiler: device busy {b_ms:.3f} ms of {wall:.3f} ms "
-                 f"({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} %); by function "
-                 "(ms): " + "; ".join(f"{k[:60]} {v / 1e3:.3f}" for k, v in
-                                      sorted(busy.items(), key=lambda kv: -kv[1])[:6]))
-        else:
-            _say(f"[lm] one {what} under the profiler: no device events; busy share not measured")
+        assert busy, f"the {what}'s profiler trace holds no device events"
+        b_ms = sum(busy.values()) / 1e3
+        _say(f"[lm] one {what} under the profiler: device busy {b_ms:.3f} ms of {wall:.3f} ms "
+             f"({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} %); by function "
+             "(ms): " + "; ".join(f"{k[:60]} {v / 1e3:.3f}" for k, v in
+                                  sorted(busy.items(), key=lambda kv: -kv[1])[:6]))
     assert torch.isfinite(logits).all() and gen_tokens.shape == (batch, n_new)
     assert lm_launches["flash_attention"] == cfg.n_layers * n_prefill, lm_launches
     # K6 in the prefill's trace, by CUDA function: the wgmma kernel, one event a layer
-    assert busy_pre, "the bf16 prefill's profiler trace holds no device events"
     k6_pre = {k: v for k, v in busy_pre.items() if any(nm in k for nm in FLASH_KERNELS)}
     assert k6_pre and all("flash_fwd_wgmma_kernel" in k for k in k6_pre), k6_pre
     n_k6_pre = sum(n_ev_pre[k] for k in k6_pre)
@@ -673,7 +643,7 @@ def _lm_phases(dev, r_col):
 
     # ---- 16. K6 and K5 at the main path's shapes -----------------------------
     q, k, v = olmo_qkv
-    trace6, how6, ms6, _ = _kernel_ms(lambda: fa.flash_attention(q, k, v), FLASH_KERNELS, reps=10)
+    ms6, ev6, wrap6 = _kernel_ms(lambda: fa.flash_attention(q, k, v), FLASH_KERNELS, reps=10)
     _, plain6 = _plain_ms(lambda: fa.flash_attention_ref(q, k, v))
     lib6 = _events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps=10)
@@ -683,24 +653,25 @@ def _lm_phases(dev, r_col):
                         "flash_fwd_wgmma_kernelILi128E")
     _say(f"[K6] flash_attention {tuple(q.shape)} bf16 causal "
          f"({fa.kernel_variant(q.dtype, q.shape[3])}, {regs6} registers a thread at launch): "
-         f"kernel {ms6:.4f} ms (CUDA events around the wrapper; {how6} {trace6:.4f} ms; in the "
-         f"prefill's trace {k6_in_prefill:.4f} ms a call); plain {plain6:.2f} ms; "
+         f"kernel {ms6:.4f} ms (CUDA graph of 10 calls; {_short(ev6)} ms an event in a trace; "
+         f"wrapper {wrap6:.4f} ms; in the prefill's trace {k6_in_prefill:.4f} ms a call); plain "
+         f"{plain6:.2f} ms; "
          f"scaled_dot_product_attention "
          f"{lib6:.4f} ms; bound {bound6:.4f} ms by {by6} ({ops6:.4g} operations at 989 TFLOP/s, "
          f"{bytes6:.4g} bytes); {100 * bound6 / ms6:.1f} % of the bound; the mma.sync kernel it "
          f"replaces took 0.8505-0.8798 ms (PERF.md)")
     q32, k32, v32 = (x.float() for x in olmo_qkv)  # the fp32 kernel (CUDA cores), same shape
-    trace6f, how6f, ms6f, _ = _kernel_ms(lambda: fa.flash_attention(q32, k32, v32),
-                                         FLASH_KERNELS, reps=5)
+    ms6f, ev6f, wrap6f = _kernel_ms(lambda: fa.flash_attention(q32, k32, v32), FLASH_KERNELS,
+                                    reps=5)
     _say(f"[K6] flash_attention {tuple(q.shape)} fp32 causal (CUDA cores): kernel {ms6f:.4f} ms "
-         f"(CUDA events around the wrapper; {how6f} {trace6f:.4f} ms)")
+         f"(CUDA graph of 5 calls; {_short(ev6f)} ms an event in a trace; wrapper {wrap6f:.4f} "
+         "ms)")
     del q32, k32, v32
-    ms5, how5, wrap5, _ = _kernel_ms(lambda: hg.histogram(hh_vals, 100_000), HIST_KERNELS,
-                                     reps=20)
+    ms5, ev5, wrap5 = _kernel_ms(lambda: hg.histogram(hh_vals, 100_000), HIST_KERNELS, reps=20)
     lib5 = _events_ms(lambda: torch.bincount(hh_vals, minlength=100_000), reps=20)
     bound5, by5 = _bound(2.0 * hh_vals.shape[0], 4.0 * (hh_vals.shape[0] + 100_000))
-    _say(f"[K5] histogram N={hh_vals.shape[0]} bins=100000: kernel {ms5:.4f} ms ({how5}; "
-         f"wrapper {wrap5:.4f} ms); plain {hist_plain:.3f} ms; torch.bincount {lib5:.4f} ms; "
+    _say(f"[K5] histogram N={hh_vals.shape[0]} bins=100000: kernel {ms5:.4f} ms (CUDA graph "
+         f"of 20 calls; {_short(ev5)} ms an event in a trace; wrapper {wrap5:.4f} ms); plain {hist_plain:.3f} ms; torch.bincount {lib5:.4f} ms; "
          f"bound {bound5:.5f} ms by {by5}")
     return [{
         "name": "flash_attention", "route": "cuda",
@@ -964,24 +935,22 @@ def _rwkv_phases(dev):
          f"launches={rwkv_launches}")
     for what, busy, wall in [("forward", busy_fwd, ms_traced),
                              ("decode step", busy_dec, ms_step_traced)]:
-        if busy:
-            b_ms = sum(busy.values()) / 1e3
-            _say(f"[rwkv] one {what} under the profiler: device busy {b_ms:.3f} ms of "
-                 f"{wall:.3f} ms ({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} "
-                 "%); by function (ms): " + "; ".join(
-                     f"{k[:60]} {v / 1e3:.3f}" for k, v in
-                     sorted(busy.items(), key=lambda kv: -kv[1])[:6]))
-        else:
-            _say(f"[rwkv] one {what} under the profiler: no device events; busy share not "
-                 "measured")
-    # K7 inside the model: device ms an event, and the events, from the two traces above
+        b_ms = sum(busy.values()) / 1e3
+        _say(f"[rwkv] one {what} under the profiler: device busy {b_ms:.3f} ms of "
+             f"{wall:.3f} ms ({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} "
+             "%); by function (ms): " + "; ".join(
+                 f"{k[:60]} {v / 1e3:.3f}" for k, v in
+                 sorted(busy.items(), key=lambda kv: -kv[1])[:6]))
+    # K7 inside the model: device ms an event, and the events, from the two
+    # traces above, which must hold one a layer
     in_model = []
     for what, busy, n_ev in (("forward", busy_fwd, n_ev_fwd), ("decode step", busy_dec, n_ev_dec)):
         mine = [k for k in busy if any(nm in k for nm in WKV_KERNELS)]
         n7 = sum(n_ev[k] for k in mine)
-        in_model.append(sum(busy[k] for k in mine) / 1e3 / n7 if n7 else float("nan"))
-        _say(f"[rwkv] K7 in one {what}'s trace: {n7} events ({cfg.n_layers} layers), "
-             f"{in_model[-1]:.4f} ms each")
+        _say(f"[rwkv] K7 in one {what}'s trace: {n7} events ({cfg.n_layers} layers)")
+        assert n7 == cfg.n_layers, (what, n7, cfg.n_layers)
+        in_model.append(sum(busy[k] for k in mine) / 1e3 / n7)
+        _say(f"[rwkv] K7 in one {what}'s trace: {in_model[-1]:.4f} ms each")
     assert np.isfinite(float(loss)) and tokens.shape == (batch, n_new)
     assert len(step_ms) == l_prompt + n_new - 1
     assert rwkv_launches["wkv6"] == cfg.n_layers * (5 + len(step_ms)), rwkv_launches
@@ -990,28 +959,26 @@ def _rwkv_phases(dev):
 
     # ---- 21. K7 at the model's shapes ------------------------------------------
     r, k, v, w, u = fwd_in
-    trace7, how7, ms7, _ = _kernel_ms(lambda: wk.wkv6(r, k, v, w, u), WKV_KERNELS, reps=10)
+    ms7, ev7, wrap7 = _kernel_ms(lambda: wk.wkv6(r, k, v, w, u), WKV_KERNELS, reps=10)
     _, plain7 = _plain_ms(lambda: wk.wkv6_ref(r, k, v, w, u))
     ops7, bytes7 = _wkv_work(*r.shape, False)
     bound7, by7 = _bound(ops7, bytes7, FP32_FLOPS)
     _say(f"[K7] wkv6 {tuple(r.shape)} from zero, (JC, P, C) = {wk.launch_geometry(r.shape[3])}: "
-         f"kernel {ms7:.4f} ms (CUDA events around the wrapper; {how7} {trace7:.4f} ms); plain "
+         f"kernel {ms7:.4f} ms (CUDA graph of 10 calls; {_short(ev7)} ms an event in a trace; "
+         f"wrapper {wrap7:.4f} ms); plain "
          f"{plain7:.2f} ms; bound {bound7:.4f} ms by {by7} ({ops7:.4g} fp32 operations at 67 "
          f"TFLOP/s, {bytes7:.4g} bytes); {100 * bound7 / ms7:.1f} % of the bound; in the forward's "
          f"trace {in_model[0]:.4f} ms an event; the earlier kernel (one block of hd threads a head) "
          f"took 0.7507-0.7620 ms")
     rd, kd, vd, wd, ud, sd = dec_in
-    ms7d, how7d, wrap7d, ev7d = _kernel_ms(lambda: wk.wkv6(rd, kd, vd, wd, ud, sd, state_out=sd),
-                                           WKV_KERNELS, reps=50)
-    ev7d = sum(ev7d.values())  # one kernel a call: the step kernel's ms an event
+    ms7d, ev7d, wrap7d = _kernel_ms(lambda: wk.wkv6(rd, kd, vd, wd, ud, sd, state_out=sd),
+                                    WKV_KERNELS, reps=50)
     _, plain7d = _plain_ms(lambda: wk.wkv6_ref(rd, kd, vd, wd, ud, sd))
     ops7d, bytes7d = _wkv_work(*rd.shape, True)
     bound7d, by7d = _bound(ops7d, bytes7d, FP32_FLOPS)
-    an_event = (f"{ev7d:.4f} ms an event in the trace, {100 * bound7d / ev7d:.1f} % of the "
-                "bound" if ev7d else "no event of it in the trace (not measured)")
     _say(f"[K7] wkv6 {tuple(rd.shape)} with the state in place: {ms7d:.4f} ms a call "
-         f"({how7d}; wrapper {wrap7d:.4f} ms by CUDA events); {an_event}; plain "
-         f"{plain7d:.3f} ms; bound {bound7d:.5f} ms by {by7d}; in the decode step's trace "
+         f"(CUDA graph of 50 calls; {_short(ev7d)} ms an event in a trace; wrapper {wrap7d:.4f} "
+         f"ms), {100 * bound7d / ms7d:.1f} % of the bound; plain {plain7d:.3f} ms; bound {bound7d:.5f} ms by {by7d}; in the decode step's trace "
          f"{in_model[1]:.4f} ms an event, {100 * bound7d / in_model[1]:.1f} % of the bound (the "
          "earlier kernel: 0.0042 ms a call there)")
     return [{
@@ -1043,6 +1010,7 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(ROOT / "tests"))
     import numpy as np
 
     from repro_torch.core import plan_shares_skew, three_way_paper, two_way
@@ -1063,6 +1031,7 @@ def main() -> int:
         run_join,
     )
     from repro_torch.mapreduce.hashing import row_weight_torch
+    from torch_cases import wide_routes
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
@@ -1192,13 +1161,13 @@ def main() -> int:
         err = _max_abs_err(fi.fused_ingest_dense(rows, enc, k_pad=k_pad),
                            fi.fused_ingest_dense_ref(rows, enc, k_pad=k_pad))
         _say(f"[check] fused_ingest_dense repeated destinations N=200003 k_pad={k_pad} "
-             f"rows a tile={fi.launch_geometry(200_003, 8, 3, k_pad, _sm_count())}: "
+             f"rows a tile={fi.rows_per_tile(200_003, 8, 3, k_pad, dev)}: "
              f"max_abs_err={err}")
         assert err == 0
     # a static table of as many reducers: a pin, an exclude list, two
     # hashed terms, destinations up to k - 1
     for k in (131_075, 1_048_576):
-        kw = dict(routes=_wide_routes(k), sketch_cols=(1,), seeds=seeds, width=64,
+        kw = dict(routes=wide_routes(k), sketch_cols=(1,), seeds=seeds, width=64,
                   num_reducers=k)
         rows = edge_rows(100_003, 2, k)
         got = fi.fused_ingest(rows, **kw)
@@ -1270,18 +1239,18 @@ def main() -> int:
     err_a = _max_abs_err(got, want)
     assert err_a == 0
     assert int(got[0].long().sum()) == res.count
-    ms_a = _graph_ms(lambda: bj.reducer_join(*ops), reps=20)
-    tr_a, src_a, wrap_a, ev_a = _kernel_ms(lambda: bj.reducer_join(*ops), JOIN_KERNELS, reps=20)
-    ops_a, bytes_a, pairs_a = _join_work(*ops)
+    ms_a, ev_a, wrap_a = _kernel_ms(lambda: bj.reducer_join(*ops), JOIN_KERNELS, reps=20)
+    ops_a, bytes_a, slots_a, pairs_a = _join_work(*ops)
     bound_a, by_a = _bound(ops_a, bytes_a)
     nested_a, _ = _bound(pairs_a, bytes_a)
-    _say(f"[K1a] kernel {ms_a:.4f} ms (CUDA graph of 20 calls; {src_a} {tr_a:.4f} ms, "
-         f"{_short(ev_a)} ms an event; wrapper {wrap_a:.4f} ms); plain {plain_ms:.1f} ms "
+    _say(f"[K1a] kernel {ms_a:.4f} ms (CUDA graph of 20 calls; {_short(ev_a)} ms an event in "
+         f"a trace; wrapper {wrap_a:.4f} ms); plain {plain_ms:.1f} ms "
          f"(all {ops[0].shape[0]} reducers, (chunk, slots)="
          f"{bj.chunk_geometry(ops[0].shape[1], ops[0].shape[2])}, max_abs_err={err_a}); bound "
-         f"{bound_a:.4f} ms by {by_a} ({ops_a:.4g} int32 ops, {bytes_a:.4g} bytes); the "
-         f"nested loop's bound (the earlier kernel's) {nested_a:.4f} ms by operations "
-         f"({pairs_a:.4g})")
+         f"{bound_a:.4f} ms by {by_a} ({ops_a:.4g} int32 ops, {bytes_a:.4g} bytes: every weight, "
+         f"the valid rows' keys), {100 * bound_a / ms_a:.1f} % of it; every slot's bytes "
+         f"{slots_a:.4g} ({slots_a / HBM_BYTES_PER_S * 1e3:.4f} ms); the nested loop's bound "
+         f"(the earlier kernel's) {nested_a:.4f} ms by operations ({pairs_a:.4g})")
     kernels = [{
         "name": "reducer_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_join.cu",
@@ -1306,16 +1275,15 @@ def main() -> int:
     err_b = _max_abs_err(got, want)
     assert err_b == 0
     assert int(got[0]) == r_hh.shape[0] * s_hh.shape[0]
-    ms_b = _graph_ms(lambda: bj.flat_join(*flat), reps=10)
-    tr_b, src_b, wrap_b, ev_b = _kernel_ms(lambda: bj.flat_join(*flat), JOIN_KERNELS, reps=10)
-    ops_b, bytes_b, pairs_b = _join_work(*(x[None] for x in flat))
+    ms_b, ev_b, wrap_b = _kernel_ms(lambda: bj.flat_join(*flat), JOIN_KERNELS, reps=10)
+    ops_b, bytes_b, slots_b, pairs_b = _join_work(*(x[None] for x in flat))
     bound_b, by_b = _bound(ops_b, bytes_b)
     nested_b, _ = _bound(pairs_b, bytes_b)
     _say(f"[K1b] flat_join {r_hh.shape[0]} x {s_hh.shape[0]} (B={hh}): kernel {ms_b:.4f} ms "
-         f"(CUDA graph of 10 calls; {src_b} {tr_b:.4f} ms, {_short(ev_b)} ms an event; wrapper "
-         f"{wrap_b:.4f} ms); plain {plain_b:.1f} ms (max_abs_err={err_b}); bound {bound_b:.4f} "
-         f"ms by {by_b}; the nested loop's bound (the earlier kernel's) {nested_b:.4f} ms by "
-         "operations")
+         f"(CUDA graph of 10 calls; {_short(ev_b)} ms an event in a trace; wrapper "
+         f"{wrap_b:.4f} ms); plain {plain_b:.1f} ms (max_abs_err={err_b}); bound {bound_b:.5f} "
+         f"ms by {by_b} ({bytes_b:.4g} bytes; every slot's {slots_b:.4g}); the nested loop's "
+         f"bound (the earlier kernel's) {nested_b:.4f} ms by operations")
     kernels.append({
         "name": "flat_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_join.cu",
@@ -1367,7 +1335,10 @@ def main() -> int:
             return rep
 
         if i == len(batches) - 1:  # the last batch under the profiler
-            rep, busy = _traced(one)
+            n_dense = launches()["fused_ingest_dense"]
+            n_ev_s: dict[str, int] = {}
+            rep, busy = _traced(one, n_ev_s)
+            n_dense = launches()["fused_ingest_dense"] - n_dense
         else:
             rep = one()
         _say(f"[stream] batch {rep.batch}: {ingest_ms[-1]:.1f} ms epoch={rep.plan_epoch} "
@@ -1397,15 +1368,15 @@ def main() -> int:
     for name, durs in sorted(spans.items(), key=lambda kv: -sum(kv[1])):
         _say(f"[stream] span {name}: {sum(durs):.1f} ms total over {len(durs)}")
     busy_ms = sum(busy.values()) / 1e3
-    if busy:
-        _say(f"[stream] batch 5 under the profiler: device busy {busy_ms:.3f} ms of "
-             f"{ingest_ms[-1]:.1f} ms ({100 * busy_ms / ingest_ms[-1]:.3f} %, idle "
-             f"{100 - 100 * busy_ms / ingest_ms[-1]:.3f} %); by function (ms): "
-             + "; ".join(f"{k[:70]} {v / 1e3:.3f}" for k, v in
-                         sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
-    else:
-        _say("[stream] batch 5 under the profiler: no device events in the trace; "
-             "device busy share not measured")
+    _say(f"[stream] batch 5 under the profiler: device busy {busy_ms:.3f} ms of "
+         f"{ingest_ms[-1]:.1f} ms ({100 * busy_ms / ingest_ms[-1]:.3f} %, idle "
+         f"{100 - 100 * busy_ms / ingest_ms[-1]:.3f} %); by function (ms): "
+         + "; ".join(f"{k[:70]} {v / 1e3:.3f}" for k, v in
+                     sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
+    # the trace holds every call of K2's kernels in the batch
+    n_ev_k2 = {nm: sum(n for k, n in n_ev_s.items() if nm in k) for nm in INGEST_KERNELS[:3]}
+    _say(f"[stream] batch 5's trace: {n_ev_k2} events of K2's kernels, {n_dense} calls")
+    assert n_dense > 0 and all(n == n_dense for n in n_ev_k2.values()), (n_ev_k2, n_dense)
     assert (eng.total_count, eng.total_checksum) == (want_count, want_checksum)
     assert eng.fused_batches == 6 and eng.replan_count >= 1
     assert stream_launches["fused_ingest_dense"] > 0, stream_launches
@@ -1465,17 +1436,15 @@ def main() -> int:
         want, plain_ms = _plain_ms(lambda: fi.fused_ingest_dense_ref(rows, packed.arrays, **kw))
         err = _max_abs_err(got, want)
         assert err == 0
-        ms = _graph_ms(lambda: fi.fused_ingest_dense(rows, packed, **kw), reps=20)
-        tr, how, wrap, by_fn = _kernel_ms(lambda: fi.fused_ingest_dense(rows, packed, **kw),
-                                          INGEST_KERNELS, reps=20)
+        ms, by_fn, wrap = _kernel_ms(lambda: fi.fused_ingest_dense(rows, packed, **kw),
+                                     INGEST_KERNELS, reps=20)
         ops, n_bytes = _ingest_work(rows, packed.arrays, got[0], len(cols), len(seeds), width,
                                     k_fin)
         bound, by = _bound(ops, n_bytes)
-        rpt = fi.launch_geometry(rows.shape[0], packed.wp, rows.shape[1], k_fin,
-                                 _sm_count())
+        rpt = fi.rows_per_tile(rows.shape[0], packed.wp, rows.shape[1], k_fin, dev)
         _say(f"[K2] fused_ingest_dense {rel.name} N={rows.shape[0]} W={packed.wp} "
              f"k={k_fin} ({-(-rows.shape[0] // rpt)} tiles of {rpt} rows): kernel {ms:.4f} ms "
-             f"(CUDA graph of 20 calls; {how} {tr:.4f} ms; ms an event {_short(by_fn)}; wrapper "
+             f"(CUDA graph of 20 calls; ms an event in a trace {_short(by_fn)}; wrapper "
              f"{wrap:.4f} ms); plain {plain_ms:.1f} ms (max_abs_err={err}); bound {bound:.4f} ms "
              f"by {by} ({ops:.4g} int32 ops, {n_bytes:.4g} bytes)")
         if rel.name != "R":
@@ -1496,15 +1465,14 @@ def main() -> int:
         want, plain_s = _plain_ms(lambda: fi.fused_ingest_ref(rows, **kws))
         err_s = _max_abs_err(got, want)
         assert err_s == 0
-        ms_s = _graph_ms(lambda: fi.fused_ingest(rows, **kws), reps=20)
-        tr_s, how_s, wrap_s, by_s = _kernel_ms(lambda: fi.fused_ingest(rows, **kws),
-                                               INGEST_KERNELS, reps=20)
+        ms_s, by_s, wrap_s = _kernel_ms(lambda: fi.fused_ingest(rows, **kws), INGEST_KERNELS,
+                                        reps=20)
         enc_s = fi._static_routes(routes, rel.arity, dev).arrays
         ops_s, bytes_s = _ingest_work(rows, enc_s, got[0], len(cols), len(seeds), width, k_fin)
         bound_s, by_bs = _bound(ops_s, bytes_s)
         _say(f"[K3] fused_ingest routes+sketch R N={rows.shape[0]} W={got[0].shape[1]} "
-             f"k={k_fin}: kernel {ms_s:.4f} ms (CUDA graph of 20 calls; {how_s} {tr_s:.4f} ms; "
-             f"ms an event {_short(by_s)}; wrapper {wrap_s:.4f} ms); plain {plain_s:.1f} ms "
+             f"k={k_fin}: kernel {ms_s:.4f} ms (CUDA graph of 20 calls; ms an event in a trace "
+             f"{_short(by_s)}; wrapper {wrap_s:.4f} ms); plain {plain_s:.1f} ms "
              f"(max_abs_err={err_s}); bound {bound_s:.4f} ms by {by_bs}")
         kernels.append({
             "name": "fused_ingest", "route": "cuda",
@@ -1521,14 +1489,12 @@ def main() -> int:
         want, plain3 = _plain_ms(lambda: fi.fused_ingest_ref(rows0, **kw3))
         err3 = _max_abs_err(got, want)
         assert err3 == 0
-        ms3 = _graph_ms(lambda: fi.fused_ingest(rows0, **kw3), reps=20)
-        tr3, how3, wrap3, ev3 = _kernel_ms(lambda: fi.fused_ingest(rows0, **kw3), CMS_KERNELS,
-                                           reps=20)
+        ms3, ev3, wrap3 = _kernel_ms(lambda: fi.fused_ingest(rows0, **kw3), CMS_KERNELS, reps=20)
         ops3 = 11.0 * rows0.shape[0] * len(cols) * len(seeds)
         bytes3 = 4.0 * (rows0.numel() + len(cols) * len(seeds) * width)
         bound3, by3 = _bound(ops3, bytes3)
         _say(f"[K3] fused_ingest sketch-only N={rows0.shape[0]}: kernel {ms3:.4f} ms (CUDA graph "
-             f"of 20 calls; {how3} {tr3:.4f} ms, {_short(ev3)} ms an event; wrapper {wrap3:.4f} "
+             f"of 20 calls; {_short(ev3)} ms an event in a trace; wrapper {wrap3:.4f} "
              f"ms); plain {plain3:.1f} ms (max_abs_err={err3}); bound {bound3:.4f} ms by {by3}")
         kernels.append({
             "name": "fused_ingest_sketch", "route": "cuda",
@@ -1544,15 +1510,14 @@ def main() -> int:
         want, plain4 = _plain_ms(lambda: su.cms_update_ref(vals, seeds, width))
         err4 = _max_abs_err([got], [want])
         assert err4 == 0
-        ms4 = _graph_ms(lambda: su.cms_update(vals, seeds, width), reps=50)
-        tr4, how4, wrap4, ev4 = _kernel_ms(lambda: su.cms_update(vals, seeds, width),
-                                           CMS_KERNELS, reps=50)
+        ms4, ev4, wrap4 = _kernel_ms(lambda: su.cms_update(vals, seeds, width), CMS_KERNELS,
+                                     reps=50)
         ops4 = 11.0 * vals.shape[0] * len(seeds)
         bytes4 = 4.0 * (vals.numel() + len(seeds) * width)
         bound4, by4 = _bound(ops4, bytes4)
         _say(f"[K4] cms_update N={vals.shape[0]} depth={len(seeds)} width={width}: "
-             f"kernel {ms4:.4f} ms (CUDA graph of 50 calls; {how4} {tr4:.4f} ms, {_short(ev4)} ms "
-             f"an event; wrapper {wrap4:.4f} ms); plain {plain4:.1f} ms (max_abs_err={err4}); "
+             f"kernel {ms4:.4f} ms (CUDA graph of 50 calls; {_short(ev4)} ms an event in a "
+             f"trace; wrapper {wrap4:.4f} ms); plain {plain4:.1f} ms (max_abs_err={err4}); "
              f"bound {bound4:.4f} ms by {by4}")
         kernels.append({
             "name": "cms_update", "route": "cuda",

@@ -52,8 +52,6 @@ from .sketch_update import cms_tables, cms_tables_ref
 LAUNCHES = {"fused_ingest": 0, "fused_ingest_sketch": 0, "fused_ingest_dense": 0}
 
 _M32 = 0xFFFFFFFF
-MAX_TILE = 65535  # emissions per tile: the rank kernel's 16-bit counters (ingest_max_tile)
-MAX_ROW_WORDS = 8192  # words of rows per tile, staged by the count kernel (ingest_max_row_words)
 _MIN_TILE = 2048  # emissions per tile below which a tile's fixed costs dominate
 _TILES_PER_SM = 4  # tiles the passes aim for, per streaming multiprocessor
 _TABLE_MAX = 1 << 24  # [tiles, k_pad] count-table entries past which tiles grow
@@ -416,27 +414,42 @@ def _check_fit(routes: DenseRoutes, rows: torch.Tensor, k_pad: int) -> None:
         raise ValueError(f"fused_ingest: routes not packed for {rows.device}")
 
 
-def launch_geometry(n: int, wp: int, arity: int, k_pad: int, sms: int) -> int:
+def launch_geometry(n: int, wp: int, arity: int, k_pad: int, sms: int, max_tile: int,
+                    max_row_words: int) -> int:
     """Rows per tile of the count and rank kernels, for ``n`` rows of
     ``arity`` values, ``wp`` route columns, ``k_pad`` destinations and a
     card of ``sms`` multiprocessors: about ``_TILES_PER_SM`` tiles an SM,
     none under ``_MIN_TILE`` emissions; fewer, larger tiles where the
     [tiles, k_pad] count table would outgrow ``_TABLE_MAX``; never more than
-    ``MAX_TILE`` emissions or ``MAX_ROW_WORDS`` words of rows a tile, past
-    which the table grows instead."""
-    if wp > MAX_TILE or arity > MAX_ROW_WORDS:
+    ``max_tile`` emissions or ``max_row_words`` words of rows a tile (the
+    kernels' limits, ``tile_limits``), past which the table grows instead."""
+    if wp > max_tile or arity > max_row_words:
         raise ValueError(
             f"fused_ingest: {wp} columns or rows of {arity} values exceed the kernel's "
-            f"{MAX_TILE} emissions and {MAX_ROW_WORDS} words of rows per tile"
+            f"{max_tile} emissions and {max_row_words} words of rows per tile"
         )
     rpt = max(-(-n // (_TILES_PER_SM * sms)), -(-_MIN_TILE // wp))
     rpt = max(rpt, -(-n // max(1, _TABLE_MAX // k_pad)))
-    return max(1, min(rpt, n, MAX_TILE // wp, MAX_ROW_WORDS // arity))
+    return max(1, min(rpt, n, max_tile // wp, max_row_words // arity))
+
+
+@functools.lru_cache(maxsize=None)
+def tile_limits() -> tuple[int, int]:
+    """(emissions, words of rows) a tile at most, as the built kernels
+    define them: the rank kernel's 16-bit counters and the count kernel's
+    staging."""
+    lib = library("ingest_fused")
+    return lib.ingest_max_tile(), lib.ingest_max_row_words()
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rows_per_tile(n: int, wp: int, arity: int, k_pad: int, device: torch.device) -> int:
+    """launch_geometry on ``device``'s card with the kernels' own limits."""
+    return launch_geometry(n, wp, arity, k_pad, _sm_count(device), *tile_limits())
 
 
 @functools.lru_cache(maxsize=None)
@@ -460,7 +473,7 @@ def _launch(rows, routes: DenseRoutes, k_pad):
     dev = rows.device
     if n * wp >= 1 << 31:
         raise ValueError(f"fused_ingest: {n} x {wp} emissions exceed 2^31")
-    rpt = launch_geometry(n, wp, rows.shape[1], k_pad, _sm_count(dev))
+    rpt = rows_per_tile(n, wp, rows.shape[1], k_pad, dev)
     dest = torch.empty((n, wp), dtype=torch.int32, device=dev)
     rank = torch.empty((n, wp), dtype=torch.int32, device=dev)
     counts = torch.empty(k_pad, dtype=torch.int32, device=dev)

@@ -24,6 +24,7 @@ from repro_torch.kernels import ingest_fused as fi
 from repro_torch.kernels import sketch_update as su
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import transformer as tt
+from torch_cases import wide_routes
 
 pytestmark = pytest.mark.gpu
 
@@ -266,21 +267,11 @@ def test_fused_ingest_dense_kernel_repeated_destinations(cuda, k_pad):
     _same(got, fi.fused_ingest_dense_ref(rows, enc, k_pad=k_pad))
 
 
-def _wide_routes(k):
-    """A static route table whose destinations reach k - 1, with a pin, an
-    exclude list and two hashed terms."""
-    return (
-        (k - 40_000, ((0, 0x9E3779B9, 20_000, 2),), (0, 1), (), ((1, (3, 4)),)),
-        (5, ((1, 12_345, 7, 1), (0, 999, 3, 7)), (0,), ((0, 7),), ()),
-        (k - 1, (), (0,), (), ()),
-    )
-
-
 @pytest.mark.parametrize("k", [131_075, 1_048_576])
 def test_fused_ingest_static_kernel_many_reducers(cuda, k):
     """The static-table pass above 114,688 reducers, where the first
     kernels' shared-memory counters stopped."""
-    kw = dict(routes=_wide_routes(k), sketch_cols=(1,), seeds=_CMS_SEEDS, width=64,
+    kw = dict(routes=wide_routes(k), sketch_cols=(1,), seeds=_CMS_SEEDS, width=64,
               num_reducers=k)
     rows = torch.from_numpy(_rows(40_003, 2, seed=k)).to(cuda)
     before = fi.LAUNCHES["fused_ingest"]
@@ -289,12 +280,6 @@ def test_fused_ingest_static_kernel_many_reducers(cuda, k):
     assert fi.LAUNCHES["fused_ingest"] == before + 1
     _same(got, fi.fused_ingest_ref(rows, **kw))
     assert int(got[2].sum()) == int((got[0] >= 0).sum()) > 0
-
-
-def test_ingest_tile_limits_are_the_wrappers(cuda):
-    """launch_geometry sizes tiles with the kernels' own limits."""
-    lib = _build.build_all(["ingest_fused"])["ingest_fused"].lib
-    assert (lib.ingest_max_tile(), lib.ingest_max_row_words()) == (fi.MAX_TILE, fi.MAX_ROW_WORDS)
 
 
 @pytest.mark.parametrize("mode", ["route", "sketch", "both"])

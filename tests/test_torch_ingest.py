@@ -16,6 +16,7 @@ from repro.mapreduce.hashing import bucket_np
 from repro.mapreduce.keys import static_route_table
 from repro_torch.kernels import ingest_fused as tfused
 from repro_torch.kernels import sketch_update as tsketch
+from torch_cases import wide_routes
 
 _I32 = np.iinfo(np.int32)
 _SEEDS = (11, 222, (1 << 31) + 5, (1 << 32) - 1)
@@ -200,21 +201,11 @@ def test_dense_route_encoding_matches_jax(name):
                 np.testing.assert_array_equal(got[key], want[key])
 
 
-def _wide_routes(k):
-    """A static route table whose destinations reach k - 1, with a pin, an
-    exclude list and two hashed terms."""
-    return (
-        (k - 40_000, ((0, 0x9E3779B9, 20_000, 2),), (0, 1), (), ((1, (3, 4)),)),
-        (5, ((1, 12_345, 7, 1), (0, 999, 3, 7)), (0,), ((0, 7),), ()),
-        (k - 1, (), (0,), (), ()),
-    )
-
-
 @pytest.mark.parametrize("k", [131_075, 1_048_576])
 def test_many_reducers_match_jax_ref(k):
     """More reducers than the first CUDA kernels could count (114,688): the
     plain versions and the CPU route against the JAX package's oracle."""
-    routes = _wide_routes(k)
+    routes = wide_routes(k)
     rows = _rows(301, 2, seed=k)
     rows[:50, 0] = 7  # the pin holds on these
     kw = dict(routes=routes, sketch_cols=(1,), seeds=_SEEDS, width=64, num_reducers=k)
@@ -304,7 +295,7 @@ def test_route_program_gives_the_encodings_destinations(name):
     elif name == "repeated":
         encs = [_repeated_destinations_enc(19)]
     else:
-        routes = _wide_routes(1_048_576)
+        routes = wide_routes(1_048_576)
         encs = [tfused.dense_route_encoding(routes, 2, tfused.route_width(routes), 2)]
     for enc in encs:
         arity = 1 + max(int(np.max(enc[k])) for k in ("h_col", "p_col", "e_col"))
@@ -341,6 +332,11 @@ def test_divisor_magic_divides_exactly():
             tfused.divisor_magic(bad)
 
 
+# csrc/ingest_fused.cu's limits (tile_limits() on the card): emissions and
+# words of rows a tile
+_TILE_LIMITS = (65_535, 8_192)
+
+
 @pytest.mark.parametrize("n,wp,arity,k_pad,sms", [
     (100_000, 45, 2, 3_907, 132),  # the stream's R pass
     (100_000, 32, 2, 1_271, 132),
@@ -354,18 +350,19 @@ def test_divisor_magic_divides_exactly():
     (10, 2, 9_000, 5, 132),
 ])
 def test_launch_geometry(n, wp, arity, k_pad, sms):
-    """Tiles of at most MAX_TILE emissions and MAX_ROW_WORDS words of rows,
+    """Tiles of at most max_tile emissions and max_row_words words of rows,
     about four an SM where the rows allow, none smaller than _MIN_TILE
     emissions unless the rows run out or a limit binds, and a count table
     of at most _TABLE_MAX entries unless a limit binds."""
-    if wp > tfused.MAX_TILE or arity > tfused.MAX_ROW_WORDS:
+    max_tile, max_row_words = _TILE_LIMITS
+    if wp > max_tile or arity > max_row_words:
         with pytest.raises(ValueError, match="per tile"):
-            tfused.launch_geometry(n, wp, arity, k_pad, sms)
+            tfused.launch_geometry(n, wp, arity, k_pad, sms, *_TILE_LIMITS)
         return
-    rpt = tfused.launch_geometry(n, wp, arity, k_pad, sms)
+    rpt = tfused.launch_geometry(n, wp, arity, k_pad, sms, *_TILE_LIMITS)
     tiles = -(-n // rpt)
-    bound = rpt == tfused.MAX_TILE // wp or rpt == tfused.MAX_ROW_WORDS // arity
-    assert 1 <= rpt <= n and rpt * wp <= tfused.MAX_TILE and rpt * arity <= tfused.MAX_ROW_WORDS
+    bound = rpt == max_tile // wp or rpt == max_row_words // arity
+    assert 1 <= rpt <= n and rpt * wp <= max_tile and rpt * arity <= max_row_words
     assert tiles * k_pad <= tfused._TABLE_MAX or bound
     assert rpt * wp >= tfused._MIN_TILE or rpt == n or bound
     if (n, wp, k_pad) == (100_000, 45, 3_907):
@@ -428,7 +425,7 @@ def test_rank_kernels_decomposition_gives_the_stable_rank(n, wp, k_pad, range_, 
     rng = np.random.default_rng(n + wp)
     dest = rng.integers(0, min(k_pad, 40 if k_pad == 128 else k_pad), (n, wp))
     dest[rng.random((n, wp)) < 0.5] = -1
-    rpt = rpt or tfused.launch_geometry(n, wp, 2, k_pad, 2)
+    rpt = rpt or tfused.launch_geometry(n, wp, 2, k_pad, 2, *_TILE_LIMITS)
     got_r, got_c = _emulate_rank_kernels(dest, k_pad, rpt, range_)
     want_r, want_c = tfused._rank_counts(torch.from_numpy(dest.astype(np.int32)), k_pad)
     np.testing.assert_array_equal(got_r, want_r.numpy())
