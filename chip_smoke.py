@@ -16,9 +16,9 @@ Phases:
      launch counts;
   5. each kernel at the shapes the main path gives it: device time (a CUDA
      graph of repeated calls), its plain version's time and result, and the
-     bound, the function's (every input read once; C + 3 operations a valid
-     row) beside the earlier nested-loop kernel's (C + 2 a pair of
-     valid rows);
+     bound, the function's (every weight and the valid rows' keys read
+     once; C + 3 operations a valid row) beside every slot's bytes and the
+     earlier nested-loop kernel's operations (C + 2 a pair of valid rows);
   6. the paper's 3-way query (§9.2, at the scale of
      ``examples/multiway_join.py``) on the card against the host oracle;
   7. the streaming engine's fused path on the card: six micro-batches of
@@ -90,27 +90,19 @@ Phases:
      the host's PyTorch calls in one decode step, the device's busy share of
      one forward and one decode step, peak device memory, K7's launches;
  21. K7 at the model's shapes, [4, 2048, 40, 64] from zero and [4, 1, 40, 64]
-     with a state: CUDA events and the profiler trace, plain time, bound.
+     with a state: device time (a CUDA graph), plain time, bound.
 
-The join-side kernels' times (K1a, K1b, K2, K3, K4) are device time per
-call of everything the wrapper launches, from CUDA events around the replay
-of a CUDA graph of repeated calls: no host gaps and no trace.  Beside it a
-``torch.profiler`` trace of the same calls gives each CUDA function's time
-an event and the count of its events against the calls (each ``[trace]``
-line); each trace opens with a few tiny kernels that are left out of it,
-since a trace taken after a long one loses its first few device events.
-The other kernels'
-times are device time per call of the kernel's own CUDA functions, from
-such a trace: each function's device time over its events in the trace,
-times its events per call; where the trace holds a count that is not a
-whole number per call, or no device time, the time is CUDA events around
-the wrapper instead.  The wrapper's time, host work included, is CUDA
-events around repeated calls.
-K6's and K7's times at the forward's shapes are the wrapper's (host work of
-microseconds against a kernel of a fraction of a millisecond), the trace's
-printed beside them; at the decode shape, where the wrapper's host work is
-longer than K7's kernel, K7's kernel is also given as its time an event in
-the trace.
+Every kernel's time is device time per call of everything the wrapper
+launches, from CUDA events around the replay of a CUDA graph of repeated
+calls: no host gaps and no trace.  Beside it a ``torch.profiler`` trace of
+the same calls gives each CUDA function's time an event and the count of
+its events against the calls (each ``[trace]`` line; one event of each
+function a call, asserted).  Every trace starts with the profiler's own
+warm-up step, since a trace taken after a long one loses its first few
+device events; a long trace (a stream batch, an RWKV forward or decode
+step) may still lose one, shown by the count of the port's kernels in it,
+and its busy share then reads low.  The wrapper's time, host work
+included, is CUDA events around repeated calls.
 
 Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -142,7 +134,7 @@ FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 JOIN_KERNELS = ("hash_join_kernel",)
 CMS_KERNELS = ("cms_kernel",)
 INGEST_KERNELS = ("ingest_count_kernel", "ingest_scan_kernel", "ingest_rank_kernel", "cms_kernel")
-TRACE_WARMUP = 16  # tiny kernels in the profiler's warm-up step before every trace
+TRACE_WARMUP = 256  # tiny kernels in the profiler's warm-up step before every trace
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
 HIST_KERNELS = ("histogram_kernel",)
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
@@ -942,15 +934,17 @@ def _rwkv_phases(dev):
                  f"{k[:60]} {v / 1e3:.3f}" for k, v in
                  sorted(busy.items(), key=lambda kv: -kv[1])[:6]))
     # K7 inside the model: device ms an event, and the events, from the two
-    # traces above, which must hold one a layer
+    # traces above.  A long trace may lose events; K7's count (one a layer)
+    # shows it, and a busy share from such a trace is a lower bound.
     in_model = []
     for what, busy, n_ev in (("forward", busy_fwd, n_ev_fwd), ("decode step", busy_dec, n_ev_dec)):
         mine = [k for k in busy if any(nm in k for nm in WKV_KERNELS)]
         n7 = sum(n_ev[k] for k in mine)
-        _say(f"[rwkv] K7 in one {what}'s trace: {n7} events ({cfg.n_layers} layers)")
-        assert n7 == cfg.n_layers, (what, n7, cfg.n_layers)
-        in_model.append(sum(busy[k] for k in mine) / 1e3 / n7)
-        _say(f"[rwkv] K7 in one {what}'s trace: {in_model[-1]:.4f} ms each")
+        in_model.append(sum(busy[k] for k in mine) / 1e3 / n7 if n7 else float("nan"))
+        _say(f"[rwkv] K7 in one {what}'s trace: {n7} events ({cfg.n_layers} layers), "
+             f"{in_model[-1]:.4f} ms each" + ("" if n7 == cfg.n_layers else
+                                             "; the trace lost events: its busy share above "
+                                             "is a lower bound"))
     assert np.isfinite(float(loss)) and tokens.shape == (batch, n_new)
     assert len(step_ms) == l_prompt + n_new - 1
     assert rwkv_launches["wkv6"] == cfg.n_layers * (5 + len(step_ms)), rwkv_launches
@@ -1373,10 +1367,13 @@ def main() -> int:
          f"{100 - 100 * busy_ms / ingest_ms[-1]:.3f} %); by function (ms): "
          + "; ".join(f"{k[:70]} {v / 1e3:.3f}" for k, v in
                      sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
-    # the trace holds every call of K2's kernels in the batch
+    # K2's kernels, one event of each a call, show whether the trace lost
+    # events (then the busy share is a lower bound)
     n_ev_k2 = {nm: sum(n for k, n in n_ev_s.items() if nm in k) for nm in INGEST_KERNELS[:3]}
-    _say(f"[stream] batch 5's trace: {n_ev_k2} events of K2's kernels, {n_dense} calls")
-    assert n_dense > 0 and all(n == n_dense for n in n_ev_k2.values()), (n_ev_k2, n_dense)
+    _say(f"[stream] batch 5's trace: {n_ev_k2} events of K2's kernels, {n_dense} calls"
+         + ("" if all(n == n_dense for n in n_ev_k2.values()) else
+            "; the trace lost events: its busy share is a lower bound"))
+    assert n_dense > 0, n_dense
     assert (eng.total_count, eng.total_checksum) == (want_count, want_checksum)
     assert eng.fused_batches == 6 and eng.replan_count >= 1
     assert stream_launches["fused_ingest_dense"] > 0, stream_launches

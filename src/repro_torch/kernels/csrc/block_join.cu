@@ -36,9 +36,11 @@
 //     block into cnt[k] and chk[k].  Unsigned adds commute mod 2^32, so the
 //     result does not depend on the order of the atomics; all arithmetic is
 //     uint32_t, whose wraparound is the reference semantics.
-// C is a run-time value.  The first key column of each row is loaded into
-// registers with its weight, ahead of the work that needs it; the other
-// columns (C > 1) are read where they are used.
+// C = 1, the repo's binary joins, is instantiated on its own (keys in
+// registers); every other C takes the same code with C a run-time value.
+// The C = 1 copy pays for itself: run-time-C code that also loads the
+// first key column ahead of use took about 10 % longer on the batch
+// join's operands on an H100 (PERF.md).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -77,11 +79,13 @@ __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
   return v;
 }
 
+template <int CS>
 __global__ void __launch_bounds__(THREADS)
 hash_join_kernel(const int32_t* __restrict__ rk, const int32_t* __restrict__ rw,
                  const int32_t* __restrict__ sk, const int32_t* __restrict__ sw,
                  uint32_t* __restrict__ cnt, uint32_t* __restrict__ chk, int cap_r,
-                 int cap_s, int C, int chunk, int slots, int chunks) {
+                 int cap_s, int c_rt, int chunk, int slots, int chunks) {
+  const int C = CS > 0 ? CS : c_rt;
   extern __shared__ uint32_t smem[];
   uint32_t* t_row = smem;              // [slots] the row that claimed the slot
   uint32_t* t_cnt = t_row + slots;     // [slots] rows with the slot's key
@@ -97,9 +101,9 @@ hash_join_kernel(const int32_t* __restrict__ rk, const int32_t* __restrict__ rw,
   const int64_t s_base = static_cast<int64_t>(k) * cap_s;
   const uint32_t mask = static_cast<uint32_t>(slots - 1);
 
-  // S rows a group of UNROLL a thread: weights, then the first key column
-  // of the valid ones.  The first group's weights are loaded before the
-  // chunk is staged and its keys before the build, so they are in flight
+  // S rows a group of UNROLL a thread: weights, then (C = 1) the keys of
+  // the valid ones.  The first group's loads are issued before the chunk
+  // is staged and its keys before the build, so they are in flight
   // meanwhile.
   int32_t s_w[UNROLL], s_k[UNROLL];
   auto load_s_weights = [&](int j0) {
@@ -110,9 +114,11 @@ hash_join_kernel(const int32_t* __restrict__ rk, const int32_t* __restrict__ rw,
     }
   };
   auto load_s_keys = [&](int j0) {
+    if constexpr (CS == 1) {
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      s_k[u] = s_w[u] > 0 ? __ldg(sk + (s_base + j0 + u * THREADS) * C) : 0;
+      for (int u = 0; u < UNROLL; ++u) {
+        s_k[u] = s_w[u] > 0 ? __ldg(sk + s_base + j0 + u * THREADS) : 0;
+      }
     }
   };
   load_s_weights(threadIdx.x);
@@ -131,37 +137,32 @@ hash_join_kernel(const int32_t* __restrict__ rk, const int32_t* __restrict__ rw,
   const unsigned lower = (1u << lane) - 1u;
   // b is the same for every thread, so whole warps vote in each iteration
   for (int b = 0; b < n_r; b += THREADS * UNROLL) {
-    const int64_t row0 = r_base + b + threadIdx.x;
     int32_t w[UNROLL], key[UNROLL];
-    int at[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int i = b + u * THREADS + threadIdx.x;
       w[u] = i < n_r ? __ldg(rw + r_base + i) : 0;
     }
-    // the first column's loads are issued before the votes
+    if constexpr (CS == 1) {  // every key load issued before the first store
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      key[u] = w[u] > 0 ? __ldg(rk + (row0 + u * THREADS) * C) : 0;
+      for (int u = 0; u < UNROLL; ++u) {
+        key[u] = w[u] > 0 ? __ldg(rk + r_base + b + u * THREADS + threadIdx.x) : 0;
+      }
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const unsigned vote = __ballot_sync(0xFFFFFFFFu, w[u] > 0);
-      int first = 0;
-      if (lane == 0 && vote != 0u) first = atomicAdd(&n_valid, __popc(vote));
-      at[u] = __shfl_sync(0xFFFFFFFFu, first, 0) + __popc(vote & lower);
-      if (w[u] > 0) r_w[at[u]] = static_cast<uint32_t>(w[u]);
-    }
-    for (int j = 0; j < C; ++j) {
-      if (j > 0) {
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          key[u] = w[u] > 0 ? __ldg(rk + (row0 + u * THREADS) * C + j) : 0;
+      int at = 0;
+      if (lane == 0 && vote != 0u) at = atomicAdd(&n_valid, __popc(vote));
+      at = __shfl_sync(0xFFFFFFFFu, at, 0) + __popc(vote & lower);
+      if (w[u] > 0) {
+        r_w[at] = static_cast<uint32_t>(w[u]);
+        if constexpr (CS == 1) {
+          r_key[at] = key[u];
+        } else {
+          const int64_t i = r_base + b + u * THREADS + threadIdx.x;
+          for (int j = 0; j < C; ++j) r_key[at * C + j] = __ldg(rk + i * C + j);
         }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (w[u] > 0) r_key[at[u] * C + j] = key[u];
       }
     }
   }
@@ -205,10 +206,20 @@ hash_join_kernel(const int32_t* __restrict__ rk, const int32_t* __restrict__ rw,
   }
   __syncthreads();
 
-  // probe with every valid S row of the reducer: its first column from
-  // registers, the others (C > 1) from global memory; a hit adds the
-  // slot's count and its weight sum times w_s
+  // probe with every valid S row of the reducer
   uint32_t b_cnt = 0u, b_chk = 0u;
+  // a hit adds the slot's count and its weight sum times w_s
+  auto probe = [&](uint32_t h, const auto& matches, uint32_t w_s) {
+    for (uint32_t s = h & mask;; s = (s + 1u) & mask) {
+      const uint32_t owner = t_row[s];
+      if (owner == EMPTY) return;
+      if (matches(r_key + static_cast<int64_t>(owner) * C)) {
+        b_cnt += t_cnt[s];
+        b_chk += t_sum[s] * w_s;
+        return;
+      }
+    }
+  };
   for (int j0 = threadIdx.x; j0 < cap_s; j0 += THREADS * UNROLL) {
     if (j0 != threadIdx.x) {
       load_s_weights(j0);
@@ -218,19 +229,13 @@ hash_join_kernel(const int32_t* __restrict__ rk, const int32_t* __restrict__ rw,
     for (int u = 0; u < UNROLL; ++u) {
       if (s_w[u] <= 0) continue;
       const uint32_t w_s = static_cast<uint32_t>(s_w[u]);
-      const int32_t k0 = s_k[u];
-      const int32_t* key = sk + (s_base + j0 + u * THREADS) * C;
-      uint32_t h = fmix32(0x9E3779B9u ^ static_cast<uint32_t>(k0));  // key_hash, column 0
-      for (int j = 1; j < C; ++j) h = fmix32(h ^ static_cast<uint32_t>(__ldg(key + j)));
-      for (uint32_t s = h & mask;; s = (s + 1u) & mask) {
-        const uint32_t owner = t_row[s];
-        if (owner == EMPTY) break;
-        const int32_t* rkey = r_key + static_cast<int64_t>(owner) * C;
-        if (rkey[0] == k0 && same_key(rkey + 1, key + 1, C - 1)) {
-          b_cnt += t_cnt[s];
-          b_chk += t_sum[s] * w_s;
-          break;
-        }
+      if constexpr (CS == 1) {
+        const int32_t kv = s_k[u];
+        probe(key_hash(&kv, 1), [&](const int32_t* rkey) { return *rkey == kv; }, w_s);
+      } else {
+        const int32_t* key = sk + (s_base + j0 + u * THREADS) * C;
+        probe(key_hash(key, C), [&](const int32_t* rkey) { return same_key(rkey, key, C); },
+              w_s);
       }
     }
   }
@@ -257,6 +262,28 @@ hash_join_kernel(const int32_t* __restrict__ rk, const int32_t* __restrict__ rw,
   }
 }
 
+template <int CS>
+cudaError_t launch(const void* rk, const void* rw, const void* sk, const void* sw, void* cnt,
+                   void* chk, int k, int cap_r, int cap_s, int c, int chunk, int slots,
+                   cudaStream_t stream) {
+  const int chunks = (cap_r + chunk - 1) / chunk;
+  const size_t smem = sizeof(uint32_t) * (3 * static_cast<size_t>(slots) +
+                                          static_cast<size_t>(chunk) * (c + 1));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hash_join_kernel<CS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  hash_join_kernel<CS><<<static_cast<unsigned>(static_cast<int64_t>(k) * chunks), THREADS,
+                         smem, stream>>>(
+      static_cast<const int32_t*>(rk), static_cast<const int32_t*>(rw),
+      static_cast<const int32_t*>(sk), static_cast<const int32_t*>(sw),
+      static_cast<uint32_t*>(cnt), static_cast<uint32_t*>(chk), cap_r, cap_s, c, chunk,
+      slots, chunks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -274,21 +301,9 @@ int block_join_launch(const void* rk, const void* rw, const void* sk, const void
       static_cast<int64_t>(k) * ((cap_r + chunk - 1) / chunk) >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int chunks = (cap_r + chunk - 1) / chunk;
-  const size_t smem = sizeof(uint32_t) * (3 * static_cast<size_t>(slots) +
-                                          static_cast<size_t>(chunk) * (c + 1));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hash_join_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  hash_join_kernel<<<static_cast<unsigned>(static_cast<int64_t>(k) * chunks), THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(rk), static_cast<const int32_t*>(rw),
-      static_cast<const int32_t*>(sk), static_cast<const int32_t*>(sw),
-      static_cast<uint32_t*>(cnt), static_cast<uint32_t*>(chk), cap_r, cap_s, c, chunk,
-      slots, chunks);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c == 1) return launch<1>(rk, rw, sk, sw, cnt, chk, k, cap_r, cap_s, c, chunk, slots, st);
+  return launch<0>(rk, rw, sk, sw, cnt, chk, k, cap_r, cap_s, c, chunk, slots, st);
 }
 
 }  // extern "C"
