@@ -36,6 +36,18 @@ Phases:
  10. each stream kernel at the shapes the stream gave it: its device time
      (a CUDA graph), its wrapper's time, its plain version's time and
      result, and the bound;
+10b. the streaming engine survives host loss and preemption on the card,
+     on phase 7's six batches (fused path, a window of 4 batches, 8
+     simulated hosts, ``_recovery_phase``): an injected loss of host 2 at
+     batch 3 recovered by lineage replay (verified through the block join,
+     replayed = the lost share, the plan untouched); a checkpoint, restored
+     into a second engine (its state rebuilt through the ingest kernel);
+     batches 4 and 5 into both (retention retracts 0 and 1; equal reports;
+     the fault does not fire again); the loss of hosts 0, 1, 3 and 4 on
+     both, a degrade (``repair_plan``, a rebuild), equal and verified; each
+     window against the host oracle.  Times of each ``recovery.*`` span,
+     the save, the restore and an ingest after it, and the kernels'
+     launches inside recovery;
  11. FlashAttention (K6) against its plain version on the card, each case
      naming the kernel ``kernel_variant`` picks: the five shapes of the
      reference kernel tests and a ragged L = 200 in fp32; in bf16 the wgmma
@@ -234,8 +246,15 @@ def _kernel_ms(fn, names, reps: int):
             fn()
         torch.cuda.synchronize()
 
-    counts: dict[str, int] = {}
-    _, us = _traced(calls, counts)
+    for attempt in range(3):
+        counts: dict[str, int] = {}
+        _, us = _traced(calls, counts)
+        if counts:
+            break
+        # a trace now and then holds no device event at all (PERF.md §7):
+        # say so and take it again; the one kept must be whole
+        _say(f"[trace] the trace of {reps} calls of {'/'.join(names)} held no device "
+             f"event (attempt {attempt + 1}); tracing again")
     mine = [k for k in us if any(nm in k for nm in names)]
     per_event = {k: us[k] / 1e3 / counts[k] for k in mine}
     _say(f"[trace] {sum(counts[k] for k in mine)} device events of {'/'.join(names)} in the "
@@ -985,6 +1004,130 @@ def _rwkv_phases(dev):
     }]
 
 
+def _recovery_phase(dev, batches, q=1000):
+    """Phase 10b: recovery, checkpoint and restore of the fused engine on
+    phase 7's batches.  Returns the phase's kernel launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import two_way
+    from repro_torch.kernels import block_join as bj
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.mapreduce import groupby_oracle_two_way
+    from repro_torch.stream import (
+        ObsPolicy,
+        RecoveryPolicy,
+        RetentionPolicy,
+        StreamConfig,
+        StreamingJoinEngine,
+    )
+    from repro_torch.testing import FaultInjector, FaultSpec
+
+    cfg = StreamConfig(q=q, decay=0.5, load_factor=2.0, fused_ingest=True,
+                       retention=RetentionPolicy(window_batches=4),
+                       recovery=RecoveryPolicy(n_hosts=8), obs=ObsPolicy(trace=True))
+    inj = FaultInjector([FaultSpec(kind="host_loss", target="host", host_id=2, batch=3)])
+    in_recovery: list[dict[str, int]] = []
+
+    def count_recoveries(eng):
+        """Launches of each recovery of ``eng``, from inside ``_recover``."""
+        inner = eng._recover
+
+        def counted(*args):
+            before = launches()
+            rep = inner(*args)
+            torch.cuda.synchronize()
+            in_recovery.append({k: n - before[k] for k, n in launches().items()
+                                if n - before[k]})
+            return rep
+        eng._recover = counted
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    eng = StreamingJoinEngine(two_way(), cfg, device=dev)
+    eng.arm_faults(inj)
+    count_recoveries(eng)
+    ms = [timed(lambda: eng.ingest(b))[1] for b in batches[:4]]
+    assert len(eng.recoveries) == 1, eng.recoveries
+    rep = eng.recoveries[0]
+    _say(f"[recovery] batch {rep.batch}: mode={rep.mode} lost hosts {rep.lost_hosts}, "
+         f"{rep.lost_reducers} of {rep.reducers_before} reducers, replayed "
+         f"{rep.replayed_tuples}/{rep.lost_share_tuples} lost-share tuples from "
+         f"{rep.batches_replayed} batches, verified={rep.verified}; launches inside "
+         f"{in_recovery[0]}; ingest ms {[round(x, 1) for x in ms]}")
+    assert (rep.batch, rep.lost_hosts, rep.mode) == (3, (2,), "replay") and rep.verified
+    assert rep.replayed_tuples == rep.lost_share_tuples > 0
+    assert rep.reducers_before == rep.reducers_after and rep.migrated_tuples == 0
+    caps = {nm: tuple(b.shape) for nm, (b, _, _) in eng._state.items()}
+    pairs = caps["R"][1] * caps["S"][1]
+    _say(f"[recovery] carried bins {caps}: cap_r x cap_s = {pairs} "
+         f"({'below' if pairs < bj.PAIR_LIMIT else 'at or above'} the block join's 2^31 a "
+         f"launch: the verify join takes {-(-caps['R'][1] // ((bj.PAIR_LIMIT - 1) // caps['S'][1]))} "
+         f"slice(s) of R's rows)")
+
+    ckpt = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    try:
+        path, save_ms = timed(lambda: eng.save_checkpoint(ckpt))
+        n_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        before = launches()
+        back, restore_ms = timed(lambda: StreamingJoinEngine.restore(
+            ckpt, two_way(), cfg, device=dev))
+        restore_launches = {k: n - before[k] for k, n in launches().items() if n - before[k]}
+    finally:
+        shutil.rmtree(ckpt)
+    back.arm_faults(inj)
+    count_recoveries(back)
+    _say(f"[checkpoint] {n_bytes} bytes ({len(eng._retained_ids)} retained batches) saved in "
+         f"{save_ms:.1f} ms; restored in {restore_ms:.1f} ms, rebuild included (launches "
+         f"{restore_launches})")
+    assert back.reports == eng.reports and back.recoveries == eng.recoveries
+    assert restore_launches.get("fused_ingest_dense", 0) > 0, restore_launches
+
+    for b in batches[4:]:
+        rep_a, ms_a = timed(lambda: eng.ingest(b))
+        rep_b, ms_b = timed(lambda: back.ingest(b))
+        _say(f"[checkpoint] batch {rep_a.batch}: original {ms_a:.1f} ms, restored "
+             f"{ms_b:.1f} ms; expired {rep_a.expired_batches} (retracted "
+             f"{rep_a.retracted_count}); window count {rep_a.window_count}")
+        assert rep_a == rep_b, f"restored batch {rep_a.batch} differs"
+    assert eng.expired_batches == back.expired_batches == 2
+    assert len(eng.recoveries) == len(back.recoveries) == 1  # batch 3's fault fired once
+    assert len(inj.events) == 1
+
+    degrade = [timed(lambda: e.fail_hosts([0, 1, 3, 4])) for e in (eng, back)]
+    (deg, deg_ms), (deg_b, deg_b_ms) = degrade
+    _say(f"[recovery] degrade: {deg.survivors} of 8 hosts left, mode={deg.mode}, reducers "
+         f"{deg.reducers_before} -> {deg.reducers_after}, migrated {deg.migrated_tuples}, "
+         f"verified={deg.verified}; {deg_ms:.1f} / {deg_b_ms:.1f} ms (original / restored); "
+         f"launches inside {in_recovery[1]} / {in_recovery[2]}")
+    assert deg == deg_b and deg.mode == "degrade" and deg.verified
+    inj.assert_all_resolved()
+
+    want, oracle_s = timed(lambda: groupby_oracle_two_way(two_way(), eng.history_data()))
+    for e in (eng, back):
+        assert (e.window_count, e.window_checksum) == want
+    _say(f"[recovery] window count={eng.window_count} checksum={eng.window_checksum} equals "
+         f"the host oracle on both engines ({oracle_s / 1e3:.2f} s on the host)")
+    spans: dict[str, list[float]] = {}
+    for ev in eng.obs.tracer.events:
+        if ev.get("ph") == "X" and ev["name"].startswith(("recovery.", "checkpoint.")):
+            spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    _say("[recovery] spans of the original engine (ms): " + "; ".join(
+        f"{nm} {[round(d, 1) for d in durs]}" for nm, durs in sorted(spans.items())))
+    assert in_recovery[0].get("reducer_join", 0) > 0, in_recovery
+    assert in_recovery[1].get("fused_ingest_dense", 0) > 0, in_recovery
+    _say(f"[recovery] phase 10b: {time.perf_counter() - t_phase:.1f} s")
+    return launches()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1525,10 +1668,18 @@ def main() -> int:
             "library_ms": None,
         })
 
+    # ---- 10b. recovery, checkpoint and restore on the card -----------------
+    reset_launches()
+    rec_launches = _recovery_phase(dev, batches)
+    _say(f"[recovery] launches in phase 10b: {rec_launches}")
+    del eng
+
     kernels += _lm_phases(dev, data["R"][:, 1])
     torch.cuda.empty_cache()
     kernels += _rwkv_phases(dev)
 
+    for entry in kernels:  # beside each path's own count, phase 10b's
+        entry["launches_recovery"] = rec_launches.get(entry["name"], 0)
     _say(f"[done] wall {time.perf_counter() - t_all:.1f} s")
     _say(json.dumps({"kernels": kernels}))
     _say(smi)

@@ -5,6 +5,23 @@ The paper's contribution (Afrati, Stasinopoulos, Ullman, Vassilakopoulos,
 as host-side numpy/scipy: ``plan_shares_skew`` produces the full plan that
 ``repro_torch.mapreduce`` executes with PyTorch.
 """
+from .closed_forms import (
+    chain_cost,
+    chain_cost_equal_sizes,
+    chain_shares,
+    subchain_budgets,
+    symmetric_cost,
+    symmetric_cost_equal_sizes,
+    symmetric_shares_equal_sizes,
+    three_chain_cost,
+    three_chain_shares,
+    triangle_cost,
+    triangle_shares,
+    two_way_lower_bound,
+    two_way_naive_cost,
+    two_way_skew_cost,
+    two_way_skew_shares,
+)
 from .cost import CostExpression
 from .dominance import dominated_attributes, share_attributes
 from .heavy_hitters import CountMinSketch, HeavyHitters, exact_heavy_hitters
@@ -51,7 +68,10 @@ __all__ = [
     "ResidualPlan",
     "SharesSkewPlan",
     "SharesSolution",
+    "chain_cost",
+    "chain_cost_equal_sizes",
     "chain_join",
+    "chain_shares",
     "cycle_join",
     "detect_heavy_hitters",
     "dominated_attributes",
@@ -70,8 +90,20 @@ __all__ = [
     "solve_k_for_capacity",
     "solve_shares",
     "star_join",
+    "subchain_budgets",
+    "symmetric_cost",
+    "symmetric_cost_equal_sizes",
     "symmetric_join",
+    "symmetric_shares_equal_sizes",
+    "three_chain_cost",
+    "three_chain_shares",
     "three_way_paper",
     "triangle",
+    "triangle_cost",
+    "triangle_shares",
     "two_way",
+    "two_way_lower_bound",
+    "two_way_naive_cost",
+    "two_way_skew_cost",
+    "two_way_skew_shares",
 ]

@@ -24,7 +24,7 @@ from ._build import library
 
 LAUNCHES = {"reducer_join": 0, "flat_join": 0}
 
-_PAIR_LIMIT = 1 << 31  # per-reducer count must stay below 2^31
+PAIR_LIMIT = 1 << 31  # per-reducer count must stay below 2^31
 _REF_CHUNK = 1 << 24  # pairs per step of the plain version
 _SMEM = 72 * 1024  # shared memory a block of the kernel aims for: three an SM
 
@@ -102,7 +102,7 @@ def _check(r_keys, r_weights, s_keys, s_weights) -> None:
         raise ValueError(f"block_join: key shapes differ: {tuple(r_keys.shape)} vs {tuple(s_keys.shape)}")
     if tuple(r_weights.shape) != (k, cap_r) or tuple(s_weights.shape) != (k, s_keys.shape[1]):
         raise ValueError("block_join: weights must be [K, cap] beside their keys")
-    if cap_r * s_keys.shape[1] >= _PAIR_LIMIT:
+    if cap_r * s_keys.shape[1] >= PAIR_LIMIT:
         raise ValueError(
             f"block_join: cap_r * cap_s = {cap_r * s_keys.shape[1]} >= 2^31, "
             "a per-reducer count could overflow"

@@ -1,12 +1,15 @@
 """RWKV-6 wkv recurrence: CUDA kernel and its plain PyTorch version.
 
-For r, k, v, w ``[B, L, H, hd]`` fp32, the bonus ``u [H, hd]`` and an
-optional initial state ``s0 [B, H, hd, hd]`` (zero when omitted), per
-(b, h) and token t::
+For r, k, v, w ``[B, L, H, hd]``, the bonus ``u [H, hd]`` and an optional
+initial state ``s0 [B, H, hd, hd]`` (zero when omitted), per (b, h) and
+token t::
 
     y_t = r_t · (S + u ∘ (k_t ⊗ v_t));   S <- diag(w_t) S + k_t ⊗ v_t
 
-returning ``(y [B, L, H, hd], S_final [B, H, hd, hd])``.  From zero it is
+returning ``(y [B, L, H, hd], S_final [B, H, hd, hd])``.  r, k, v, w and
+u may be fp32, bf16 or fp16: they are widened to fp32, the recurrence runs
+in fp32, and y comes back in r's dtype, as ``wkv6_pallas`` returns it; the
+state is fp32 in and out.  From zero it is
 ``repro.kernels.wkv6.wkv6_pallas``'s function; with a state it is what the
 model's ``repro.models.rwkv6._wkv_scan`` takes and returns, in the same
 layout, so ``time_mix`` needs no transpose and ``u`` is indexed by head
@@ -32,6 +35,9 @@ import torch
 from ._build import library
 
 LAUNCHES = {"wkv6": 0}
+
+# dtypes r, k, v, w and u may have; the state is fp32
+INPUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 # (JC, P, C) of each head dim, as csrc/wkv6.cu's wkv6_launch instantiates
@@ -67,7 +73,8 @@ def wkv6_ref(
     s0: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: a loop over t with the state carried, in fp32, in the
-    order of the JAX package's scan; returns (y, final state)."""
+    order of the JAX package's scan; returns (y in r's dtype, final fp32
+    state)."""
     b, l, h, hd = r.shape
     s = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device) if s0 is None \
         else s0.float()
@@ -77,7 +84,7 @@ def wkv6_ref(
         kv = k[:, t].float()[..., :, None] * v[:, t].float()[..., None, :]
         ys.append(torch.einsum("bhi,bhij->bhj", r[:, t].float(), s + uu * kv))
         s = w[:, t].float()[..., :, None] * s + kv
-    return torch.stack(ys, dim=1), s
+    return torch.stack(ys, dim=1).to(r.dtype), s
 
 
 def _check(r, k, v, w, u, s0, state_out) -> None:
@@ -98,11 +105,17 @@ def _check(r, k, v, w, u, s0, state_out) -> None:
             )
     if state_out is not None and not state_out.is_contiguous():
         raise ValueError("wkv6: state_out must be contiguous (it is written in place)")
-    given = [t for t in (r, k, v, w, u, s0, state_out) if t is not None]
-    if any(t.dtype != torch.float32 for t in given):
+    if any(t.dtype not in INPUT_DTYPES for t in (r, k, v, w, u)):
         raise TypeError(
-            "wkv6: every input must be float32, got " + ", ".join(str(t.dtype) for t in given)
+            "wkv6: r, k, v, w and u must be float32, bfloat16 or float16, got "
+            + ", ".join(str(t.dtype) for t in (r, k, v, w, u))
         )
+    states = [t for t in (s0, state_out) if t is not None]
+    if any(t.dtype != torch.float32 for t in states):
+        raise TypeError(
+            "wkv6: the state must be float32, got " + ", ".join(str(t.dtype) for t in states)
+        )
+    given = [t for t in (r, k, v, w, u, s0, state_out) if t is not None]
     if any(t.device != r.device for t in given):
         raise ValueError("wkv6: every input must lie on one device")
     if hd not in HEAD_DIMS:
@@ -121,8 +134,11 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(r, k, v, w, u, s0, state_out) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on the card; counts no launch."""
+    """The kernel on the card; counts no launch.  The kernel reads fp32:
+    narrower inputs are widened here, and y narrowed to r's dtype after."""
     b, l, h, hd = r.shape
+    out_dtype = r.dtype
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
     r, k, v, w = (_readable(t) for t in (r, k, v, w))
     u = u if u.is_contiguous() and u.data_ptr() % 16 == 0 else u.clone(
         memory_format=torch.contiguous_format)
@@ -146,7 +162,7 @@ def _launch(r, k, v, w, u, s0, state_out) -> tuple[torch.Tensor, torch.Tensor]:
         )
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: cudaError {err}")
-    return y, s_out
+    return y.to(out_dtype), s_out
 
 
 def wkv6(

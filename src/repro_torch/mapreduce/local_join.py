@@ -2,7 +2,9 @@
 
 Grouping uses a stable sort + rank-in-group scatter.  A binary join (two
 relations, one link) is reduced by the hand-written CUDA block-join kernel
-(``repro_torch.kernels.block_join``); an n-way join, or a cross product,
+(``repro_torch.kernels.block_join``), over slices of R's rows where a
+reducer's bins could hold 2^31 pairs or more (the kernel counts in int32);
+an n-way join, or a cross product,
 contracts its pairwise match matrices one relation at a time by
 broadcast-multiply-and-sum in int64 — PyTorch has no integer matmul on
 CUDA, so no ``einsum``/``bmm`` on integers is used.
@@ -21,7 +23,7 @@ import math
 import torch
 
 from repro_torch.core.schema import JoinQuery
-from repro_torch.kernels.block_join import reducer_join
+from repro_torch.kernels import block_join
 
 from .hashing import row_weight_torch
 
@@ -259,9 +261,28 @@ def local_join_count_checksum(
     weights = _bin_weights(spec, bins, valids, weight_seed)
     if not spec.is_binary:
         return _nway_count_checksum(spec, bins, valids, weights)
-    cnt, chk = reducer_join(*_binary_operands(spec, bins, weights))
-    count = cnt.to(torch.int64).sum()
-    checksum = (chk.to(torch.int64) & _M32).sum() & _M32
+    return _binary_count_checksum(*_binary_operands(spec, bins, weights))
+
+
+def _binary_count_checksum(
+    r_keys: torch.Tensor, r_weights: torch.Tensor, s_keys: torch.Tensor, s_weights: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block join summed over reducers: int64 count, checksum mod 2^32.
+    The kernel counts a reducer's pairs in int32, so where cap_r * cap_s
+    reaches ``block_join.PAIR_LIMIT`` R's rows go in equal slices whose
+    product with cap_s stays below it; counts and checksums add over a
+    partition of R's rows, so the sums are one join's."""
+    cap_r, cap_s = r_keys.shape[1], s_keys.shape[1]
+    most = max(1, (block_join.PAIR_LIMIT - 1) // max(cap_s, 1))  # R rows a slice
+    step = max(1, -(-cap_r // -(-cap_r // most)))  # balanced, still <= most
+    count = torch.zeros((), dtype=torch.int64, device=r_keys.device)
+    checksum = torch.zeros((), dtype=torch.int64, device=r_keys.device)
+    for lo in range(0, max(cap_r, 1), step):
+        part = slice(lo, lo + step)
+        cnt, chk = block_join.reducer_join(
+            r_keys[:, part].contiguous(), r_weights[:, part].contiguous(), s_keys, s_weights)
+        count += cnt.to(torch.int64).sum()
+        checksum = (checksum + (chk.to(torch.int64) & _M32).sum()) & _M32
     return count, checksum
 
 

@@ -13,11 +13,13 @@ bounded state: §8) — the port of ``repro.stream``.
     window-fingerprint retraction
   * ``admission`` — backpressure: budgeted admission, FIFO backlog,
     explicit shedding with exact counters
-  * ``recovery``  — the reducer-loss policy and report types, so a
-    ``StreamConfig`` means the same to both packages; the engine does not
-    run recovery yet
+  * ``recovery``  — reducer-loss recovery: host placement + heartbeat
+    detection, lineage replay of lost reducer state, plan repair onto
+    survivors, elastic degraded mode (DESIGN.md §5)
 
-Multi-tenant ingest (``repro.stream.tenancy``) is not ported yet.
+The engine checkpoints through ``repro_torch.train.checkpoint`` and takes
+its host faults from ``repro_torch.testing.faults``.  Multi-tenant ingest
+(``repro.stream.tenancy``) is not ported yet (ROADMAP.md queue 1 item 7).
 """
 from repro_torch.obs import Observability, ObsPolicy  # noqa: F401  (re-export)
 

@@ -42,27 +42,45 @@ of ``stream.delta`` for binary single-column queries.  Every fused-path
 result is bit-identical to this baseline, which stays in the tree as the
 correctness oracle.
 
+With ``StreamConfig(recovery=RecoveryPolicy(n_hosts=H))`` (DESIGN.md §5)
+reducers multiplex over H simulated hosts; a host lost to ``fail_hosts`` or
+to an armed ``testing.faults.FaultInjector`` is detected at the next batch
+boundary and recovered by lineage replay from the retained window (or, under
+sustained loss, by ``core.planner.repair_plan`` and a rebuild), then
+verified against the window fingerprint on the device.
+
+``save_checkpoint()`` / ``restore()`` serialize sketches, incumbent plan,
+drift-monitor state, retained history, window clock, admission backlog and
+recovery state through ``train.checkpoint`` (atomic step dirs + LATEST
+pointer) in the JAX package's layout and keys, so a preempted engine resumes
+mid-stream to the same reports, and a checkpoint the JAX package wrote
+restores here (its pickled plan and reports are read through
+``_PortUnpickler``).
+
 The binned state, the sorted delta index and the sketches live on the host
 in numpy, as in the reference; the device runs routing, the fused pass and
 the delta joins.  ``device`` defaults to ``"cuda"`` and raises without a
 card; ``device="cpu"`` runs the kernels' plain versions.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): reducer-loss recovery (``StreamConfig.recovery``, ``arm_faults``,
-``fail_hosts``), checkpoints (``save_checkpoint`` / ``restore``) and
-``recompute_distributed``.  Multi-tenant ingest (``repro.stream.tenancy``)
-is not ported either.
+Not ported yet: ``recompute_distributed`` raises ``NotImplementedError``
+(ROADMAP.md queue 1 item 10), and multi-tenant ingest
+(``repro.stream.tenancy``, item 7) has no counterpart: the engine takes no
+``obs`` facade and ``ingest`` no ``shared_deltas``.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import io
+import os
+import pickle
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch.core.planner import SharesSkewPlan, plan_with_hh
+from repro_torch.core.planner import SharesSkewPlan, plan_with_hh, repair_plan
 from repro_torch.core.schema import JoinQuery
 from repro_torch.kernels.ingest_fused import (
     DenseRoutes,
@@ -75,20 +93,37 @@ from repro_torch.kernels.ingest_fused import (
 from repro_torch.mapreduce.executor import _device
 from repro_torch.mapreduce.keys import map_phase, static_route_table
 from repro_torch.mapreduce.local_join import LocalJoinSpec, local_join_count_checksum
+from repro_torch.mapreduce.straggler import FailureDetector
 from repro_torch.obs import NULL_OBS, Observability, ObsPolicy, cms_window_error, hh_hit_counts
+from repro_torch.testing.faults import FaultInjector
+from repro_torch.train import checkpoint
+from repro_torch.train.elastic import plan_mesh_shape
 
 from .admission import AdmissionController, AdmissionPolicy
 from .delta import SortedDeltaIndex
 from .drift import DriftDecision, DriftMonitor
-from .recovery import RecoveryPolicy
-from .retention import RetentionPolicy, carried_tuples, remove_prefix
+from .recovery import (
+    HostTracker,
+    RecoveryExhaustedError,
+    RecoveryPolicy,
+    RecoveryReport,
+    record_recovery,
+)
+from .retention import (
+    RetentionPolicy,
+    carried_tuples,
+    lost_occupancy,
+    remove_prefix,
+    select_reducers,
+    zero_reducers,
+)
 from .sketch import StreamHHTracker
 
 _MASK32 = 0xFFFFFFFF
 
-# ROADMAP.md queue 1 items that bring what this engine does not do yet
-_RECOVERY_ITEM = "ROADMAP.md queue 1 item 8 (recovery replay)"
-_CHECKPOINT_ITEM = "ROADMAP.md queue 1 item 9 (checkpoints)"
+CHECKPOINT_FORMAT = 1  # bump on any layout change; restore() validates it
+
+# ROADMAP.md queue 1 item that brings what this engine does not do yet
 _DISTRIBUTED_ITEM = "ROADMAP.md queue 1 item 10 (distributed shuffle)"
 
 
@@ -127,8 +162,10 @@ class StreamConfig:
     # unbounded §6 baseline bit-for-bit.
     retention: RetentionPolicy = RetentionPolicy()
     admission: AdmissionPolicy = AdmissionPolicy()
-    # Reducer-loss recovery (DESIGN.md §5): off by default, and not ported
-    # yet: an enabled policy raises NotImplementedError.
+    # Reducer-loss recovery (DESIGN.md §5): off by default; with
+    # ``RecoveryPolicy(n_hosts=H)`` reducers multiplex over H simulated
+    # hosts, host loss is detected by heartbeat deadline and recovered by
+    # lineage replay / plan repair at batch boundaries.
     recovery: RecoveryPolicy = RecoveryPolicy()
     # Observability (DESIGN.md §10): spans, metrics, per-reducer load
     # telemetry.  All off by default — disabled hooks are free.
@@ -226,10 +263,6 @@ class StreamingJoinEngine:
         clock: Callable[[], float] | None = None,
         device: str | torch.device = "cuda",
     ):
-        if config.recovery.enabled:
-            raise NotImplementedError(
-                f"reducer-loss recovery is not ported yet: {_RECOVERY_ITEM}"
-            )
         self.query = query
         self.config = config
         self.device = _device(device)
@@ -287,6 +320,9 @@ class StreamingJoinEngine:
 
         self.total_count = 0
         self.total_checksum = 0
+        # recovery-domain label: "" single-tenant (host faults scoped to a
+        # tenant fire only in that tenant's engine)
+        self.tenant = ""
         self.window_count = 0  # fingerprint of the retained window
         self.window_checksum = 0
         self.cumulative_comm = 0
@@ -300,6 +336,23 @@ class StreamingJoinEngine:
             if config.admission.enabled
             else None
         )
+
+        # reducer-loss recovery (DESIGN.md §5): host placement, heartbeat
+        # detector clocked in batch indices, and the per-event reports
+        self._hosts: HostTracker | None = (
+            HostTracker(config.recovery) if config.recovery.enabled else None
+        )
+        self._detector: FailureDetector | None = (
+            FailureDetector(config.recovery.deadline_batches)
+            if config.recovery.enabled
+            else None
+        )
+        self._fault_injector = None  # armed via arm_faults()
+        self._pending_host_events: list = []
+        self._exhausted = False
+        self._slots_per_host = 1
+        self.recoveries: list[RecoveryReport] = []
+        self.total_replayed = 0
 
         # fused-ingest bookkeeping: columns the kernel must sketch per
         # relation (tracker attr order), and a loud counter so callers can
@@ -608,6 +661,12 @@ class StreamingJoinEngine:
         ):
             migrated = self._rebuild_routed_state()
         self.total_migrated += migrated
+        if self._hosts is not None:
+            self._hosts.assign(plan.total_reducers)
+            self._slots_per_host = max(
+                1,
+                -(-plan.total_reducers // max(1, len(self._hosts.alive))),
+            )
         return migrated
 
     # ---- retention (DESIGN.md §8) ------------------------------------------
@@ -745,14 +804,36 @@ class StreamingJoinEngine:
         worst = max((load for _, _, load in loads), default=0.0)
         return max(1.0, worst / max(self.config.q, 1e-9))
 
-    # ---- not ported yet ------------------------------------------------------
+    # ---- reducer-loss recovery (DESIGN.md §5) ------------------------------
     def arm_faults(self, injector) -> None:
-        """Reducer-loss fault injection: not ported yet."""
-        raise NotImplementedError(f"host faults are not ported yet: {_RECOVERY_ITEM}")
+        """Attach a ``testing.faults.FaultInjector`` whose host faults
+        (``host_loss`` / ``partition``) fire at absolute batch indices at
+        the ingest boundary.  Indices are absolute (``len(reports)``), so a
+        restored engine resumes past already-fired faults — they never
+        re-fire across a checkpoint boundary."""
+        self._fault_injector = injector
 
-    def fail_hosts(self, hosts_to_kill) -> None:
-        """Reducer-loss recovery: not ported yet."""
-        raise NotImplementedError(f"host recovery is not ported yet: {_RECOVERY_ITEM}")
+    def _last_batch(self) -> dict[str, np.ndarray]:
+        """Most recent retained batch (drift-monitor baseline for a repair
+        install); empty arrays when nothing is retained."""
+        return {
+            r.name: (
+                self._history[r.name][-1]
+                if self._history[r.name]
+                else np.zeros((0, r.arity), dtype=np.int64)
+            )
+            for r in self.query.relations
+        }
+
+    def _lineage(self, rel, i: int) -> _Routed:
+        """Batch ``i``'s routed emissions for one relation: the retained
+        routed log when retention keeps it (true lineage), else a
+        deterministic re-route of the retained raw batch on the device —
+        ``map_phase`` is per-row deterministic, so both reproduce the
+        original emission order exactly."""
+        if self.config.retention.enabled:
+            return self._routed_log[rel.name][i]
+        return self._route_any(rel, self._history[rel.name][i])
 
     def _state_join_fingerprint(self) -> tuple[int, int]:
         """(count, checksum) of the join evaluated over the carried binned
@@ -762,6 +843,217 @@ class StreamingJoinEngine:
             bins[nm], valids[nm] = self._device_bins(b, v)
         cnt, chk = local_join_count_checksum(self.spec, bins, valids)
         return int(cnt), int(chk) & _MASK32
+
+    def _resolve_host_events(self, lost_hosts, recovered: bool) -> None:
+        for ev in self._pending_host_events:
+            if not ev.resolved and (
+                ev.spec.host_id in lost_hosts or not recovered
+            ):
+                FaultInjector.mark_host_event(ev, recovered)
+
+    def _exhaust(self, lost_hosts, msg: str) -> None:
+        """Loss beyond the survivable grid: flag the engine dead, resolve
+        the injector events as explicitly reported, and raise."""
+        self._exhausted = True
+        self._resolve_host_events(lost_hosts, recovered=False)
+        raise RecoveryExhaustedError(msg)
+
+    def _replay_lost(self, lost_ids: np.ndarray) -> int:
+        """Lineage replay (DESIGN.md §5 stage 3): zero the lost reducers'
+        bins, then re-scatter ONLY their emissions from each retained
+        batch, in batch order — reproducing the dead bins bit-for-bit
+        (appends land at occupancy offsets, so a batch's emissions refill
+        as the same prefix they originally occupied; a fused pack plan's
+        in-destination ranks select every emission of a lost destination,
+        so they still start at 0).  Returns the number of replayed
+        emissions."""
+        for nm in self._state:
+            self._state[nm] = zero_reducers(self._state[nm], lost_ids)
+        if self._delta_index is not None:
+            for nm in self.spec.rel_names:
+                self._delta_index.drop_reducers(nm, lost_ids)
+        replayed = 0
+        for i, rbid in enumerate(self._retained_ids):
+            for rel in self.query.relations:
+                nm = rel.name
+                routed = self._lineage(rel, i)
+                mask = select_reducers(routed.dest, lost_ids)
+                if not mask.any():
+                    continue
+                sub = _Routed(
+                    routed.dest[mask],
+                    routed.rows[mask],
+                    None if routed.rank is None else routed.rank[mask],
+                    np.bincount(
+                        routed.dest[mask], minlength=self.plan.total_reducers
+                    ).astype(np.int64),
+                )
+                self._state[nm] = self._scatter_any(self._state[nm], sub)
+                if self._delta_index is not None:
+                    self._delta_index.append(nm, sub.dest, sub.rows, rbid)
+                replayed += int(sub.dest.size)
+        return replayed
+
+    def _recover(self, lost_hosts: list[int], bid: int) -> RecoveryReport:
+        """Detection has declared ``lost_hosts`` dead: repair placement (or
+        the plan), reconstruct the lost reducers' carried state, verify
+        the window fingerprint, and report.  Raises
+        ``RecoveryExhaustedError`` when the survivors cannot host a
+        correct plan — explicit, never a silent wrong answer."""
+        policy = self.config.recovery
+        hosts = self._hosts
+        self.obs.instant(
+            "recovery.detect",
+            cat="recovery",
+            args={"hosts": sorted(lost_hosts), "batch": bid},
+        )
+        lost_ids = hosts.reducers_on(lost_hosts)
+        hosts.declare_lost(lost_hosts)
+        for h in lost_hosts:
+            self._detector.deregister(h)
+        survivors = len(hosts.alive)
+        if survivors < policy.min_hosts:
+            self._exhaust(
+                lost_hosts,
+                f"recovery exhausted at batch {bid}: {survivors} surviving "
+                f"host(s) < min_hosts={policy.min_hosts} "
+                f"(lost {sorted(lost_hosts)})",
+            )
+        reducers_before = self.plan.total_reducers if self.plan else 0
+        lost_share = lost_occupancy(self._state, lost_ids)
+        degrade = (
+            self.plan is not None
+            and survivors / hosts.provisioned < policy.degrade_below
+        )
+        replayed = migrated = 0
+        if self.plan is None or lost_ids.size == 0:
+            mode = "replay"  # nothing carried yet; placement repair only
+            hosts.reassign(lost_ids)
+        elif not degrade:
+            mode = "replay"
+            hosts.reassign(lost_ids)
+            with self.obs.span(
+                "recovery.replay",
+                cat="recovery",
+                args={"lost_reducers": int(lost_ids.size)},
+            ):
+                replayed = self._replay_lost(lost_ids)
+        else:
+            mode = "degrade"
+            mesh = plan_mesh_shape(
+                survivors, 1, chips_per_pod=policy.hosts_per_pod
+            )
+            k_target = mesh.chips_used * self._slots_per_host
+            try:
+                repaired = repair_plan(self.plan, k_target)
+            except ValueError as e:
+                self._exhaust(
+                    lost_hosts, f"recovery exhausted at batch {bid}: {e}"
+                )
+            # full rebuild under the repaired plan reconstructs every
+            # reducer's state (lost bins included) and re-places reducers
+            # over the survivors; admission tightens to surviving capacity
+            with self.obs.span(
+                "recovery.repair",
+                cat="recovery",
+                args={"k_target": k_target, "survivors": survivors},
+            ):
+                migrated = self._install(repaired, self._last_batch())
+            if self._controller is not None:
+                self._controller.set_capacity(survivors / hosts.provisioned)
+        verified = True
+        if policy.verify and self.plan is not None:
+            with self.obs.span("recovery.verify", cat="recovery"):
+                cnt, chk = self._state_join_fingerprint()
+            verified = (
+                cnt == self.window_count and chk == self.window_checksum
+            )
+            if not verified:
+                self._exhausted = True
+                self._resolve_host_events(lost_hosts, recovered=False)
+                raise RecoveryExhaustedError(
+                    f"recovered state fails fingerprint verification at "
+                    f"batch {bid}: joined ({cnt}, {chk:#010x}) != window "
+                    f"({self.window_count}, {self.window_checksum:#010x})"
+                )
+        report = RecoveryReport(
+            batch=bid,
+            lost_hosts=tuple(sorted(lost_hosts)),
+            lost_reducers=int(lost_ids.size),
+            mode=mode,
+            survivors=survivors,
+            batches_replayed=len(self._retained_ids),
+            replayed_tuples=replayed,
+            lost_share_tuples=lost_share,
+            migrated_tuples=migrated,
+            reducers_before=reducers_before,
+            reducers_after=self.plan.total_reducers if self.plan else 0,
+            tenant=self.tenant,
+            verified=verified,
+        )
+        self.recoveries.append(report)
+        self.total_replayed += replayed
+        record_recovery(self.obs, report)
+        self._resolve_host_events(lost_hosts, recovered=True)
+        self._log(
+            f"[stream] recovered from loss of host(s) {sorted(lost_hosts)} "
+            f"at batch {bid}: mode={mode}, {lost_ids.size} reducer(s), "
+            f"replayed {replayed}/{lost_share} lineage tuples, "
+            f"migrated {migrated}, survivors {survivors}/{hosts.provisioned}"
+        )
+        return report
+
+    def _host_boundary(self, bid: int) -> None:
+        """The per-batch recovery boundary: heal due partitions, fire
+        scheduled host faults, heartbeat the live hosts into the detector
+        (clocked in batch indices), and recover from any host the
+        deadline declares lost."""
+        hosts = self._hosts
+        healed = hosts.heal_due(bid)
+        if healed:
+            self._log(
+                f"[stream] partition healed at batch {bid}: host(s) "
+                f"{healed} rejoin as empty spares"
+            )
+        if self._fault_injector is not None:
+            for ev in self._fault_injector.fire_host_faults(bid, self.tenant):
+                s = ev.spec
+                heal = None if s.kind == "host_loss" else bid + s.heal_after
+                hosts.silence(s.host_id, heal)
+                self._pending_host_events.append(ev)
+        members = set(self._detector.members)
+        for h in hosts.alive:
+            if h not in members:  # join-time registration: assume a beat
+                self._detector.heartbeat(h, bid - 1)  # one batch ago
+        for h in hosts.beating():
+            self._detector.heartbeat(h, bid)
+        lost = [h for h in self._detector.overdue(bid) if h in hosts.alive]
+        if lost:
+            self._recover(lost, bid)
+
+    def fail_hosts(self, hosts_to_kill) -> RecoveryReport | None:
+        """Kill hosts outright, outside the injector schedule (the demo /
+        operational path: ``examples/streaming_join_torch.py
+        --kill-reducer``).  Runs the same detect→recover boundary
+        immediately and returns the resulting report (None if the kill
+        removed no live host)."""
+        if self._hosts is None:
+            raise RuntimeError(
+                "recovery is disabled: set StreamConfig.recovery = "
+                "RecoveryPolicy(n_hosts=...)"
+            )
+        bid = len(self.reports)
+        deadline = self.config.recovery.deadline_batches
+        for h in hosts_to_kill:
+            self._hosts.silence(int(h), None)
+            if int(h) in self._detector.members:
+                # an explicit kill is not a silent failure: rewind the
+                # heartbeat past the deadline so detection fires NOW even
+                # if the host beat at this same boundary already
+                self._detector.heartbeat(int(h), bid - deadline)
+        before = len(self.recoveries)
+        self._host_boundary(bid)
+        return self.recoveries[-1] if len(self.recoveries) > before else None
 
     # ---- delta join --------------------------------------------------------
     def _delta_join_sorted(
@@ -883,10 +1175,22 @@ class StreamingJoinEngine:
         obs.histogram("stream_batch_seconds").observe(seconds)
 
     def _ingest_inner(self, batch: dict[str, np.ndarray]) -> BatchReport:
+        if self._exhausted:
+            raise RecoveryExhaustedError(
+                "engine lost more hosts than the survivable grid; carried "
+                "state is unrecoverable and ingest refuses to produce "
+                "answers from it"
+            )
         # validation FIRST: a poison batch must raise before any state
         # mutation so the engine stays resumable (DESIGN.md §9)
         offered = self._validate_batch(batch)
         now = self._clock()
+
+        # 0. recovery boundary: heal partitions, fire scheduled host
+        #    faults, detect and recover losses BEFORE the batch joins
+        if self._hosts is not None:
+            with self.obs.span("recovery.boundary", cat="recovery"):
+                self._host_boundary(len(self.reports))
 
         # 1. admission: backlog + batch against the live budget
         if self._controller is not None:
@@ -1110,12 +1414,214 @@ class StreamingJoinEngine:
         )
         return skew.snapshot()
 
-    # ---- checkpoint / restore (not ported yet) -----------------------------
+    # ---- checkpoint / restore (DESIGN.md §8) -------------------------------
     def save_checkpoint(self, directory: str, keep: int = 3) -> str:
-        """Serialize the engine: not ported yet."""
-        raise NotImplementedError(f"checkpoints are not ported yet: {_CHECKPOINT_ITEM}")
+        """Serialize the full engine state through ``train.checkpoint``
+        (atomic step dir + LATEST pointer; step = batches ingested), in the
+        JAX package's tree and keys.  Everything needed for a bit-identical
+        resume goes in: sketches, drift-monitor baselines, retained history
+        + window clock (stored as ages so TTL survives a clock rebase),
+        admission backlog, incumbent plan and reports (pickled blobs), the
+        recovery state, and the cumulative counters."""
+        now = self._clock()
+        tree: dict = {
+            "scalars": np.array(
+                [
+                    self.total_count,
+                    self.total_checksum,
+                    self.window_count,
+                    self.window_checksum,
+                    self.cumulative_comm,
+                    self.total_migrated,
+                    self.expired_batches,
+                    self.total_retracted,
+                    self.plan_epoch,
+                    self.fused_batches,
+                ],
+                dtype=np.int64,
+            ),
+            "loads": self._loads.astype(np.int64),
+            "retained_ids": np.array(self._retained_ids, dtype=np.int64),
+            "batch_ages": np.array(
+                [now - ts for ts in self._batch_ts], dtype=np.float64
+            ),
+            "tracker": self.tracker.state_dict(),
+            "monitor": self.monitor.state_dict(),
+            "history": {
+                nm: {f"{i:06d}": np.asarray(arr) for i, arr in enumerate(lst)}
+                for nm, lst in self._history.items()
+            },
+            "blob": np.frombuffer(
+                pickle.dumps((self.plan, self.reports)), dtype=np.uint8
+            ).copy(),
+        }
+        if self._controller is not None:
+            tree["admission"] = self._controller.state_dict()
+        if self._hosts is not None:
+            tree["hosts"] = self._hosts.state_dict()
+            tree["recovery_scalars"] = np.array(
+                [int(self._exhausted), self._slots_per_host, self.total_replayed],
+                dtype=np.int64,
+            )
+            tree["recovery_blob"] = np.frombuffer(
+                pickle.dumps(self.recoveries), dtype=np.uint8
+            ).copy()
+        with self.obs.span("checkpoint.save"):
+            path = checkpoint.save_checkpoint(
+                directory,
+                step=len(self.reports),
+                tree=tree,
+                keep=keep,
+                metadata={
+                    "kind": "stream_engine",
+                    "format": CHECKPOINT_FORMAT,
+                    "batches": len(self.reports),
+                    "retained": len(self._retained_ids),
+                },
+            )
+        if self.obs.metrics.enabled:
+            nbytes = sum(
+                os.path.getsize(os.path.join(dp, f))
+                for dp, _, fs in os.walk(path)
+                for f in fs
+            )
+            self.obs.counter("stream_checkpoints_total").inc()
+            self.obs.counter("stream_checkpoint_bytes_total").inc(nbytes)
+        return path
 
     @classmethod
-    def restore(cls, directory: str, query: JoinQuery, config: StreamConfig, **kwargs):
-        """Rebuild an engine from a checkpoint: not ported yet."""
-        raise NotImplementedError(f"checkpoints are not ported yet: {_CHECKPOINT_ITEM}")
+    def restore(
+        cls,
+        directory: str,
+        query: JoinQuery,
+        config: StreamConfig,
+        log_fn: Callable[[str], None] | None = None,
+        clock: Callable[[], float] | None = None,
+        step: int | None = None,
+        device: str | torch.device = "cuda",
+    ) -> "StreamingJoinEngine":
+        """Rebuild an engine mid-stream from a checkpoint, this package's or
+        the JAX package's.  ``query`` and ``config`` must match the saving
+        engine (sketch shapes/seeds are config-derived).  Carried reducer
+        state is reconstructed on ``device`` by re-routing the retained
+        history under the restored plan — the same deterministic rebuild a
+        replan migration performs — so subsequent batches produce
+        bit-identical reports to an uninterrupted run."""
+        manifest = checkpoint.load_manifest(directory, step)
+        meta = manifest.get("metadata", {})
+        if meta.get("kind") != "stream_engine":
+            raise ValueError(f"not a stream engine checkpoint: {directory}")
+        if meta.get("format") != CHECKPOINT_FORMAT:
+            raise ValueError(
+                f"checkpoint format {meta.get('format')} != "
+                f"supported {CHECKPOINT_FORMAT}"
+            )
+        _, flat = checkpoint.load_checkpoint(directory, step)
+
+        eng = cls(query, config, log_fn=log_fn, clock=clock, device=device)
+        plan, reports = _unpickle(flat["blob"])
+        eng.plan = plan
+        eng.reports = list(reports)
+        scalars = np.asarray(flat["scalars"]).tolist()
+        (
+            eng.total_count,
+            eng.total_checksum,
+            eng.window_count,
+            eng.window_checksum,
+            eng.cumulative_comm,
+            eng.total_migrated,
+            eng.expired_batches,
+            eng.total_retracted,
+            eng.plan_epoch,
+            eng.fused_batches,
+        ) = (int(s) for s in scalars)
+        eng.tracker.load_state_dict(
+            {
+                k[len("tracker/") :]: v
+                for k, v in flat.items()
+                if k.startswith("tracker/")
+            }
+        )
+        eng.monitor.load_state_dict({"scalars": flat["monitor/scalars"]})
+        eng._retained_ids = [int(i) for i in flat["retained_ids"]]
+        now = eng._clock()
+        eng._batch_ts = [now - float(a) for a in flat["batch_ages"]]
+        for rel in query.relations:
+            prefix = f"history/{rel.name}/"
+            keys = sorted(k for k in flat if k.startswith(prefix))
+            eng._history[rel.name] = [
+                np.asarray(flat[k]).reshape(-1, rel.arity) for k in keys
+            ]
+            if len(eng._history[rel.name]) != len(eng._retained_ids):
+                raise ValueError("checkpoint history/window length mismatch")
+        if eng._controller is not None:
+            eng._controller.load_state_dict(
+                {
+                    k[len("admission/") :]: v
+                    for k, v in flat.items()
+                    if k.startswith("admission/")
+                }
+            )
+        if eng._hosts is not None and "hosts/alive" in flat:
+            eng._hosts.load_state_dict(
+                {
+                    k[len("hosts/") :]: v
+                    for k, v in flat.items()
+                    if k.startswith("hosts/")
+                }
+            )
+            rs = np.asarray(flat["recovery_scalars"]).tolist()
+            eng._exhausted = bool(rs[0])
+            eng._slots_per_host = int(rs[1])
+            eng.total_replayed = int(rs[2])
+            eng.recoveries = _unpickle(flat["recovery_blob"])
+        if eng.plan is not None:
+            eng._rebuild_routed_state()
+            if eng._hosts is not None and (
+                eng._hosts.host_of.size != eng.plan.total_reducers
+            ):  # pre-recovery checkpoint: place reducers fresh
+                eng._hosts.assign(eng.plan.total_reducers)
+        # loads are arrivals-per-epoch telemetry (they include expired and
+        # migrated arrivals), not derivable from the retained rebuild
+        eng._loads = np.asarray(flat["loads"]).astype(np.int64)
+        return eng
+
+
+# the classes a stream checkpoint's pickled blobs hold, by module under the
+# package: the plan and its parts, the batch and recovery reports
+_BLOB_CLASSES = {
+    "core.cost": ("CostExpression",),
+    "core.planner": ("ResidualPlan", "SharesSkewPlan"),
+    "core.residual": ("Combination",),
+    "core.schema": ("JoinQuery", "RelationSchema"),
+    "core.shares": ("SharesSolution",),
+    "stream.engine": ("BatchReport",),
+    "stream.recovery": ("RecoveryReport",),
+}
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Reads a checkpoint's pickled plan, reports and recovery reports,
+    whichever package wrote them.  A class the JAX package pickled,
+    ``repro.<mod>.<name>``, is read as the port's
+    ``repro_torch.<mod>.<name>``, as is the port's own, for the classes in
+    ``_BLOB_CLASSES``.  numpy's names and the builtin classes pass; every
+    other name is refused, and no ``repro`` module is ever imported."""
+
+    def find_class(self, module: str, name: str):
+        if module == "numpy" or module.startswith("numpy."):
+            return super().find_class(module, name)
+        if module == "builtins":
+            obj = super().find_class(module, name)
+            if isinstance(obj, type):
+                return obj
+        pkg, _, rest = module.partition(".")
+        if pkg in ("repro", "repro_torch") and name in _BLOB_CLASSES.get(rest, ()):
+            return getattr(importlib.import_module(f"repro_torch.{rest}"), name)
+        raise pickle.UnpicklingError(
+            f"checkpoint refers to {module}.{name}, which this package does not read"
+        )
+
+
+def _unpickle(blob: np.ndarray):
+    return _PortUnpickler(io.BytesIO(blob.tobytes())).load()

@@ -1,10 +1,5 @@
 """Reducer-loss recovery for the streaming engine (DESIGN.md §5).
 
-In the port these are the policy, placement and report types only: the
-port's engine does not run recovery yet and raises
-``NotImplementedError`` when ``StreamConfig.recovery`` is enabled
-(ROADMAP.md queue 1 item 8).  The design below is the reference's.
-
 The shares assignment deliberately concentrates heavy-hitter work on
 specific reducers — so losing the host that carries them loses exactly
 the state that is most expensive to rebuild.  Before this subsystem the

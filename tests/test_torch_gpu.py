@@ -13,7 +13,9 @@ import torch
 from repro_torch import core as tcore
 from repro_torch import data as tdata
 from repro_torch import mapreduce as tmr
+from repro_torch.mapreduce import local_join as tlj
 from repro_torch import stream as tstream
+from repro_torch import testing as tfaults
 from repro_torch import configs as tconfigs
 from repro_torch import models as tmodels
 from repro_torch.kernels import _build
@@ -621,8 +623,29 @@ def test_wkv6_kernel_updates_state_in_place(cuda):
     torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(buf, s_want, rtol=2e-4, atol=2e-4)
     assert not stack[0].any() and not stack[2].any()
-    with pytest.raises(TypeError, match="float32"):
-        wk.wkv6(r.bfloat16(), k, v, w, u)
+    with pytest.raises(TypeError, match="state must be float32"):
+        wk.wkv6(r.bfloat16(), k, v, w, u, buf.bfloat16())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("l", [1, 77])
+def test_wkv6_kernel_narrow_inputs(cuda, dtype, l):
+    """bf16 and fp16 r, k, v, w, u: the wrapper widens them for the kernel
+    and returns y in r's dtype, the fp32 state in place; against the plain
+    version on the same narrow inputs (2e-4 on the fp32 values, before the
+    final rounding: r given in fp32)."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, l, 3, 64, 17 + l, cuda)
+    narrow = [t.to(dtype) for t in (r, k, v, w, u)]
+    before = wk.LAUNCHES["wkv6"]
+    y32, s32 = wk.wkv6(narrow[0].float(), *narrow[1:], s0)
+    y, s = wk.wkv6(*narrow, s0)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6"] == before + 2
+    assert y.dtype == dtype and y32.dtype == s.dtype == torch.float32
+    assert torch.equal(y, y32.to(dtype)) and torch.equal(s, s32)
+    y_want, s_want = wk.wkv6_ref(narrow[0].float(), *narrow[1:], s0)
+    torch.testing.assert_close(y32, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
 
 
 def test_wkv6_kernel_state_not_16_byte_aligned(cuda):
@@ -671,6 +694,82 @@ def test_rwkv6_on_card_matches_cpu(cuda):
     for key in ("wkv", "x_tm", "x_cm"):
         torch.testing.assert_close(s_card[key].cpu(), s_cpu[key], rtol=2e-4, atol=2e-4)
     assert wk.LAUNCHES["wkv6"] == cfg.n_layers * 5
+
+
+def test_binary_join_past_the_pair_limit(cuda):
+    """A reducer with 65,536 R and 32,768 S rows on one key: 2^31 pairs, one
+    more than an int32 count holds.  The binary join goes through K1 in
+    slices of R's rows and counts them all."""
+    k, cap_r, cap_s = 2, 1 << 16, 1 << 15
+    rng = np.random.default_rng(3)
+    r_keys = torch.zeros((k, cap_r, 1), dtype=torch.int32)
+    s_keys = torch.zeros((k, cap_s, 1), dtype=torch.int32)
+    r_keys[1] = torch.from_numpy(rng.integers(0, 1000, (cap_r, 1)).astype(np.int32))
+    s_keys[1] = torch.from_numpy(rng.integers(1000, 2000, (cap_s, 1)).astype(np.int32))
+    r_w = torch.from_numpy(rng.integers(1, 1 << 20, (k, cap_r)).astype(np.int32))
+    s_w = torch.from_numpy(rng.integers(1, 1 << 20, (k, cap_s)).astype(np.int32))
+    before = bj.LAUNCHES["reducer_join"]
+    cnt, chk = tlj._binary_count_checksum(*(t.to(cuda) for t in (r_keys, r_w, s_keys, s_w)))
+    assert bj.LAUNCHES["reducer_join"] - before == 2  # two slices of 32,768 R rows
+    assert int(cnt) == cap_r * cap_s  # reducer 1's keys never meet
+    want = int(r_w[0].long().sum()) * int(s_w[0].long().sum()) % (1 << 32)
+    assert int(chk) == want
+
+
+# ---- the stream engine's recovery and checkpoints on the card --------------
+
+def _recovery_cfg(**kw):
+    return tstream.StreamConfig(
+        q=100, decay=0.5, load_factor=2.0, fused_ingest=True,
+        retention=tstream.RetentionPolicy(window_batches=4),
+        recovery=tstream.RecoveryPolicy(n_hosts=8), **kw)
+
+
+def test_fused_recovery_on_card_matches_cpu(cuda):
+    """An injected host loss (replay), then a degrade, on the card and on the
+    CPU: equal reports and recoveries; the verify join runs K1 and the
+    degrade's rebuild K2 on the card."""
+    batches = _stream_batches()
+    runs = []
+    for dev in (cuda, "cpu"):
+        inj = tfaults.FaultInjector([tfaults.FaultSpec(kind="host_loss", target="host",
+                                                       host_id=2, batch=3)])
+        eng = tstream.StreamingJoinEngine(tcore.two_way(), _recovery_cfg(), device=dev)
+        eng.arm_faults(inj)
+        bj.reset_launches()
+        fi.reset_launches()
+        reports = [eng.ingest(b) for b in batches[:4]]
+        assert bj.LAUNCHES["reducer_join"] >= (1 if dev == cuda else 0)
+        before = fi.LAUNCHES["fused_ingest_dense"]
+        degrade = eng.fail_hosts([0, 1, 3, 4])
+        assert fi.LAUNCHES["fused_ingest_dense"] > before or dev == "cpu"
+        reports.append(eng.ingest(batches[4]))
+        inj.assert_all_resolved()
+        runs.append((reports, eng.recoveries, degrade))
+    assert runs[0] == runs[1]
+    modes = [r.mode for r in runs[0][1]]
+    assert modes == ["replay", "degrade"] and all(r.verified for r in runs[0][1])
+
+
+@pytest.mark.parametrize("saver,loader", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_crosses_devices(cuda, tmp_path, saver, loader):
+    """A checkpoint saved by an engine on one device restores into an engine
+    on the other, and both continue to equal reports."""
+    batches = _stream_batches()
+    dev = {"cuda": cuda, "cpu": "cpu"}
+    eng = tstream.StreamingJoinEngine(tcore.two_way(), _recovery_cfg(), device=dev[saver])
+    for b in batches[:3]:
+        eng.ingest(b)
+    eng.fail_hosts([5])
+    eng.save_checkpoint(str(tmp_path))
+    resumed = tstream.StreamingJoinEngine.restore(str(tmp_path), tcore.two_way(),
+                                                  _recovery_cfg(), device=dev[loader])
+    assert resumed.recoveries == eng.recoveries
+    for b in batches[3:]:
+        assert resumed.ingest(b) == eng.ingest(b)
+    assert resumed.fail_hosts([1]) == eng.fail_hosts([1])
+    want = tmr.groupby_oracle_two_way(tcore.two_way(), resumed.history_data())
+    assert (resumed.window_count, resumed.window_checksum) == want
 
 
 def _to(tree, device):

@@ -84,9 +84,11 @@ def test_row_weight_rejects_mod_below_one():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every repro_torch module imports with JAX unavailable (in a
-    subprocess, so this worker's JAX stays intact)."""
+    """Every repro_torch module, and the port's example, imports with JAX
+    unavailable and loads no ``repro`` module (in a subprocess, so this
+    worker's JAX stays intact)."""
     src = Path(__file__).resolve().parents[1] / "src"
+    example = src.parent / "examples" / "streaming_join_torch.py"
     mods = sorted(
         ".".join(p.relative_to(src).with_suffix("").parts).removesuffix(".__init__")
         for p in (src / "repro_torch").rglob("*.py")
@@ -94,9 +96,11 @@ def test_port_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
-        "import importlib\n"
+        "import importlib, importlib.util\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"spec = importlib.util.spec_from_file_location('streaming_join_torch', {str(example)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(k == 'repro' or k.startswith('repro.') for k in sys.modules)\n"
         "print('ok', len(" + repr(mods) + "))\n"
     )
@@ -113,6 +117,8 @@ def test_port_imports_with_jax_blocked():
                 "repro_torch.kernels.histogram", "repro_torch.configs.base",
                 "repro_torch.configs.olmo_1b", "repro_torch.models.layers",
                 "repro_torch.models.transformer", "repro_torch.models.zoo",
-                "repro_torch.models.convert", "repro_torch.serve.engine"):
+                "repro_torch.models.convert", "repro_torch.serve.engine",
+                "repro_torch.core.closed_forms", "repro_torch.testing.faults",
+                "repro_torch.train.checkpoint", "repro_torch.train.elastic"):
         assert mod in mods
     assert len(mods) >= 55

@@ -135,3 +135,33 @@ def test_materialize_two_way_matches_reference():
         np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
         np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
         assert int(tov) == int(jov)
+
+
+@pytest.mark.parametrize("limit", [1 << 12, 1 << 15, 200_000])  # 10, 2 and 1 slices
+def test_binary_join_in_slices_below_the_pair_limit(monkeypatch, limit):
+    """Bins whose cap_r * cap_s reaches the block join's pair limit go
+    through it in slices of R's rows (the limit lowered here to reach the
+    slicing at a CPU size): the same (count, checksum) as the JAX package's
+    one join, and every launch below the limit."""
+    from repro_torch.kernels import block_join
+
+    query, data, q, cap = _cases()["2way"]
+    jbins, jvals, tbins, tvals = _binned(query, data, q, cap)
+    jspec = jlj.LocalJoinSpec.from_query(query)
+    jc, jk = jlj.local_join_count_checksum_jit(jspec, jbins, jvals)
+    calls = []
+    inner = block_join.reducer_join
+
+    def counted(r_keys, r_weights, s_keys, s_weights):
+        assert r_keys.shape[1] * s_keys.shape[1] < limit
+        calls.append(r_keys.shape[1])
+        return inner(r_keys, r_weights, s_keys, s_weights)
+
+    monkeypatch.setattr(block_join, "PAIR_LIMIT", limit)
+    monkeypatch.setattr(block_join, "reducer_join", counted)
+    tc, tk = tlj.local_join_count_checksum(tlj.LocalJoinSpec.from_query(query), tbins, tvals)
+    assert int(tc) == int(jc) > 0
+    assert int(tk) == int(np.uint32(jk))
+    most = (limit - 1) // cap  # R rows a slice may hold beside cap S rows
+    assert sum(calls) == cap and len(calls) == -(-cap // most)
+    assert max(calls) - min(calls) <= 1  # equal slices

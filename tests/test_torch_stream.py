@@ -184,24 +184,16 @@ def test_engine_defaults_to_the_card():
 
 
 def test_unported_methods_raise():
-    cfg = tstream.StreamConfig(q=40)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tstream.StreamingJoinEngine(
-            tcore.two_way(),
-            tstream.StreamConfig(q=40, recovery=tstream.RecoveryPolicy(n_hosts=2)),
-            device="cpu",
-        )
+    """Only the distributed recompute is left unported; recovery and
+    checkpoints run (``tests/test_torch_recovery.py``,
+    ``tests/test_torch_checkpoint.py``)."""
+    cfg = tstream.StreamConfig(q=40, recovery=tstream.RecoveryPolicy(n_hosts=2))
     eng = tstream.StreamingJoinEngine(tcore.two_way(), cfg, device="cpu")
     eng.ingest(_drifting_stream(n_batches=1)[0])
-    for call, item in [
-        (lambda: eng.arm_faults(None), "item 8"),
-        (lambda: eng.fail_hosts([0]), "item 8"),
-        (lambda: eng.save_checkpoint("unused"), "item 9"),
-        (lambda: tstream.StreamingJoinEngine.restore("unused", tcore.two_way(), cfg), "item 9"),
-        (lambda: eng.recompute_distributed(), "item 10"),
-    ]:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        eng.recompute_distributed()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        eng.recompute_distributed(window=True)
 
 
 def test_failure_detector_matches_reference():

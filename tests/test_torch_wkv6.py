@@ -92,10 +92,14 @@ def test_wrapper_reads_strided_views():
 
 def test_wrapper_checks_its_arguments():
     r, k, v, w, u, s0 = _t(*_inputs(2, 8, 2, 16, 7))
-    with pytest.raises(TypeError, match="float32"):
-        wk.wkv6(r.bfloat16(), k, v, w, u)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        wk.wkv6(r.double(), k, v, w, u)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        wk.wkv6(r, k, v, w, u.to(torch.int32))
+    with pytest.raises(TypeError, match="state must be float32"):
         wk.wkv6(r, k, v, w, u, s0.double())
+    with pytest.raises(TypeError, match="state must be float32"):
+        wk.wkv6(r, k, v, w, u, state_out=s0.bfloat16())
     with pytest.raises(ValueError, match="differ"):
         wk.wkv6(r, k[:, :4], v, w, u)
     with pytest.raises(ValueError, match=r"\[B, L, H, hd\]"):
@@ -206,3 +210,46 @@ def test_decode_step_takes_its_own_kernel(hd):
     assert wk.launch_geometry(hd, 2) == wk.launch_geometry(hd) == wk.launch_geometry(hd, 2048)
     with pytest.raises(ValueError, match="at least one token"):
         wk.launch_geometry(hd, 0)
+
+
+_NARROW = [torch.bfloat16, torch.float16]
+_JNP = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+
+
+@pytest.mark.parametrize("dtype", _NARROW, ids=str)
+@pytest.mark.parametrize("bh,l,hd,chunk", [(2, 32, 16, 16), (3, 64, 32, 32)])
+def test_narrow_inputs_match_pallas(dtype, bh, l, hd, chunk):
+    """bf16 and fp16 r, k, v, w, as ``wkv6_pallas`` takes them: widened to
+    fp32 inside, y in r's dtype.  The fp32 values before the final rounding
+    (r given in fp32, so both return y unrounded) agree to 2e-4; y in r's
+    dtype is exactly that value rounded, in both packages, so the two
+    narrow results part by at most one rounding step of the narrow type
+    (relative 2^-7 for bf16, 2^-10 for fp16)."""
+    r, k, v, w, u, _ = _inputs(1, l, bh, hd, bh * 31 + l)
+    narrow = [torch.from_numpy(a).to(dtype) for a in (r, k, v, w)]
+    wide_r = narrow[0].float()
+    tu = torch.from_numpy(u)
+
+    def pallas(*rkvw):
+        flat = [jnp.asarray(a[0].float().numpy().transpose(1, 0, 2)).astype(
+            jnp.float32 if a.dtype == torch.float32 else _JNP[dtype]) for a in rkvw]
+        return np.asarray(wkv6_pallas(*flat, jnp.asarray(u), chunk=chunk).astype(jnp.float32))
+
+    # r in fp32, k, v, w narrow: both widen k, v, w and return fp32 y
+    y32, s32 = wk.wkv6(wide_r, *narrow[1:], tu)
+    assert y32.dtype == torch.float32 and s32.dtype == torch.float32
+    want32 = pallas(wide_r, *narrow[1:])
+    np.testing.assert_allclose(y32[0].transpose(0, 1).numpy(), want32, **_TOL)
+    # everything narrow: y in r's dtype, the rounding of the fp32 result
+    y, s = wk.wkv6(*narrow, tu)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert torch.equal(y, y32.to(dtype)) and torch.equal(s, s32)
+    want = pallas(*narrow)
+    assert np.array_equal(want, np.asarray(jnp.asarray(want32).astype(_JNP[dtype]).astype(
+        jnp.float32)))
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    np.testing.assert_allclose(y[0].transpose(0, 1).float().numpy(), want, rtol=step,
+                               atol=_TOL["atol"])
+    # the plain version on narrow inputs is the wrapper's CPU path
+    y_ref, s_ref = wk.wkv6_ref(*narrow, tu)
+    assert torch.equal(y_ref, y) and torch.equal(s_ref, s)
