@@ -47,7 +47,11 @@ Phases:
      both, a degrade (``repair_plan``, a rebuild), equal and verified; each
      window against the host oracle.  Times of each ``recovery.*`` span,
      the save, the restore and an ingest after it, and the kernels'
-     launches inside recovery;
+     launches inside recovery.  Then, for the replay's and the degrade's
+     verify join, the block join (K1) on a few reducers' carried bins (the
+     most loaded, one cut into most slices, one of the lost host) held
+     exactly against its plain version, slice by slice and summed over
+     each reducer;
  11. FlashAttention (K6) against its plain version on the card, each case
      naming the kernel ``kernel_variant`` picks: the five shapes of the
      reference kernel tests and a ragged L = 200 in fp32; in bf16 the wgmma
@@ -150,6 +154,7 @@ TRACE_WARMUP = 256  # tiny kernels in the profiler's warm-up step before every t
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
 HIST_KERNELS = ("histogram_kernel",)
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
+RETAKEN: list[str] = []  # kernels whose trace held no device event and was taken again
 
 
 def _say(*args) -> None:
@@ -252,7 +257,9 @@ def _kernel_ms(fn, names, reps: int):
         if counts:
             break
         # a trace now and then holds no device event at all (PERF.md §7):
-        # say so and take it again; the one kept must be whole
+        # say so and take it again; the one kept must be whole, and a run
+        # that has to retake more than one trace fails at its end
+        RETAKEN.append("/".join(names))
         _say(f"[trace] the trace of {reps} calls of {'/'.join(names)} held no device "
              f"event (attempt {attempt + 1}); tracing again")
     mine = [k for k in us if any(nm in k for nm in names)]
@@ -1010,6 +1017,7 @@ def _recovery_phase(dev, batches, q=1000):
     import shutil
     import tempfile
 
+    import numpy as np
     import torch
 
     from repro_torch.core import two_way
@@ -1030,17 +1038,23 @@ def _recovery_phase(dev, batches, q=1000):
                        recovery=RecoveryPolicy(n_hosts=8), obs=ObsPolicy(trace=True))
     inj = FaultInjector([FaultSpec(kind="host_loss", target="host", host_id=2, batch=3)])
     in_recovery: list[dict[str, int]] = []
+    checks = []  # (spec, bins, valids, info, label): the first engine's verify joins
 
-    def count_recoveries(eng):
-        """Launches of each recovery of ``eng``, from inside ``_recover``."""
+    def count_recoveries(eng, keep=False):
+        """Launches of each recovery of ``eng``, from inside ``_recover``;
+        with ``keep``, a few reducers' operands of its verify join."""
         inner = eng._recover
 
-        def counted(*args):
+        def counted(lost_hosts, bid):
             before = launches()
-            rep = inner(*args)
+            lost = np.flatnonzero(np.isin(eng._hosts.host_of, lost_hosts)).tolist()
+            rep = inner(lost_hosts, bid)
             torch.cuda.synchronize()
             in_recovery.append({k: n - before[k] for k, n in launches().items()
                                 if n - before[k]})
+            if keep:  # the carried bins as the verify joined them
+                among = lost if rep.mode == "replay" else ()
+                checks.append((*_verify_subset(eng, among), f"batch {bid} {rep.mode}"))
             return rep
         eng._recover = counted
 
@@ -1054,7 +1068,7 @@ def _recovery_phase(dev, batches, q=1000):
     reset_launches()
     eng = StreamingJoinEngine(two_way(), cfg, device=dev)
     eng.arm_faults(inj)
-    count_recoveries(eng)
+    count_recoveries(eng, keep=True)
     ms = [timed(lambda: eng.ingest(b))[1] for b in batches[:4]]
     assert len(eng.recoveries) == 1, eng.recoveries
     rep = eng.recoveries[0]
@@ -1125,7 +1139,87 @@ def _recovery_phase(dev, batches, q=1000):
     assert in_recovery[0].get("reducer_join", 0) > 0, in_recovery
     assert in_recovery[1].get("fused_ingest_dense", 0) > 0, in_recovery
     _say(f"[recovery] phase 10b: {time.perf_counter() - t_phase:.1f} s")
-    return launches()
+    phase_launches = launches()  # the checks' own launches are not the path's
+    for *subset, label in checks:
+        _check_verify_join(*subset, label, dev)
+    return phase_launches
+
+
+def _verify_subset(eng, among=()):
+    """(spec, bins, valids, what they are) of a few of ``eng``'s reducers,
+    copied on the host from the carried state the recovery verify joins:
+    the one with most candidate pairs, the one with most R rows, the one
+    whose R rows fall in most of the verify's slices, the median by pairs,
+    and the one of ``among`` with most R rows."""
+    import numpy as np
+
+    from repro_torch.mapreduce.local_join import slice_rows
+
+    r_ok, s_ok = eng._state["R"][1], eng._state["S"][1]
+    cap_r, cap_s = r_ok.shape[1], s_ok.shape[1]
+    step = slice_rows(cap_r, cap_s)
+    n_r, n_s = r_ok.sum(1), s_ok.sum(1)
+    pairs = n_r * n_s
+    in_slice = np.stack([r_ok[:, lo:lo + step].any(1) for lo in range(0, cap_r, step)]).sum(0)
+    pick = {int(pairs.argmax()), int(n_r.argmax()), int((in_slice * cap_r + n_r).argmax()),
+            int(np.argsort(pairs, kind="stable")[pairs.size // 2])}
+    among = [k for k in among if k < n_r.size]
+    if among:
+        pick.add(among[int(n_r[among].argmax())])
+    idx = sorted(pick)
+    bins = {nm: b[idx] for nm, (b, _, _) in eng._state.items()}
+    valids = {nm: v[idx] for nm, (_, v, _) in eng._state.items()}
+    info = {"bins": (tuple(eng._state["R"][0].shape), tuple(eng._state["S"][0].shape)),
+            "slice_rows": step, "reducers": idx, "r_rows": n_r[idx].tolist(),
+            "s_rows": n_s[idx].tolist(), "slices_holding_r": in_slice[idx].tolist()}
+    return eng.spec, bins, valids, info
+
+
+def _check_verify_join(spec, bins, valids, info, label, dev):
+    """Hold the recovery verify's block join on a few reducers' carried
+    bins (``_verify_subset``) against its plain version on the card,
+    through the operands ``_state_join_fingerprint`` builds: each slice of R's
+    rows through ``reducer_join`` against ``block_join_ref`` on that
+    slice, and ``_binary_count_checksum`` of each reducer, which slices as
+    the verify does, against ``block_join_ref`` summed over the whole
+    reducer.  Exact (max_abs_err 0)."""
+    import torch
+
+    from repro_torch.kernels import block_join as bj
+    from repro_torch.mapreduce.local_join import _binary_count_checksum, binary_join_operands
+
+    sub = binary_join_operands(
+        spec, {nm: torch.from_numpy(b).to(dev) for nm, b in bins.items()},
+        {nm: torch.from_numpy(v).to(dev) for nm, v in valids.items()})
+    r_keys, r_w, s_keys, s_w = sub
+    step = info["slice_rows"]
+    t = time.perf_counter()
+    err, sums = 0, []
+    for lo in range(0, r_keys.shape[1], step):
+        part = (r_keys[:, lo:lo + step].contiguous(), r_w[:, lo:lo + step].contiguous(),
+                s_keys, s_w)
+        err = max(err, _max_abs_err(bj.reducer_join(*part), bj.block_join_ref(*part)))
+    for i in range(r_keys.shape[0]):
+        cnt, chk = _binary_count_checksum(*(x[i:i + 1] for x in sub))
+        sums.append(torch.stack([cnt, chk]))
+    # the whole reducer's reference in int64, over R chunks of its own
+    # (2^30 pairs, where the reference's int32 count cannot wrap)
+    want = torch.zeros((r_keys.shape[0], 2), dtype=torch.int64, device=r_keys.device)
+    chunk = max(1, (1 << 30) // max(s_keys.shape[1], 1))
+    for lo in range(0, r_keys.shape[1], chunk):
+        cnt, chk = bj.block_join_ref(r_keys[:, lo:lo + chunk], r_w[:, lo:lo + chunk],
+                                     s_keys, s_w)
+        want[:, 0] += cnt.long()
+        want[:, 1] = (want[:, 1] + (chk.long() & 0xFFFFFFFF)) & 0xFFFFFFFF
+    err_sum = _max_abs_err([torch.stack(sums)], [want])
+    torch.cuda.synchronize()
+    _say(f"[recovery] {label} verify join, K1 against block_join_ref on reducers "
+         f"{info['reducers']} of bins {info['bins']} (R rows {info['r_rows']}, S rows "
+         f"{info['s_rows']}, R rows in {info['slices_holding_r']} slice(s) of "
+         f"{step} rows): max_abs_err={err} a slice, {err_sum} a reducer summed over its "
+         f"slices (count, checksum {want.tolist()}); "
+         f"{time.perf_counter() - t:.1f} s")
+    assert err == 0 and err_sum == 0, (label, err, err_sum)
 
 
 def _leaves(tree):
@@ -1680,6 +1774,9 @@ def main() -> int:
 
     for entry in kernels:  # beside each path's own count, phase 10b's
         entry["launches_recovery"] = rec_launches.get(entry["name"], 0)
+    _say(f"[trace] {len(RETAKEN)} trace(s) held no device event and were taken again: "
+         f"{RETAKEN}")
+    assert len(RETAKEN) <= 1, f"more than one trace lost all its device events: {RETAKEN}"
     _say(f"[done] wall {time.perf_counter() - t_all:.1f} s")
     _say(json.dumps({"kernels": kernels}))
     _say(smi)

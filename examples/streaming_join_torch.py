@@ -11,8 +11,7 @@ The loop runs under ``train.elastic.PreemptionGuard``: a SIGTERM mid-stream
 is caught at the next batch boundary, the engine writes a checkpoint with
 ``save_checkpoint`` and the process exits cleanly; rerunning with the same
 ``--ckpt-dir`` restores the engine and finishes the remaining batches with
-bit-identical fingerprints.  ``--preempt-at B`` sends that SIGTERM to the
-process itself after batch B, for a preemption at a known point.
+bit-identical fingerprints.
 
 ``--kill-reducer H`` demos in-flight reducer-loss recovery instead:
 reducers multiplex over 8 simulated hosts, host H is killed right after the
@@ -28,14 +27,12 @@ multi-tenant engine yet.  ``--device`` defaults to ``cuda`` and fails
 without a card; ``--device cpu`` runs the kernels' plain versions.
 
 Run:  PYTHONPATH=src python examples/streaming_join_torch.py
-      PYTHONPATH=src python examples/streaming_join_torch.py --ckpt-dir /tmp/sj --preempt-at 4
-      (then rerun the same command without --preempt-at)
+      PYTHONPATH=src python examples/streaming_join_torch.py --ckpt-dir /tmp/sj
+      (send it SIGTERM mid-stream, then rerun the same command to resume)
       PYTHONPATH=src python examples/streaming_join_torch.py --kill-reducer 2
       PYTHONPATH=src python examples/streaming_join_torch.py --kill-reducer 2 --trace trace.json
 """
 import argparse
-import os
-import signal
 import sys
 
 import numpy as np
@@ -67,8 +64,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--ckpt-dir", default=None,
                         help="checkpoint directory; enables SIGTERM-safe resume")
-    parser.add_argument("--preempt-at", type=int, default=None, metavar="BATCH",
-                        help="send this process SIGTERM after batch BATCH")
     parser.add_argument("--kill-reducer", type=int, default=None, metavar="HOST",
                         help="kill this reducer host (0-7) right after the drift and "
                         "recover in-flight by lineage replay")
@@ -125,8 +120,6 @@ def main(argv=None) -> int:
                           f"lost, replayed {rec.replayed_tuples}/{rec.lost_share_tuples} "
                           f"lineage tuples from {rec.batches_replayed} retained batches, "
                           f"survivors {rec.survivors}/8, verified={rec.verified}")
-            if args.preempt_at == i:
-                os.kill(os.getpid(), signal.SIGTERM)
             if guard.should_stop:
                 if args.ckpt_dir is None:
                     print("\npreempted (no --ckpt-dir): stopping cleanly")

@@ -264,6 +264,13 @@ def local_join_count_checksum(
     return _binary_count_checksum(*_binary_operands(spec, bins, weights))
 
 
+def slice_rows(cap_r: int, cap_s: int) -> int:
+    """R rows a slice of the binary join: the slices are as equal as they
+    can be, and each has fewer than ``block_join.PAIR_LIMIT`` pairs."""
+    most = max(1, (block_join.PAIR_LIMIT - 1) // max(cap_s, 1))
+    return max(1, -(-cap_r // -(-cap_r // most)))
+
+
 def _binary_count_checksum(
     r_keys: torch.Tensor, r_weights: torch.Tensor, s_keys: torch.Tensor, s_weights: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -273,8 +280,7 @@ def _binary_count_checksum(
     product with cap_s stays below it; counts and checksums add over a
     partition of R's rows, so the sums are one join's."""
     cap_r, cap_s = r_keys.shape[1], s_keys.shape[1]
-    most = max(1, (block_join.PAIR_LIMIT - 1) // max(cap_s, 1))  # R rows a slice
-    step = max(1, -(-cap_r // -(-cap_r // most)))  # balanced, still <= most
+    step = slice_rows(cap_r, cap_s)
     count = torch.zeros((), dtype=torch.int64, device=r_keys.device)
     checksum = torch.zeros((), dtype=torch.int64, device=r_keys.device)
     for lo in range(0, max(cap_r, 1), step):

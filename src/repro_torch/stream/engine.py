@@ -1600,17 +1600,30 @@ _BLOB_CLASSES = {
 }
 
 
+# the numpy names an array or a numpy scalar pickles through, under
+# numpy 1 (``numpy.core``) and numpy 2 (``numpy._core``)
+_NUMPY_NAMES = {("numpy", "ndarray"), ("numpy", "dtype")} | {
+    (f"numpy.{core}.multiarray", fn)
+    for core in ("core", "_core") for fn in ("_reconstruct", "scalar")
+}
+
+
 class _PortUnpickler(pickle.Unpickler):
     """Reads a checkpoint's pickled plan, reports and recovery reports,
     whichever package wrote them.  A class the JAX package pickled,
     ``repro.<mod>.<name>``, is read as the port's
     ``repro_torch.<mod>.<name>``, as is the port's own, for the classes in
-    ``_BLOB_CLASSES``.  numpy's names and the builtin classes pass; every
-    other name is refused, and no ``repro`` module is ever imported."""
+    ``_BLOB_CLASSES``.  The numpy names of ``_NUMPY_NAMES``, numpy's dtype
+    classes and the builtin classes pass; every other name is refused, and
+    no ``repro`` module is ever imported."""
 
     def find_class(self, module: str, name: str):
-        if module == "numpy" or module.startswith("numpy."):
+        if (module, name) in _NUMPY_NAMES:
             return super().find_class(module, name)
+        if module == "numpy.dtypes":
+            obj = getattr(getattr(np, "dtypes", None), name, None)
+            if isinstance(obj, type) and issubclass(obj, np.dtype):
+                return obj
         if module == "builtins":
             obj = super().find_class(module, name)
             if isinstance(obj, type):

@@ -334,6 +334,10 @@ def test_unpickler_refuses_classes_outside_its_map():
     ok = tengine._unpickle(np.frombuffer(pickle.dumps(
         (tcore.two_way(), {1, 2}, np.arange(3), frozenset())), dtype=np.uint8))
     assert type(ok[0]) is tcore.JoinQuery and ok[1] == {1, 2}
+    scalars = (np.int64(7), np.float32(1.5), np.arange(4, dtype=np.int32).reshape(2, 2),
+               np.dtype("int16"))
+    got = tengine._unpickle(np.frombuffer(pickle.dumps(scalars), dtype=np.uint8))
+    assert all(type(g) is type(w) and np.array_equal(g, w) for g, w in zip(got, scalars))
     for obj in (OrderedDict(a=1), print, tengine._PortUnpickler):
         blob = np.frombuffer(pickle.dumps(obj), dtype=np.uint8)
         with pytest.raises(pickle.UnpicklingError, match="does not read"):
@@ -341,9 +345,12 @@ def test_unpickler_refuses_classes_outside_its_map():
     u = tengine._PortUnpickler(io.BytesIO())
     assert u.find_class("repro.core.schema", "JoinQuery") is tcore.JoinQuery
     assert u.find_class("repro.stream.engine", "BatchReport") is tstream.BatchReport
+    assert u.find_class("numpy.dtypes", "Int64DType") is np.dtypes.Int64DType
     for module, name in [("repro.core.schema", "two_way"), ("repro.nowhere", "X"),
                          ("repro.core.schema", "NoSuchClass"), ("builtins", "eval"),
-                         ("os", "system"), ("repro_torch", "X")]:
+                         ("os", "system"), ("repro_torch", "X"), ("numpy", "load"),
+                         ("numpy.ctypeslib", "load_library"), ("numpy.dtypes", "np"),
+                         ("numpy._core.multiarray", "frombuffer")]:
         with pytest.raises(pickle.UnpicklingError, match="does not read"):
             u.find_class(module, name)
 
