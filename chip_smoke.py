@@ -14,6 +14,13 @@ Phases:
      heavy hitter B=7 in 10% of tuples, q = 1000) through ``run_join`` on
      the card, checked against a host group-by oracle, with the kernels'
      launch counts;
+4b. the same join through ``run_join_speculative`` (n_shards=4, capped by
+     the plan's residual joins; max_workers=4, each shard's reduce the
+     block join on the card from a worker thread): clean, then under one
+     fault of each shard class (drop, delay, duplicate, preempt, a corrupted
+     result caught by its CRC envelope), each exact against ``run_join``;
+     then with ``max_attempts=1`` and a dropped shard, which must raise;
+     wall time, attempts and backups per shard, the block join's launches;
   5. each kernel at the shapes the main path gives it: device time (a CUDA
      graph of repeated calls), its plain version's time and result, and the
      bound, the function's (every weight and the valid rows' keys read
@@ -52,6 +59,16 @@ Phases:
      most loaded, one cut into most slices, one of the lost host) held
      exactly against its plain version, slice by slice and summed over
      each reducer;
+10c. many queries on one card (``_tenancy_phase``): a ``MultiQueryEngine``
+     of three tenants (t0, t1, t2; weights 2, 1, 1), each with phase 7's
+     configuration, over phase 7's six batches; t1 poisoned at batch 2
+     (quarantined by its breaker); a checkpoint after batch 3 restored into
+     a new engine (breaker state included), which takes batches 4 and 5.
+     t0 and t2 equal phase 7's reports batch for batch, no tenant computes
+     a private sketch pass, the shared Count-Min pass (K4) runs once per
+     sketched column and batch, every tenant's total equals the host
+     oracle; per batch the multi-tenant ingest beside the tenants' solo
+     times from phase 7, the save and the restore, the kernels' launches;
  11. FlashAttention (K6) against its plain version on the card, each case
      naming the kernel ``kernel_variant`` picks: the five shapes of the
      reference kernel tests and a ragged L = 200 in fp32; in bf16 the wgmma
@@ -127,6 +144,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -154,7 +172,7 @@ TRACE_WARMUP = 256  # tiny kernels in the profiler's warm-up step before every t
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
 HIST_KERNELS = ("histogram_kernel",)
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
-RETAKEN: list[str] = []  # kernels whose trace held no device event and was taken again
+RETAKEN: list[str] = []  # kernels whose trace lost device events and was taken again
 
 
 def _say(*args) -> None:
@@ -254,15 +272,17 @@ def _kernel_ms(fn, names, reps: int):
     for attempt in range(3):
         counts: dict[str, int] = {}
         _, us = _traced(calls, counts)
-        if counts:
+        mine = [k for k in us if any(nm in k for nm in names)]
+        if mine and all(counts[k] == reps for k in mine):
             break
-        # a trace now and then holds no device event at all (PERF.md §7):
-        # say so and take it again; the one kept must be whole, and a run
-        # that has to retake more than one trace fails at its end
+        # a trace now and then loses some or all of its device events
+        # (PERF.md §7): say so and take it again; the one kept must be
+        # whole, and a run that has to retake more than one trace fails at
+        # its end
         RETAKEN.append("/".join(names))
-        _say(f"[trace] the trace of {reps} calls of {'/'.join(names)} held no device "
-             f"event (attempt {attempt + 1}); tracing again")
-    mine = [k for k in us if any(nm in k for nm in names)]
+        _say(f"[trace] the trace of {reps} calls of {'/'.join(names)} held "
+             f"{ {k: counts[k] for k in mine} } of its events ({sum(counts.values())} device "
+             f"events in all; attempt {attempt + 1}); tracing again")
     per_event = {k: us[k] / 1e3 / counts[k] for k in mine}
     _say(f"[trace] {sum(counts[k] for k in mine)} device events of {'/'.join(names)} in the "
          f"trace of {reps} calls ({sum(counts.values())} device events in all); "
@@ -1145,6 +1165,206 @@ def _recovery_phase(dev, batches, q=1000):
     return phase_launches
 
 
+def _speculative_phase(dev, query, data, plan, base, base_s):
+    """Phase 4b: the §9.1 join through ``run_join_speculative`` on the card,
+    clean, under one fault of each shard class, and with one attempt and a
+    dropped shard (which must raise).  Returns the clean run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.mapreduce import run_join_speculative, straggler
+    from repro_torch.testing import FaultInjector, FaultSpec
+
+    runs = []  # the ShardOutcome lists of each run, for the prints
+    inner = straggler.run_with_speculation
+
+    def kept(*args, **kw):
+        out = inner(*args, **kw)
+        runs.append(out)
+        return out
+
+    def speculative(**kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = run_join_speculative(query, data, plan, cap_factor=3.0, n_shards=4,
+                                   max_workers=4, device=dev, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    def shards(outcomes):
+        return "; ".join(f"shard {o.shard_id}: {o.attempts} attempt(s), "
+                         f"{'backup' if o.speculated else 'no backup'}, "
+                         f"{o.elapsed_s * 1e3:.1f} ms" for o in outcomes)
+
+    def same(res, label):
+        assert (res.count, res.checksum, res.comm_tuples, res.overflow) == (
+            base.count, base.checksum, base.comm_tuples, 0), label
+        # the shards' loads: a sub-plan hashes each residual under its index
+        # in the sub-plan (as the JAX package's does), so the per-reducer
+        # loads of a shard past the first differ from run_join's; their
+        # count, their sum and the first shard's block agree
+        k0 = plan.residuals[0].num_reducers
+        assert res.reducer_loads.shape == base.reducer_loads.shape, label
+        assert int(res.reducer_loads.sum()) == int(base.reducer_loads.sum()), label
+        assert np.array_equal(res.reducer_loads[:k0], base.reducer_loads[:k0]), label
+
+    straggler.run_with_speculation = kept
+    try:
+        reset_launches()
+        clean, clean_s = speculative()
+        clean_launches = launches()
+        n_shards = len(runs[-1])
+        same(clean, "clean")
+        _say(f"[speculative] {n_shards} shard(s) of {len(plan.residuals)} residual joins "
+             f"(n_shards=4 capped by the residuals), max_workers=4: count={clean.count} "
+             f"checksum={clean.checksum} comm={clean.comm_tuples} overflow={clean.overflow} "
+             f"equal run_join's; {clean_s:.4f} s against run_join's {base_s:.4f} s; "
+             f"{shards(runs[-1])}; K1 launches {clean_launches['reducer_join']}; loads "
+             f"equal run_join's per reducer: "
+             f"{np.array_equal(clean.reducer_loads, base.reducer_loads)}")
+        assert clean_launches["reducer_join"] >= n_shards, clean_launches
+        assert n_shards == min(4, len(plan.residuals))
+
+        last = n_shards - 1
+        inj = FaultInjector([
+            FaultSpec(kind="drop", shard_id=0, attempt=1),
+            FaultSpec(kind="delay", shard_id=0, attempt=2, delay_s=0.2),
+            FaultSpec(kind="duplicate", shard_id=last),
+            FaultSpec(kind="preempt", shard_id=last, attempt=1),
+            FaultSpec(kind="corrupt_result", shard_id=last, attempt=2),
+        ])
+        before = launches()["reducer_join"]
+        faulted, faulted_s = speculative(injector=inj, checksum_results=True)
+        same(faulted, "faulted")
+        inj.assert_all_resolved()
+        _say(f"[speculative] under drop, delay, duplicate, preempt and corrupt_result: "
+             f"exact in {faulted_s:.4f} s; {shards(runs[-1])}; faults {inj.report()}; "
+             f"K1 launches {launches()['reducer_join'] - before}")
+        assert inj.report().unresolved == 0
+
+        inj = FaultInjector([FaultSpec(kind="drop", shard_id=0, attempt=1)])
+        raised = None
+        try:
+            speculative(injector=inj, max_attempts=1)
+        except RuntimeError as e:
+            raised = e
+        assert raised is not None and "shard 0" in str(raised), raised
+        inj.assert_all_resolved()
+        _say(f"[speculative] max_attempts=1 with shard 0 dropped raises: {raised}")
+    finally:
+        straggler.run_with_speculation = inner
+    return clean_launches
+
+
+def _tenancy_phase(dev, batches, solo_reports, solo_ms, q=1000):
+    """Phase 10c: three tenants over phase 7's six batches behind one
+    ingest, t1 poisoned at batch 2, a checkpoint after batch 3 restored
+    into a new engine that takes batches 4 and 5.  Returns the phase's
+    kernel launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import two_way
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.mapreduce import groupby_oracle_two_way
+    from repro_torch.stream import (
+        QUARANTINED,
+        RUNNING,
+        MultiQueryEngine,
+        ObsPolicy,
+        StreamConfig,
+        TenantSpec,
+    )
+    from repro_torch.testing import FaultInjector, FaultSpec
+
+    cfg = StreamConfig(q=q, decay=0.5, load_factor=2.0, fused_ingest=True,
+                       obs=ObsPolicy(trace=True))  # phase 7's
+    specs = [TenantSpec("t0", two_way(), cfg, weight=2.0), TenantSpec("t1", two_way(), cfg),
+             TenantSpec("t2", two_way(), cfg)]
+    inj = FaultInjector([FaultSpec(kind="poison_rows", target="tenant", tenant="t1", batch=2,
+                                   poison="nan")])
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def ingest(mq, i):
+        out, ms = timed(lambda: mq.ingest(batches[i]))
+        served = [nm for nm, r in sorted(out.items()) if r is not None]
+        solo = solo_ms[i] * len(served)
+        _say(f"[tenancy] batch {i}: {ms:.1f} ms for {len(served)} tenant(s) {served} against "
+             f"{solo:.1f} ms solo (phase 7's {solo_ms[i]:.1f} ms each; {ms / solo:.3f}x); "
+             f"states {[st.state for _, st in sorted(mq.status().items())]}")
+        for nm in ("t0", "t2"):
+            assert out[nm] == solo_reports[i], f"{nm} batch {i} differs from phase 7"
+        return out
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    mq = MultiQueryEngine(specs, device=dev)
+    mq.arm_faults(inj)
+    outs = [ingest(mq, i) for i in range(4)]
+    assert outs[2]["t1"] is None and outs[3]["t1"] is None
+    status = mq.status()
+    assert status["t1"].state == QUARANTINED, status
+    passes = mq.shared_sketch_passes
+    private = {nm: mq.engine(nm).sketch_ingest_calls for nm in status}
+
+    ckpt = tempfile.mkdtemp(prefix="tenancy_", dir=ROOT / "build")
+    try:
+        _, save_ms = timed(lambda: mq.save_checkpoint(ckpt))
+        n_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(ckpt) for f in fs)
+        before = launches()
+        back, restore_ms = timed(lambda: MultiQueryEngine.restore(ckpt, specs, device=dev))
+        restore_launches = {k: n - before[k] for k, n in launches().items() if n - before[k]}
+    finally:
+        shutil.rmtree(ckpt)
+    def breaker(st):  # what the control namespace keeps (not last_error)
+        return {nm: (t.state, t.failures, t.reopens, t.quarantined_until) for nm, t in st.items()}
+
+    assert breaker(back.status()) == breaker(status) and back.batches == 4
+    for nm in status:
+        assert back.engine(nm).reports == mq.engine(nm).reports, nm
+    del mq
+    _say(f"[tenancy] checkpoint of 3 tenants + control: {n_bytes} bytes in {save_ms:.1f} ms; "
+         f"restored in {restore_ms:.1f} ms, rebuilds included (launches {restore_launches}); "
+         f"t1 {back.status()['t1'].state} until batch {back.status()['t1'].quarantined_until} "
+         f"after the restore")
+    assert restore_launches.get("fused_ingest_dense", 0) > 0, restore_launches
+    back.arm_faults(inj)
+    outs += [ingest(back, i) for i in range(4, len(batches))]
+    passes += back.shared_sketch_passes
+    inj.assert_all_resolved()
+    phase_launches = launches()
+
+    final = back.status()
+    assert final["t1"].state == RUNNING and final["t1"].reopens == 1, final
+    assert inj.report().contained == 1
+    sketched = 2  # the join column B in R and in S
+    assert passes == sketched * len(batches), passes
+    assert phase_launches["cms_update"] == passes, (phase_launches, passes)
+    assert all(n == 0 for n in private.values()), private
+    assert all(back.engine(nm).sketch_ingest_calls == 0 for nm in final)
+    for nm in final:
+        eng = back.engine(nm)
+        want, oracle_ms = timed(lambda: groupby_oracle_two_way(two_way(), eng.history_data()))
+        assert (eng.total_count, eng.total_checksum) == want, nm
+        _say(f"[tenancy] {nm}: {len(eng.reports)} batches, count={eng.total_count} "
+             f"checksum={eng.total_checksum} equal the host oracle ({oracle_ms / 1e3:.2f} s)")
+    _say(f"[tenancy] shared sketch passes {passes} (= {sketched} columns x {len(batches)} "
+         f"batches), K4 launches {phase_launches['cms_update']}, private passes 0; launches in "
+         f"the phase {phase_launches}")
+    _say(f"[tenancy] phase 10c: {time.perf_counter() - t_phase:.1f} s")
+    return phase_launches
+
+
 def _verify_subset(eng, among=()):
     """(spec, bins, valids, what they are) of a few of ``eng``'s reducers,
     copied on the host from the carried state the recovery verify joins:
@@ -1457,6 +1677,9 @@ def main() -> int:
          + f" run_join={t_e2e:.4f} plan+run_join={t_plan + t_e2e:.3f}")
     _say(f"[main] peak device memory: {peak} bytes ({peak / 2**30:.2f} GiB)")
 
+    # ---- 4b. the same join through speculative reduce shards ----------------
+    spec_launches = _speculative_phase(dev, query, data, plan, res, t_e2e)
+
     # ---- 5. each kernel at the main path's shapes ---------------------------
     bins, valids = map_and_bin(query, data, plan, cap_factor=3.0, device=dev)
     ops = binary_join_operands(LocalJoinSpec.from_query(query), bins, valids)
@@ -1766,17 +1989,25 @@ def main() -> int:
     reset_launches()
     rec_launches = _recovery_phase(dev, batches)
     _say(f"[recovery] launches in phase 10b: {rec_launches}")
+    solo_reports = list(eng.reports)
     del eng
+    gc.collect()
+
+    # ---- 10c. three tenants behind one ingest, a checkpoint, a restore ----------
+    ten_launches = _tenancy_phase(dev, batches, solo_reports, ingest_ms)
+    gc.collect()
 
     kernels += _lm_phases(dev, data["R"][:, 1])
     torch.cuda.empty_cache()
     kernels += _rwkv_phases(dev)
 
-    for entry in kernels:  # beside each path's own count, phase 10b's
+    for entry in kernels:  # beside each path's own count, phases 4b's, 10b's and 10c's
+        entry["launches_speculative"] = spec_launches.get(entry["name"], 0)
         entry["launches_recovery"] = rec_launches.get(entry["name"], 0)
-    _say(f"[trace] {len(RETAKEN)} trace(s) held no device event and were taken again: "
+        entry["launches_tenancy"] = ten_launches.get(entry["name"], 0)
+    _say(f"[trace] {len(RETAKEN)} trace(s) lost device events and were taken again: "
          f"{RETAKEN}")
-    assert len(RETAKEN) <= 1, f"more than one trace lost all its device events: {RETAKEN}"
+    assert len(RETAKEN) <= 1, f"more than one trace lost device events: {RETAKEN}"
     _say(f"[done] wall {time.perf_counter() - t_all:.1f} s")
     _say(json.dumps({"kernels": kernels}))
     _say(smi)

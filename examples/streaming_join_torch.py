@@ -22,15 +22,22 @@ block-join kernel on the card).
 ``--trace out.json`` records the run as nested spans and writes Chrome
 trace-event JSON loadable in Perfetto (https://ui.perfetto.dev).
 
-The multi-tenant demo (``--queries``) is not offered: the port has no
-multi-tenant engine yet.  ``--device`` defaults to ``cuda`` and fails
-without a card; ``--device cpu`` runs the kernels' plain versions.
+``--queries N`` demos the multi-tenant engine: N copies of the query run
+behind ONE shared sketch ingest per relation batch (the Count-Min kernel on
+the card).  A poison-pill batch is injected into tenant q1 mid-run — the
+circuit breaker quarantines it while every other tenant stays
+bit-identical to a single-tenant run (verified against the oracle at the
+end).
+
+``--device`` defaults to ``cuda`` and fails without a card; ``--device
+cpu`` runs the kernels' plain versions.
 
 Run:  PYTHONPATH=src python examples/streaming_join_torch.py
       PYTHONPATH=src python examples/streaming_join_torch.py --ckpt-dir /tmp/sj
       (send it SIGTERM mid-stream, then rerun the same command to resume)
       PYTHONPATH=src python examples/streaming_join_torch.py --kill-reducer 2
       PYTHONPATH=src python examples/streaming_join_torch.py --kill-reducer 2 --trace trace.json
+      PYTHONPATH=src python examples/streaming_join_torch.py --queries 3
 """
 import argparse
 import sys
@@ -40,12 +47,16 @@ import numpy as np
 from repro_torch.core import two_way
 from repro_torch.mapreduce import oracle_join
 from repro_torch.stream import (
+    MultiQueryEngine,
     ObsPolicy,
     RecoveryPolicy,
     RetentionPolicy,
     StreamConfig,
     StreamingJoinEngine,
+    TenancyPolicy,
+    TenantSpec,
 )
+from repro_torch.testing import FaultInjector, FaultSpec
 from repro_torch.train import PreemptionGuard, latest_step
 
 N_BATCHES = 8
@@ -60,6 +71,69 @@ def zipf_batch(rng, shift, n_r=1200, n_s=300, domain=3000, a=1.6):
     return {"R": r, "S": s}
 
 
+def multi_query_demo(n_queries: int, device: str, trace: str | None = None) -> int:
+    """N tenants, one shared sketch ingest, poison-pill containment."""
+    query = two_way()
+    config = StreamConfig(q=120, decay=0.5, load_factor=2.0)
+    tenants = [
+        TenantSpec(f"q{i}", query, config, weight=1.0 + (i == 0))
+        for i in range(n_queries)
+    ]
+    policy = TenancyPolicy(
+        obs=ObsPolicy(trace=True, metrics=True) if trace else ObsPolicy()
+    )
+    mq = MultiQueryEngine(tenants, policy, log_fn=print, device=device)
+    inj = FaultInjector(
+        [FaultSpec(kind="poison_rows", target="tenant", tenant="q1",
+                   batch=4, poison="nan")]
+    )
+    mq.arm_faults(inj)
+    print(f"streaming {query} for {n_queries} tenants; "
+          f"poison-pill hits q1 at batch 4\n")
+
+    rngs = [np.random.default_rng(0)]
+    for _ in range(N_BATCHES):
+        rngs.append(np.random.default_rng(rngs[-1].integers(2**63)))
+    history: list[dict] = []
+    for i in range(N_BATCHES):
+        shift = 0 if i < 4 else 1300
+        batch = zipf_batch(rngs[i], shift)
+        history.append(batch)
+        mq.ingest(batch)
+        states = {nm: st.state for nm, st in mq.status().items()}
+        if states.get("q1") != "RUNNING":
+            print(f"  batch {i}: q1 is {states['q1']} "
+                  f"(others: {sorted(set(states[n] for n in states if n != 'q1'))})")
+
+    full = {
+        nm: np.concatenate([b[nm] for b in history]) for nm in history[0]
+    }
+    count, checksum, _, _ = oracle_join(query, full)
+    # q1 took the poison pill: it was quarantined, reopened, and skipped
+    # the quarantine window — the isolation contract is about everyone ELSE
+    clean = [nm for nm in mq.status() if nm != "q1"]
+    for nm in clean:
+        eng = mq.engine(nm)
+        assert (eng.total_count, eng.total_checksum) == (count, checksum), nm
+        assert eng.sketch_ingest_calls == 0, nm  # never computed privately
+    q1 = mq.engine("q1")
+    assert q1.total_count < count  # it really did miss batches
+    inj.assert_all_resolved()
+    rep = inj.report()
+    print(f"\ntenants: {dict(sorted((nm, st.state) for nm, st in mq.status().items()))}")
+    print(f"shared sketch passes: {mq.shared_sketch_passes} "
+          f"(vs {mq.shared_sketch_passes * n_queries} for {n_queries} "
+          f"separate engines); contained faults: {rep.contained}")
+    print(f"verified: every unaffected tenant bit-identical to the oracle "
+          f"({count} results, checksum {checksum:#010x}); q1 skipped its "
+          f"quarantine window ({q1.total_count} results)")
+    if trace:
+        mq.obs.tracer.dump(trace)
+        print(f"wrote {len(mq.obs.tracer.to_chrome()['traceEvents'])} trace "
+              f"events to {trace} (load in https://ui.perfetto.dev)")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--ckpt-dir", default=None,
@@ -70,9 +144,17 @@ def main(argv=None) -> int:
     parser.add_argument("--trace", default=None, metavar="OUT_JSON",
                         help="enable the observability layer and write the run as "
                         "Chrome/Perfetto trace-event JSON")
+    parser.add_argument("--queries", type=int, default=None, metavar="N",
+                        help="run N tenant queries behind one shared sketch ingest and "
+                        "demo poison-pill containment")
     parser.add_argument("--device", default="cuda",
                         help="where the engine runs (default: cuda)")
     args = parser.parse_args(argv)
+
+    if args.queries is not None:
+        if args.queries < 2:
+            parser.error("--queries needs N >= 2")
+        return multi_query_demo(args.queries, args.device, trace=args.trace)
 
     query = two_way()
     obs = (ObsPolicy(trace=True, metrics=True, skewscope=True) if args.trace

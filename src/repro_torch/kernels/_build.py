@@ -17,6 +17,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -47,6 +48,20 @@ class Built:
 
 
 _loaded: dict[str, Built] = {}
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count_launch(counts: dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]``, a wrapper's launch count, atomically."""
+    with _count_lock:
+        counts[name] += 1
+
+
+def reset_counts(counts: dict[str, int]) -> None:
+    with _count_lock:
+        for name in counts:
+            counts[name] = 0
 
 
 def build_dir() -> Path:
@@ -72,6 +87,13 @@ def _target(name: str) -> Path:
 def build_all(names=None) -> dict[str, Built]:
     """Compile (in parallel) and load every named source; returns them."""
     names = list(SOURCES) if names is None else list(names)
+    if all(n in _loaded for n in names):  # every launch asks: no lock once loaded
+        return {n: _loaded[n] for n in names}
+    with _build_lock:
+        return _build_locked(names)
+
+
+def _build_locked(names: list[str]) -> dict[str, Built]:
     todo = [n for n in names if n not in _loaded]
     procs = {}
     for name in todo:
@@ -79,7 +101,7 @@ def build_all(names=None) -> dict[str, Built]:
         if out.exists():
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),

@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from ._build import library
+from ._build import count_launch, library, reset_counts
 
 LAUNCHES = {"reducer_join": 0, "flat_join": 0}
 
@@ -30,8 +30,7 @@ _SMEM = 72 * 1024  # shared memory a block of the kernel aims for: three an SM
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset_counts(LAUNCHES)
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -155,7 +154,7 @@ def _launch(name, r_keys, r_weights, s_keys, s_weights) -> tuple[torch.Tensor, t
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out[0], out[1]
 
 

@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from ._build import library
+from ._build import count_launch, library, reset_counts
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -57,8 +57,7 @@ def kernel_variant(dtype: torch.dtype, d: int) -> str:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset_counts(LAUNCHES)
 
 
 def flash_attention_ref(
@@ -166,5 +165,5 @@ def flash_attention(
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     out = _launch(q, k, v, causal)
     if out.numel():
-        LAUNCHES["flash_attention"] += 1
+        count_launch(LAUNCHES, "flash_attention")
     return out

@@ -17,14 +17,13 @@ import ctypes
 
 import torch
 
-from ._build import library
+from ._build import count_launch, library, reset_counts
 
 LAUNCHES = {"histogram": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset_counts(LAUNCHES)
 
 
 def histogram_ref(values: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -66,5 +65,5 @@ def histogram(values: torch.Tensor, num_bins: int) -> torch.Tensor:
         err = fn(values.data_ptr(), values.shape[0], int(num_bins), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: cudaError {err}")
-    LAUNCHES["histogram"] += 1
+    count_launch(LAUNCHES, "histogram")
     return out

@@ -45,7 +45,7 @@ import torch
 
 from repro_torch.mapreduce.hashing import bucket_torch, mix32_torch
 
-from ._build import library
+from ._build import count_launch, library, reset_counts
 from .block_join import _wrap_i32
 from .sketch_update import cms_tables, cms_tables_ref
 
@@ -72,8 +72,7 @@ _ENC_KEYS = (
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset_counts(LAUNCHES)
 
 
 def route_width(routes: RouteTable) -> int:
@@ -515,7 +514,7 @@ def fused_ingest_dense(
         return z, z.clone(), torch.zeros(k_pad, dtype=torch.int32, device=rows.device), cms
     dest, rank, counts = _launch(rows, routes, k_pad)
     cms = cms_tables(rows, sketch_cols, seeds, width) if sketch_cols else None
-    LAUNCHES["fused_ingest_dense"] += 1
+    count_launch(LAUNCHES, "fused_ingest_dense")
     return dest, rank, counts, cms
 
 
@@ -560,9 +559,9 @@ def fused_ingest(
             counts = torch.zeros(num_reducers, dtype=torch.int32, device=rows.device)
         else:
             dest, rank, counts = _launch(rows, packed, num_reducers)
-            LAUNCHES["fused_ingest"] += 1
+            count_launch(LAUNCHES, "fused_ingest")
     if sketch_cols:
         cms = cms_tables(rows, sketch_cols, seeds, width)
         if n and not routes:
-            LAUNCHES["fused_ingest_sketch"] += 1
+            count_launch(LAUNCHES, "fused_ingest_sketch")
     return dest, rank, counts, cms

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.mapreduce.hashing import bucket_torch
 
-from ._build import library
+from ._build import count_launch, library, reset_counts
 
 LAUNCHES = {"cms_update": 0}
 
@@ -29,8 +29,7 @@ _M32 = 0xFFFFFFFF
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset_counts(LAUNCHES)
 
 
 def cms_update_ref(values: torch.Tensor, seeds, width: int) -> torch.Tensor:
@@ -118,5 +117,5 @@ def cms_update(values: torch.Tensor, seeds, width: int) -> torch.Tensor:
         raise ValueError(f"cms_update: no kernel for device {values.device}")
     out = _launch(rows.contiguous(), (0,), seeds, width)[0]
     if values.shape[0]:
-        LAUNCHES["cms_update"] += 1
+        count_launch(LAUNCHES, "cms_update")
     return out

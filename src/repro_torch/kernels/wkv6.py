@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from ._build import library
+from ._build import count_launch, library, reset_counts
 
 LAUNCHES = {"wkv6": 0}
 
@@ -64,8 +64,7 @@ def launch_geometry(hd: int, l: int = 2) -> tuple[int, int, int]:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset_counts(LAUNCHES)
 
 
 def wkv6_ref(
@@ -180,5 +179,5 @@ def wkv6(
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     out = _launch(r, k, v, w, u, s0, state_out)
-    LAUNCHES["wkv6"] += 1
+    count_launch(LAUNCHES, "wkv6")
     return out

@@ -1,6 +1,13 @@
 """PyTorch MapReduce join engine: map-phase key generation, binning by
-reducer, reduce-side join."""
-from .executor import JoinResult, map_and_bin, measure_loads, predicted_comm, run_join
+reducer, reduce-side join, and speculative reduce shards."""
+from .executor import (
+    JoinResult,
+    map_and_bin,
+    measure_loads,
+    predicted_comm,
+    run_join,
+    run_join_speculative,
+)
 from .keys import RouteSpec, build_route_specs, map_phase
 from .local_join import (
     LocalJoinSpec,
@@ -11,8 +18,17 @@ from .local_join import (
 )
 from .naive import NaiveStats, naive_two_way
 from .oracle import groupby_oracle_two_way, oracle_join
+from .straggler import (
+    ChecksumMismatch,
+    FailureDetector,
+    SealedResult,
+    ShardOutcome,
+    run_with_speculation,
+)
 
 __all__ = [
+    "ChecksumMismatch",
+    "FailureDetector",
     "JoinResult",
     "LocalJoinSpec",
     "NaiveStats",
@@ -30,4 +46,8 @@ __all__ = [
     "oracle_join",
     "predicted_comm",
     "run_join",
+    "run_join_speculative",
+    "run_with_speculation",
+    "SealedResult",
+    "ShardOutcome",
 ]

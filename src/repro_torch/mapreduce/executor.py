@@ -5,6 +5,9 @@ reduce).
 reduce-side join, with every logical reducer tiled on that device (the
 paper's Reduce task hosting many reducers).  Binary joins are reduced by
 the CUDA block-join kernel; n-way joins by int64 contraction.
+``run_join_speculative`` splits the reduce into shards of residual joins
+run under speculative re-execution (``mapreduce.straggler``), each shard a
+``run_join`` on the same device.
 
 Results carry communication and per-reducer-load telemetry so benchmarks can
 reproduce the paper's Figures 1-3 (shuffle cost, load skew).
@@ -18,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.planner import SharesSkewPlan
+from repro_torch.core.planner import ResidualPlan, SharesSkewPlan
 from repro_torch.core.schema import JoinQuery
 
 from .keys import map_phase
@@ -208,3 +211,91 @@ def predicted_comm(plan: SharesSkewPlan) -> dict[str, int]:
         for rel in plan.query.relations:
             out[rel.name] += res.sizes[rel.name] * res.int_replication(rel.attrs)
     return out
+
+
+def run_join_speculative(
+    query: JoinQuery,
+    data: dict[str, np.ndarray],
+    plan: SharesSkewPlan,
+    cap_factor: float = 3.0,
+    n_shards: int = 4,
+    max_workers: int = 4,
+    speculate_after: float = 3.0,
+    max_attempts: int = 3,
+    injector=None,
+    deadline_s: float | None = None,
+    checksum_results: bool = True,
+    device: str | torch.device = "cuda",
+) -> JoinResult:
+    """run_join with the reduce phase over-decomposed into reducer shards
+    executed under speculative re-execution (straggler mitigation,
+    DESIGN.md §5).  Each shard runs ``run_join`` on ``device`` restricted
+    to a block of residual joins (the block join kernel reduces it on a
+    card); results combine associatively (counts add, checksums add mod
+    2^32), so duplicate completions are idempotent.
+
+    Shard failures are retried up to ``max_attempts`` submissions; a shard
+    that still fails raises here with its error — a partial join result is
+    never returned silently.  ``injector`` (``repro_torch.testing.faults``)
+    deterministically faults chosen attempts to exercise those paths.
+
+    ``deadline_s`` arms the shard-level failure detector: an attempt silent
+    past the deadline is declared failed and re-issued (DESIGN.md §5
+    detection).  ``checksum_results`` (on by default) seals every shard
+    result in a worker-side CRC32 envelope verified on receipt, so a
+    corrupted result (``corrupt_result`` fault, or a real in-transit flip)
+    becomes a retried attempt — never a wrong join answer."""
+    from .straggler import run_with_speculation
+
+    dev = _device(device)
+    residuals = plan.residuals
+    if not residuals:
+        return run_join(query, data, plan, cap_factor, device=dev)
+    n_shards = max(1, min(n_shards, len(residuals)))
+    blocks = np.array_split(np.arange(len(residuals)), n_shards)
+
+    def make_shard(idx_block):
+        # a sub-plan containing only this block's residual joins, their
+        # reducer ids rebased to start at 0
+        offset = 0
+        rebased = []
+        for i in idx_block:
+            r = residuals[i]
+            rebased.append(ResidualPlan(r.combo, r.sizes, r.k_budget, r.solution, offset))
+            offset += r.num_reducers
+        sub_plan = SharesSkewPlan(plan.query, plan.q, plan.hh_values, tuple(rebased))
+
+        def shard_fn():
+            return run_join(query, data, sub_plan, cap_factor, device=dev)
+
+        return shard_fn
+
+    outcomes = run_with_speculation(
+        [make_shard(b) for b in blocks],
+        max_workers=max_workers,
+        speculate_after=speculate_after,
+        max_attempts=max_attempts,
+        injector=injector,
+        deadline_s=deadline_s,
+        checksum_results=checksum_results,
+    )
+    if injector is not None:
+        injector.resolve(outcomes)
+    failed = [o for o in outcomes if o.error is not None]
+    if failed:
+        raise RuntimeError(
+            f"{len(failed)} reduce shard(s) failed after "
+            f"{max_attempts} attempts: "
+            + "; ".join(f"shard {o.shard_id}: {o.error}" for o in failed)
+        )
+    results: list[JoinResult] = [o.result for o in outcomes]
+    return JoinResult(
+        count=sum(r.count for r in results),
+        checksum=sum(r.checksum for r in results) & 0xFFFFFFFF,
+        comm_tuples={
+            rel.name: sum(r.comm_tuples[rel.name] for r in results)
+            for rel in query.relations
+        },
+        reducer_loads=np.concatenate([r.reducer_loads for r in results]),
+        overflow=sum(r.overflow for r in results),
+    )

@@ -16,10 +16,12 @@ bounded state: §8) — the port of ``repro.stream``.
   * ``recovery``  — reducer-loss recovery: host placement + heartbeat
     detection, lineage replay of lost reducer state, plan repair onto
     survivors, elastic degraded mode (DESIGN.md §5)
+  * ``tenancy``   — N queries behind one ingest: a shared Count-Min pass
+    on the card, per-query circuit breakers, fair-share shedding,
+    namespaced checkpoints (DESIGN.md §9)
 
 The engine checkpoints through ``repro_torch.train.checkpoint`` and takes
-its host faults from ``repro_torch.testing.faults``.  Multi-tenant ingest
-(``repro.stream.tenancy``) is not ported yet (ROADMAP.md queue 1 item 7).
+its host faults from ``repro_torch.testing.faults``.
 """
 from repro_torch.obs import Observability, ObsPolicy  # noqa: F401  (re-export)
 
@@ -54,15 +56,33 @@ from .sketch import (
     StreamHHTracker,
     cms_delta,
 )
+from .tenancy import (
+    DEGRADED,
+    FAILED,
+    QUARANTINED,
+    RUNNING,
+    MultiQueryEngine,
+    TenancyPolicy,
+    TenantSpec,
+    TenantStatus,
+)
 
 __all__ = [
     "AdmissionController",
     "AdmissionDecision",
     "AdmissionPolicy",
     "BatchReport",
+    "DEGRADED",
+    "FAILED",
     "FairShareController",
+    "MultiQueryEngine",
     "Observability",
     "ObsPolicy",
+    "QUARANTINED",
+    "RUNNING",
+    "TenancyPolicy",
+    "TenantSpec",
+    "TenantStatus",
     "DecayingCountMin",
     "DriftDecision",
     "DriftMonitor",

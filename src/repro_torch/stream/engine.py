@@ -55,7 +55,13 @@ recovery state through ``train.checkpoint`` (atomic step dirs + LATEST
 pointer) in the JAX package's layout and keys, so a preempted engine resumes
 mid-stream to the same reports, and a checkpoint the JAX package wrote
 restores here (its pickled plan and reports are read through
-``_PortUnpickler``).
+``_PortUnpickler``); the port pickles them under the JAX package's class
+names (``_pickle_blob``), so a checkpoint written here restores there too.
+
+Under a ``repro_torch.stream.tenancy.MultiQueryEngine`` the engine is one
+tenant: it takes the shared ``obs`` facade's tenant view, and ``ingest``
+absorbs the Count-Min increments that the shared pass computed once for
+every tenant (``shared_deltas``) in place of its own sketch pass.
 
 The binned state, the sorted delta index and the sketches live on the host
 in numpy, as in the reference; the device runs routing, the fused pass and
@@ -63,9 +69,7 @@ the delta joins.  ``device`` defaults to ``"cuda"`` and raises without a
 card; ``device="cpu"`` runs the kernels' plain versions.
 
 Not ported yet: ``recompute_distributed`` raises ``NotImplementedError``
-(ROADMAP.md queue 1 item 10), and multi-tenant ingest
-(``repro.stream.tenancy``, item 7) has no counterpart: the engine takes no
-``obs`` facade and ``ingest`` no ``shared_deltas``.
+(ROADMAP.md queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -74,6 +78,7 @@ import importlib
 import io
 import os
 import pickle
+import pickletools
 import time
 from typing import Callable
 
@@ -262,15 +267,19 @@ class StreamingJoinEngine:
         log_fn: Callable[[str], None] | None = None,
         clock: Callable[[], float] | None = None,
         device: str | torch.device = "cuda",
+        obs: Observability | None = None,
     ):
         self.query = query
         self.config = config
         self.device = _device(device)
         self.spec = LocalJoinSpec.from_query(query)
-        # observability facade built from config.obs; NULL_OBS keeps every
-        # hook free when off
+        # observability facade: an injected one (MultiQueryEngine hands each
+        # tenant a labeled view of SHARED tracer+registry) wins; otherwise
+        # built from config.obs; NULL_OBS keeps every hook free when off
         arities = {r.name: r.arity for r in query.relations}
-        if config.obs.any:
+        if obs is not None:
+            self.obs = obs
+        elif config.obs.any:
             self.obs = Observability(config.obs, arities=arities)
         else:
             self.obs = NULL_OBS
@@ -320,8 +329,12 @@ class StreamingJoinEngine:
 
         self.total_count = 0
         self.total_checksum = 0
-        # recovery-domain label: "" single-tenant (host faults scoped to a
-        # tenant fire only in that tenant's engine)
+        # sketch passes THIS engine computed itself (multi-tenant sharing:
+        # an engine absorbing shared increments never bumps this — the
+        # tenancy tests assert the shared pass ran once per relation batch)
+        self.sketch_ingest_calls = 0
+        # recovery-domain label: "" single-tenant; MultiQueryEngine sets it
+        # so tenant-scoped host faults fire only in the victim's engine
         self.tenant = ""
         self.window_count = 0  # fingerprint of the retained window
         self.window_checksum = 0
@@ -1113,8 +1126,23 @@ class StreamingJoinEngine:
         return d_count, d_checksum
 
     # ---- public API --------------------------------------------------------
-    def ingest(self, batch: dict[str, np.ndarray]) -> BatchReport:
+    def ingest(
+        self,
+        batch: dict[str, np.ndarray],
+        *,
+        shared_deltas: dict[tuple[str, str], np.ndarray] | None = None,
+    ) -> BatchReport:
         """Process one micro-batch; returns its telemetry.
+
+        ``shared_deltas`` (multi-tenant mode, DESIGN.md §9): Count-Min
+        table increments precomputed ONCE over this exact offered batch by
+        a ``MultiQueryEngine`` shared ingest pass, keyed ``(attr,
+        rel_name)``.  They are absorbed instead of running this engine's
+        own sketch pass — bit-identical (integer counts are exact in
+        float64) — but ONLY when the admitted rows equal the offered rows
+        (empty backlog, nothing deferred or shed); a throttled tenant's
+        sketch must see its own admitted subset, so it falls back to a
+        private pass.
 
         With ``config.obs`` enabled (DESIGN.md §10) the batch runs under a
         root ``ingest`` span with the lifecycle phases nested inside, the
@@ -1126,8 +1154,8 @@ class StreamingJoinEngine:
         obs = self.obs
         obs.tracer.set_batch(len(self.reports))
         t0 = time.perf_counter()
-        with obs.span("ingest"):
-            report = self._ingest_inner(batch)
+        with obs.span("ingest", args={"tenant": self.tenant} if obs.tracer.enabled else None):
+            report = self._ingest_inner(batch, shared_deltas)
         if obs.metrics.enabled or obs.skew is not None:
             if obs.metrics.enabled:
                 self._record_batch_metrics(report, time.perf_counter() - t0)
@@ -1141,7 +1169,8 @@ class StreamingJoinEngine:
         return report
 
     def _record_batch_metrics(self, report: BatchReport, seconds: float) -> None:
-        """Fold one finished batch into the metrics registry."""
+        """Fold one finished batch into the metrics registry (tenant label
+        injected by the facade when this engine is a tenant view)."""
         obs = self.obs
         obs.counter("stream_batches_total").inc()
         obs.counter("stream_results_total").inc(report.delta_count)
@@ -1174,7 +1203,11 @@ class StreamingJoinEngine:
         obs.gauge("stream_plan_epoch").set(report.plan_epoch)
         obs.histogram("stream_batch_seconds").observe(seconds)
 
-    def _ingest_inner(self, batch: dict[str, np.ndarray]) -> BatchReport:
+    def _ingest_inner(
+        self,
+        batch: dict[str, np.ndarray],
+        shared_deltas: dict[tuple[str, str], np.ndarray] | None,
+    ) -> BatchReport:
         if self._exhausted:
             raise RecoveryExhaustedError(
                 "engine lost more hosts than the survivable grid; carried "
@@ -1194,18 +1227,37 @@ class StreamingJoinEngine:
 
         # 1. admission: backlog + batch against the live budget
         if self._controller is not None:
+            backlog_empty = all(
+                arr.shape[0] == 0 for arr in self._controller.backlog.values()
+            )
             with self.obs.span("admission"):
                 admitted, decision = self._controller.admit(
                     offered, self.plan, self._concentration()
                 )
             deferred, shed = decision.deferred, decision.shed
+            pristine = (
+                backlog_empty
+                and decision.total_deferred == 0
+                and decision.total_shed == 0
+            )
         else:
             admitted = offered
             deferred = {nm: 0 for nm in offered}
             shed = {nm: 0 for nm in offered}
+            pristine = True
         batch = {
             nm: np.ascontiguousarray(rows) for nm, rows in admitted.items()
         }
+        use_shared = (
+            shared_deltas is not None
+            and pristine
+            and all(
+                (a, rel.name) in shared_deltas
+                for rel in self.query.relations
+                for a in self.tracker.attrs
+                if a in rel.attrs
+            )
+        )
 
         # 2. retention: retire batches that left the window BEFORE this one
         #    joins, so new tuples only meet retained partners
@@ -1216,7 +1268,29 @@ class StreamingJoinEngine:
         # arrived; discarded (and redone) only if this batch triggers a
         # replan, so the common case is ONE fused pass per relation
         spec_routes: dict[str, _Routed] = {}
-        if self.config.fused_ingest:
+        if use_shared:
+            # absorb the MultiQueryEngine's shared CMS increments (computed
+            # once over this exact batch) instead of a private sketch pass
+            picked = {
+                (a, rel.name): shared_deltas[(a, rel.name)]
+                for rel in self.query.relations
+                for a in self.tracker.attrs
+                if a in rel.attrs
+            }
+            if self.config.fused_ingest:
+                has_plan = self.plan is not None
+                with self.obs.span("route.fused"):
+                    for rel in self.query.relations:
+                        routed, _ = self._fused_pass(
+                            rel, batch[rel.name], with_route=has_plan,
+                            with_sketch=False,
+                        )
+                        if routed is not None:
+                            spec_routes[rel.name] = routed
+                self.fused_batches += 1
+            with self.obs.span("sketch.update", args={"shared": True}):
+                self.tracker.observe_absorbed(batch, picked)
+        elif self.config.fused_ingest:
             deltas: dict[tuple[str, str], np.ndarray] = {}
             has_plan = self.plan is not None
             # route + sketch increment are ONE fused pass per relation
@@ -1234,9 +1308,11 @@ class StreamingJoinEngine:
             with self.obs.span("sketch.update"):
                 self.tracker.observe_absorbed(batch, deltas)
             self.fused_batches += 1
+            self.sketch_ingest_calls += 1
         else:
             with self.obs.span("sketch.update"):
                 self.tracker.observe(batch)
+            self.sketch_ingest_calls += 1
         snapshot = self.tracker.snapshot(
             self._threshold(), self.config.max_hh_per_attr
         )
@@ -1451,9 +1527,7 @@ class StreamingJoinEngine:
                 nm: {f"{i:06d}": np.asarray(arr) for i, arr in enumerate(lst)}
                 for nm, lst in self._history.items()
             },
-            "blob": np.frombuffer(
-                pickle.dumps((self.plan, self.reports)), dtype=np.uint8
-            ).copy(),
+            "blob": _pickle_blob((self.plan, self.reports)),
         }
         if self._controller is not None:
             tree["admission"] = self._controller.state_dict()
@@ -1463,9 +1537,7 @@ class StreamingJoinEngine:
                 [int(self._exhausted), self._slots_per_host, self.total_replayed],
                 dtype=np.int64,
             )
-            tree["recovery_blob"] = np.frombuffer(
-                pickle.dumps(self.recoveries), dtype=np.uint8
-            ).copy()
+            tree["recovery_blob"] = _pickle_blob(self.recoveries)
         with self.obs.span("checkpoint.save"):
             path = checkpoint.save_checkpoint(
                 directory,
@@ -1499,6 +1571,7 @@ class StreamingJoinEngine:
         clock: Callable[[], float] | None = None,
         step: int | None = None,
         device: str | torch.device = "cuda",
+        obs: Observability | None = None,
     ) -> "StreamingJoinEngine":
         """Rebuild an engine mid-stream from a checkpoint, this package's or
         the JAX package's.  ``query`` and ``config`` must match the saving
@@ -1518,7 +1591,7 @@ class StreamingJoinEngine:
             )
         _, flat = checkpoint.load_checkpoint(directory, step)
 
-        eng = cls(query, config, log_fn=log_fn, clock=clock, device=device)
+        eng = cls(query, config, log_fn=log_fn, clock=clock, device=device, obs=obs)
         plan, reports = _unpickle(flat["blob"])
         eng.plan = plan
         eng.reports = list(reports)
@@ -1634,6 +1707,30 @@ class _PortUnpickler(pickle.Unpickler):
         raise pickle.UnpicklingError(
             f"checkpoint refers to {module}.{name}, which this package does not read"
         )
+
+
+def _pickle_blob(obj) -> np.ndarray:
+    """``obj`` pickled as a uint8 array, its classes of ``_BLOB_CLASSES``
+    named ``repro.<mod>.<name>`` as the JAX package's ``restore`` looks
+    them up.  The pickler imports a class's own module to check it, so the
+    port's are written first and their names rewritten after: protocol 3
+    has no frames and names each class in a ``GLOBAL`` opcode, whose
+    argument is spliced in place (protocol 2 would also rename builtins
+    for Python 2).  Any other port class raises."""
+    data = pickle.dumps(obj, protocol=3)
+    out, last = [], 0
+    for op, arg, pos in pickletools.genops(data):
+        if op.name != "GLOBAL" or not arg.startswith("repro_torch."):
+            continue
+        module, name = arg.split(" ")
+        rest = module[len("repro_torch."):]
+        if name not in _BLOB_CLASSES.get(rest, ()):
+            raise TypeError(f"a checkpoint blob cannot hold {module}.{name}")
+        out.append(data[last:pos])
+        out.append(f"c{'repro.' + rest}\n{name}\n".encode())
+        last = pos + len(f"c{module}\n{name}\n")
+    out.append(data[last:])
+    return np.frombuffer(b"".join(out), dtype=np.uint8).copy()
 
 
 def _unpickle(blob: np.ndarray):

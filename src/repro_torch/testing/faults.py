@@ -2,11 +2,12 @@
 a copy of ``repro.testing.faults`` (numpy and the standard library only).
 
 In the port the host and sketch seams serve the streaming engine
-(``stream.engine.StreamingJoinEngine.arm_faults`` and ``FaultySketchTap``);
-the shard seam's runner, ``run_with_speculation``, is not ported yet
-(ROADMAP.md queue 1 item 11), and the tenant seam waits for the
-multi-tenant engine (item 7).  The module is kept whole so a fault
-schedule means the same to both packages.
+(``stream.engine.StreamingJoinEngine.arm_faults`` and ``FaultySketchTap``),
+the shard seam the speculative reduce (``mapreduce.straggler.
+run_with_speculation`` under ``mapreduce.run_join_speculative``), and the
+tenant seam the multi-tenant engine (``stream.tenancy.MultiQueryEngine``).
+The module is kept whole so a fault schedule means the same to both
+packages.
 
 The robustness claims of the speculative executor and the streaming engine
 are only claims until something actually fails.  This harness injects

@@ -3,7 +3,8 @@ restore → continue equals the uninterrupted run, an armed injector stays
 armed across the restore, recovery state survives a checkpoint, both
 packages write the same manifest for the same engine state, a checkpoint
 the JAX package wrote restores in the port and continues to the JAX run's
-reports, and the port's unpickler refuses a class outside its map.
+reports, a checkpoint the port wrote restores in the JAX package, and the
+port's unpickler refuses a class outside its map.
 
 The JAX side runs its baseline engine; the port runs on the CPU through the
 kernels' plain versions, on both of its ingest paths."""
@@ -246,8 +247,8 @@ def _bounded_recovered_engines(variant):
 @pytest.mark.parametrize("variant", sorted(_VARIANTS))
 def test_manifests_match_reference(tmp_path, variant):
     """The same engine state gives the same manifest keys, shapes and dtypes
-    in both packages (the pickled blobs' lengths differ: they name each
-    package's own classes)."""
+    in both packages (the pickled blobs' lengths differ: the packages pickle
+    with different protocols)."""
     jeng, teng, _, _ = _bounded_recovered_engines(variant)
     assert teng.total_deferred + teng.total_shed > 0 and teng.recoveries
     mans = []
@@ -302,6 +303,42 @@ def test_jax_checkpoint_restores_in_the_port(tmp_path, variant):
         dataclasses.asdict(r) for r in jeng.recoveries]
     count, checksum, _, _ = oracle_join(tcore.two_way(), resumed.history_data())
     assert (resumed.window_count, resumed.window_checksum) == (count, checksum)
+
+
+@pytest.mark.parametrize("variant", sorted(_VARIANTS))
+def test_port_checkpoint_restores_in_jax(tmp_path, variant):
+    """A checkpoint the port wrote restores in the JAX package, whose
+    ``restore`` reads the pickled plan and reports with plain
+    ``pickle.loads``: they name the JAX package's classes.  The JAX engine
+    then continues to the port's own reports and recoveries."""
+    _, teng, cfg, rng = _bounded_recovered_engines(variant)
+    teng.save_checkpoint(str(tmp_path))
+    more = [_zipf_batch(rng, 300, n_r=400) for _ in range(3)]
+    resumed = jstream.StreamingJoinEngine.restore(str(tmp_path), jcore.two_way(), cfg(jstream))
+    assert type(resumed.plan) is jcore.SharesSkewPlan
+    assert all(type(r) is jstream.BatchReport for r in resumed.reports)
+    assert all(type(r) is jstream.RecoveryReport for r in resumed.recoveries)
+    assert _reports(resumed) == _reports(teng)
+    for i, b in enumerate(more):
+        if i == 1:
+            assert dataclasses.asdict(resumed.fail_hosts([6])) == dataclasses.asdict(
+                teng.fail_hosts([6]))
+        assert _report(resumed.ingest(b)) == _report(teng.ingest(b))
+    assert [dataclasses.asdict(r) for r in resumed.recoveries] == [
+        dataclasses.asdict(r) for r in teng.recoveries]
+
+
+def test_blob_names_only_the_mapped_classes():
+    """The port's blobs name ``repro.*`` for its mapped classes, read back
+    through its own unpickler, and refuse any other class of the port."""
+    blob = tengine._pickle_blob((tcore.two_way(), [np.int64(3)], {"a": np.arange(2)}))
+    text = blob.tobytes()
+    assert b"crepro.core.schema\nJoinQuery\n" in text and b"repro_torch" not in text
+    back = tengine._unpickle(blob)
+    assert type(back[0]) is tcore.JoinQuery and back[0] == tcore.two_way()
+    assert pickle.loads(text)[0] == jcore.two_way()
+    with pytest.raises(TypeError, match="cannot hold"):
+        tengine._pickle_blob(tstream.StreamConfig(q=60))
 
 
 def test_port_reads_jax_checkpoint_without_jax(tmp_path):

@@ -780,3 +780,88 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _sharded_join():
+    """A 2-way join with three pinned heavy hitters: four residual joins,
+    so four speculative shards are real (``tests/test_faults.py``'s data)."""
+    rng = np.random.default_rng(0)
+    n, domain = 3000, 2000
+    heavy = np.concatenate([np.full(600, 5), np.full(500, 17), np.full(400, 42)])
+    b_r = np.concatenate([heavy, rng.integers(0, domain, n - heavy.size)])
+    r = np.stack([rng.integers(0, domain, n), b_r], 1).astype(np.int64)
+    b_s = np.concatenate([np.full(120, 5), np.full(100, 17), np.full(80, 42),
+                          rng.integers(0, domain, 300)])
+    s = np.stack([b_s, rng.integers(0, domain, 600)], 1).astype(np.int64)
+    data = {"R": r, "S": s}
+    return data, tcore.plan_shares_skew(tcore.two_way(), data, q=150)
+
+
+def test_speculative_join_on_card_from_a_cold_cache(cuda, tmp_path, monkeypatch):
+    """Four worker threads reach the block join before it is built: it is
+    built once (into a temporary name per thread, none left behind), every
+    shard's reduce launches it, no launch count is lost, and the result
+    equals the CPU run's, under a drop and a corrupted result too."""
+    data, plan = _sharded_join()
+    assert len(plan.residuals) >= 4
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    bj._entry.cache_clear()
+    try:
+        inj = tfaults.FaultInjector([
+            tfaults.FaultSpec(kind="drop", shard_id=0, attempt=1),
+            tfaults.FaultSpec(kind="corrupt_result", shard_id=3, attempt=1)])
+        before = bj.LAUNCHES["reducer_join"]
+        got = tmr.run_join_speculative(tcore.two_way(), data, plan, cap_factor=4.0,
+                                       n_shards=4, max_workers=4, injector=inj, device=cuda)
+        launched = bj.LAUNCHES["reducer_join"] - before
+    finally:
+        bj._entry.cache_clear()  # the next test loads the library from build/
+    inj.assert_all_resolved()
+    want = tmr.run_join_speculative(tcore.two_way(), data, plan, cap_factor=4.0,
+                                    n_shards=4, device="cpu")
+    assert (got.count, got.checksum, got.comm_tuples, got.overflow) == (
+        want.count, want.checksum, want.comm_tuples, want.overflow)
+    np.testing.assert_array_equal(got.reducer_loads, want.reducer_loads)
+    assert launched >= 4 + 1  # every shard, and the corrupted shard's retry
+    assert [p.suffix for p in tmp_path.iterdir()] == [".so"]
+
+
+def test_shared_sketch_pass_on_card_matches_cms_delta(cuda):
+    """The shared pass runs the Count-Min kernel once per (attr, relation)
+    column and gives ``cms_delta``'s float64 table bit for bit."""
+    mq = tstream.MultiQueryEngine(
+        [tstream.TenantSpec(f"t{i}", tcore.two_way(), tstream.StreamConfig(q=1000))
+         for i in range(2)], device=cuda)
+    batch = _stream_batches()[0]
+    su.reset_launches()
+    deltas = mq._shared_deltas(batch)
+    assert su.LAUNCHES["cms_update"] == mq.shared_sketch_passes == 2
+    tr = mq.engine("t0").tracker
+    for (a, rel), got in deltas["t0"].items():
+        col = batch[rel][:, tcore.two_way().relation(rel).index_of(a)]
+        assert got.dtype == np.float64
+        assert np.array_equal(got, tstream.cms_delta(col, tr.seeds, tr.width))
+
+
+def test_two_tenants_on_card_match_a_solo_engine(cuda):
+    """Two tenants behind one ingest on the card: each equals a solo fused
+    engine report for report, computes no private sketch pass, and the
+    Count-Min kernel ran once per shared column."""
+    batches = _stream_batches()
+    cfg = tstream.StreamConfig(q=1000, decay=0.5, load_factor=2.0, fused_ingest=True)
+    solo = tstream.StreamingJoinEngine(tcore.two_way(), cfg, device=cuda)
+    for b in batches:
+        solo.ingest(b)
+    mq = tstream.MultiQueryEngine(
+        [tstream.TenantSpec(nm, tcore.two_way(), cfg) for nm in ("a", "b")], device=cuda)
+    su.reset_launches()
+    fi.reset_launches()
+    for b in batches:
+        mq.ingest(b)
+    assert su.LAUNCHES["cms_update"] == mq.shared_sketch_passes == 2 * len(batches)
+    assert fi.LAUNCHES["fused_ingest_dense"] > 0 and fi.LAUNCHES["fused_ingest_sketch"] == 0
+    for nm in ("a", "b"):
+        eng = mq.engine(nm)
+        assert eng.sketch_ingest_calls == 0
+        assert eng.reports == solo.reports

@@ -84,11 +84,11 @@ def test_row_weight_rejects_mod_below_one():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every repro_torch module, and the port's example, imports with JAX
-    unavailable and loads no ``repro`` module (in a subprocess, so this
-    worker's JAX stays intact)."""
+    """Every repro_torch module, and each of the port's examples, imports
+    with JAX unavailable and loads no ``repro`` module (in a subprocess, so
+    this worker's JAX stays intact)."""
     src = Path(__file__).resolve().parents[1] / "src"
-    example = src.parent / "examples" / "streaming_join_torch.py"
+    examples = sorted(str(p) for p in (src.parent / "examples").glob("*_torch.py"))
     mods = sorted(
         ".".join(p.relative_to(src).with_suffix("").parts).removesuffix(".__init__")
         for p in (src / "repro_torch").rglob("*.py")
@@ -99,8 +99,9 @@ def test_port_imports_with_jax_blocked():
         "import importlib, importlib.util\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        f"spec = importlib.util.spec_from_file_location('streaming_join_torch', {str(example)!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for path in {examples!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(k == 'repro' or k.startswith('repro.') for k in sys.modules)\n"
         "print('ok', len(" + repr(mods) + "))\n"
     )
@@ -119,6 +120,9 @@ def test_port_imports_with_jax_blocked():
                 "repro_torch.models.transformer", "repro_torch.models.zoo",
                 "repro_torch.models.convert", "repro_torch.serve.engine",
                 "repro_torch.core.closed_forms", "repro_torch.testing.faults",
-                "repro_torch.train.checkpoint", "repro_torch.train.elastic"):
+                "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+                "repro_torch.stream.tenancy"):
         assert mod in mods
+    assert {Path(p).name for p in examples} >= {
+        "quickstart_torch.py", "serve_lm_torch.py", "streaming_join_torch.py"}
     assert len(mods) >= 55
