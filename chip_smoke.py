@@ -42,7 +42,13 @@ Phases:
      report equals the fused path's;
  10. each stream kernel at the shapes the stream gave it: its device time
      (a CUDA graph), its wrapper's time, its plain version's time and
-     result, and the bound;
+     result, and the bound; an empty kernel's time, the launch floor that
+     the Count-Min kernel (K4) is read against; K4 with and without its
+     warp fold of equal keys, in one cluster and in several, on batch 0's
+     join column and on as many equal keys; K4 and the fused pass's sketch
+     half exactly against their plain versions on all-equal and random
+     keys, N of 1, 4,097, 100,000 and 300,007, widths 1, 2,048, 12,288 and
+     12,289, depth 4 and 32, two sketched columns of three;
 10b. the streaming engine survives host loss and preemption on the card,
      on phase 7's six batches (fused path, a window of 4 batches, 8
      simulated hosts, ``_recovery_phase``): an injected loss of host 2 at
@@ -74,12 +80,15 @@ Phases:
      reference kernel tests and a ragged L = 200 in fp32; in bf16 the wgmma
      kernel at D = 64 and 128 with ragged L (200, 1000), GQA 32:8 and 4:1,
      Lq != Lk both ways and the layer's [B, L, H, D] views, the mma.sync
-     kernel at D = 96, and OLMo-1B's [4, 16, 2048, 128] causal (tolerance
-     2e-5 in fp32, 2e-2 in bf16);
- 12. the histogram (K5) against its plain version, exactly: N of 0, 1 and
-     4,097 by 1, 513 and 100,000 bins with negative and out-of-range
-     values, and the heavy-hitter count of phase 4's R join column (10^6
-     values, 100,000 bins);
+     kernel at D = 96, D = 40 (zero-padded to 48) in fp32 and bf16, and
+     OLMo-1B's [4, 16, 2048, 128] causal (tolerance 2e-5 in fp32, 2e-2 in
+     bf16);
+ 12. the histogram (K5) against its plain version, exactly: N of 0, 1,
+     4,097 and 1,000,003 by 1, 513, 12,288, 12,289, 100,000 and 2^20 bins
+     with negative and out-of-range values, a quarter or all of them equal,
+     and the heavy-hitter count of phase 4's R join column (10^6 values,
+     100,000 bins), also through the cluster-range design that the sparse
+     kernel was measured against;
  13. OLMo-1B at full width (16 layers, d = 2048, random weights from seed
      0) in fp32: the parallel ``prefill`` of [2, 256] prompts (K6 in every
      layer) against ``scan_prefill`` (no K6), logits and one decode step
@@ -95,11 +104,13 @@ Phases:
      prefill);
  16. K6 and K5 at the main path's shapes: device time, plain time, one
      PyTorch call's time (``scaled_dot_product_attention``,
-     ``torch.bincount``; timed here, never called by the port), bound;
+     ``torch.bincount``; timed here, never called by the port), bound; K5's
+     sparse kernel and the cluster-range design in turns;
  17. the wkv6 recurrence (K7) against its plain version on the card, each
      case naming its launch geometry: eight shapes (ragged L = 77 at hd =
-     16, 48 and 128, a given state, the decode shape [4, 1, 40, 64] and
-     rwkv6-3b's [4, 2048, 40, 64]), L = 1 with the state in place at every
+     16, 48 and 128, a given state, the decode shape [4, 1, 40, 64],
+     rwkv6-3b's [4, 2048, 40, 64], and hd = 24 (padded to 32) at L = 77 and
+     1 from a state), L = 1 with the state in place at every
      hd (the step kernel), each hd's split kernel found in the library
      with its registers, and one pass
      of L = 2048 against two of 1024 with the state carried in place
@@ -166,11 +177,12 @@ FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 
 # the CUDA functions of each source, as the profiler names them
 JOIN_KERNELS = ("hash_join_kernel",)
-CMS_KERNELS = ("cms_kernel",)
-INGEST_KERNELS = ("ingest_count_kernel", "ingest_scan_kernel", "ingest_rank_kernel", "cms_kernel")
+CMS_KERNELS = ("cms_cluster_kernel", "cms_global_kernel")
+INGEST_KERNELS = ("ingest_count_kernel", "ingest_scan_kernel", "ingest_rank_kernel",
+                  *CMS_KERNELS)
 TRACE_WARMUP = 256  # tiny kernels in the profiler's warm-up step before every trace
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
-HIST_KERNELS = ("histogram_kernel",)
+HIST_KERNELS = ("histogram_narrow_kernel", "histogram_sparse_kernel", "histogram_dsmem_kernel")
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
 RETAKEN: list[str] = []  # kernels whose trace lost device events and was taken again
 
@@ -486,6 +498,9 @@ def _lm_phases(dev, r_col):
         (2, 4, 4, 77, 300, 128, False, bf16, False), (1, 4, 2, 300, 77, 64, False, bf16, False),
         (2, 16, 4, 333, 333, 128, True, bf16, True), (2, 8, 2, 200, 200, 64, True, bf16, True),
         (2, 4, 4, 200, 200, 96, True, bf16, False),  # a head dim for mma.sync
+        # D = 40, no multiple of 16: q, k, v zero-padded to 48, scale 1/sqrt(40)
+        (2, 8, 2, 200, 200, 40, True, f32, False), (2, 8, 2, 200, 200, 40, True, bf16, True),
+        (1, 4, 4, 77, 130, 40, False, bf16, False),
         (4, 16, 16, 2048, 2048, 128, True, bf16, False),
     ]:
         g = torch.Generator(device=dev).manual_seed(b * 1000 + h + lq + lk + d)
@@ -502,7 +517,8 @@ def _lm_phases(dev, r_col):
         want = fa.flash_attention_ref(q, k, v, causal=causal)
         err = _max_float_err(got, want)
         tol = 2e-5 if dtype == f32 else 2e-2
-        _say(f"[check] flash_attention ({fa.kernel_variant(dtype, d)}) q {(b, h, lq, d)} "
+        _say(f"[check] flash_attention ({fa.kernel_variant(dtype, fa.padded_head_dim(d))}"
+             f"{f' at D={fa.padded_head_dim(d)}, padded' if d % 16 else ''}) q {(b, h, lq, d)} "
              f"k {(b, hkv, lk, d)} causal={causal} {str(dtype)[6:]}"
              f"{' [B, L, H, D] views' if view else ''}: max_abs_err={err:.3g} "
              f"(rtol = atol = {tol})")
@@ -511,16 +527,21 @@ def _lm_phases(dev, r_col):
             olmo_qkv, olmo_err = (q, k, v), err
 
     # ---- 12. K5 against its plain version -----------------------------------
-    for n in (0, 1, 4097):
-        for bins in (1, 513, 100_000):
-            vals = np.random.default_rng(n + bins).integers(-3, bins + 5, n)
-            vals[: n // 4] = bins // 2
-            vals = torch.from_numpy(vals.astype(np.int32)).to(dev)
-            got = hg.histogram(vals, bins)
-            torch.cuda.synchronize()
-            err = _max_abs_err([got], [hg.histogram_ref(vals, bins)])
-            _say(f"[check] histogram N={n} bins={bins}: max_abs_err={err}")
-            assert err == 0
+    # values below 0 and at or above num_bins (dropped), a quarter on one
+    # value, or all on one; both sides of the shared-memory kernel's range
+    # (12,288 bins), the §9.1 range and 2^20 bins; N empty, one, ragged
+    for n in (0, 1, 4097, 1_000_003):
+        for bins in (1, 513, 12_288, 12_289, 100_000, 1 << 20):
+            for equal in (False, True):
+                vals = np.random.default_rng(n + bins).integers(-3, bins + 5, n)
+                vals[: n if equal else n // 4] = bins // 2
+                vals = torch.from_numpy(vals.astype(np.int32)).to(dev)
+                got = hg.histogram(vals, bins)
+                torch.cuda.synchronize()
+                err = _max_abs_err([got], [hg.histogram_ref(vals, bins)])
+                _say(f"[check] histogram N={n} bins={bins}{' all equal' if equal else ''}: "
+                     f"max_abs_err={err}")
+                assert err == 0
     hh_vals = torch.from_numpy(r_col.astype(np.int32)).to(dev)
     hh = hg.histogram(hh_vals, 100_000)
     torch.cuda.synchronize()
@@ -531,6 +552,10 @@ def _lm_phases(dev, r_col):
          f"max_abs_err={hist_err}; heaviest values {top.indices.tolist()} with counts "
          f"{top.values.tolist()}")
     assert hist_err == 0 and int(top.indices[0]) == 7
+    err_c = _max_abs_err([hg._launch(hh_vals, 100_000, design=1)], [hh_want])
+    _say(f"[check] histogram, the cluster-range design it was measured against, same column: "
+         f"max_abs_err={err_c}")
+    assert err_c == 0
 
     # ---- 13. OLMo-1B at full width in fp32: prefill (K6) against scan ---------
     cfg = get_config("olmo-1b")
@@ -708,9 +733,14 @@ def _lm_phases(dev, r_col):
     ms5, ev5, wrap5 = _kernel_ms(lambda: hg.histogram(hh_vals, 100_000), HIST_KERNELS, reps=20)
     lib5 = _events_ms(lambda: torch.bincount(hh_vals, minlength=100_000), reps=20)
     bound5, by5 = _bound(2.0 * hh_vals.shape[0], 4.0 * (hh_vals.shape[0] + 100_000))
+    # the design kept against the one it was measured against, in turns
+    ms5_c = [_graph_ms(lambda: hg._launch(hh_vals, 100_000, design=d), 20) for d in (1, 0, 0, 1)]
     _say(f"[K5] histogram N={hh_vals.shape[0]} bins=100000: kernel {ms5:.4f} ms (CUDA graph "
-         f"of 20 calls; {_short(ev5)} ms an event in a trace; wrapper {wrap5:.4f} ms); plain {hist_plain:.3f} ms; torch.bincount {lib5:.4f} ms; "
-         f"bound {bound5:.5f} ms by {by5}")
+         f"of 20 calls; {_short(ev5)} ms an event in a trace; wrapper {wrap5:.4f} ms); plain "
+         f"{hist_plain:.3f} ms; torch.bincount {lib5:.4f} ms; bound {bound5:.5f} ms by {by5}; "
+         f"the PR 13 kernel took 0.0562-0.0581 ms (PERF.md)")
+    _say(f"[K5 design] sparse (kept) {ms5_c[1]:.4f} / {ms5_c[2]:.4f} ms against the cluster-range "
+         f"design's {ms5_c[0]:.4f} / {ms5_c[3]:.4f} ms (CUDA graph of 20 calls each, in turns)")
     return [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -770,7 +800,9 @@ def _rwkv_phases(dev):
     for b, l, h, hd, with_s0 in [(1, 64, 2, 16, False), (2, 100, 4, 16, False),
                                  (2, 128, 4, 32, True), (2, 77, 3, 16, True),
                                  (2, 77, 3, 48, True), (2, 77, 3, 128, True),
-                                 (4, 1, 40, 64, True), (4, 2048, 40, 64, False)]:
+                                 (4, 1, 40, 64, True), (4, 2048, 40, 64, False),
+                                 # hd = 24, no multiple of 16: run padded to 32
+                                 (2, 77, 3, 24, True), (2, 1, 3, 24, True)]:
         r, k, v, w, u, s0 = wkv_inputs(b, l, h, hd, b * 1000 + l + hd)
         s0 = s0 if with_s0 else None
         y, s = wk.wkv6(r, k, v, w, u, s0)
@@ -1952,7 +1984,8 @@ def main() -> int:
         bound3, by3 = _bound(ops3, bytes3)
         _say(f"[K3] fused_ingest sketch-only N={rows0.shape[0]}: kernel {ms3:.4f} ms (CUDA graph "
              f"of 20 calls; {_short(ev3)} ms an event in a trace; wrapper {wrap3:.4f} "
-             f"ms); plain {plain3:.1f} ms (max_abs_err={err3}); bound {bound3:.4f} ms by {by3}")
+             f"ms); plain {plain3:.1f} ms (max_abs_err={err3}); bound {bound3:.4f} ms by {by3}; "
+             f"the PR 12 kernel took 0.0094-0.0095 ms (PR 18, PERF.md)")
         kernels.append({
             "name": "fused_ingest_sketch", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/cms_update.cu",
@@ -1975,15 +2008,65 @@ def main() -> int:
         _say(f"[K4] cms_update N={vals.shape[0]} depth={len(seeds)} width={width}: "
              f"kernel {ms4:.4f} ms (CUDA graph of 50 calls; {_short(ev4)} ms an event in a "
              f"trace; wrapper {wrap4:.4f} ms); plain {plain4:.1f} ms (max_abs_err={err4}); "
-             f"bound {bound4:.4f} ms by {by4}")
+             f"bound {bound4:.4f} ms by {by4}; the PR 12 kernel took 0.0089-0.0099 ms "
+             f"(PR 16-18, PERF.md)")
+        # the launch floor: an empty kernel (one warp), timed the same way
+        floor = _graph_ms(lambda: su.empty_launch(dev), 50)
+        _say(f"[floor] an empty kernel: {floor:.4f} ms a launch (CUDA graph of 50 calls); "
+             f"K4's bound {bound4:.5f} ms and K3 sketch-only's {bound3:.5f} ms lie "
+             f"{'below' if max(bound3, bound4) < floor else 'above'} it; K4 takes "
+             f"{ms4 / floor:.2f} floors, K3 sketch-only {ms3 / floor:.2f}")
         kernels.append({
             "name": "cms_update", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/cms_update.cu",
             "replaces": "src/repro/kernels/sketch_update.py:48",
             "launches": base_launches["cms_update"], "max_abs_err": err4,
             "ms": ms4, "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4,
-            "library_ms": None,
+            "library_ms": None, "launch_floor_ms": floor,
         })
+        # K4's designs on batch 0's R join column (100,000 keys), its S join
+        # column (25,000: the baseline's other call) and 100,000 equal keys:
+        # with and without the warp's fold of equal keys, one cluster (the
+        # table stored) and several (a zeroed table, atomics)
+        equal = torch.full_like(vals, 7)
+        s_col = torch.from_numpy(batches[0]["S"][:, 0].astype(np.int32)).to(dev)
+        fold0, one0 = su.FOLD, su.ONE_CLUSTER_ROWS
+        for fold in (True, False):
+            for one in (1 << 62, 0):
+                su.FOLD, su.ONE_CLUSTER_ROWS = fold, one
+                times = []
+                for x in (vals, s_col, equal):
+                    assert torch.equal(su.cms_update(x, seeds, width),
+                                       su.cms_update_ref(x, seeds, width))
+                    times.append(_graph_ms(lambda: su.cms_update(x, seeds, width), 50))
+                _say(f"[K4 design] fold={fold} {'one cluster' if one else 'several clusters'}: "
+                     f"batch 0 R {times[0]:.4f} ms, S {times[1]:.4f} ms, all keys equal "
+                     f"{times[2]:.4f} ms (CUDA graph of 50 calls)")
+        su.FOLD, su.ONE_CLUSTER_ROWS = fold0, one0
+        # K4 and the fused pass's sketch half on every class of input,
+        # exactly: all keys equal, N = 1, N ragged, one cluster's N and
+        # several clusters', widths 1, 12,288 and 12,289 (the shared-memory
+        # tables' edge), depth 1 and 32, two sketched columns of three
+        i32 = np.iinfo(np.int32)
+        rng_k = np.random.default_rng(4)
+        for n in (1, 4097, 100_000, 300_007):
+            for kind in ("random", "equal"):
+                keys = rng_k.integers(i32.min, i32.max, n, dtype=np.int64, endpoint=True)
+                if kind == "equal":
+                    keys[:] = -5
+                keys = torch.from_numpy(keys.astype(np.int32)).to(dev)
+                for depth, w in ((4, 1), (4, 2048), (32, 2048), (4, 12_288), (2, 12_289)):
+                    sd = (seeds * 8)[:depth]
+                    err = _max_abs_err([su.cms_update(keys, sd, w)],
+                                       [su.cms_update_ref(keys, sd, w)])
+                    assert err == 0, (n, kind, depth, w)
+                rows3 = torch.stack([keys, keys.flip(0), keys // 3], 1).contiguous()
+                for cols3, w in (((0, 2), 2048), ((2, 1), 12_289)):
+                    err = _max_abs_err([su.cms_tables(rows3, cols3, seeds, w)],
+                                       [su.cms_tables_ref(rows3, cols3, seeds, w)])
+                    assert err == 0, (n, kind, cols3, w)
+                _say(f"[check] cms_update N={n} {kind} keys at depth 4/32, widths 1, 2048, "
+                     f"12,288, 12,289, and cms_tables of two of three columns: max_abs_err=0")
 
     # ---- 10b. recovery, checkpoint and restore on the card -----------------
     reset_launches()

@@ -9,82 +9,221 @@
 // into the last bin instead).
 //
 // The TPU kernel counts by one-hot comparison against every bin, because a
-// scatter-add serialises there: N * num_bins compares.  Here the histogram
-// lives in shared memory and takes atomic adds, N of them; what bounds it
-// on this card is the bytes (N * 4 read, num_bins * 4 written) and the
-// atomics on a heavy value.  The design:
-//   * a warp folds equal bins first (__match_any_sync) and one lane adds the
-//     group's size, so a heavy hitter (the skew the count exists to find)
-//     costs one shared-memory atomic per warp, not 32;
-//   * bins are tiled over blockIdx.y, TILE_BINS (192 KB of dynamic shared
-//     memory) at a time, so a range of 100,000 bins, 400 KB, which does not
-//     fit in one block, is counted in three tiles, each block reading its
-//     values once per tile; a block ignores the values outside its tile;
-//   * the blocks of one tile stride over the values, then add their non-zero
-//     bins to out in device memory.  Integer adds commute, so out does not
-//     depend on the order of the atomics.
+// scatter-add serialises there: N * num_bins compares.  Here every value is
+// read once and counted with atomic adds.  What bounds it on this card is
+// the atomics: a value whose bin is sparse costs one, and a heavy value
+// would cost one a warp at a single address, where they serialise.  The
+// design follows the density of the input, not the TPU's dense one-hot:
+//   * every kernel reads each value once, UNROLL of them a thread before it
+//     counts any, and a warp folds equal values first (__match_any_sync):
+//     one lane adds the group's size;
+//   * narrow ranges (num_bins <= SMEM_BINS, 48 KB): each CTA counts its
+//     values into a private histogram in shared memory (four CTAs an SM)
+//     and adds its non-zero bins to out;
+//   * wide ranges (the §9.1 join column: 10^6 values over 100,000 bins,
+//     about ten a bin, so a CTA's histogram of the whole range would be
+//     almost all zeros): the sparse mass goes straight to out with device
+//     atomics (out, 400 KB there, stays in the 50 MB L2), and the values
+//     that repeat inside a CTA are folded in a small table of SLOTS tagged
+//     slots in shared memory: a value a warp saw more than once claims its
+//     slot if the slot is free, and later occurrences of a value that holds
+//     a slot are added there.  A heavy value (10 % of the §9.1 column)
+//     therefore costs about one device atomic a CTA, not one a warp;
+//   * the design measured against the sparse one (design 1, wide ranges
+//     only): a cluster of CTAs whose distributed shared memory holds the
+//     whole range, each CTA a slice of DSMEM_BINS bins, every value added to
+//     the slice's owner, each cluster adding its non-zero bins to out.
+// Integer adds commute, so out does not depend on the order of the atomics.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE_BINS = 49152;           // 192 KB of dynamic shared memory
-constexpr long long VALUES_PER_BLOCK = 32768;
-constexpr int MAX_BLOCKS_PER_TILE = 264;   // two per SM of an H100
+constexpr int THREADS = 512;
+constexpr int UNROLL = 4;
+constexpr int SMEM_BINS = 12288;        // the narrow kernel's histogram: 48 KB
+constexpr int SLOTS = 2048;             // the sparse kernel's tagged slots: 16 KB
+constexpr int SLOT_BITS = 11;
+constexpr int CTAS_PER_SM = 4;
+constexpr long long VALUES_PER_CTA = static_cast<long long>(THREADS) * UNROLL;
+constexpr int DSMEM_BINS = 51200;       // design 1: 200 KB a CTA
+constexpr int MAX_CLUSTER = 16;
+constexpr uint32_t EMPTY = 0xFFFFFFFFu;  // no value: values counted are < 2^31
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+// The values of this CTA's chunk, UNROLL a thread loaded before any is
+// counted; count(v, c) takes each distinct in-range value of a warp once,
+// with its count, on the first lane that holds it.  Whole warps run every
+// iteration (base is warp uniform), so the match sees all 32 lanes.
+template <typename Count>
+__device__ __forceinline__ void for_each_folded(const int32_t* __restrict__ values, long long n,
+                                                uint32_t num_bins, long long per_cta,
+                                                Count count) {
+  const long long begin = static_cast<long long>(blockIdx.x) * per_cta;
+  const long long end = min(begin + per_cta, n);
+  const int lane = threadIdx.x & 31;
+  for (long long base = begin + (threadIdx.x & ~31); base < end;
+       base += static_cast<long long>(THREADS) * UNROLL) {
+    uint32_t v[UNROLL];
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      const long long i = base + static_cast<long long>(j) * THREADS + lane;
+      // a negative value reads as >= 2^31 > num_bins: dropped with the rest
+      v[j] = i < end ? static_cast<uint32_t>(__ldg(values + i)) : EMPTY;
+    }
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      const bool ok = v[j] < num_bins;
+      const unsigned peers = __match_any_sync(FULL, v[j]);
+      if (ok && lane == __ffs(peers) - 1) count(v[j], static_cast<uint32_t>(__popc(peers)));
+    }
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
-histogram_kernel(const int32_t* __restrict__ values, long long n, int num_bins, int tile,
-                 uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t hist[];
-  const int lo = blockIdx.y * tile;
-  const int width = min(tile, num_bins - lo);
-  for (int b = threadIdx.x; b < width; b += THREADS) hist[b] = 0u;
+histogram_narrow_kernel(const int32_t* __restrict__ values, long long n, uint32_t num_bins,
+                        long long per_cta, uint32_t* __restrict__ out) {
+  __shared__ uint32_t hist[SMEM_BINS];
+  for (uint32_t b = threadIdx.x; b < num_bins; b += THREADS) hist[b] = 0u;
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const long long step = static_cast<long long>(gridDim.x) * THREADS;
-  // base is the same for every lane, so whole warps enter each iteration
-  // and __match_any_sync sees all 32 lanes
-  for (long long base = static_cast<long long>(blockIdx.x) * THREADS; base < n; base += step) {
-    const long long i = base + threadIdx.x;
-    uint32_t bin = 0xFFFFFFFFu;  // no bin: width <= TILE_BINS
-    if (i < n) {
-      const int32_t x = values[i];
-      if (x >= lo && x - lo < width) bin = static_cast<uint32_t>(x - lo);
-    }
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, bin);
-    if (bin != 0xFFFFFFFFu && lane == __ffs(peers) - 1) {
-      atomicAdd(hist + bin, static_cast<uint32_t>(__popc(peers)));
-    }
+  for_each_folded(values, n, num_bins, per_cta,
+                  [&](uint32_t v, uint32_t c) { atomicAdd(hist + v, c); });
+  __syncthreads();
+  for (uint32_t b = threadIdx.x; b < num_bins; b += THREADS) {
+    if (hist[b] != 0u) atomicAdd(out + b, hist[b]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+histogram_sparse_kernel(const int32_t* __restrict__ values, long long n, uint32_t num_bins,
+                        long long per_cta, uint32_t* __restrict__ out) {
+  __shared__ uint32_t tag[SLOTS];
+  __shared__ uint32_t cnt[SLOTS];
+  for (int s = threadIdx.x; s < SLOTS; s += THREADS) {
+    tag[s] = EMPTY;
+    cnt[s] = 0u;
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < width; b += THREADS) {
-    if (hist[b] != 0u) atomicAdd(out + lo + b, hist[b]);
+  for_each_folded(values, n, num_bins, per_cta, [&](uint32_t v, uint32_t c) {
+    const uint32_t s = (v * 2654435761u) >> (32 - SLOT_BITS);
+    // a slot's tag changes once, from EMPTY: a tag read equal to v stays v
+    uint32_t t = tag[s];
+    if (t == EMPTY && c > 1u) {  // a repeat inside the warp: claim the slot if it is free
+      const uint32_t prev = atomicCAS(tag + s, EMPTY, v);
+      t = prev == EMPTY ? v : prev;
+    }
+    if (t == v) {
+      atomicAdd(cnt + s, c);
+    } else {
+      atomicAdd(out + v, c);
+    }
+  });
+  __syncthreads();
+  for (int s = threadIdx.x; s < SLOTS; s += THREADS) {
+    if (tag[s] != EMPTY && cnt[s] != 0u) atomicAdd(out + tag[s], cnt[s]);
   }
+}
+
+// Design 1: a cluster's CTAs hold slices of `slice` bins each, the whole
+// range between them; every value goes to its slice's owner, then each CTA
+// adds its slice's non-zero bins to out.
+__global__ void __launch_bounds__(THREADS)
+histogram_dsmem_kernel(const int32_t* __restrict__ values, long long n, uint32_t num_bins,
+                       long long per_cta, uint32_t slice, uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t part[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t lo = cluster.block_rank() * slice;
+  const uint32_t hi = min(lo + slice, num_bins);
+  for (uint32_t b = threadIdx.x; b < slice; b += THREADS) part[b] = 0u;
+  cluster.sync();
+  for_each_folded(values, n, num_bins, per_cta, [&](uint32_t v, uint32_t c) {
+    atomicAdd(cluster.map_shared_rank(part, v / slice) + v % slice, c);
+  });
+  cluster.sync();
+  for (uint32_t b = lo + threadIdx.x; b < hi; b += THREADS) {
+    if (part[b - lo] != 0u) atomicAdd(out + b, part[b - lo]);
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  return sms;
+}
+
+int launch_dsmem(const int32_t* values, long long n, uint32_t num_bins, uint32_t* out,
+                 cudaStream_t st, int sms) {
+  const uint32_t cs = (num_bins + DSMEM_BINS - 1) / DSMEM_BINS;
+  if (cs > static_cast<uint32_t>(MAX_CLUSTER)) return static_cast<int>(cudaErrorInvalidValue);
+  const uint32_t slice = (num_bins + cs - 1) / cs;
+  const size_t bytes = sizeof(uint32_t) * slice;
+  cudaError_t err = cudaFuncSetAttribute(
+      histogram_dsmem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(histogram_dsmem_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long clusters = sms / static_cast<int>(cs);  // one CTA an SM: a full wave
+  if (clusters < 1) clusters = 1;
+  const long long ctas = clusters * cs;
+  const long long per_cta = (n + ctas - 1) / ctas;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas), 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, histogram_dsmem_kernel, values, n, num_bins, per_cta, slice,
+                           out);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
+int histogram_smem_bins() { return SMEM_BINS; }
+
 // values: [n] int32 on the card; out: [num_bins] int32 storage, zeroed by
-// the caller, counted as uint32.  Returns the launch's cudaError_t
-// (0 = launched).
-int histogram_launch(const void* values, long long n, int num_bins, void* out, void* stream) {
-  if (n < 0 || num_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
+// the caller, counted as uint32.  design 0: the narrow kernel for num_bins
+// <= SMEM_BINS, the sparse one above; design 1: the cluster-range kernel
+// (num_bins <= MAX_CLUSTER * DSMEM_BINS).  Returns the launch's cudaError_t
+// (0 = launched; a refused launch is not 0).
+int histogram_launch(const void* values, long long n, int num_bins, int design, void* out,
+                     void* stream) {
+  if (n < 0 || num_bins < 1 || design < 0 || design > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n == 0) return 0;
-  const int tile = num_bins < TILE_BINS ? num_bins : TILE_BINS;
-  const int tiles = (num_bins + tile - 1) / tile;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  long long blocks = (n + VALUES_PER_BLOCK - 1) / VALUES_PER_BLOCK;
-  if (blocks > MAX_BLOCKS_PER_TILE) blocks = MAX_BLOCKS_PER_TILE;
-  const size_t bytes = sizeof(uint32_t) * static_cast<size_t>(tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles));
-  histogram_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(values), n, num_bins, tile, static_cast<uint32_t*>(out));
+  const int sms = sm_count();
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidDevice);
+  const int32_t* v = static_cast<const int32_t*>(values);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  const uint32_t bins = static_cast<uint32_t>(num_bins);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (design == 1) return launch_dsmem(v, n, bins, o, st, sms);
+  long long ctas = (n + VALUES_PER_CTA - 1) / VALUES_PER_CTA;
+  if (ctas > static_cast<long long>(CTAS_PER_SM) * sms) ctas = static_cast<long long>(CTAS_PER_SM) * sms;
+  const long long per_cta = (n + ctas - 1) / ctas;
+  if (num_bins <= SMEM_BINS) {
+    histogram_narrow_kernel<<<static_cast<unsigned>(ctas), THREADS, 0, st>>>(v, n, bins, per_cta,
+                                                                            o);
+  } else {
+    histogram_sparse_kernel<<<static_cast<unsigned>(ctas), THREADS, 0, st>>>(v, n, bins, per_cta,
+                                                                            o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

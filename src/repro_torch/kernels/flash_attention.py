@@ -16,7 +16,12 @@ the plain version.  ``kernel_variant(dtype, d)`` chooses the kernel: fp32
 inputs compute in fp32 on the CUDA cores; bf16 inputs on the tensor cores
 (bf16 products, fp32 sums, p rounded to bf16 before P·V), through wgmma
 with TMA loads for D = 64 and 128 and through mma.sync for the other head
-dims.  The kernels read q, k and v through their strides,
+dims.  The kernels run head dims that are multiples of 16 up to 256; the
+wrapper takes any D in [1, 256] and runs a D that is not one at
+``padded_head_dim(D)``, q, k and v zero-padded (``pad_head_dim``) and the
+softmax scale kept at ``1 / sqrt(D)``: the zero columns add nothing to a
+score and give output columns that are cropped, so the result is the
+unpadded function's.  The kernels read q, k and v through their strides,
 so the ``[B, L, H, D] -> [B, H, L, D]`` transpose of the attention layer is
 not copied, and writes its output
 as a ``[B, Lq, H, D]`` buffer seen as ``[B, H, Lq, D]``, so the layer's
@@ -41,10 +46,33 @@ VARIANTS = ("fp32_cuda_cores", "bf16_mma_sync", "bf16_wgmma")
 WGMMA_HEAD_DIMS = (64, 128)
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run ``d`` at: the next multiple of 16."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: head dim {d} outside [1, {MAX_HEAD_DIM}] (the kernels hold "
+            f"fp32 tiles sized by D in shared memory and registers, up to {MAX_HEAD_DIM})"
+        )
+    return -(-d // 16) * 16
+
+
+def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t [..., D]`` zero-padded to ``[..., dp]`` in a new buffer; ``t``
+    itself when D == dp."""
+    d = t.shape[-1]
+    if d == dp:
+        return t
+    out = torch.empty((*t.shape[:-1], dp), dtype=t.dtype, device=t.device)
+    out[..., :d].copy_(t)
+    out[..., d:].zero_()
+    return out
+
+
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
-    """The kernel for inputs of ``dtype`` with head dim ``d``: fp32 on the
-    CUDA cores (the fp32 parity path: full fp32 products, no TF32), bf16 with
-    wgmma and TMA for D = 64 and 128, bf16 with mma.sync for the other D."""
+    """The kernel for inputs of ``dtype`` with head dim ``d`` (a kernel's
+    own, a multiple of 16: see ``padded_head_dim``): fp32 on the CUDA cores
+    (the fp32 parity path: full fp32 products, no TF32), bf16 with wgmma and
+    TMA for D = 64 and 128, bf16 with mma.sync for the other D."""
     if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
         raise ValueError(
             f"flash_attention: head dim {d} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]"
@@ -62,12 +90,14 @@ def reset_launches() -> None:
 
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Plain version: the same function in fp32 with a materialised score
-    matrix; returns [B, H, Lq, D] in q's dtype."""
+    matrix, any D; returns [B, H, Lq, D] in q's dtype.  ``scale`` defaults to
+    ``1 / sqrt(D)``."""
     h, hkv = q.shape[1], k.shape[1]
     lq, lk, d = q.shape[2], k.shape[2], q.shape[3]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     kk = k.float().repeat_interleave(h // hkv, dim=1)
     vv = v.float().repeat_interleave(h // hkv, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
@@ -98,10 +128,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
     hkv, lk = k.shape[1], k.shape[2]
     if hkv < 1 or h % hkv:
         raise ValueError(f"flash_attention: H={h} is not a multiple of Hkv={hkv}")
-    if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"flash_attention: head dim {d} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]"
-        )
+    padded_head_dim(d)
     if lk < 1:
         raise ValueError("flash_attention: needs at least one key")
     if causal and lq != lk:
@@ -122,16 +149,19 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
-    """The kernel on the card; counts no launch."""
+    """The kernel on the card; counts no launch.  A head dim that is no
+    multiple of 16 runs zero-padded and comes back cropped, a view of the
+    padded output."""
     b, h, lq, d = q.shape
-    variant = kernel_variant(q.dtype, d)
+    dp = padded_head_dim(d)
+    variant = kernel_variant(q.dtype, dp)
     hkv, lk = k.shape[1], k.shape[2]
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H={b * h} exceeds the kernel's grid (65535)")
-    q, k, v = (_readable(t) for t in (q, k, v))
-    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    q, k, v = (_readable(pad_head_dim(t, dp)) for t in (q, k, v))
+    out = torch.empty((b, lq, h, dp), dtype=q.dtype, device=q.device).transpose(1, 2)
     if lq == 0 or b == 0:
-        return out
+        return out[..., :d]
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3])
     )
@@ -146,12 +176,12 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), VARIANTS.index(variant),
-            b, h, hkv, lq, lk, d, strides, 1.0 / math.sqrt(d), int(causal), stream,
+            b, h, hkv, lq, lk, dp, strides, 1.0 / math.sqrt(d), int(causal), stream,
         )
     if err != 0:
         what = f"CUresult {err - 10000} for a tensor map" if err >= 10000 else f"cudaError {err}"
         raise RuntimeError(f"flash_attention {variant} kernel launch failed: {what}")
-    return out
+    return out[..., :d]
 
 
 def flash_attention(

@@ -8,7 +8,11 @@ the card can be absorbed by a host sketch with the same seeds.
 
 ``cms_update`` takes the hand-written CUDA kernel (``csrc/cms_update.cu``)
 for CUDA tensors and the plain ``cms_update_ref`` for CPU tensors; a CUDA
-tensor never falls back to the plain version.  ``cms_tables`` is the same
+tensor never falls back to the plain version.  The kernel reads each key
+once, counts it into every table of its column in shared memory, and merges
+the tables of a thread-block cluster over distributed shared memory; up to
+``ONE_CLUSTER_ROWS`` rows one cluster covers them all and stores the whole
+table, so the wrapper allocates it without zeroing it.  ``cms_tables`` is the same
 kernel over several columns of a row block, the sketch half of the fused
 ingest pass (``kernels.ingest_fused``); its launches are counted by the
 fused wrapper that calls it, not in ``LAUNCHES["cms_update"]``.
@@ -24,6 +28,12 @@ from repro_torch.mapreduce.hashing import bucket_torch
 from ._build import count_launch, library, reset_counts
 
 LAUNCHES = {"cms_update": 0}
+
+# rows up to which one cluster of CTAs counts every row and stores the whole
+# table (no zero fill); above it several clusters add into a zeroed table
+ONE_CLUSTER_ROWS = 1 << 15
+# a warp folds equal keys before it counts them (csrc/cms_update.cu)
+FOLD = True
 
 _M32 = 0xFFFFFFFF
 
@@ -65,20 +75,24 @@ def _check(rows: torch.Tensor, cols, seeds, width: int) -> None:
 def _launch(rows: torch.Tensor, cols, seeds, width: int) -> torch.Tensor:
     """The kernel over ``rows [N, arity]`` (int32, contiguous, on the card):
     [n_cols, depth, width] int32.  Counts no launch."""
-    out = torch.zeros((len(cols), len(seeds), int(width)), dtype=torch.int32, device=rows.device)
+    shape = (len(cols), len(seeds), int(width))
     if rows.shape[0] == 0 or not cols:
-        return out
+        return torch.zeros(shape, dtype=torch.int32, device=rows.device)
     lib = library("cms_update")
     if len(cols) > lib.cms_max_cols() or len(seeds) > lib.cms_max_depth():
         raise ValueError(
             f"cms: {len(cols)} columns x {len(seeds)} seeds exceed the kernel's "
             f"{lib.cms_max_cols()} x {lib.cms_max_depth()}"
         )
+    one_cluster = rows.shape[0] <= ONE_CLUSTER_ROWS and int(width) <= lib.cms_smem_words()
+    # one cluster stores every entry; otherwise the clusters add into zeros
+    out = (torch.empty if one_cluster else torch.zeros)(
+        shape, dtype=torch.int32, device=rows.device)
     fn = lib.cms_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ctypes.c_int, ctypes.POINTER(ctypes.c_uint), ctypes.c_int, ctypes.c_uint,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     c_cols = (ctypes.c_int * len(cols))(*[int(c) for c in cols])
@@ -87,11 +101,24 @@ def _launch(rows: torch.Tensor, cols, seeds, width: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = fn(
             rows.data_ptr(), rows.shape[0], rows.shape[1], c_cols, len(cols),
-            c_seeds, len(seeds), int(width), out.data_ptr(), stream,
+            c_seeds, len(seeds), int(width), out.data_ptr(), int(one_cluster), int(FOLD),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"cms_update kernel launch failed: cudaError {err}")
     return out
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel (one warp) on ``device``'s current stream: the
+    launch floor that K4's time is read against (``chip_smoke.py``)."""
+    fn = library("cms_update").cms_empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
 
 
 def cms_tables(rows: torch.Tensor, cols, seeds, width: int) -> torch.Tensor:

@@ -22,7 +22,12 @@ their strides (the reshapes of ``time_mix``'s projections are not copied)
 and takes any ``L >= 1``.  It splits each (b, h) over ``hd / JC`` blocks of
 JC state columns and, inside a block, gives each thread C columns of
 ``hd / P`` rows, one geometry a head dim (``launch_geometry(hd, L)`` names
-it); a decode step (``L == 1``) takes a kernel of its own.  ``state_out``,
+it); a decode step (``L == 1``) takes a kernel of its own.  The kernel is
+compiled for the head dims ``HEAD_DIMS``, multiples of 16 up to 128; any
+hd in [1, 128] runs at ``padded_head_dim(hd)``, its inputs zero-padded by
+``pad_head_dim`` (w by ones) and y and the state cropped: a padded row has
+r = k = 0 and a zero state, a padded column v = 0 and a zero state, so both
+stay zero and add nothing to the true sums.  ``state_out``,
 when given, is a contiguous buffer that receives the final state and may be
 ``s0`` itself: a decode step updates its state in place.
 """
@@ -46,21 +51,55 @@ HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 _GEOMETRY = {16: (16, 4, 2), 32: (32, 8, 4), 48: (16, 4, 2), 64: (16, 16, 4),
              80: (16, 4, 2), 96: (32, 8, 4), 112: (16, 4, 2), 128: (32, 16, 4)}
 STEP = (0, 0, 0)  # the decode step's kernel
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+
+
+def padded_head_dim(hd: int) -> int:
+    """The head dim of ``HEAD_DIMS`` that the kernel runs ``hd`` at: the
+    next multiple of 16."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"wkv6: head dim {hd} outside [1, {MAX_HEAD_DIM}] (the kernel holds the fp32 "
+            f"state and a tile's rows, sized by hd, in registers and shared memory)"
+        )
+    return -(-hd // 16) * 16
 
 
 def launch_geometry(hd: int, l: int = 2) -> tuple[int, int, int]:
     """(JC, P, C) that csrc/wkv6.cu launches for head dim ``hd`` over ``l``
-    tokens: blocks of JC state columns (hd / JC blocks a head), each column's
-    rows split over P threads in adjacent lanes, each thread holding C
-    columns of hd / P rows; whole warps a block.  At rwkv6-3b's hd = 64:
-    (16, 16, 4), the fastest of five geometries timed on the card (PERF.md).
-    A decode step (``l == 1``) has no sequence to pipeline: (0, 0, 0) names
-    the kernel for it, one block of hd threads a head."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"wkv6: head dim {hd} must be a multiple of 16 in [16, 128]")
+    tokens, the geometry of ``padded_head_dim(hd)``: blocks of JC state
+    columns (hd / JC blocks a head), each column's rows split over P threads
+    in adjacent lanes, each thread holding C columns of hd / P rows; whole
+    warps a block.  At rwkv6-3b's hd = 64: (16, 16, 4), the fastest of five
+    geometries timed on the card (PERF.md).  A decode step (``l == 1``) has
+    no sequence to pipeline: (0, 0, 0) names the kernel for it, one block of
+    hd threads a head."""
+    hp = padded_head_dim(hd)
     if l < 1:
         raise ValueError("wkv6: needs at least one token")
-    return STEP if l == 1 else _GEOMETRY[hd]
+    return STEP if l == 1 else _GEOMETRY[hp]
+
+
+def pad_head_dim(r, k, v, w, u, s0=None):
+    """(r, k, v, w, u, s0) at ``padded_head_dim(hd)``, in new fp32 buffers:
+    r, k, v and u padded with zeros, w with ones (any finite decay: it only
+    scales a zero row), s0 with zeros (None stays None).  The inputs
+    themselves when hd is already a kernel's."""
+    hd = r.shape[-1]
+    hp = padded_head_dim(hd)
+    if hp == hd:
+        return r, k, v, w, u, s0
+
+    def pad(t, fill, lead):
+        out = torch.empty((*t.shape[:lead], *(hp,) * (t.dim() - lead)), dtype=torch.float32,
+                          device=t.device)
+        out.fill_(fill)
+        out[(...,) + (slice(0, hd),) * (t.dim() - lead)].copy_(t)
+        return out
+
+    r, k, v, u = (pad(t, 0.0, t.dim() - 1) for t in (r, k, v, u))
+    w = pad(w, 1.0, w.dim() - 1)
+    return r, k, v, w, u, None if s0 is None else pad(s0, 0.0, 2)
 
 
 def reset_launches() -> None:
@@ -117,8 +156,7 @@ def _check(r, k, v, w, u, s0, state_out) -> None:
     given = [t for t in (r, k, v, w, u, s0, state_out) if t is not None]
     if any(t.device != r.device for t in given):
         raise ValueError("wkv6: every input must lie on one device")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"wkv6: head dim {hd} must be a multiple of 16 in [16, 128]")
+    padded_head_dim(hd)
     if l < 1:
         raise ValueError("wkv6: needs at least one token")
 
@@ -134,19 +172,23 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(r, k, v, w, u, s0, state_out) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel on the card; counts no launch.  The kernel reads fp32:
-    narrower inputs are widened here, and y narrowed to r's dtype after."""
+    narrower inputs are widened here, and y narrowed to r's dtype after.  A
+    head dim that is no kernel's runs padded (``pad_head_dim``); y and the
+    state come back cropped, the state into ``state_out`` when given."""
     b, l, h, hd = r.shape
     out_dtype = r.dtype
+    r, k, v, w, u, s0 = pad_head_dim(r, k, v, w, u, s0)
+    hp = r.shape[-1]
     r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
     r, k, v, w = (_readable(t) for t in (r, k, v, w))
     u = u if u.is_contiguous() and u.data_ptr() % 16 == 0 else u.clone(
         memory_format=torch.contiguous_format)
     if s0 is not None:
         s0 = s0.contiguous()
-    s_out = state_out
+    s_out = state_out if hp == hd else None
     if s_out is None:
-        s_out = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
-    y = torch.empty((b, l, h, hd), dtype=torch.float32, device=r.device)
+        s_out = torch.empty((b, h, hp, hp), dtype=torch.float32, device=r.device)
+    y = torch.empty((b, l, h, hp), dtype=torch.float32, device=r.device)
     strides = (ctypes.c_longlong * 12)(*(s for t in (r, k, v, w) for s in t.stride()[:3]))
     fn = library("wkv6").wkv6_launch
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
@@ -157,10 +199,13 @@ def _launch(r, k, v, w, u, s0, state_out) -> tuple[torch.Tensor, torch.Tensor]:
         err = fn(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             None if s0 is None else s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-            b, l, h, hd, strides, stream,
+            b, l, h, hp, strides, stream,
         )
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: cudaError {err}")
+    if hp != hd:
+        y, s_out = y[..., :hd], s_out[:, :, :hd, :hd]
+        s_out = s_out.contiguous() if state_out is None else state_out.copy_(s_out)
     return y.to(out_dtype), s_out
 
 

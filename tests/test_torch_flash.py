@@ -83,8 +83,10 @@ def test_causal_needs_equal_lengths():
 @pytest.mark.parametrize(
     "shapes,dtype,match",
     [
-        (((1, 2, 8, 24), (1, 2, 8, 24)), torch.float32, "multiple of 16"),
-        (((1, 2, 8, 272), (1, 2, 8, 272)), torch.float32, "multiple of 16"),
+        # D = 24 was refused; the port now takes any D up to 256 (padded on
+        # the card), so this case is computed and held against the JAX kernel
+        (((1, 2, 8, 24), (1, 2, 8, 24)), torch.float32, None),
+        (((1, 2, 8, 272), (1, 2, 8, 272)), torch.float32, r"outside \[1, 256\]"),
         (((1, 3, 8, 32), (1, 2, 8, 32)), torch.float32, "not a multiple"),
         (((1, 2, 8, 32), (1, 2, 8, 16)), torch.float32, "do not fit"),
         (((1, 2, 8, 32), (1, 2, 0, 32)), torch.float32, "at least one key"),
@@ -92,10 +94,57 @@ def test_causal_needs_equal_lengths():
     ],
 )
 def test_wrapper_rejects(shapes, dtype, match):
+    if match is None:
+        q, k, v = _inputs(*shapes[0][:2], shapes[1][1], shapes[0][2], shapes[1][2],
+                          shapes[0][3], 24)
+        got = fa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=False).numpy()
+        want = jax_flash(*map(jnp.asarray, (q, k, v)), causal=False, block_q=8, block_k=8)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+        return
     q = torch.zeros(shapes[0], dtype=dtype)
     k = torch.zeros(shapes[1], dtype=dtype)
     with pytest.raises((ValueError, TypeError), match=match):
         fa.flash_attention(q, k, k, causal=False)
+
+
+@pytest.mark.parametrize("d,dp", [(1, 16), (8, 16), (16, 16), (24, 32), (40, 48), (72, 80),
+                                  (250, 256), (256, 256)])
+def test_padded_head_dim(d, dp):
+    """The head dim the kernels run D at: the next multiple of 16; above 256
+    no kernel holds it."""
+    assert fa.padded_head_dim(d) == dp
+    assert fa.kernel_variant(torch.bfloat16, dp) in fa.VARIANTS
+    t = torch.arange(3 * d, dtype=torch.float32).reshape(3, d)
+    padded = fa.pad_head_dim(t, dp)
+    assert padded.shape == (3, dp) and torch.equal(padded[:, :d], t)
+    assert not padded[:, d:].any() and (padded is t) == (d == dp)
+    for bad in (0, 257, 272):
+        with pytest.raises(ValueError, match="outside"):
+            fa.padded_head_dim(bad)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_head_dim_matches_pallas(dtype, tol, causal):
+    """D = 40 with GQA (4 query heads on 2 kv heads): the card's path, q, k
+    and v zero-padded to 48, the plain version at scale 1/sqrt(40), the
+    output cropped, and the plain version at D = 40 both equal the Pallas
+    kernel in interpret mode (which takes any D)."""
+    q, k, v = _inputs(2, 4, 2, 128, 128, 40, 40)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    want = np.asarray(jax_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64)
+                      .astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(dtype)
+                  for a in (jq, jk, jv))
+    dp = fa.padded_head_dim(40)
+    padded = fa.flash_attention_ref(*(fa.pad_head_dim(t, dp) for t in (tq, tk, tv)),
+                                    causal=causal, scale=1.0 / np.sqrt(40))[..., :40]
+    plain = fa.flash_attention(tq, tk, tv, causal=causal)
+    for got in (padded, plain):
+        assert got.dtype == dtype and got.shape == (2, 4, 128, 40)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
 def test_cpu_tensor_takes_plain_version_and_counts_no_launch():

@@ -304,7 +304,7 @@ def test_fused_ingest_static_kernel_matches_plain(cuda, mode):
     _same(got, fi.fused_ingest_ref(rows, **kw))
 
 
-@pytest.mark.parametrize("width", [1, 251, 2048, 20_000])
+@pytest.mark.parametrize("width", [1, 251, 2048, 12_288, 12_289, 20_000])
 def test_cms_update_kernel_matches_plain(cuda, width):
     rng = np.random.default_rng(width)
     vals = rng.integers(_I32.min, _I32.max, 100_003, dtype=np.int64, endpoint=True)
@@ -316,6 +316,75 @@ def test_cms_update_kernel_matches_plain(cuda, width):
     torch.cuda.synchronize()
     assert su.LAUNCHES["cms_update"] == before + 1
     assert torch.equal(got, su.cms_update_ref(vals, _CMS_SEEDS, width))
+
+
+def _cms_keys(n, kind, seed):
+    """int32 keys: ``random`` over the whole int32 range (both ends
+    included), ``equal`` all one key, ``zipf`` the stream's skew."""
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        vals = np.full(n, -7, dtype=np.int64)
+    elif kind == "zipf":
+        vals = rng.zipf(2.0, n) - 1
+    else:
+        vals = rng.integers(_I32.min, _I32.max, n, dtype=np.int64, endpoint=True)
+        vals[:2] = [_I32.min, _I32.max][:n]
+    return vals.astype(np.int32)
+
+
+# N: empty, one key, ragged (no multiple of any block), one cluster's worth
+# (the table stored, not zeroed), several clusters (a zeroed table, atomics)
+_CMS_NS = [0, 1, 4_097, 100_003, 300_007]
+
+
+@pytest.mark.parametrize("kind", ["random", "equal", "zipf"])
+@pytest.mark.parametrize("n", _CMS_NS)
+@pytest.mark.parametrize("depth,width", [(1, 1), (4, 2048), (32, 2048),
+                                         (4, 12_288), (2, 12_289)])
+def test_cms_update_kernel_input_classes(cuda, kind, n, depth, width):
+    """K4 bit for bit against its plain version on every class of input:
+    the table's entries all written (a stored table is allocated without
+    zeroing), depth 1 and the kernel's most, widths on both sides of the
+    shared-memory tables (12,288), one launch a call when N > 0."""
+    assert _build.library("cms_update").cms_max_depth() == 32  # depth 32: the kernel's most
+    seeds = tuple(((1 << 32) - 1 - 977 * d) for d in range(depth))
+    vals = torch.from_numpy(_cms_keys(n, kind, n + depth + width)).to(cuda)
+    before = su.LAUNCHES["cms_update"]
+    got = su.cms_update(vals, seeds, width)
+    torch.cuda.synchronize()
+    assert su.LAUNCHES["cms_update"] == before + (1 if n else 0)
+    assert got.shape == (depth, width) and got.dtype == torch.int32
+    assert torch.equal(got, su.cms_update_ref(vals, seeds, width))
+    assert int(got.sum()) == n * depth
+
+
+@pytest.mark.parametrize("n", _CMS_NS)
+@pytest.mark.parametrize("cols,depth,width", [((0, 2), 4, 2048), ((2, 1), 32, 100),
+                                              ((1, 2), 3, 12_289), ((0,), 8, 4096)])
+def test_cms_tables_kernel_matches_plain(cuda, n, cols, depth, width):
+    """``cms_tables`` (the fused ingest's sketch half) over arity-3 rows with
+    one or two sketched columns, tables split over several shared-memory
+    groups (32 x 100 and 8 x 4096), the wide-table path and a heavy key."""
+    rows = _rows(n, 3, n + width)
+    if n > 8:
+        rows[: n // 3, 2] = 5  # a heavy key in one sketched column
+    rows = torch.from_numpy(rows).to(cuda)
+    seeds = _CMS_SEEDS * (depth // 4) + _CMS_SEEDS[: depth % 4]
+    got = su.cms_tables(rows, cols, seeds, width)
+    torch.cuda.synchronize()
+    assert got.shape == (len(cols), depth, width)
+    assert torch.equal(got, su.cms_tables_ref(rows, cols, seeds, width))
+
+
+def test_cms_update_stored_table_ignores_stale_memory(cuda):
+    """A table that one cluster stores is allocated with ``torch.empty``:
+    fill the allocator's cache with garbage first, then every entry must
+    still be the plain version's."""
+    vals = torch.from_numpy(_cms_keys(50_000, "zipf", 3)).to(cuda)
+    junk = torch.full((4, 2048), -123, dtype=torch.int32, device=cuda)
+    del junk
+    got = su.cms_update(vals, _CMS_SEEDS, 2048)
+    assert torch.equal(got, su.cms_update_ref(vals, _CMS_SEEDS, 2048))
 
 
 def _stream_batches():
@@ -479,6 +548,83 @@ def test_histogram_kernel_matches_plain(cuda, n, num_bins):
     torch.cuda.synchronize()
     assert hg.LAUNCHES["histogram"] == before + (1 if n else 0)
     assert torch.equal(got, hg.histogram_ref(vals, num_bins))
+
+
+@pytest.mark.parametrize("kind", ["random", "equal", "heavy"])
+@pytest.mark.parametrize("n", [1, 4_097, 1_000_003])
+@pytest.mark.parametrize("num_bins", [1, 12_288, 12_289, 100_000, 1 << 20])
+def test_histogram_kernel_input_classes(cuda, kind, n, num_bins):
+    """K5 bit for bit against its plain version on both sides of the
+    shared-memory kernel's range (12,288 bins) and up to 2^20 bins: values
+    below 0 and at or above num_bins dropped, all values equal, a heavy
+    value in 10 % (the §9.1 column's skew)."""
+    rng = np.random.default_rng(n + num_bins)
+    vals = rng.integers(-3, num_bins + 5, n)
+    if kind == "equal":
+        vals[:] = num_bins // 2
+    elif kind == "heavy":
+        vals[rng.random(n) < 0.1] = 7 % num_bins
+    vals = torch.from_numpy(vals.astype(np.int32)).to(cuda)
+    before = hg.LAUNCHES["histogram"]
+    got = hg.histogram(vals, num_bins)
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["histogram"] == before + 1
+    assert torch.equal(got, hg.histogram_ref(vals, num_bins))
+
+
+def test_histogram_cluster_design_matches_plain(cuda):
+    """The cluster-range design that the sparse kernel was measured against
+    (chip_smoke.py), on the §9.1 column's shape."""
+    rng = np.random.default_rng(5)
+    vals = rng.integers(-3, 100_005, 1_000_000)
+    vals[rng.random(vals.shape[0]) < 0.1] = 7
+    vals = torch.from_numpy(vals.astype(np.int32)).to(cuda)
+    got = hg._launch(vals, 100_000, design=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hg.histogram_ref(vals, 100_000))
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("d", [8, 40, 72])
+def test_flash_attention_kernel_pads_head_dim(cuda, d, dtype):
+    """A head dim that is no multiple of 16 runs zero-padded to the next one
+    with the true scale, and is cropped: against the plain version at D
+    itself, GQA, causal and not, through the layer's [B, L, H, D] views."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(d)
+    tol = 2e-5 if dtype == _F32 else 2e-2
+    for causal, (lq, lk) in ((True, (150, 150)), (False, (77, 130))):
+        base = [torch.from_numpy(rng.normal(size=(2, ln, hh, d)).astype(np.float32)).to(cuda, dtype)
+                for ln, hh in ((lq, 8), (lk, 2), (lk, 2))]
+        q, k, v = (t.transpose(1, 2) for t in base)
+        before = fa.LAUNCHES["flash_attention"]
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention"] == before + 1
+        assert got.dtype == dtype and got.shape == (2, 8, lq, d)
+        want = fa.flash_attention_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("l", [1, 77])
+@pytest.mark.parametrize("hd", [8, 24, 72])
+def test_wkv6_kernel_pads_head_dim(cuda, hd, l):
+    """A head dim that is no multiple of 16 runs padded (w by ones, the rest
+    by zeros) and is cropped: y and the state against the plain version at
+    hd itself, from a state and with the state updated in place."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, l, 3, hd, hd + l, cuda)
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+    buf = s0.clone()
+    before = wk.LAUNCHES["wkv6"]
+    y, s = wk.wkv6(r, k, v, w, u, s0)
+    y2, s2 = wk.wkv6(r, k, v, w, u, buf, state_out=buf)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6"] == before + 2
+    assert s2.data_ptr() == buf.data_ptr() and y.shape == (2, l, 3, hd)
+    for yy, ss in ((y, s), (y2, buf)):
+        assert ss.shape == (2, 3, hd, hd)
+        torch.testing.assert_close(yy, y_want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(ss, s_want, rtol=2e-4, atol=2e-4)
 
 
 # ---- the dense transformer on the card ---------------------------------------

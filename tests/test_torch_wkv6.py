@@ -114,9 +114,16 @@ def test_wrapper_checks_its_arguments():
         wk.wkv6(r, k, v, w, u, state_out=s0.transpose(2, 3))
     with pytest.raises(ValueError, match="at least one token"):
         wk.wkv6(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u)
-    r8, k8, v8, w8, u8, _ = _t(*_inputs(1, 4, 2, 8, 8))
-    with pytest.raises(ValueError, match="multiple of 16"):
-        wk.wkv6(r8, k8, v8, w8, u8)
+    # hd = 8 was refused; the port now takes any hd up to 128 (padded on the
+    # card) and computes it, held against the JAX kernel; above 128 it raises
+    r8, k8, v8, w8, u8, _ = _inputs(1, 4, 2, 8, 8)
+    y8, _ = wk.wkv6(*_t(r8, k8, v8, w8, u8))
+    flat = [jnp.asarray(a[0].transpose(1, 0, 2)) for a in (r8, k8, v8, w8)]
+    np.testing.assert_allclose(y8[0].transpose(0, 1).numpy(),
+                               np.asarray(wkv6_pallas(*flat, jnp.asarray(u8), chunk=4)), **_TOL)
+    r9, k9, v9, w9, u9, _ = _t(*_inputs(1, 4, 2, 144, 8))
+    with pytest.raises(ValueError, match=r"outside \[1, 128\]"):
+        wk.wkv6(r9, k9, v9, w9, u9)
     with pytest.raises(ValueError, match="no kernel for device"):
         wk.wkv6(*(t.to("meta") for t in (r, k, v, w, u)))
 
@@ -198,8 +205,60 @@ def test_launch_geometry_copies_each_tile_word_once(hd):
 
 @pytest.mark.parametrize("hd", [8, 24, 144])
 def test_launch_geometry_rejects(hd):
-    with pytest.raises(ValueError, match="multiple of 16"):
-        wk.launch_geometry(hd)
+    """Above 128 no geometry holds the state: refused.  A head dim below
+    that is no multiple of 16 (refused before) runs at the padded dim's
+    geometry, which ``launch_geometry`` names."""
+    if hd > wk.MAX_HEAD_DIM:
+        with pytest.raises(ValueError, match="outside"):
+            wk.launch_geometry(hd)
+        return
+    hp = wk.padded_head_dim(hd)
+    assert hp in wk.HEAD_DIMS and hp - 16 < hd < hp
+    assert wk.launch_geometry(hd) == wk.launch_geometry(hp)
+    assert wk.launch_geometry(hd, 1) == wk.STEP
+
+
+@pytest.mark.parametrize("hd", [1, 8, 24, 40, 72, 127])
+def test_pad_head_dim_keeps_the_function(hd):
+    """The card's path at a head dim that is no multiple of 16, run through
+    the plain version: inputs padded (r, k, v, u, s0 with zeros, w with
+    ones), the recurrence at the padded dim, y and the state cropped, equal
+    to the plain version at hd itself (to 1e-5: einsum sums the longer
+    padded rows in another order); the padded rows and columns of the final
+    state stay exactly zero."""
+    r, k, v, w, u, s0 = _t(*_inputs(2, 9, 2, hd, hd, s0_scale=0.5))
+    padded = wk.pad_head_dim(r, k, v, w, u, s0)
+    hp = wk.padded_head_dim(hd)
+    assert all(t.shape[-1] == hp and t.dtype == torch.float32 for t in padded)
+    y_p, s_p = wk.wkv6_ref(*padded)
+    y, s = wk.wkv6_ref(r, k, v, w, u, s0)
+    np.testing.assert_allclose(y_p[..., :hd].numpy(), y.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(s_p[..., :hd, :hd].numpy(), s.numpy(), rtol=1e-5, atol=1e-5)
+    assert not s_p[..., hd:, :].any() and not s_p[..., :, hd:].any()
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_padded_head_dim_matches_pallas(with_state):
+    """hd = 24: the padding path (pad to 32, the plain version, crop) and
+    the plain version at hd = 24 against ``wkv6_pallas`` in interpret mode
+    from zero, and against the model's ``_wkv_scan`` with a state."""
+    b, l, h, hd = 1, 32, 3, 24
+    r, k, v, w, u, s0 = _inputs(b, l, h, hd, 24, s0_scale=0.5 if with_state else 0.0)
+    tt = _t(r, k, v, w, u, s0)
+    y_p, s_p = wk.wkv6_ref(*wk.pad_head_dim(*tt))
+    outs = [(y_p[..., :hd], s_p[..., :hd, :hd]), wk.wkv6(*tt)]
+    if with_state:
+        want_y, want_s = (np.asarray(a) for a in _wkv_scan(
+            *map(jnp.asarray, (r, k, v, w, u, s0)), chunk=16, unroll=1))
+    else:
+        flat = [jnp.asarray(a[0].transpose(1, 0, 2)) for a in (r, k, v, w)]
+        want_y = np.asarray(wkv6_pallas(*flat, jnp.asarray(u), chunk=16)).transpose(1, 0, 2)[None]
+        want_s = None
+    for y, s in outs:
+        assert y.shape == (b, l, h, hd) and s.shape == (b, h, hd, hd)
+        np.testing.assert_allclose(y.numpy(), want_y, **_TOL)
+        if want_s is not None:
+            np.testing.assert_allclose(s.numpy(), want_s, **_TOL)
 
 
 @pytest.mark.parametrize("hd", wk.HEAD_DIMS)

@@ -1,0 +1,86 @@
+"""Time the Count-Min kernel (K4), the sketch-only fused pass (K3, the same
+kernel on a row block) and the histogram (K5) of one checkout of the port on
+one card, at the shapes the main path gives them, so that two checkouts can
+be compared in one call.
+
+    python3 tools/kernel_ab.py --src DIR [--label NAME] [--reps N]
+
+DIR is the root of a checkout: its ``src/repro_torch`` is imported and its
+kernels are built into its own ``build/``.  The inputs are made from fixed
+seeds, as ``chip_smoke.py`` makes them: the streaming phase's batch 0 (R's
+join column and R's rows), 100,000 equal keys, and the §9.1 R join column
+(10^6 values, 100,000 bins).  Each result is checked exactly against the
+checkout's plain version.  Prints the card and one JSON line: the label and
+each case's device ms a call by CUDA-graph replay (``chip_smoke._graph_ms``),
+with ``torch.bincount`` beside K5 (CUDA events around repeated calls,
+``chip_smoke._events_ms``: it reads the maximum back to the host, so it
+cannot be captured in a graph).  To compare a parent and a change,
+run them in turns in separate processes: parent, change, change, parent.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", type=Path, default=ROOT, help="root of the checkout to time")
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--reps", type=int, default=50)
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab.py: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import _events_ms, _graph_ms, _zipf_batch
+
+    sys.path.insert(0, str(args.src.resolve() / "src"))
+    from repro_torch.data import paper_2way
+    from repro_torch.kernels import histogram as hg
+    from repro_torch.kernels import ingest_fused as fi
+    from repro_torch.kernels import sketch_update as su
+    from repro_torch.stream.sketch import _row_seeds
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    seeds, width = _row_seeds(0, 4), 2048  # StreamConfig's sketch: seed 0, depth 4
+    batch0 = _zipf_batch(np.random.default_rng(0), 0, 100_000, 25_000, 100_000, 2.0)
+    rows0 = torch.from_numpy(batch0["R"].astype(np.int32)).to(dev)
+    col0 = rows0[:, 1].contiguous()
+    equal = torch.full_like(col0, 7)
+    r_col = paper_2way(np.random.default_rng(0), n_r=1_000_000, n_s=100_000)["R"][:, 1]
+    hh = torch.from_numpy(r_col.astype(np.int32)).to(dev)
+    cases = {
+        "k4_batch0": (lambda: su.cms_update(col0, seeds, width),
+                      lambda: su.cms_update_ref(col0, seeds, width)),
+        "k4_equal": (lambda: su.cms_update(equal, seeds, width),
+                     lambda: su.cms_update_ref(equal, seeds, width)),
+        "k3_sketch_only": (
+            lambda: fi.fused_ingest(rows0, sketch_cols=(1,), seeds=seeds, width=width)[3],
+            lambda: fi.fused_ingest_ref(rows0, sketch_cols=(1,), seeds=seeds, width=width)[3]),
+        "k5_91": (lambda: hg.histogram(hh, 100_000), lambda: hg.histogram_ref(hh, 100_000)),
+    }
+    out = {"label": args.label or str(args.src), "card": smi}
+    for name, (fn, ref) in cases.items():
+        assert torch.equal(fn(), ref()), name
+        out[name] = _graph_ms(fn, args.reps)
+    out["bincount_91"] = _events_ms(lambda: torch.bincount(hh, minlength=100_000), args.reps)
+    print(smi)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
