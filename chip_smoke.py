@@ -43,12 +43,13 @@ Phases:
  10. each stream kernel at the shapes the stream gave it: its device time
      (a CUDA graph), its wrapper's time, its plain version's time and
      result, and the bound; an empty kernel's time, the launch floor that
-     the Count-Min kernel (K4) is read against; K4 with and without its
-     warp fold of equal keys, in one cluster and in several, on batch 0's
-     join column and on as many equal keys; K4 and the fused pass's sketch
-     half exactly against their plain versions on all-equal and random
-     keys, N of 1, 4,097, 100,000 and 300,007, widths 1, 2,048, 12,288 and
-     12,289, depth 4 and 32, two sketched columns of three;
+     the Count-Min kernel (K4) is read against, and the zero fill of its
+     table; K4 on batch 0's S join column, on 100,000 equal keys and on as
+     many rows as one cluster covers (the table stored); K4 and the fused
+     pass's sketch half exactly against their plain versions on all-equal
+     and random keys, N of 1, 4,097, 8,192, 8,193, 100,000 and 300,007,
+     widths 1, 2,048, 12,288 and 12,289, depth 4 and 32, two sketched
+     columns of three;
 10b. the streaming engine survives host loss and preemption on the card,
      on phase 7's six batches (fused path, a window of 4 batches, 8
      simulated hosts, ``_recovery_phase``): an injected loss of host 2 at
@@ -87,8 +88,7 @@ Phases:
      4,097 and 1,000,003 by 1, 513, 12,288, 12,289, 100,000 and 2^20 bins
      with negative and out-of-range values, a quarter or all of them equal,
      and the heavy-hitter count of phase 4's R join column (10^6 values,
-     100,000 bins), also through the cluster-range design that the sparse
-     kernel was measured against;
+     100,000 bins);
  13. OLMo-1B at full width (16 layers, d = 2048, random weights from seed
      0) in fp32: the parallel ``prefill`` of [2, 256] prompts (K6 in every
      layer) against ``scan_prefill`` (no K6), logits and one decode step
@@ -104,8 +104,7 @@ Phases:
      prefill);
  16. K6 and K5 at the main path's shapes: device time, plain time, one
      PyTorch call's time (``scaled_dot_product_attention``,
-     ``torch.bincount``; timed here, never called by the port), bound; K5's
-     sparse kernel and the cluster-range design in turns;
+     ``torch.bincount``; timed here, never called by the port), bound;
  17. the wkv6 recurrence (K7) against its plain version on the card, each
      case naming its launch geometry: eight shapes (ragged L = 77 at hd =
      16, 48 and 128, a given state, the decode shape [4, 1, 40, 64],
@@ -182,7 +181,7 @@ INGEST_KERNELS = ("ingest_count_kernel", "ingest_scan_kernel", "ingest_rank_kern
                   *CMS_KERNELS)
 TRACE_WARMUP = 256  # tiny kernels in the profiler's warm-up step before every trace
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
-HIST_KERNELS = ("histogram_narrow_kernel", "histogram_sparse_kernel", "histogram_dsmem_kernel")
+HIST_KERNELS = ("histogram_narrow_kernel", "histogram_sparse_kernel")
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
 RETAKEN: list[str] = []  # kernels whose trace lost device events and was taken again
 
@@ -552,10 +551,6 @@ def _lm_phases(dev, r_col):
          f"max_abs_err={hist_err}; heaviest values {top.indices.tolist()} with counts "
          f"{top.values.tolist()}")
     assert hist_err == 0 and int(top.indices[0]) == 7
-    err_c = _max_abs_err([hg._launch(hh_vals, 100_000, design=1)], [hh_want])
-    _say(f"[check] histogram, the cluster-range design it was measured against, same column: "
-         f"max_abs_err={err_c}")
-    assert err_c == 0
 
     # ---- 13. OLMo-1B at full width in fp32: prefill (K6) against scan ---------
     cfg = get_config("olmo-1b")
@@ -733,14 +728,10 @@ def _lm_phases(dev, r_col):
     ms5, ev5, wrap5 = _kernel_ms(lambda: hg.histogram(hh_vals, 100_000), HIST_KERNELS, reps=20)
     lib5 = _events_ms(lambda: torch.bincount(hh_vals, minlength=100_000), reps=20)
     bound5, by5 = _bound(2.0 * hh_vals.shape[0], 4.0 * (hh_vals.shape[0] + 100_000))
-    # the design kept against the one it was measured against, in turns
-    ms5_c = [_graph_ms(lambda: hg._launch(hh_vals, 100_000, design=d), 20) for d in (1, 0, 0, 1)]
     _say(f"[K5] histogram N={hh_vals.shape[0]} bins=100000: kernel {ms5:.4f} ms (CUDA graph "
          f"of 20 calls; {_short(ev5)} ms an event in a trace; wrapper {wrap5:.4f} ms); plain "
          f"{hist_plain:.3f} ms; torch.bincount {lib5:.4f} ms; bound {bound5:.5f} ms by {by5}; "
          f"the PR 13 kernel took 0.0562-0.0581 ms (PERF.md)")
-    _say(f"[K5 design] sparse (kept) {ms5_c[1]:.4f} / {ms5_c[2]:.4f} ms against the cluster-range "
-         f"design's {ms5_c[0]:.4f} / {ms5_c[3]:.4f} ms (CUDA graph of 20 calls each, in turns)")
     return [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2024,32 +2015,28 @@ def main() -> int:
             "ms": ms4, "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4,
             "library_ms": None, "launch_floor_ms": floor,
         })
-        # K4's designs on batch 0's R join column (100,000 keys), its S join
-        # column (25,000: the baseline's other call) and 100,000 equal keys:
-        # with and without the warp's fold of equal keys, one cluster (the
-        # table stored) and several (a zeroed table, atomics)
-        equal = torch.full_like(vals, 7)
+        # K4 on batch 0's S join column (25,000 keys, the baseline's other
+        # call), on 100,000 equal keys, and on as many rows as one cluster
+        # covers (the table stored, no zero fill); the zero fill itself
+        one_rows = _build.library("cms_update").cms_one_cluster_rows()
         s_col = torch.from_numpy(batches[0]["S"][:, 0].astype(np.int32)).to(dev)
-        fold0, one0 = su.FOLD, su.ONE_CLUSTER_ROWS
-        for fold in (True, False):
-            for one in (1 << 62, 0):
-                su.FOLD, su.ONE_CLUSTER_ROWS = fold, one
-                times = []
-                for x in (vals, s_col, equal):
-                    assert torch.equal(su.cms_update(x, seeds, width),
-                                       su.cms_update_ref(x, seeds, width))
-                    times.append(_graph_ms(lambda: su.cms_update(x, seeds, width), 50))
-                _say(f"[K4 design] fold={fold} {'one cluster' if one else 'several clusters'}: "
-                     f"batch 0 R {times[0]:.4f} ms, S {times[1]:.4f} ms, all keys equal "
-                     f"{times[2]:.4f} ms (CUDA graph of 50 calls)")
-        su.FOLD, su.ONE_CLUSTER_ROWS = fold0, one0
+        times = []
+        for x in (s_col, torch.full_like(vals, 7), vals[:one_rows]):
+            assert torch.equal(su.cms_update(x, seeds, width), su.cms_update_ref(x, seeds, width))
+            times.append(_graph_ms(lambda: su.cms_update(x, seeds, width), 50))
+        fill = _graph_ms(lambda: torch.zeros((len(seeds), width), dtype=torch.int32,
+                                             device=dev), 50)
+        _say(f"[K4] cms_update batch 0's S column (N={s_col.shape[0]}) {times[0]:.4f} ms, "
+             f"{vals.shape[0]} equal keys {times[1]:.4f} ms, N={one_rows} (one cluster, the table "
+             f"stored) {times[2]:.4f} ms; the zero fill of a [{len(seeds)}, {width}] table "
+             f"{fill:.4f} ms (CUDA graph of 50 calls each)")
         # K4 and the fused pass's sketch half on every class of input,
         # exactly: all keys equal, N = 1, N ragged, one cluster's N and
         # several clusters', widths 1, 12,288 and 12,289 (the shared-memory
         # tables' edge), depth 1 and 32, two sketched columns of three
         i32 = np.iinfo(np.int32)
         rng_k = np.random.default_rng(4)
-        for n in (1, 4097, 100_000, 300_007):
+        for n in (1, 4097, 8192, 8193, 100_000, 300_007):
             for kind in ("random", "equal"):
                 keys = rng_k.integers(i32.min, i32.max, n, dtype=np.int64, endpoint=True)
                 if kind == "equal":

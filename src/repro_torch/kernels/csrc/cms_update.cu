@@ -16,30 +16,28 @@
 // twenty instructions a key and table), so what bounds the kernel is the
 // launch, the latency of one pass over the keys, and the merge of the
 // CTAs' tables into one.  The design:
-//   * one CTA takes a chunk of rows and reads each key once: every table of
-//     the key's column (each seed) is counted from that one read, the
-//     modulo by width a multiply-high with a magic number (Granlund and
-//     Montgomery) instead of a division, UNROLL keys a thread loaded before
-//     any is counted;
-//   * a warp folds equal keys first (__match_any_sync) and one lane adds
-//     the group's size to each of the key's buckets, so a heavy key (the
-//     skew the sketch exists to find) costs one shared-memory atomic a warp
-//     and table, and the other lanes skip the hashing;
-//   * the CTAs of a thread-block cluster merge their tables over
+//   * one CTA of 256 threads takes about 1,024 rows and reads each key
+//     once: every table of the key's column (each seed) is counted from
+//     that one read, the modulo by width a multiply-high with a magic
+//     number (Granlund and Montgomery) instead of a division, UNROLL keys a
+//     thread loaded before any is counted.  Each lane adds its own keys:
+//     Hopper's shared-memory atomics absorb equal keys within a warp, and a
+//     warp fold (__match_any_sync) measured slower on the stream's skewed
+//     keys and on all-equal keys alike (PERF.md, PR 19);
+//   * the 8 CTAs of a thread-block cluster merge their tables over
 //     distributed shared memory: CTA r of the cluster sums slice r of every
 //     CTA's tables (16-byte ld.shared::cluster loads) and writes it once;
-//   * up to the wrapper's ONE_CLUSTER_ROWS rows, one cluster of 16 CTAs of
-//     1,024 threads counts them all and its merged slices are the table
-//     itself: stored, zeros included, so the caller need not zero it (no
-//     fill launch).  More rows take clusters of 8 CTAs of 256 threads, a
-//     CTA to about 1,024 rows, each cluster adding its non-zero merged bins
-//     to a zeroed table with atomics.  Integer adds commute, so the table
-//     does not depend on the order of the atomics: it equals the host's
-//     bucket_np histogram bit for bit;
+//   * where one cluster covers all N rows (N <= cms_one_cluster_rows()),
+//     the merged slices are the table itself: stored, zeros included, so
+//     the caller need not zero it (no fill launch).  With more rows each
+//     cluster adds its non-zero merged bins to a zeroed table with atomics.
+//     Integer adds commute, so the table does not depend on the order of
+//     the atomics: it equals the host's bucket_np histogram bit for bit;
 //   * as many tables as fit in SMEM_WORDS share a CTA's shared memory
 //     (blockIdx.y walks groups of tables); a table wider than SMEM_WORDS is
 //     counted with atomics in device memory directly, each key still read
-//     once for all its tables.
+//     once for all its tables, a warp folding equal keys first there (one
+//     address in device memory serialises its atomics in L2).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,13 +50,9 @@ constexpr int UNROLL = 4;            // keys a thread loads before it counts the
 constexpr int SMEM_WORDS = 12288;    // 48 KB of tables a CTA
 constexpr int MAX_COLS = 16;
 constexpr int MAX_DEPTH = 32;
-// one cluster covering every row: 16 CTAs (non-portable) of 1,024 threads
-constexpr int ONE_THREADS = 1024;
-constexpr int ONE_CS = 16;
-// several clusters: 8 CTAs (portable) of 256 threads, about a row a thread
-constexpr int MANY_THREADS = 256;
-constexpr int MANY_CS = 8;
-constexpr int ROWS_PER_CTA = 1024;
+constexpr int THREADS = 256;
+constexpr int CS = 8;                // CTAs a cluster (portable)
+constexpr int ROWS_PER_CTA = 1024;   // a CTA's rows, until MAX_CLUSTERS clusters
 constexpr int MAX_CLUSTERS = 16;
 constexpr int GLOBAL_CTAS = 1024;    // the wide-table kernel's grid, at most
 constexpr unsigned FULL = 0xFFFFFFFFu;
@@ -164,8 +158,7 @@ __device__ __forceinline__ uint4 load_rank(const uint4* local, unsigned rank) {
 // over its chunk of rows; blockIdx.y is the group of tables.  write: one
 // cluster covers all rows, so the merged bins are stored (out need not be
 // zeroed); otherwise they are added to a zeroed out.
-template <int T, int CS, bool FOLD>
-__global__ void __launch_bounds__(T)
+__global__ void __launch_bounds__(THREADS)
 cms_cluster_kernel(Params p, int write) {
   __shared__ uint4 tab4[SMEM_WORDS / 4];
   uint32_t* tab = reinterpret_cast<uint32_t*>(tab4);
@@ -174,11 +167,11 @@ cms_cluster_kernel(Params p, int write) {
   const int t1 = min(t0 + p.group, p.n_tables);
   const int words = (t1 - t0) * static_cast<int>(p.width);
   const int words4 = (words + 3) / 4;
-  for (int w = threadIdx.x; w < words4; w += T) tab4[w] = make_uint4(0u, 0u, 0u, 0u);
+  for (int w = threadIdx.x; w < words4; w += THREADS) tab4[w] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
   const long long begin = static_cast<long long>(blockIdx.x) * p.rows_per_cta;
   const long long end = min(begin + p.rows_per_cta, p.n);
-  count_tables<T, FOLD>(p, t0, t1, begin, end, tab);
+  count_tables<THREADS, false>(p, t0, t1, begin, end, tab);
   // every CTA of the cluster has counted: CTA r sums slice r over the cluster
   cluster.sync();
   const unsigned rank = cluster.block_rank();
@@ -186,7 +179,7 @@ cms_cluster_kernel(Params p, int write) {
   const int lo4 = static_cast<int>(rank) * slice4;
   const int hi4 = min(lo4 + slice4, words4);
   uint32_t* out = p.out + static_cast<long long>(t0) * p.width;
-  for (int w4 = lo4 + threadIdx.x; w4 < hi4; w4 += T) {
+  for (int w4 = lo4 + threadIdx.x; w4 < hi4; w4 += THREADS) {
     uint32_t sum[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
     for (int q = 0; q < CS; ++q) {  // unrolled: the loads are in flight together
@@ -196,6 +189,15 @@ cms_cluster_kernel(Params p, int write) {
       sum[2] += v.z;
       sum[3] += v.w;
     }
+    // slice r of this CTA's tables is read by this CTA alone: it takes the sums
+    tab4[w4] = make_uint4(sum[0], sum[1], sum[2], sum[3]);
+  }
+  // this CTA has read its peers' tables: it tells them so, writes its slice
+  // out meanwhile, and leaves only when every peer has read its tables
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  for (int w4 = lo4 + threadIdx.x; w4 < hi4; w4 += THREADS) {
+    const uint4 v = tab4[w4];
+    const uint32_t sum[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int w = 4 * w4 + e;
@@ -207,43 +209,20 @@ cms_cluster_kernel(Params p, int write) {
       }
     }
   }
-  // no CTA leaves while another may still read its tables
-  cluster.sync();
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // Tables wider than shared memory: atomics in device memory (out zeroed),
-// every table of a key's column from one read of the key.
-template <bool FOLD>
-__global__ void __launch_bounds__(MANY_THREADS)
+// every table of a key's column from one read of the key, equal keys of a
+// warp folded.
+__global__ void __launch_bounds__(THREADS)
 cms_global_kernel(Params p) {
   const long long begin = static_cast<long long>(blockIdx.x) * p.rows_per_cta;
   const long long end = min(begin + p.rows_per_cta, p.n);
-  count_tables<MANY_THREADS, FOLD>(p, 0, p.n_tables, begin, end, p.out);
+  count_tables<THREADS, true>(p, 0, p.n_tables, begin, end, p.out);
 }
 
 __global__ void empty_kernel() {}
-
-template <int T, int CS, bool FOLD>
-cudaError_t launch_clusters(const Params& p, long long ctas, int groups, int write,
-                            cudaStream_t st) {
-  if (CS > 8) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cms_cluster_kernel<T, CS, FOLD>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(ctas), static_cast<unsigned>(groups), 1);
-  cfg.blockDim = dim3(T, 1, 1);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, cms_cluster_kernel<T, CS, FOLD>, p, write);
-}
 
 }  // namespace
 
@@ -252,20 +231,19 @@ extern "C" {
 int cms_max_cols() { return MAX_COLS; }
 int cms_max_depth() { return MAX_DEPTH; }
 int cms_smem_words() { return SMEM_WORDS; }
+// rows up to which one cluster counts them all (and stores the table)
+int cms_one_cluster_rows() { return CS * ROWS_PER_CTA; }
 
 // rows: [n, stride] int32, contiguous; cols [n_cols] (each < stride) and
 // seeds [depth] (uint32 bit patterns) are host arrays.  out: [n_cols, depth,
-// width] int32 storage counted as uint32.  one_cluster (width <= SMEM_WORDS
-// only): one cluster counts all n rows and stores every entry of out, which
-// need not be zeroed; otherwise out must be zeroed.  fold: a warp folds
-// equal keys (__match_any_sync) before it counts them.  Returns the
-// launch's cudaError_t (0 = launched; a refused cluster launch is not 0).
+// width] int32 storage counted as uint32: zeroed by the caller, except
+// where width <= cms_smem_words() and n <= cms_one_cluster_rows() (one
+// cluster stores every entry).  Returns the launch's cudaError_t (0 =
+// launched; a refused cluster launch is not 0).
 int cms_launch(const void* rows, long long n, int stride, const int* cols, int n_cols,
-               const unsigned* seeds, int depth, unsigned width, void* out, int one_cluster,
-               int fold, void* stream) {
+               const unsigned* seeds, int depth, unsigned width, void* out, void* stream) {
   if (n_cols < 1 || n_cols > MAX_COLS || depth < 1 || depth > MAX_DEPTH || width < 1u ||
-      width >= 0x80000000u || stride < 1 || n < 0 ||
-      (one_cluster && width > static_cast<unsigned>(SMEM_WORDS))) {
+      width >= 0x80000000u || stride < 1 || n < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
@@ -290,30 +268,30 @@ int cms_launch(const void* rows, long long n, int stride, const int* cols, int n
     long long ctas = (n + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
     if (ctas > GLOBAL_CTAS) ctas = GLOBAL_CTAS;
     p.rows_per_cta = (n + ctas - 1) / ctas;
-    if (fold) {
-      cms_global_kernel<true><<<static_cast<unsigned>(ctas), MANY_THREADS, 0, st>>>(p);
-    } else {
-      cms_global_kernel<false><<<static_cast<unsigned>(ctas), MANY_THREADS, 0, st>>>(p);
-    }
+    cms_global_kernel<<<static_cast<unsigned>(ctas), THREADS, 0, st>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   p.group = SMEM_WORDS / static_cast<int>(width);
   if (p.group > p.n_tables) p.group = p.n_tables;
   const int groups = (p.n_tables + p.group - 1) / p.group;
-  cudaError_t err;
-  if (one_cluster) {
-    p.rows_per_cta = (n + ONE_CS - 1) / ONE_CS;
-    err = fold ? launch_clusters<ONE_THREADS, ONE_CS, true>(p, ONE_CS, groups, 1, st)
-               : launch_clusters<ONE_THREADS, ONE_CS, false>(p, ONE_CS, groups, 1, st);
-  } else {
-    long long clusters = (n + static_cast<long long>(MANY_CS) * ROWS_PER_CTA - 1) /
-                         (static_cast<long long>(MANY_CS) * ROWS_PER_CTA);
-    if (clusters > MAX_CLUSTERS) clusters = MAX_CLUSTERS;
-    const long long ctas = clusters * MANY_CS;
-    p.rows_per_cta = (n + ctas - 1) / ctas;
-    err = fold ? launch_clusters<MANY_THREADS, MANY_CS, true>(p, ctas, groups, 0, st)
-               : launch_clusters<MANY_THREADS, MANY_CS, false>(p, ctas, groups, 0, st);
-  }
+  long long clusters = (n + static_cast<long long>(CS) * ROWS_PER_CTA - 1) /
+                       (static_cast<long long>(CS) * ROWS_PER_CTA);
+  if (clusters > MAX_CLUSTERS) clusters = MAX_CLUSTERS;
+  const long long ctas = clusters * CS;
+  p.rows_per_cta = (n + ctas - 1) / ctas;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas), static_cast<unsigned>(groups), 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, cms_cluster_kernel, p, static_cast<int>(clusters == 1));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,17 +28,15 @@
 //     slots in shared memory: a value a warp saw more than once claims its
 //     slot if the slot is free, and later occurrences of a value that holds
 //     a slot are added there.  A heavy value (10 % of the §9.1 column)
-//     therefore costs about one device atomic a CTA, not one a warp;
-//   * the design measured against the sparse one (design 1, wide ranges
-//     only): a cluster of CTAs whose distributed shared memory holds the
-//     whole range, each CTA a slice of DSMEM_BINS bins, every value added to
-//     the slice's owner, each cluster adding its non-zero bins to out.
+//     therefore costs about one device atomic a CTA, not one a warp.  A
+//     cluster whose distributed shared memory holds the whole range (2 CTAs
+//     of 200 KB for 100,000 bins, merged once a cluster) was measured
+//     against it and was slower: at this density it issues about as many
+//     device atomics and each CTA also zeroes and scans its 50,000 bins
+//     (PERF.md, PR 19).
 // Integer adds commute, so out does not depend on the order of the atomics.
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -49,8 +47,6 @@ constexpr int SLOTS = 2048;             // the sparse kernel's tagged slots: 16 
 constexpr int SLOT_BITS = 11;
 constexpr int CTAS_PER_SM = 4;
 constexpr long long VALUES_PER_CTA = static_cast<long long>(THREADS) * UNROLL;
-constexpr int DSMEM_BINS = 51200;       // design 1: 200 KB a CTA
-constexpr int MAX_CLUSTER = 16;
 constexpr uint32_t EMPTY = 0xFFFFFFFFu;  // no value: values counted are < 2^31
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
@@ -127,67 +123,11 @@ histogram_sparse_kernel(const int32_t* __restrict__ values, long long n, uint32_
   }
 }
 
-// Design 1: a cluster's CTAs hold slices of `slice` bins each, the whole
-// range between them; every value goes to its slice's owner, then each CTA
-// adds its slice's non-zero bins to out.
-__global__ void __launch_bounds__(THREADS)
-histogram_dsmem_kernel(const int32_t* __restrict__ values, long long n, uint32_t num_bins,
-                       long long per_cta, uint32_t slice, uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t part[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const uint32_t lo = cluster.block_rank() * slice;
-  const uint32_t hi = min(lo + slice, num_bins);
-  for (uint32_t b = threadIdx.x; b < slice; b += THREADS) part[b] = 0u;
-  cluster.sync();
-  for_each_folded(values, n, num_bins, per_cta, [&](uint32_t v, uint32_t c) {
-    atomicAdd(cluster.map_shared_rank(part, v / slice) + v % slice, c);
-  });
-  cluster.sync();
-  for (uint32_t b = lo + threadIdx.x; b < hi; b += THREADS) {
-    if (part[b - lo] != 0u) atomicAdd(out + b, part[b - lo]);
-  }
-}
-
 int sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
   return sms;
-}
-
-int launch_dsmem(const int32_t* values, long long n, uint32_t num_bins, uint32_t* out,
-                 cudaStream_t st, int sms) {
-  const uint32_t cs = (num_bins + DSMEM_BINS - 1) / DSMEM_BINS;
-  if (cs > static_cast<uint32_t>(MAX_CLUSTER)) return static_cast<int>(cudaErrorInvalidValue);
-  const uint32_t slice = (num_bins + cs - 1) / cs;
-  const size_t bytes = sizeof(uint32_t) * slice;
-  cudaError_t err = cudaFuncSetAttribute(
-      histogram_dsmem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(histogram_dsmem_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long clusters = sms / static_cast<int>(cs);  // one CTA an SM: a full wave
-  if (clusters < 1) clusters = 1;
-  const long long ctas = clusters * cs;
-  const long long per_cta = (n + ctas - 1) / ctas;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(ctas), 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, histogram_dsmem_kernel, values, n, num_bins, per_cta, slice,
-                           out);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -197,15 +137,11 @@ extern "C" {
 int histogram_smem_bins() { return SMEM_BINS; }
 
 // values: [n] int32 on the card; out: [num_bins] int32 storage, zeroed by
-// the caller, counted as uint32.  design 0: the narrow kernel for num_bins
-// <= SMEM_BINS, the sparse one above; design 1: the cluster-range kernel
-// (num_bins <= MAX_CLUSTER * DSMEM_BINS).  Returns the launch's cudaError_t
-// (0 = launched; a refused launch is not 0).
-int histogram_launch(const void* values, long long n, int num_bins, int design, void* out,
-                     void* stream) {
-  if (n < 0 || num_bins < 1 || design < 0 || design > 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// the caller, counted as uint32: the narrow kernel for num_bins <=
+// SMEM_BINS, the sparse one above.  Returns the launch's cudaError_t (0 =
+// launched; a refused launch is not 0).
+int histogram_launch(const void* values, long long n, int num_bins, void* out, void* stream) {
+  if (n < 0 || num_bins < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const int sms = sm_count();
   if (sms < 1) return static_cast<int>(cudaErrorInvalidDevice);
@@ -213,7 +149,6 @@ int histogram_launch(const void* values, long long n, int num_bins, int design, 
   uint32_t* o = static_cast<uint32_t*>(out);
   const uint32_t bins = static_cast<uint32_t>(num_bins);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (design == 1) return launch_dsmem(v, n, bins, o, st, sms);
   long long ctas = (n + VALUES_PER_CTA - 1) / VALUES_PER_CTA;
   if (ctas > static_cast<long long>(CTAS_PER_SM) * sms) ctas = static_cast<long long>(CTAS_PER_SM) * sms;
   const long long per_cta = (n + ctas - 1) / ctas;

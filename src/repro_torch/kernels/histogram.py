@@ -47,29 +47,6 @@ def _check(values: torch.Tensor, num_bins: int) -> None:
         raise ValueError(f"histogram: num_bins must be in [1, 2^31), got {num_bins}")
 
 
-def _launch(values: torch.Tensor, num_bins: int, design: int = 0) -> torch.Tensor:
-    """The kernel over ``values`` (int32, contiguous, on the card); counts no
-    launch.  ``design`` 0 is the port's (narrow or sparse kernel by
-    num_bins); 1 the cluster-range kernel it was measured against
-    (chip_smoke.py)."""
-    out = torch.zeros(int(num_bins), dtype=torch.int32, device=values.device)
-    if values.shape[0] == 0:
-        return out
-    fn = library("histogram").histogram_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(values.data_ptr(), values.shape[0], int(num_bins), int(design), out.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"histogram kernel launch failed: cudaError {err}")
-    return out
-
-
 def histogram(values: torch.Tensor, num_bins: int) -> torch.Tensor:
     """[num_bins] int32 counts of each value in [0, num_bins) over ``values``."""
     _check(values, num_bins)
@@ -78,7 +55,18 @@ def histogram(values: torch.Tensor, num_bins: int) -> torch.Tensor:
     if values.device.type != "cuda":
         raise ValueError(f"histogram: no kernel for device {values.device}")
     values = values.contiguous()
-    out = _launch(values, num_bins)
-    if values.shape[0]:
-        count_launch(LAUNCHES, "histogram")
+    out = torch.zeros(int(num_bins), dtype=torch.int32, device=values.device)
+    if values.shape[0] == 0:
+        return out
+    fn = library("histogram").histogram_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = fn(values.data_ptr(), values.shape[0], int(num_bins), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"histogram kernel launch failed: cudaError {err}")
+    count_launch(LAUNCHES, "histogram")
     return out

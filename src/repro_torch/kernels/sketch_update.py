@@ -10,9 +10,9 @@ the card can be absorbed by a host sketch with the same seeds.
 for CUDA tensors and the plain ``cms_update_ref`` for CPU tensors; a CUDA
 tensor never falls back to the plain version.  The kernel reads each key
 once, counts it into every table of its column in shared memory, and merges
-the tables of a thread-block cluster over distributed shared memory; up to
-``ONE_CLUSTER_ROWS`` rows one cluster covers them all and stores the whole
-table, so the wrapper allocates it without zeroing it.  ``cms_tables`` is the same
+the tables of a thread-block cluster over distributed shared memory; where
+one cluster covers every row (the library's ``cms_one_cluster_rows()``) it
+stores the whole table, so the wrapper allocates it without zeroing it.  ``cms_tables`` is the same
 kernel over several columns of a row block, the sketch half of the fused
 ingest pass (``kernels.ingest_fused``); its launches are counted by the
 fused wrapper that calls it, not in ``LAUNCHES["cms_update"]``.
@@ -28,12 +28,6 @@ from repro_torch.mapreduce.hashing import bucket_torch
 from ._build import count_launch, library, reset_counts
 
 LAUNCHES = {"cms_update": 0}
-
-# rows up to which one cluster of CTAs counts every row and stores the whole
-# table (no zero fill); above it several clusters add into a zeroed table
-ONE_CLUSTER_ROWS = 1 << 15
-# a warp folds equal keys before it counts them (csrc/cms_update.cu)
-FOLD = True
 
 _M32 = 0xFFFFFFFF
 
@@ -84,15 +78,14 @@ def _launch(rows: torch.Tensor, cols, seeds, width: int) -> torch.Tensor:
             f"cms: {len(cols)} columns x {len(seeds)} seeds exceed the kernel's "
             f"{lib.cms_max_cols()} x {lib.cms_max_depth()}"
         )
-    one_cluster = rows.shape[0] <= ONE_CLUSTER_ROWS and int(width) <= lib.cms_smem_words()
-    # one cluster stores every entry; otherwise the clusters add into zeros
-    out = (torch.empty if one_cluster else torch.zeros)(
-        shape, dtype=torch.int32, device=rows.device)
+    # one cluster stores every entry; otherwise the kernel adds into zeros
+    stored = rows.shape[0] <= lib.cms_one_cluster_rows() and int(width) <= lib.cms_smem_words()
+    out = (torch.empty if stored else torch.zeros)(shape, dtype=torch.int32, device=rows.device)
     fn = lib.cms_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ctypes.c_int, ctypes.POINTER(ctypes.c_uint), ctypes.c_int, ctypes.c_uint,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     c_cols = (ctypes.c_int * len(cols))(*[int(c) for c in cols])
@@ -101,8 +94,7 @@ def _launch(rows: torch.Tensor, cols, seeds, width: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = fn(
             rows.data_ptr(), rows.shape[0], rows.shape[1], c_cols, len(cols),
-            c_seeds, len(seeds), int(width), out.data_ptr(), int(one_cluster), int(FOLD),
-            stream,
+            c_seeds, len(seeds), int(width), out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"cms_update kernel launch failed: cudaError {err}")

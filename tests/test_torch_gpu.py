@@ -332,9 +332,11 @@ def _cms_keys(n, kind, seed):
     return vals.astype(np.int32)
 
 
-# N: empty, one key, ragged (no multiple of any block), one cluster's worth
-# (the table stored, not zeroed), several clusters (a zeroed table, atomics)
-_CMS_NS = [0, 1, 4_097, 100_003, 300_007]
+# N: empty, one key, ragged (no multiple of any block), the most one cluster
+# covers (8,192: the table stored, not zeroed) and one more, several
+# clusters (a zeroed table, atomics), more rows a CTA than the first 16
+# clusters' 1,024
+_CMS_NS = [0, 1, 4_097, 8_192, 8_193, 100_003, 300_007]
 
 
 @pytest.mark.parametrize("kind", ["random", "equal", "zipf"])
@@ -380,7 +382,8 @@ def test_cms_update_stored_table_ignores_stale_memory(cuda):
     """A table that one cluster stores is allocated with ``torch.empty``:
     fill the allocator's cache with garbage first, then every entry must
     still be the plain version's."""
-    vals = torch.from_numpy(_cms_keys(50_000, "zipf", 3)).to(cuda)
+    n = _build.library("cms_update").cms_one_cluster_rows()
+    vals = torch.from_numpy(_cms_keys(n, "zipf", 3)).to(cuda)
     junk = torch.full((4, 2048), -123, dtype=torch.int32, device=cuda)
     del junk
     got = su.cms_update(vals, _CMS_SEEDS, 2048)
@@ -570,18 +573,6 @@ def test_histogram_kernel_input_classes(cuda, kind, n, num_bins):
     torch.cuda.synchronize()
     assert hg.LAUNCHES["histogram"] == before + 1
     assert torch.equal(got, hg.histogram_ref(vals, num_bins))
-
-
-def test_histogram_cluster_design_matches_plain(cuda):
-    """The cluster-range design that the sparse kernel was measured against
-    (chip_smoke.py), on the §9.1 column's shape."""
-    rng = np.random.default_rng(5)
-    vals = rng.integers(-3, 100_005, 1_000_000)
-    vals[rng.random(vals.shape[0]) < 0.1] = 7
-    vals = torch.from_numpy(vals.astype(np.int32)).to(cuda)
-    got = hg._launch(vals, 100_000, design=1)
-    torch.cuda.synchronize()
-    assert torch.equal(got, hg.histogram_ref(vals, 100_000))
 
 
 @pytest.mark.parametrize("dtype", [_F32, _BF16])
