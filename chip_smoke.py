@@ -641,9 +641,19 @@ def _lm_phases(dev, r_col):
         logits, ms = do_prefill()
         prefill_ms.append(ms)
         n_prefill += 1
-    n_ev_pre: dict[str, int] = {}
-    (logits, ms_traced), busy_pre = _traced(do_prefill, n_ev_pre)
-    n_prefill += 1
+    for attempt in range(3):
+        n_ev_pre: dict[str, int] = {}
+        (logits, ms_traced), busy_pre = _traced(do_prefill, n_ev_pre)
+        n_prefill += 1
+        n_k6 = sum(n for k, n in n_ev_pre.items() if any(nm in k for nm in FLASH_KERNELS))
+        if n_k6 == cfg.n_layers:
+            break
+        # a trace now and then loses device events (PERF.md §7): say so and
+        # take it again; the one kept must be whole, and a run that has to
+        # retake more than one trace fails at its end
+        RETAKEN.append("prefill")
+        _say(f"[trace] the prefill's trace held {n_k6} of its {cfg.n_layers} K6 events "
+             f"(attempt {attempt + 1}); tracing again")
     tok = torch.argmax(logits, -1).to(torch.int32)
     out = [tok]
     step_ms = []

@@ -128,7 +128,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
     hkv, lk = k.shape[1], k.shape[2]
     if hkv < 1 or h % hkv:
         raise ValueError(f"flash_attention: H={h} is not a multiple of Hkv={hkv}")
-    padded_head_dim(d)
+    padded_head_dim(d)  # raises above the kernels' largest head dim
     if lk < 1:
         raise ValueError("flash_attention: needs at least one key")
     if causal and lq != lk:

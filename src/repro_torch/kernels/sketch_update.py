@@ -12,10 +12,11 @@ tensor never falls back to the plain version.  The kernel reads each key
 once, counts it into every table of its column in shared memory, and merges
 the tables of a thread-block cluster over distributed shared memory; where
 one cluster covers every row (the library's ``cms_one_cluster_rows()``) it
-stores the whole table, so the wrapper allocates it without zeroing it.  ``cms_tables`` is the same
-kernel over several columns of a row block, the sketch half of the fused
-ingest pass (``kernels.ingest_fused``); its launches are counted by the
-fused wrapper that calls it, not in ``LAUNCHES["cms_update"]``.
+stores the whole table, so the wrapper allocates it without zeroing it.
+``cms_tables`` is the same kernel over several columns of a row block, the
+sketch half of the fused ingest pass (``kernels.ingest_fused``); its
+launches are counted by the fused wrapper that calls it, not in
+``LAUNCHES["cms_update"]``.
 """
 from __future__ import annotations
 

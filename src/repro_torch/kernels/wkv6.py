@@ -156,7 +156,7 @@ def _check(r, k, v, w, u, s0, state_out) -> None:
     given = [t for t in (r, k, v, w, u, s0, state_out) if t is not None]
     if any(t.device != r.device for t in given):
         raise ValueError("wkv6: every input must lie on one device")
-    padded_head_dim(hd)
+    padded_head_dim(hd)  # raises above the kernels' largest head dim
     if l < 1:
         raise ValueError("wkv6: needs at least one token")
 
