@@ -134,6 +134,44 @@ Phases:
      one forward and one decode step, peak device memory, K7's launches;
  21. K7 at the model's shapes, [4, 2048, 40, 64] from zero and [4, 1, 40, 64]
      with a state: device time (a CUDA graph), plain time, bound.
+ 22. FlashAttention's backward (K6b, ``flash_attention_bwd``: the delta
+     pass, the key-tile dK/dV kernel and the query-tile dQ kernel) on the
+     forward kernel's o and lse, against ``flash_attention_bwd_ref`` on the
+     plain forward's o and lse (so a wrong o or lse from the forward kernel
+     shows in dq, dk and dv too): fp32 and bf16, D = 64, 128, 96 and 40
+     (padded to 48), GQA 32:8 and 4:1, causal and bidirectional, ragged L =
+     200, 300 and 1000, OLMo-1B's [4, 16, 2048, 128] causal bf16.  The
+     forward's lse against ``flash_attention_ref_lse``'s (1e-5) and its o
+     (2e-5 in fp32, 2e-2 in bf16); dq, dk and dv elementwise (2e-5 in fp32,
+     2e-2 in bf16) and by relative norm ||got - want|| / ||want|| (1e-5 in
+     fp32; 1e-2 in bf16: rounding P and dS to bf16 before their products
+     and the outputs to bf16 gives about 3e-3, one key tile dropped from
+     every long row about 4e-2); two calls equal bit for bit;
+ 23. OLMo-1B at full width and depth (seed 0) in fp32 on [2, 256] tokens:
+     one train step (``loss_fn`` with remat, backward, ``adamw_update``)
+     through K6's ``FlashAttentionFn`` against the same step with autograd
+     through ``flash_attention_ref``: the loss (1e-5 relative), every
+     gradient (1e-3 of each leaf's largest entry; wq, wk and wv nonzero) and
+     the params after AdamW (1e-3 of the update's norm);
+ 24. bf16 training, the training main path: OLMo-1B at full width and depth
+     over fp32 master weights on [4, 2048] tokens of ``TokenPipeline(seed=
+     1)``, ``make_train_step``: eight steps on one batch (the loss must
+     fall), then four on the pipeline's prefetch thread; ms a step
+     (synchronised), tokens/s, peak device memory, K6's forward and
+     backward launches (32 and 16 a step: remat runs each forward twice),
+     the device's busy share and time by CUDA function of one step
+     (``torch.profiler``), and model-FLOPs utilisation on a line of its own
+     (``mfu=``);
+ 25. checkpoint and resume at full width, depth 2, [2, 512] bf16:
+     ``run_elastic_loop`` under a ``PreemptionGuard`` signalled (SIGTERM)
+     during step 3 saves through ``AsyncCheckpointer`` in the JAX layout;
+     a fresh state, ``load_checkpoint``, ``restore_tree(device=)``, steps 4
+     and 5: losses, params, m and v equal an uninterrupted run bit for bit;
+     save ms and bytes, restore ms;
+ 26. K6's backward at the main path's shape, [4, 16, 2048, 128] causal bf16:
+     device time (a CUDA graph), plain time, the backward of
+     ``scaled_dot_product_attention`` (forward and backward less forward;
+     timed here, never called by the port), bound.
 
 Every kernel's time is device time per call of everything the wrapper
 launches, from CUDA events around the replay of a CUDA graph of repeated
@@ -180,7 +218,12 @@ CMS_KERNELS = ("cms_cluster_kernel", "cms_global_kernel")
 INGEST_KERNELS = ("ingest_count_kernel", "ingest_scan_kernel", "ingest_rank_kernel",
                   *CMS_KERNELS)
 TRACE_WARMUP = 256  # tiny kernels in the profiler's warm-up step before every trace
+TRACE_PAD_S = 0.02  # host seconds idle at each end of a trace's active step
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
+FLASH_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_bf16_kernel",
+                     "flash_bwd_dq_bf16_kernel", "flash_bwd_dkdv_f32_kernel",
+                     "flash_bwd_dq_f32_kernel")
+CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"  # phase 25's checkpoint (gitignored)
 HIST_KERNELS = ("histogram_narrow_kernel", "histogram_sparse_kernel")
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
 RETAKEN: list[str] = []  # kernels whose trace lost device events and was taken again
@@ -211,8 +254,10 @@ def _traced(fn, counts=None):
     call of ``fn`` under ``torch.profiler``.  The profiler's own warm-up
     step, TRACE_WARMUP tiny kernels whose events it drops, comes first:
     without it a trace taken after a long one loses its first device
-    records.  A dict given as ``counts`` receives the number of device
-    events by name."""
+    records.  The active step also starts and ends with TRACE_PAD_S
+    seconds of an idle card around ``fn``, so that no call's device records
+    lie near the step's edges, where traces lost records now and then.  A dict given as ``counts`` receives the number
+    of device events by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -226,7 +271,10 @@ def _traced(fn, counts=None):
             warm.add_(1)
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(TRACE_PAD_S)
         out = fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
         prof.step()
     us: dict[str, float] = {}
     for ev in ready[0]:
@@ -419,6 +467,12 @@ def _ingest_work(rows, enc, dest, n_sketch_cols, depth, width, k):
 def _max_float_err(got, want) -> float:
     assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
     return float((got.float() - want.float()).abs().max())
+
+
+def _rel_norm_err(got, want) -> float:
+    """||got - want|| / ||want|| over every entry, in fp32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp(min=1e-30))
 
 
 def _close(got, want, tol: float) -> bool:
@@ -1062,6 +1116,318 @@ def _rwkv_phases(dev):
         "ms": ms7, "plain_ms": plain7, "bound_ms": bound7, "bound_by": by7,
         "library_ms": None,
     }]
+
+
+def _flash_bwd_work(b, h, l, d, causal, elem_bytes):
+    """(operations, bytes) of one attention backward: 2 D flops for each of
+    the five products of a (query, key) pair that the mask keeps (S = q k^T
+    and dP = do v^T rebuilt, dv += P^T do, dq += dS k, dk += dS^T q); q, k,
+    v, o and do read once, the fp32 lse read once, dq, dk and dv written
+    once."""
+    pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
+    return 10.0 * d * pairs, 8.0 * b * h * l * d * elem_bytes + 4.0 * b * h * l
+
+
+def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)):
+    """Phases 22-26; returns the kernels line's K6b entry and the training
+    path's launches.  ``depth``, ``main``, ``check`` and ``ckpt`` cut the
+    model and the batches (a CPU rehearsal); the card runs the defaults."""
+    import dataclasses
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import build_model, layers
+    from repro_torch.models.convert import flat_from_jax_layout, train_state_to_jax_layout
+    from repro_torch.train import (
+        AsyncCheckpointer,
+        OptConfig,
+        PreemptionGuard,
+        adamw_update,
+        init_train_state,
+        load_checkpoint,
+        make_train_step,
+        restore_tree,
+        run_elastic_loop,
+    )
+    from repro_torch.train.optimizer import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    # ---- 22. K6's backward against its plain version --------------------------
+    olmo_bwd = None
+    for b, h, hkv, l, d, causal, dtype in [
+        (2, 4, 2, 200, 64, True, f32), (1, 4, 1, 200, 128, False, f32),
+        (2, 8, 2, 200, 40, True, f32), (2, 32, 8, 200, 128, True, bf16),
+        (1, 8, 8, 1000, 128, True, bf16), (2, 8, 2, 1000, 64, True, bf16),
+        (2, 4, 4, 200, 96, False, bf16), (2, 8, 2, 200, 40, True, bf16),
+        (1, 4, 1, 300, 64, False, bf16), (4, 16, 16, 2048, 128, True, bf16),
+    ]:
+        g = torch.Generator(device=dev).manual_seed(b * 1000 + h + l + d)
+        q, k, v, do = (torch.randn(s, generator=g, device=dev, dtype=f32).to(dtype)
+                       for s in ((b, h, l, d), (b, hkv, l, d), (b, hkv, l, d), (b, h, l, d)))
+        o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+        o_ref, lse_ref = fa.flash_attention_ref_lse(q, k, v, causal=causal)
+        n0 = launches()["flash_attention_bwd"]
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        assert launches()["flash_attention_bwd"] == n0 + 2
+        want = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, causal=causal)
+        tol, rel_tol = (2e-5, 1e-5) if dtype == f32 else (2e-2, 1e-2)
+        errs = [_max_float_err(x, w) for x, w in zip(got, want)]
+        rels = [_rel_norm_err(x, w) for x, w in zip(got, want)]
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        _say(f"[check] flash_attention_bwd ({str(dtype)[6:]}"
+             f"{f' at D={fa.padded_head_dim(d)}, padded' if d % 16 else ''}) q {(b, h, l, d)} "
+             f"k {(b, hkv, l, d)} causal={causal}: forward lse max_abs_err "
+             f"{_max_float_err(lse, lse_ref):.3g} (rtol = atol = 1e-5), o "
+             f"{_max_float_err(o, o_ref):.3g}; max_abs_err dq {errs[0]:.3g} dk {errs[1]:.3g} "
+             f"dv {errs[2]:.3g} (rtol = atol = {tol}); relative norm error dq {rels[0]:.3g} "
+             f"dk {rels[1]:.3g} dv {rels[2]:.3g} (limit {rel_tol}); two calls equal bit for "
+             f"bit: {same}")
+        assert _close(lse, lse_ref, 1e-5) and _close(o, o_ref, tol)
+        assert same and all(_close(x, w, tol) for x, w in zip(got, want))
+        assert max(rels) <= rel_tol
+        if l == 2048:
+            olmo_bwd, olmo_bwd_err = (q, k, v, o, lse, do), max(errs)
+        del q, k, v, do, o, lse, o_ref, lse_ref, got, again, want
+
+    # ---- 23. one fp32 train step through K6's Function against plain attention
+    cfg = get_config("olmo-1b")
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    model = build_model(cfg, device=dev)
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, check)
+                              .astype(np.int32)).to(dev)
+    runs = []
+    for plain in (False, True):
+        params, opt = init_train_state(model, 0)
+        for p in leaves(params):
+            p.grad = None
+        reset_launches()
+        if plain:
+            layers.flash_attention = fa.flash_attention_ref  # autograd through the plain version
+        try:
+            loss = model.loss_fn(params, {"tokens": tokens}, dtype=f32)
+            loss.backward()
+        finally:
+            layers.flash_attention = fa.flash_attention
+        torch.cuda.synchronize()
+        n = launches()
+        assert (n["flash_attention"], n["flash_attention_bwd"]) == (
+            (0, 0) if plain else (2 * cfg.n_layers, cfg.n_layers)), n
+        grads = [p.grad for p in leaves(params)]
+        for p in leaves(params):
+            p.grad = None
+        p0 = [p.detach().clone() for p in leaves(params)] if not plain else None
+        adamw_update(params, grads, opt, opt_cfg)
+        runs.append((float(loss.detach()), grads, [p.detach() for p in leaves(params)], p0))
+        del opt
+    (loss_k, g_k, p_k, p0), (loss_p, g_p, p_p, _) = runs
+    names = ["/".join(path) for path in _leaf_paths(params)]
+    g_err = {nm: float((a - w).abs().max() / w.abs().max().clamp(min=1e-30))
+             for nm, a, w in zip(names, g_k, g_p)}
+    worst = max(g_err, key=g_err.get)
+    attn = {nm: e for nm, e in g_err.items() if nm.split("/")[-1] in ("wq", "wk", "wv")}
+    moved = torch.sqrt(sum(((w - a) ** 2).sum() for w, a in zip(p_p, p0)))
+    diff = torch.sqrt(sum(((a - w) ** 2).sum() for a, w in zip(p_k, p_p)))
+    _say(f"[train] fp32 step on {list(tokens.shape)} ({cfg.n_layers} layers, d={cfg.d_model}): "
+         f"loss K6 {loss_k:.7f} vs plain attention {loss_p:.7f}; gradients, max |err| over "
+         f"each leaf's largest entry: worst {worst} {g_err[worst]:.3g}, wq/wk/wv worst "
+         f"{max(attn.values()):.3g} over {len(attn)} leaves, all nonzero: "
+         f"{all(float(g.abs().max()) > 0 for nm, g in zip(names, g_k) if nm in attn)}; params "
+         f"after AdamW differ by {float(diff):.3g} against an update of norm {float(moved):.3g} "
+         f"(tolerances: loss 1e-5 relative, gradients 1e-3, params 1e-3 of the update)")
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert max(g_err.values()) <= 1e-3 and len(attn) == 3 * cfg.n_layers
+    assert all(float(g.abs().max()) > 0 for nm, g in zip(names, g_k) if nm in attn)
+    assert float(diff) <= 1e-3 * float(moved)
+    del runs, g_k, g_p, p_k, p_p, p0, params, grads
+    torch.cuda.empty_cache()
+
+    # ---- 24. bf16 training, the main path ------------------------------------
+    params, opt = init_train_state(model, 0)
+    step_fn = make_train_step(model, opt_cfg, {"dtype": bf16})
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=main[0], seq=main[1] - 1, seed=1)
+    first = {"tokens": torch.from_numpy(pipe.next_batch()).to(dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms = [], []
+
+    def timed(batch):
+        nonlocal params, opt
+        t = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        return m
+
+    for _ in range(8):
+        timed(first)
+    pipe.start()
+    for _ in range(4):
+        timed({"tokens": torch.from_numpy(pipe.next_prefetched()).to(dev)})
+    pipe.stop()
+    train_launches = launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_ev: dict[str, int] = {}
+    (m, ms_traced), busy = _traced(lambda: (timed(first), step_ms[-1]), n_ev)
+    steps = 12
+    _say(f"[train] bf16 olmo-1b ({cfg.n_layers} layers, fp32 master weights) on "
+         f"[{main[0]}, {main[1]}] tokens: losses on one batch "
+         f"{[round(x, 4) for x in losses[:8]]}, then on the pipeline "
+         f"{[round(x, 4) for x in losses[8:12]]}")
+    assert all(np.isfinite(losses)) and losses[7] < losses[0], losses
+    assert train_launches["flash_attention"] == 2 * cfg.n_layers * steps, train_launches
+    assert train_launches["flash_attention_bwd"] == cfg.n_layers * steps, train_launches
+    ms_med = float(np.median(step_ms[1:12]))
+    n_tok = main[0] * main[1]
+    n_params = sum(p.numel() for p in leaves(params))
+    flops = 6.0 * n_params * n_tok + 6.0 * cfg.n_layers * main[0] * cfg.n_heads * main[1] ** 2 \
+        * cfg.hd
+    mfu = flops / (ms_med / 1e3) / BF16_FLOPS
+    b_ms = sum(busy.values()) / 1e3
+    k6f = {k: v for k, v in busy.items() if any(nm in k for nm in FLASH_KERNELS)}
+    k6b = {k: v for k, v in busy.items() if any(nm in k for nm in FLASH_BWD_KERNELS)}
+    _say(f"[train] step ms {[round(x, 2) for x in step_ms[:12]]} (the first a warm-up), median "
+         f"after it {ms_med:.2f} ms, {n_tok / (ms_med / 1e3):.0f} tokens/s; peak device memory "
+         f"{peak} bytes ({peak / 2**30:.2f} GiB); {n_params} parameters; launches over {steps} "
+         f"steps {train_launches} ({train_launches['flash_attention'] // steps} K6 forward, "
+         f"{train_launches['flash_attention_bwd'] // steps} backward a step)")
+    _say(f"[train] one step under the profiler: device busy {b_ms:.3f} ms of {ms_traced:.3f} ms "
+         f"({100 * b_ms / ms_traced:.2f} %, idle {100 - 100 * b_ms / ms_traced:.2f} %); K6 "
+         f"forward {sum(k6f.values()) / 1e3:.3f} ms over {sum(n_ev[k] for k in k6f)} events, "
+         f"backward {sum(k6b.values()) / 1e3:.3f} ms over {sum(n_ev[k] for k in k6b)} events; by "
+         "function (ms): " + "; ".join(f"{k[:60]} {v / 1e3:.3f}" for k, v in
+                                      sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
+    _say(f"[train] mfu={mfu:.4f} (6 N T + 6 layers B H L^2 D = {flops:.4g} model flops a step "
+         f"over {ms_med:.2f} ms at 989 TFLOP/s bf16)")
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+
+    # ---- 25. checkpoint and resume: depth 2, preempted at step 3 --------------
+    cfg2 = dataclasses.replace(get_config("olmo-1b"), n_layers=2)
+    model2 = build_model(cfg2, device=dev)
+    step2 = make_train_step(model2, opt_cfg, {"dtype": bf16})
+    pipe2 = TokenPipeline(vocab=cfg2.vocab, batch=ckpt[0], seq=ckpt[1] - 1, seed=1)
+    total = 6
+
+    def batch_at(i):
+        return {"tokens": torch.from_numpy(pipe2.batch_at(i)).to(dev)}
+
+    ref_p, ref_o = init_train_state(model2, 0)
+    ref_losses = []
+    for i in range(total):
+        ref_p, ref_o, m = step2(ref_p, ref_o, batch_at(i))
+        ref_losses.append(float(m["loss"]))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ck = AsyncCheckpointer(str(CKPT_DIR), keep=2)
+    state = dict(zip(("params", "opt"), init_train_state(model2, 0)))
+    losses2, save_ms = [], []
+
+    def step_fn2(i):
+        state["params"], state["opt"], m = step2(state["params"], state["opt"], batch_at(i))
+        losses2.append(float(m["loss"]))
+        if i == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def save_fn(i):  # ms until save returns (the host snapshot), then until written
+        t = time.perf_counter()
+        ck.save(i + 1, train_state_to_jax_layout(state))
+        save_ms.append((time.perf_counter() - t) * 1e3)
+        ck.wait()
+        save_ms.append((time.perf_counter() - t) * 1e3)
+
+    with PreemptionGuard() as guard:
+        last = run_elastic_loop(total, step_fn2, save_fn, checkpoint_every=0, guard=guard)
+    assert last == 3 and guard.should_stop and len(save_ms) == 2
+    n_bytes = sum(f.stat().st_size for f in (CKPT_DIR / "step_00000004").iterdir())
+    del state
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step_no, flat = load_checkpoint(str(CKPT_DIR))
+    fresh = dict(zip(("params", "opt"), init_train_state(model2, 7)))
+    restored = restore_tree(fresh, flat_from_jax_layout(flat), device=dev)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t) * 1e3
+    del fresh, flat
+    p, o = restored["params"], restored["opt"]
+    for x in leaves(p):
+        x.requires_grad_(True)
+    assert step_no == 4 and int(o["step"]) == 4
+    for i in range(step_no, total):
+        p, o, m = step2(p, o, batch_at(i))
+        losses2.append(float(m["loss"]))
+    same_p = all(torch.equal(a, w) for a, w in zip(leaves(p), leaves(ref_p)))
+    same_o = all(torch.equal(a, w) for a, w in zip(leaves(o), leaves(ref_o)))
+    _say(f"[train] checkpoint and resume (2 layers, [{ckpt[0]}, {ckpt[1]}] bf16): preempted "
+         f"after step 3 by SIGTERM, AsyncCheckpointer save {save_ms[0]:.1f} ms to return (the host "
+         f"snapshot), {save_ms[1]:.1f} ms written, {n_bytes} bytes; restore (load + "
+         f"restore_tree onto the card) {restore_ms:.1f} ms; losses "
+         f"resumed {[round(x, 5) for x in losses2]} vs uninterrupted "
+         f"{[round(x, 5) for x in ref_losses]}: equal bit for bit "
+         f"{losses2 == ref_losses}; params {same_p}, m and v {same_o}")
+    assert losses2 == ref_losses and same_p and same_o
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del p, o, ref_p, ref_o, restored
+    torch.cuda.empty_cache()
+
+    # ---- 26. K6's backward at the main path's shape ---------------------------
+    q, k, v, o, lse, do = olmo_bwd
+    ms_b, ev_b, wrap_b = _kernel_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                                    FLASH_BWD_KERNELS, reps=10)
+    _, plain_b = _plain_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do))
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do)
+
+    lib_fwd = _events_ms(sdpa_fwd, reps=10)
+    lib_b = _events_ms(sdpa_fwd_bwd, reps=10) - lib_fwd
+    ops_b, bytes_b = _flash_bwd_work(*q.shape[:3], q.shape[3], True, q.element_size())
+    bound_b, by_b = _bound(ops_b, bytes_b, BF16_FLOPS)
+    _say(f"[K6b] flash_attention_bwd {tuple(q.shape)} bf16 causal: kernels {ms_b:.4f} ms "
+         f"(CUDA graph of 10 calls; {_short(ev_b)} ms an event in a trace; wrapper "
+         f"{wrap_b:.4f} ms); plain {plain_b:.2f} ms; scaled_dot_product_attention's backward "
+         f"{lib_b:.4f} ms (forward and backward {lib_b + lib_fwd:.4f} less forward "
+         f"{lib_fwd:.4f}); bound {bound_b:.4f} ms by {by_b} ({ops_b:.4g} operations at 989 "
+         f"TFLOP/s, {bytes_b:.4g} bytes); {100 * bound_b / ms_b:.1f} % of the bound")
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "none: the JAX package differentiates _sdpa "
+                    "(src/repro/models/layers.py:205); no Pallas backward",
+        "launches": train_launches["flash_attention_bwd"], "max_abs_err": olmo_bwd_err,
+        "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": by_b,
+        "library_ms": lib_b,
+    }, train_launches
+
+
+def _leaf_paths(tree, prefix=()):
+    """Paths of ``train.optimizer.leaves(tree)``, in its order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree) for p in _leaf_paths(tree[key], prefix + (str(key),))]
+    if isinstance(tree, list):
+        return [p for i, sub in enumerate(tree) for p in _leaf_paths(sub, prefix + (str(i),))]
+    return [prefix]
 
 
 def _recovery_phase(dev, batches, q=1000):
@@ -2080,11 +2446,15 @@ def main() -> int:
     kernels += _lm_phases(dev, data["R"][:, 1])
     torch.cuda.empty_cache()
     kernels += _rwkv_phases(dev)
+    torch.cuda.empty_cache()
+    k6b, train_launches = _train_phases(dev)
+    kernels.append(k6b)
 
-    for entry in kernels:  # beside each path's own count, phases 4b's, 10b's and 10c's
+    for entry in kernels:  # beside each path's own count, phases 4b's, 10b's, 10c's and 24's
         entry["launches_speculative"] = spec_launches.get(entry["name"], 0)
         entry["launches_recovery"] = rec_launches.get(entry["name"], 0)
         entry["launches_tenancy"] = ten_launches.get(entry["name"], 0)
+        entry["launches_train"] = train_launches.get(entry["name"], 0)
     _say(f"[trace] {len(RETAKEN)} trace(s) lost device events and were taken again: "
          f"{RETAKEN}")
     assert len(RETAKEN) <= 1, f"more than one trace lost device events: {RETAKEN}"

@@ -1,4 +1,5 @@
-"""Data substrate: synthetic relations (paper workloads)."""
+"""Data substrate: synthetic relations (paper workloads) + LM token pipeline."""
+from .pipeline import TokenPipeline
 from .relations import (
     paper_2way,
     paper_3way,
@@ -9,6 +10,7 @@ from .relations import (
 )
 
 __all__ = [
+    "TokenPipeline",
     "paper_2way",
     "paper_3way",
     "random_join_data",

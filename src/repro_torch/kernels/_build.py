@@ -26,6 +26,7 @@ SOURCES = {
     "block_join": _CSRC / "block_join.cu",
     "cms_update": _CSRC / "cms_update.cu",
     "flash_attention": _CSRC / "flash_attention.cu",
+    "flash_attention_bwd": _CSRC / "flash_attention_bwd.cu",
     "histogram": _CSRC / "histogram.cu",
     "ingest_fused": _CSRC / "ingest_fused.cu",
     "wkv6": _CSRC / "wkv6.cu",

@@ -46,6 +46,11 @@
 // summed in fp32, as the TPU kernel's fp32 products of widened inputs are;
 // p is rounded to bf16 before P.V (the TPU kernel keeps it fp32), a relative
 // error of at most 2^-9 per weight, while the row sums l stay fp32.
+//
+// Each kernel also writes, where the caller passes a buffer (`lse`, fp32
+// [B, H, Lq]; the training path asks for it, serving does not), each
+// query row's log-sum-exp of its scaled scores, m + log(l) in natural
+// units: the backward (csrc/flash_attention_bwd.cu) rebuilds P from it.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,13 +81,20 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
+// a row's log-sum-exp from its running max m and sum l (natural units); a
+// row with no live key (l == 0) gets +inf, so that exp(s - lse) is 0
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
+
 // ---- fp32: CUDA cores -------------------------------------------------------
 // DMAX bounds D (a multiple of 16): the thread keeps DMAX / 16 output
 // columns of each of its rows in registers, column tx + 16 jj.
 template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, Shape s) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, Shape s) {
   extern __shared__ float smem[];
   const int D = s.D;
   const int ld = D + 1;  // odd row pitch: a column read hits 16 banks
@@ -203,6 +215,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < NJ; ++jj) {
       if (jj < nj) ob[row * s.os[2] + tx + 16 * jj] = acc[i][jj] / safe_l;
     }
+    if (lse != nullptr && tx == 0) {
+      lse[static_cast<long long>(bh) * s.Lq + row] = row_lse(m_i[i], l_i[i]);
+    }
   }
 }
 
@@ -259,7 +274,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src, lo
 template <int DMAX>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, Shape s) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, Shape s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = s.D;
   const int ld = D + 8;  // row pitch: ldmatrix's 8 row addresses hit 8 bank groups
@@ -390,6 +406,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         *reinterpret_cast<uint32_t*>(ob + row * s.os[2] + n * 8 + 2 * t4) =
             pack_bf16(oacc[n][2 * r] / safe_l, oacc[n][2 * r + 1] / safe_l);
       }
+    }
+    if (lse != nullptr && t4 == 0) {
+      lse[static_cast<long long>(bh) * s.Lq + row] = row_lse(m_r[r], l_r[r]);
     }
   }
 }
@@ -644,7 +663,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                       const Shape s) {
+                       float* __restrict__ lse, const Shape s) {
   constexpr int NCH = D / CHUNK;                // swizzled column chunks of a row
   constexpr int TILE = BN * D;                  // elements of a K, V (or the Q) tile
   constexpr uint32_t TILE_BYTES = TILE * 2;
@@ -769,6 +788,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l += __shfl_xor_sync(0xFFFFFFFFu, l, 1);
     l += __shfl_xor_sync(0xFFFFFFFFu, l, 2);
     inv[r] = 1.f / (l > 0.f ? l : 1.f);  // safe_l: a row with no live key divides by 1
+    const int row = row0 + 8 * r;
+    if (lse != nullptr && t4 == 0 && row < s.Lq) {
+      // m_r is in log2 units with the scale folded in
+      lse[static_cast<long long>(bh) * s.Lq + row] = row_lse(m_r[r] * 0.6931471805599453f, l);
+    }
   }
   named_sync(1 + wg);  // every warp of this warpgroup is done reading its Q rows
 #pragma unroll
@@ -799,29 +823,30 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // ---- launch -----------------------------------------------------------------
 template <typename T, typename Kernel>
 int launch(Kernel fn, int threads, size_t bytes, const void* q, const void* k, const void* v,
-           void* o, int B, const Shape& s, cudaStream_t st) {
+           void* o, float* lse, int B, const Shape& s, cudaStream_t st) {
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((s.Lq + BM - 1) / BM), static_cast<unsigned>(B * s.H));
   fn<<<grid, threads, bytes, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                   static_cast<const T*>(v), static_cast<T*>(o), s);
+                                   static_cast<const T*>(v), static_cast<T*>(o), lse, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DMAX>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, const Shape& s,
-               cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               const Shape& s, cudaStream_t st) {
   const size_t bytes = sizeof(float) * (static_cast<size_t>(BM + 2 * BN) * (s.D + 1) +
                                         static_cast<size_t>(BM) * (BN + 1));
-  return launch<float>(flash_fwd_f32_kernel<DMAX>, THREADS, bytes, q, k, v, o, B, s, st);
+  return launch<float>(flash_fwd_f32_kernel<DMAX>, THREADS, bytes, q, k, v, o, lse, B, s, st);
 }
 
 template <int DMAX>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, const Shape& s,
-                cudaStream_t st) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                const Shape& s, cudaStream_t st) {
   const size_t bytes = sizeof(bf16) * static_cast<size_t>(BM + 2 * BN) * (s.D + 8);
-  return launch<bf16>(flash_fwd_bf16_kernel<DMAX>, MMA_THREADS, bytes, q, k, v, o, B, s, st);
+  return launch<bf16>(flash_fwd_bf16_kernel<DMAX>, MMA_THREADS, bytes, q, k, v, o, lse, B, s,
+                      st);
 }
 
 // cuTensorMapEncodeTiled lives in libcuda: reached through the runtime's
@@ -880,8 +905,8 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int B, int heads, int L, in
 constexpr int kTensorMapError = 10000;  // + the CUresult of a refused tensor map
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hkv,
-                 const Shape& s, cudaStream_t st) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                 int Hkv, const Shape& s, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   CUresult res = make_map(&mq, q, B, s.H, s.Lq, D, s.qs);
   if (res == CUDA_SUCCESS) res = make_map(&mk, k, B, Hkv, s.Lk, D, s.ks);
@@ -895,7 +920,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((s.Lq + wg::BM - 1) / wg::BM),
                   static_cast<unsigned>(B * s.H));
-  fn<<<grid, wg::THREADS, bytes, st>>>(mq, mk, mv, static_cast<bf16*>(o), s);
+  fn<<<grid, wg::THREADS, bytes, st>>>(mq, mk, mv, static_cast<bf16*>(o), lse, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -907,12 +932,14 @@ extern "C" {
 // variant (kernels/flash_attention.py, kernel_variant): 0 = fp32 on the
 // CUDA cores, 1 = bf16 with mma.sync (D a multiple of 16 up to 256),
 // 2 = bf16 with wgmma and TMA (D = 64 or 128).
+// lse: null, or fp32 [B, H, Lq] contiguous for each row's log-sum-exp.
 // strides: 12 element strides, (batch, head, position) of q, k, v and o in
 // turn; the head dimension is contiguous in all four.  For bf16 every
 // stride is a multiple of 8 and every pointer 16-byte aligned.  Returns the
 // launch's cudaError_t (0 = launched), or 10000 + the CUresult of a tensor
 // map that was refused.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int variant,
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse_out,
+                           int variant,
                            int B, int H, int Hkv, int Lq, int Lk, int D,
                            const long long* strides, float scale, int causal, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Lq < 1 || Lk < 1 || D < 16 ||
@@ -935,18 +962,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     s.os[i] = strides[9 + i];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (variant == 0) {
-    if (D <= 64) return launch_f32<64>(q, k, v, o, B, s, st);
-    if (D <= 128) return launch_f32<128>(q, k, v, o, B, s, st);
-    return launch_f32<256>(q, k, v, o, B, s, st);
+    if (D <= 64) return launch_f32<64>(q, k, v, o, lse, B, s, st);
+    if (D <= 128) return launch_f32<128>(q, k, v, o, lse, B, s, st);
+    return launch_f32<256>(q, k, v, o, lse, B, s, st);
   }
   if (variant == 2) {
-    return D == 64 ? launch_wgmma<64>(q, k, v, o, B, Hkv, s, st)
-                   : launch_wgmma<128>(q, k, v, o, B, Hkv, s, st);
+    return D == 64 ? launch_wgmma<64>(q, k, v, o, lse, B, Hkv, s, st)
+                   : launch_wgmma<128>(q, k, v, o, lse, B, Hkv, s, st);
   }
-  if (D <= 64) return launch_bf16<64>(q, k, v, o, B, s, st);
-  if (D <= 128) return launch_bf16<128>(q, k, v, o, B, s, st);
-  return launch_bf16<256>(q, k, v, o, B, s, st);
+  if (D <= 64) return launch_bf16<64>(q, k, v, o, lse, B, s, st);
+  if (D <= 128) return launch_bf16<128>(q, k, v, o, lse, B, s, st);
+  return launch_bf16<256>(q, k, v, o, lse, B, s, st);
 }
 
 }  // extern "C"

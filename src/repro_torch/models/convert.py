@@ -9,8 +9,17 @@ dicts.  It imports nothing of JAX; a caller hands it
 ``jax.tree.map(np.asarray, params)``.
 Tests use it to run both packages on identical weights, since
 ``jax.random`` and ``torch.Generator`` draw different numbers.
+
+The training state crosses the same way: ``train_state_from_jax`` takes
+``{"params", "opt": {"m", "v", "step"}}`` in the JAX layout (blocks
+stacked on axis 0), ``train_state_to_jax_layout`` stacks the port's block
+lists back as numpy, and ``flat_from_jax_layout`` unstacks a checkpoint's
+flat arrays into the port's keys, so a training checkpoint that either
+package writes restores in the other (``train.checkpoint.restore_tree``).
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -41,4 +50,65 @@ def params_from_jax(cfg: ArchConfig, params: dict, device: torch.device | str = 
         _tree(params["blocks"], lambda a, i=i: put(np.asarray(a)[i]))
         for i in range(cfg.n_layers)
     ]
+    return out
+
+
+def train_state_from_jax(cfg: ArchConfig, tree: dict, device: torch.device | str = "cuda") -> dict:
+    """The port's training state (fp32 params and m, v; step an int32
+    scalar) on ``device`` from the JAX package's ``{"params", "opt": {"m",
+    "v", "step"}}`` with numpy leaves, blocks stacked on axis 0."""
+    opt = tree["opt"]
+    return {
+        "params": params_from_jax(cfg, tree["params"], device),
+        "opt": {
+            "m": params_from_jax(cfg, opt["m"], device),
+            "v": params_from_jax(cfg, opt["v"], device),
+            "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                                 device=_device(device)),
+        },
+    }
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _stack_blocks(params: dict) -> dict:
+    """A params-shaped tree as host numpy, its block list stacked on axis 0."""
+
+    def stack(nodes):
+        if nodes[0] is None:
+            return None
+        if isinstance(nodes[0], dict):
+            return {key: stack([n[key] for n in nodes]) for key in nodes[0]}
+        return np.stack([_host(x) for x in nodes])
+
+    out = {key: _tree(node, _host) for key, node in params.items() if key != "blocks"}
+    out["blocks"] = stack(params["blocks"])
+    return out
+
+
+def train_state_to_jax_layout(state: dict) -> dict:
+    """``{"params", "opt": {"m", "v", "step"}}`` as host numpy in the JAX
+    package's layout: each block list stacked on axis 0, step int32."""
+    opt = state["opt"]
+    return {
+        "params": _stack_blocks(state["params"]),
+        "opt": {"m": _stack_blocks(opt["m"]), "v": _stack_blocks(opt["v"]),
+                "step": np.asarray(_host(opt["step"]), dtype=np.int32)},
+    }
+
+
+def flat_from_jax_layout(flat: dict) -> dict:
+    """A checkpoint's ``/``-keyed arrays with stacked blocks (``.../blocks/
+    attn/wq`` of [L, ...]) as the port's keys (``.../blocks/<i>/attn/wq``,
+    views of the stacked array); every other key as it is."""
+    out = {}
+    for key, arr in flat.items():
+        m = re.match(r"^(.*?(?:^|/)blocks)/(?!\d+(?:/|$))(.*)$", key)
+        if m is None:
+            out[key] = arr
+            continue
+        for i in range(arr.shape[0]):
+            out[f"{m.group(1)}/{i}/{m.group(2)}"] = arr[i]
     return out

@@ -7,7 +7,8 @@ that dtype); accumulation-sensitive ops (norms, softmax, losses) run in
 float32, and bf16 rounds at the places where the JAX package rounds it.
 
 Attention with no sliding window and no logit softcap goes through the
-FlashAttention kernel (K6, ``kernels.flash_attention``) for CUDA tensors;
+FlashAttention kernel (K6, ``kernels.flash_attention``; its backward kernel
+where a gradient is taken) for CUDA tensors;
 on the CPU, and for windowed or softcapped attention on either device, it
 takes the JAX package's default branches as written (the materialised
 ``_sdpa``, the query-chunked ``_sdpa_chunked`` past
@@ -22,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -38,6 +40,34 @@ _MASKED = -1e30
 
 def _cast(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return p.to(dtype=like.dtype)
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Grad is enabled and one of ``tensors`` requires it: where the JAX
+    package's ``jax.checkpoint`` would matter (a backward will run)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _tensors(tree) -> list:
+    """The tensors of ``tree``: a tensor, or dicts, lists and tuples of them
+    at any depth (other leaves skipped)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (list, tuple)):
+        return []
+    return [t for sub in tree for t in _tensors(sub)]
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant: the port's ``jax.checkpoint``)
+    where a backward will run: a tensor in ``args``, or in their dicts and
+    lists (a block's parameters), requires grad.  A plain call otherwise."""
+    if needs_grad(*_tensors(args)):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # --------------------------------------------------------------------- norms
@@ -172,7 +202,9 @@ def _sdpa_chunked(
     softcap: float | None,
 ) -> torch.Tensor:
     """A loop over query blocks: peak score memory is [B, H, chunk, L]
-    instead of [B, H, L, L] (forward only: no rematerialisation)."""
+    instead of [B, H, L, L].  Each chunk body is rematerialised in the
+    backward (``remat``), as the JAX package checkpoints it, so the
+    backward too holds one chunk's scores at a time."""
     b, h, l, d = q.shape
     hkv = k.shape[1]
     group = h // hkv
@@ -181,9 +213,8 @@ def _sdpa_chunked(
     vf = v.float()
     k_pos = torch.arange(l, device=q.device)
     scale = 1.0 / math.sqrt(d)
-    outs = []
-    for i in range(l // chunk):
-        qc = qg[:, :, :, i * chunk:(i + 1) * chunk]
+
+    def body(qc: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, i: int) -> torch.Tensor:
         s = torch.einsum("bhgqd,bhkd->bhgqk", qc.float(), kf) * scale
         s = _softcap(s, softcap)
         q_pos = i * chunk + torch.arange(chunk, device=q.device)
@@ -194,7 +225,10 @@ def _sdpa_chunked(
             mask &= (q_pos[:, None] - k_pos[None, :]) < eff_window
         s = torch.where(mask, s, torch.full_like(s, _MASKED))
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(q.dtype))
+        return torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(q.dtype)
+
+    outs = [remat(body, qg[:, :, :, i * chunk:(i + 1) * chunk], kf, vf, i)
+            for i in range(l // chunk)]
     return torch.cat(outs, dim=3).reshape(b, h, l, d)
 
 
@@ -341,19 +375,22 @@ def chunked_cross_entropy(
     logit_softcap: float | None = None,
 ) -> torch.Tensor:
     """Mean cross-entropy over labels >= 0, one sequence chunk of logits at
-    a time so [B, L, V] never materialises (forward only)."""
+    a time so [B, L, V] never materialises; each chunk's logits are
+    rematerialised in the backward (``remat``), as the JAX package
+    checkpoints them.  The count of valid labels stays on the device."""
     l = x.shape[1]
     chunk = min(chunk, l)
-    table = emb_table.to(x.dtype)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    count = 0
-    for c0 in range(0, l, chunk):
-        xc, yc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+
+    def chunk_loss(xc: torch.Tensor, table: torch.Tensor, yc: torch.Tensor) -> torch.Tensor:
         logits = (xc @ table.T).float()
         logits = _softcap(logits, logit_softcap)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, yc.clamp(min=0).long()[..., None])[..., 0]
-        valid = yc >= 0
-        total = total + torch.where(valid, logz - gold, torch.zeros_like(logz)).sum()
-        count += int(valid.sum())
-    return total / max(count, 1)
+        return torch.where(yc >= 0, logz - gold, torch.zeros_like(logz)).sum()
+
+    table = emb_table.to(x.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, l, chunk):
+        total = total + remat(chunk_loss, x[:, c0:c0 + chunk], table, labels[:, c0:c0 + chunk])
+    count = (labels >= 0).sum()
+    return total / torch.clamp(count, min=1)

@@ -1,6 +1,6 @@
 """Dense decoder/encoder transformer (covers command-r-plus, gemma3, olmo,
 granite, internvl2 backbone, hubert encoder): the counterpart of
-``repro.models.transformer``, forward and serving.
+``repro.models.transformer``: forward, loss with gradients, and serving.
 
 Parameters are a dict: ``embed`` (``{"table": [V, d]}``), ``blocks`` (a list
 of per-layer dicts, where the JAX package stacks them on axis 0 for
@@ -9,7 +9,11 @@ Python loop.  Gemma-style 5:1 local:global patterns take one Python bool per
 layer.  VLM/audio frontends are stubs: precomputed ``prefix_embeds`` are
 concatenated ahead of the token embeddings, as in the JAX package.
 
-Training (gradients, remat) is not ported yet: ``loss_fn`` is forward only.
+``forward_hidden`` and ``loss_fn`` take ``remat`` (default True, as in the
+JAX package): each block runs under ``torch.utils.checkpoint`` where a
+backward will run, the port's ``jax.checkpoint`` of the scanned body, so a
+step holds one block's activations at a time and runs each block's forward
+twice (K6 included).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from .layers import (
     embed,
     init_norm,
     mlp,
+    remat as remat_block,
     rotated_qkv,
 )
 
@@ -128,8 +133,10 @@ def forward_hidden(
     tokens: torch.Tensor | None,  # [B, L]; None for pure-frontend (audio) input
     prefix_embeds: torch.Tensor | None = None,  # [B, P, d] (vlm/audio stub)
     dtype: torch.dtype = torch.bfloat16,
+    remat: bool = True,
 ) -> torch.Tensor:
-    """Token (+ prefix) embeddings -> final-norm hidden states [B, L*, d]."""
+    """Token (+ prefix) embeddings -> final-norm hidden states [B, L*, d].
+    ``remat``: recompute each block's activations in the backward."""
     if tokens is None:
         if prefix_embeds is None:
             raise ValueError("need tokens and/or prefix_embeds")
@@ -139,7 +146,10 @@ def forward_hidden(
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     for blk, is_global in zip(params["blocks"], _layer_flags(cfg)):
-        x = _block_apply(cfg, blk, x, is_global)
+        if remat:
+            x = remat_block(_block_apply, cfg, blk, x, is_global)
+        else:
+            x = _block_apply(cfg, blk, x, is_global)
     return apply_norm(cfg.norm, params["final_norm"], x)
 
 
@@ -155,11 +165,14 @@ def loss_fn(
     params: dict,
     batch: dict,
     dtype: torch.dtype = torch.bfloat16,
+    remat: bool = True,
     loss_chunk: int = 512,
 ) -> torch.Tensor:
-    """Next-token (or frame-label for encoders) cross entropy, forward only."""
+    """Next-token (or frame-label for encoders) cross entropy; differentiable,
+    each block rematerialised in the backward under ``remat``."""
     tokens = batch.get("tokens")
-    h = forward_hidden(cfg, params, tokens, batch.get("prefix_embeds"), dtype=dtype)
+    h = forward_hidden(cfg, params, tokens, batch.get("prefix_embeds"), dtype=dtype,
+                       remat=remat)
     if cfg.causal:
         prefix = h.shape[1] - tokens.shape[1]
         h_txt = h[:, prefix:, :]

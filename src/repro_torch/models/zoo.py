@@ -33,7 +33,10 @@ class ModelApi:
     cfg: ArchConfig
     device: torch.device
     init_params: Callable[..., dict]  # (seed, dtype=float32) -> params
-    loss_fn: Callable[..., torch.Tensor]  # (params, batch, **kw) -> scalar
+    # (params, batch, dtype=, remat=, loss_chunk=) -> scalar; differentiable
+    # for the dense family (ssm: forward only, and no ``remat``: its
+    # recurrence K7 has no backward kernel yet, ROADMAP queue 1 item 20)
+    loss_fn: Callable[..., torch.Tensor]
     init_cache: Callable[..., dict] | None  # (batch, max_seq, dtype) -> cache
     decode_step: Callable[..., tuple] | None  # (params, cache, tokens, pos, **kw)
     forward_hidden: Callable[..., Any]  # (params, batch, **kw) -> hidden

@@ -1,24 +1,35 @@
-"""What the streaming engine needs of the training substrate: atomic
-checkpoints and elastic mesh planning with preemption handling (the port
-of part of ``repro.train``).  The optimizer, the train step, gradient
-compression, ``run_elastic_loop``, ``restore_tree`` and
-``AsyncCheckpointer`` wait for training (ROADMAP.md queue 1 item 14)."""
+"""Training substrate: optimizer, train step, checkpointing, elasticity (the
+port of ``repro.train``, less the cross-pod gradient compression, which
+comes with the distributed shuffle: ROADMAP.md queue 1 item 10)."""
 from .checkpoint import (
+    AsyncCheckpointer,
     latest_step,
     load_checkpoint,
     load_manifest,
+    restore_tree,
     save_checkpoint,
     tenant_checkpoint_dir,
 )
-from .elastic import MeshPlan, PreemptionGuard, plan_mesh_shape
+from .elastic import MeshPlan, PreemptionGuard, plan_mesh_shape, run_elastic_loop
+from .optimizer import OptConfig, adamw_update, init_opt_state, schedule
+from .train_step import init_train_state, make_train_step
 
 __all__ = [
+    "AsyncCheckpointer",
     "MeshPlan",
+    "OptConfig",
     "PreemptionGuard",
+    "adamw_update",
+    "init_opt_state",
+    "init_train_state",
     "latest_step",
     "load_checkpoint",
     "load_manifest",
+    "make_train_step",
     "plan_mesh_shape",
+    "restore_tree",
+    "run_elastic_loop",
     "save_checkpoint",
+    "schedule",
     "tenant_checkpoint_dir",
 ]

@@ -1,5 +1,5 @@
-"""Fault-tolerant checkpointing: atomic save, N-kept (the port of
-``repro.train.checkpoint``'s save and load half).
+"""Fault-tolerant checkpointing: atomic save, N-kept, async (the port of
+``repro.train.checkpoint``).
 
 Layout:  <dir>/step_<N>/
              manifest.json   (step, keys, shapes, dtypes, time, metadata)
@@ -13,18 +13,32 @@ a tree is flattened as ``jax.tree_util.tree_flatten_with_path`` flattens
 it — dicts by sorted key, lists and tuples by index, ``None`` an empty
 subtree — and a leaf's key is its path joined by ``/``.
 
-``restore_tree`` and ``AsyncCheckpointer`` serve training and wait for it
-(ROADMAP.md queue 1 item 14).
+``restore_tree`` rebuilds a tree of tensors shaped like a template from a
+flat checkpoint, on a given device (where the JAX package takes
+shardings).  ``AsyncCheckpointer`` copies the tree to host numpy before its
+thread starts, so training may go on updating the tensors in place while
+the thread writes.  A training state crosses between the packages through
+``models.convert`` (``train_state_to_jax_layout`` before a save,
+``flat_from_jax_layout`` before a restore).
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Any
 
 import numpy as np
+import torch
+
+
+def _to_numpy(x: Any) -> np.ndarray:
+    """A leaf as host numpy: tensors are copied off their device."""
+    if isinstance(x, torch.Tensor):  # a copy: the caller may update x in place
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.asarray(x)
 
 
 def _flatten_with_paths(tree: Any, prefix: tuple = ()) -> dict[str, np.ndarray]:
@@ -36,7 +50,7 @@ def _flatten_with_paths(tree: Any, prefix: tuple = ()) -> dict[str, np.ndarray]:
     elif isinstance(tree, (list, tuple)):
         items = list(enumerate(tree))
     else:
-        return {"/".join(str(p) for p in prefix): np.asarray(tree)}
+        return {"/".join(str(p) for p in prefix): _to_numpy(tree)}
     flat: dict[str, np.ndarray] = {}
     for key, sub in items:
         flat.update(_flatten_with_paths(sub, prefix + (key,)))
@@ -145,3 +159,65 @@ def load_manifest(directory: str, step: int | None = None) -> dict:
     path = os.path.join(directory, f"step_{step:08d}", "manifest.json")
     with open(path) as f:
         return json.load(f)
+
+
+def restore_tree(template: Any, flat: dict[str, np.ndarray], device=None) -> Any:
+    """A tree shaped like ``template`` (dicts, lists, tuples, ``None``; tensor
+    or array leaves) from a flat checkpoint, each leaf a tensor of the
+    template leaf's dtype on ``device`` (default: the template leaf's
+    device).  Keys are the template's paths; a missing key or a shape that
+    differs raises, as in the JAX package."""
+
+    def build(node, prefix: tuple):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: build(node[k], prefix + (k,)) for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(sub, prefix + (i,)) for i, sub in enumerate(node))
+        key = "/".join(str(p) for p in prefix)
+        if key not in flat:
+            raise KeyError(f"checkpoint missing {key}")
+        arr = np.asarray(flat[key])
+        if tuple(arr.shape) != tuple(node.shape):
+            raise ValueError(f"{key}: ckpt shape {arr.shape} != model {tuple(node.shape)}")
+        like = node if isinstance(node, torch.Tensor) else torch.from_numpy(np.asarray(node))
+        dev = like.device if device is None else torch.device(device)
+        host = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))  # 0-d stays 0-d
+        return host.to(device=dev, dtype=like.dtype)
+
+    return build(template, ())
+
+
+class AsyncCheckpointer:
+    """One-in-flight background saver with back-pressure: ``save`` waits for
+    the previous save, copies the tree to host numpy, then writes it on a
+    thread; ``wait`` joins it and raises what it raised."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def save(self, step: int, tree: Any) -> None:
+        self.wait()
+        host_tree = _flatten_with_paths(tree)  # snapshot (host copies) before async
+
+        def work():
+            try:
+                save_checkpoint(self.directory, step, host_tree, self.keep)
+            except BaseException as e:  # surfaced on next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+

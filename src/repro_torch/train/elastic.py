@@ -1,6 +1,5 @@
 """Elastic scaling + preemption handling (DESIGN.md §5): the port of
-``repro.train.elastic`` without ``run_elastic_loop``, which waits for
-training (ROADMAP.md queue 1 item 14).
+``repro.train.elastic``.
 
   * ``plan_mesh_shape`` — given surviving chip count and the model-parallel
     degree (fixed by the weight layout), pick the largest usable (pods,
@@ -8,11 +7,14 @@ training (ROADMAP.md queue 1 item 14).
     degraded recovery sizes its repaired grid with it.
   * ``PreemptionGuard`` — SIGTERM flips a flag; the loop checkpoints and
     exits cleanly at the next step (or micro-batch) boundary.
+  * ``run_elastic_loop`` — a train loop with periodic and preemption
+    checkpoints.
 """
 from __future__ import annotations
 
 import dataclasses
 import signal
+from typing import Callable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,3 +72,24 @@ class PreemptionGuard:
     @property
     def should_stop(self) -> bool:
         return self._requested
+
+
+def run_elastic_loop(
+    steps: int,
+    step_fn: Callable[[int], dict],
+    save_fn: Callable[[int], None],
+    checkpoint_every: int = 50,
+    guard: PreemptionGuard | None = None,
+) -> int:
+    """Drive a train loop with periodic + preemption checkpoints.
+    Returns the last completed step."""
+    last = -1
+    for step in range(steps):
+        step_fn(step)
+        last = step
+        if guard is not None and guard.should_stop:
+            save_fn(step)
+            break
+        if checkpoint_every and (step + 1) % checkpoint_every == 0:
+            save_fn(step)
+    return last

@@ -185,3 +185,76 @@ def test_olmo_attention_takes_the_wgmma_kernel():
     hd = get_config("olmo-1b").hd
     assert fa.kernel_variant(torch.bfloat16, hd) == "bf16_wgmma"
     assert fa.kernel_variant(torch.float32, hd) == "fp32_cuda_cores"
+
+
+# ---- the backward -------------------------------------------------------------
+@pytest.mark.parametrize("d", [16, 40])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+def test_bwd_ref_matches_jax_vjp_of_sdpa(causal, d):
+    """The plain backward from the forward's o and lse against ``jax.vjp``
+    of the JAX package's ``_sdpa`` (what it differentiates; it has no
+    backward kernel), GQA 4 query heads on 2 kv heads, fp32 to 2e-5."""
+    import jax
+
+    from repro.models import layers as jlayers
+
+    q, k, v = _inputs(2, 4, 2, 96, 96, d, d + causal)
+    do = np.random.default_rng(d).normal(size=q.shape).astype(np.float32)
+    out, vjp = jax.vjp(lambda a, b, c: jlayers._sdpa(a, b, c, causal, None),
+                       *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = fa.flash_attention_ref_lse(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(out), rtol=2e-5, atol=2e-5)
+    got = fa.flash_attention_bwd(tq, tk, tv, o, lse, tdo, causal=causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5, atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fn_gradcheck(causal):
+    """``torch.autograd.gradcheck`` in float64 through ``FlashAttentionFn``
+    on the CPU (the plain forward with lse, the plain backward), GQA 4:2."""
+    rng = np.random.default_rng(int(causal))
+    q, k, v = (torch.from_numpy(rng.normal(size=s)).requires_grad_(True)
+               for s in ((1, 4, 9, 8), (1, 2, 9, 8), (1, 2, 9, 8)))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: fa.FlashAttentionFn.apply(a, b, c, causal), (q, k, v))
+
+
+def test_flash_attention_takes_the_function_only_for_gradients():
+    """With an input that requires grad, ``flash_attention`` is
+    ``FlashAttentionFn`` (whose gradients equal autograd of the plain
+    version); without one, or under ``no_grad``, the plain forward; the
+    CPU counts no launch either way."""
+    fa.reset_launches()
+    q, k, v = map(torch.from_numpy, _inputs(2, 4, 2, 50, 50, 24, 3))
+    w = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 4, 50, 24)).astype(np.float32))
+    plain = fa.flash_attention(q, k, v)
+    assert plain.grad_fn is None
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, causal=True)
+        if fn is fa.flash_attention:
+            assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+            assert torch.equal(out.detach(), plain)
+            with torch.no_grad():
+                assert fa.flash_attention(*leaves).grad_fn is None
+        (out * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, want in zip(*grads):
+        torch.testing.assert_close(g, want, rtol=2e-5, atol=2e-5)
+    assert fa.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
+
+
+@pytest.mark.parametrize("dp,chunk", [(16, 16), (48, 48), (128, 128), (144, 80), (240, 128),
+                                      (256, 128)])
+def test_bwd_chunk(dp, chunk):
+    """The backward accumulates at most 128 head-dim columns a block: a
+    larger D runs in the fewest chunks, each a multiple of 16 that covers D."""
+    got = fa.bwd_chunk(dp)
+    assert got == chunk and got % 16 == 0 and got <= fa.BWD_CHUNK
+    n = -(-dp // got)
+    assert n == -(-dp // fa.BWD_CHUNK) and (n - 1) * got < dp

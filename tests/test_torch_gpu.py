@@ -597,6 +597,80 @@ def test_flash_attention_kernel_pads_head_dim(cuda, d, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+_BWD_CASES = [  # b, h, hkv, lq, lk, d, causal, dtype
+    (2, 4, 2, 128, 128, 64, True, _F32),
+    (1, 4, 4, 200, 200, 40, True, _F32),  # ragged L, D padded to 48
+    (1, 4, 1, 77, 131, 32, False, _F32),  # Lq != Lk, MQA
+    (1, 2, 2, 130, 130, 256, False, _F32),  # two column chunks
+    (2, 32, 8, 200, 200, 128, True, _BF16),  # Granite's 32:8 grouping, ragged
+    (1, 4, 4, 1000, 1000, 64, True, _BF16),
+    (2, 4, 2, 200, 200, 96, False, _BF16),
+    (1, 8, 2, 150, 150, 40, True, _BF16),  # padded to 48
+    (1, 2, 2, 130, 130, 144, True, _BF16),  # chunks of 80 and 64 columns
+    (1, 2, 1, 77, 300, 128, False, _BF16),
+]
+
+
+def _qkv_do(b, h, hkv, lq, lk, d, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+            for s in ((b, h, lq, d), (b, hkv, lk, d), (b, hkv, lk, d), (b, h, lq, d))]
+
+
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,dtype", _BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, hkv, lq, lk, d, causal, dtype):
+    """The forward asked for its log-sum-exp gives the serving forward's
+    output bit for bit and the plain version's lse; the backward kernels
+    against ``flash_attention_bwd_ref`` on the same o, lse and do (fp32
+    2e-5, bf16 2e-2, as the forward is held), and a second call equal bit
+    for bit (no atomics)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _qkv_do(b, h, hkv, lq, lk, d, dtype, cuda, b + h + lq + lk + d)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+    assert torch.equal(o, fa.flash_attention(q, k, v, causal=causal))
+    _, lse_want = fa.flash_attention_ref_lse(q, k, v, causal=causal)
+    torch.testing.assert_close(lse, lse_want, rtol=2e-5, atol=2e-5)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    tol = 2e-5 if dtype == _F32 else 2e-2
+    for g, g2, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, g2)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("d", [40, 128])
+def test_flash_attention_autograd_on_card(cuda, d, dtype):
+    """``flash_attention`` on inputs that require grad goes through
+    ``FlashAttentionFn`` (the forward with lse, then the backward kernels)
+    and gives autograd of the plain version's gradients, through the
+    layer's [B, L, H, D] views, D = 40 padded and cropped."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(d)
+    base = [torch.from_numpy(rng.normal(size=(2, 150, hh, d)).astype(np.float32)).to(cuda, dtype)
+            for hh in (8, 2, 2)]
+    w = torch.from_numpy(rng.normal(size=(2, 8, 150, d)).astype(np.float32)).to(cuda)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_ref):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        q, k, v = (t.transpose(1, 2) for t in leaves)
+        before = dict(fa.LAUNCHES)
+        (fn(q, k, v, causal=True).float() * w).sum().backward()
+        if fn is fa.flash_attention:
+            assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+            assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+        grads.append([t.grad for t in leaves])
+    tol = 2e-5 if dtype == _F32 else 2e-2
+    for g, want in zip(*grads):
+        torch.testing.assert_close(g.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("l", [1, 77])
 @pytest.mark.parametrize("hd", [8, 24, 72])
 def test_wkv6_kernel_pads_head_dim(cuda, hd, l):
@@ -655,6 +729,59 @@ def test_transformer_on_card_matches_cpu(cuda, name):
     d_card, _ = card.decode_step(params_card, c_card, nxt.to(cuda), l, dtype=torch.float32)
     d_cpu, _ = cpu.decode_step(params, c_cpu, nxt, l, dtype=torch.float32)
     torch.testing.assert_close(d_card.cpu(), d_cpu, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "granite-3-8b", "hubert-xlarge"])
+def test_train_step_on_card_matches_cpu(cuda, name):
+    """Reduced configs in fp32, remat on: two train steps on the card (K6's
+    forward twice a layer and its backward kernel once) against the same
+    steps on the CPU (plain attention under autograd): loss and grad_norm to
+    2e-4, the params after AdamW to 1e-3 of the update."""
+    from repro_torch import train as ttrain
+    from repro_torch.train.optimizer import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_config(name).reduced()
+    batch = tmodels.make_batch(cfg, np.random.default_rng(2), 2, 40, device="cpu")
+    if "prefix_embeds" in batch:
+        batch["prefix_embeds"] = batch["prefix_embeds"].float()
+    opt = ttrain.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params0, state0 = ttrain.init_train_state(tmodels.build_model(cfg, device="cpu"), 1)
+    out = []
+    for dev in ("cpu", cuda):
+        model = tmodels.build_model(cfg, device=dev)
+        params, state = _copy_to(params0, dev), _copy_to(state0, dev)
+        step = ttrain.make_train_step(model, opt, {"dtype": torch.float32})
+        fa.reset_launches()
+        metrics = []
+        for _ in range(2):
+            params, state, m = step(params, state, _to(batch, dev))
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+        if dev != "cpu":
+            n = 0 if cfg.window else cfg.n_layers
+            assert fa.LAUNCHES == {"flash_attention": 4 * n, "flash_attention_bwd": 2 * n}
+        out.append((metrics, [p.detach().cpu() for p in leaves(params)]))
+    (m_cpu, p_cpu), (m_card, p_card) = out
+    np.testing.assert_allclose(m_card, m_cpu, rtol=2e-4)
+    # AdamW divides each gradient by its RMS: an entry whose gradient is
+    # near zero may move by lr on one side only, so the params are held by
+    # the norm of their difference against the update's
+    p0 = [p.detach() for p in leaves(params0)]
+    moved = sum(float(((b - a) ** 2).sum()) for a, b in zip(p0, p_cpu)) ** 0.5
+    diff = sum(float(((a - b) ** 2).sum()) for a, b in zip(p_card, p_cpu)) ** 0.5
+    assert diff <= 1e-3 * moved, (diff, moved)
+
+
+def _copy_to(tree, device):
+    """A copy of a tree of leaf tensors on ``device``, each a leaf again
+    (``requires_grad`` as the original's)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_to(v, device) for v in tree]
+    return tree.detach().to(device, copy=True).requires_grad_(tree.requires_grad)
 
 
 # ---- the wkv6 recurrence (K7) and RWKV-6 on the card --------------------------
