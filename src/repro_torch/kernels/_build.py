@@ -2,8 +2,10 @@
 
 Each source is compiled at first use into a shared library with a plain C
 interface, under ``build/`` at the root of the checkout.  The library's
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one
+name carries a hash of the source, of the local headers it includes
+(``#include "..."``, followed into headers that include others) and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  ``build_all`` starts one
 nvcc per source, all at once, so the kernels of later sources build side by
 side rather than one after another.  Nothing here runs at import time: this module imports on machines without
 nvcc or a card.
@@ -79,9 +81,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _inputs(src: Path) -> list[Path]:
+    """``src`` and every local header it includes, directly or through
+    another header, each once, in the order first met."""
+    seen: list[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode() for m in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in _inputs(SOURCES[name]):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{name}_{digest.hexdigest()[:12]}.so"
 
 

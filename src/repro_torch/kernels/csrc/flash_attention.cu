@@ -57,6 +57,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BM = 64;            // queries per block
@@ -421,193 +423,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // tiles of 128 keys go through a ring of STAGES stages, each with a "K full",
 // a "V full" and an "empty" mbarrier, so the producer keeps the next tiles in
 // flight while the consumers compute.  Every tile is stored as D / 64 column
-// chunks of [128 rows][64 bf16] with the 128-byte swizzle, the layout that
-// the TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and the wgmma descriptors read
-// (layout type 1).
+// chunks of [128 rows][64 bf16] with the 128-byte swizzle (hopper.cuh).
 namespace wg {
 
 constexpr int BM = 128;       // queries a block (two consumer warpgroups of 64)
 constexpr int BN = 128;       // keys a tile
 constexpr int STAGES = 3;     // K/V tiles in the ring
 constexpr int THREADS = 384;  // two consumer warpgroups and one producer
-constexpr int CHUNK = 64;     // bf16 columns of one 128-byte swizzled row
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ uint64_t globaltimer_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-// Wait for the phase of `bar` with this parity to complete.  A wait longer
-// than ten seconds means an arrival was lost: trap (a launch error the
-// wrapper's caller sees) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    const uint64_t now = globaltimer_ns();
-    if (t0 == 0) t0 = now;
-    if (now - t0 > 10000000000ull) __trap();
-  }
-}
-
-// rows [c1, c1 + 128) and columns [c0, c0 + 64) of one (head c2, batch c3)
-// into `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (PTX ISA, matrix descriptor; all in 16-byte units)
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// d (64 x 128, fp32) {+}= A (smem, K-major) * B (smem, K-major); scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
-        "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]),
-        "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-        "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64, fp32) += A (registers, bf16 fragments) * B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
-        "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128, fp32) += A (registers, bf16 fragments) * B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
-        "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]),
-        "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-        "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void pv_mma(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void pv_mma<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n64(o, a, db);
-}
-template <>
-__device__ __forceinline__ void pv_mma<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n128(o, a, db);
-}
+using namespace hopper;  // CHUNK, mbarriers, TMA, descriptors, wgmma (hopper.cuh)
 
 // Online softmax of one 64 x 128 score tile held as a wgmma accumulator:
 // this thread holds rows row0 and row0 + 8, keys n0 + 8 j + 2 t4 + {0, 1}
@@ -771,7 +594,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      pv_mma<D>(oacc, pa[kk], desc(cv + kk * 16 * CHUNK, BN * CHUNK * 2, 1024));
+      rs_mma<D>(oacc, pa[kk], desc(cv + kk * 16 * CHUNK, BN * CHUNK * 2, 1024));
     }
     wg_commit();
     wg_wait_all();
@@ -849,69 +672,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
                       st);
 }
 
-// cuTensorMapEncodeTiled lives in libcuda: reached through the runtime's
-// entry-point query, so the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// A bf16 [B, heads, L, D] tensor with element strides st = (batch, head,
-// position), the head dimension contiguous, as a rank-4 map over (D, L,
-// heads, B): boxes of 64 columns by 128 rows, 128-byte swizzle, rows past L
-// read as zeros.
-CUresult make_map(CUtensorMap* map, const void* ptr, int B, int heads, int L, int D,
-                  const long long* st) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const long long elem[3] = {st[2], st[1], st[0]};
-  cuuint64_t strides[3];
-  long long packed = D;
-  for (int i = 0; i < 3; ++i) {
-    // a dimension of size 1 is never stepped over: give it a valid stride
-    const long long e = dims[i + 1] == 1 ? packed : elem[i];
-    strides[i] = static_cast<cuuint64_t>(e) * sizeof(bf16);
-    packed = e * static_cast<long long>(dims[i + 1]);
-  }
-  const cuuint32_t box[4] = {wg::CHUNK, wg::BN, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-constexpr int kTensorMapError = 10000;  // + the CUresult of a refused tensor map
-
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                  int Hkv, const Shape& s, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
-  CUresult res = make_map(&mq, q, B, s.H, s.Lq, D, s.qs);
-  if (res == CUDA_SUCCESS) res = make_map(&mk, k, B, Hkv, s.Lk, D, s.ks);
-  if (res == CUDA_SUCCESS) res = make_map(&mv, v, B, Hkv, s.Lk, D, s.vs);
-  if (res != CUDA_SUCCESS) return kTensorMapError + static_cast<int>(res);
+  CUresult res = hopper::make_map(&mq, q, B, s.H, s.Lq, D, s.qs, wg::BM);
+  if (res == CUDA_SUCCESS) res = hopper::make_map(&mk, k, B, Hkv, s.Lk, D, s.ks, wg::BN);
+  if (res == CUDA_SUCCESS) res = hopper::make_map(&mv, v, B, Hkv, s.Lk, D, s.vs, wg::BN);
+  if (res != CUDA_SUCCESS) return hopper::kTensorMapError + static_cast<int>(res);
   const size_t bytes =
       static_cast<size_t>(1 + 2 * wg::STAGES) * wg::BN * D * sizeof(bf16) + 1024;  // + alignment
   const auto fn = wg::flash_fwd_wgmma_kernel<D>;
