@@ -220,7 +220,8 @@ INGEST_KERNELS = ("ingest_count_kernel", "ingest_scan_kernel", "ingest_rank_kern
 TRACE_WARMUP = 256  # tiny kernels in the profiler's warm-up step before every trace
 TRACE_PAD_S = 0.02  # host seconds idle at each end of a trace's active step
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
-FLASH_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_bf16_kernel",
+FLASH_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                     "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_bf16_kernel",
                      "flash_bwd_dq_bf16_kernel", "flash_bwd_dkdv_f32_kernel",
                      "flash_bwd_dq_f32_kernel")
 CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"  # phase 25's checkpoint (gitignored)
@@ -495,6 +496,23 @@ def _ptxas_regs(log: str, kernel: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name and kernel in name:
             return int(m.group(1))
+    return None
+
+
+def _ptxas_spills(log: str, kernel: str):
+    """(spill store bytes, spill load bytes) of the first kernel whose
+    mangled name contains ``kernel``, from ``nvcc -Xptxas -v``'s lines
+    (None if absent)."""
+    import re
+
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name and kernel in name:
+            return int(m.group(1)), int(m.group(2))
     return None
 
 
@@ -1143,7 +1161,7 @@ def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels import _build, launches, reset_launches
     from repro_torch.models import build_model, layers
     from repro_torch.models.convert import flat_from_jax_layout, train_state_to_jax_layout
     from repro_torch.train import (
@@ -1164,17 +1182,21 @@ def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)
     f32, bf16 = torch.float32, torch.bfloat16
 
     # ---- 22. K6's backward against its plain version --------------------------
+    # (b, h, hkv, Lq, Lk, d, causal, dtype); bf16 at D = 64 and 128 runs the
+    # wgmma kernels: GQA 4:1, ragged L, Lq != Lk, one query, L below a tile
     olmo_bwd = None
-    for b, h, hkv, l, d, causal, dtype in [
-        (2, 4, 2, 200, 64, True, f32), (1, 4, 1, 200, 128, False, f32),
-        (2, 8, 2, 200, 40, True, f32), (2, 32, 8, 200, 128, True, bf16),
-        (1, 8, 8, 1000, 128, True, bf16), (2, 8, 2, 1000, 64, True, bf16),
-        (2, 4, 4, 200, 96, False, bf16), (2, 8, 2, 200, 40, True, bf16),
-        (1, 4, 1, 300, 64, False, bf16), (4, 16, 16, 2048, 128, True, bf16),
+    for b, h, hkv, lq, lk, d, causal, dtype in [
+        (2, 4, 2, 200, 200, 64, True, f32), (1, 4, 1, 200, 200, 128, False, f32),
+        (2, 8, 2, 200, 200, 40, True, f32), (2, 32, 8, 200, 200, 128, True, bf16),
+        (1, 8, 8, 1000, 1000, 128, True, bf16), (2, 8, 2, 1000, 1000, 64, True, bf16),
+        (2, 4, 4, 200, 200, 96, False, bf16), (2, 8, 2, 200, 200, 40, True, bf16),
+        (1, 4, 1, 300, 300, 64, False, bf16), (1, 8, 2, 77, 300, 128, False, bf16),
+        (2, 8, 2, 1, 100, 64, False, bf16), (2, 8, 2, 40, 40, 128, True, bf16),
+        (4, 16, 16, 2048, 2048, 128, True, bf16),
     ]:
-        g = torch.Generator(device=dev).manual_seed(b * 1000 + h + l + d)
+        g = torch.Generator(device=dev).manual_seed(b * 1000 + h + lq + d)
         q, k, v, do = (torch.randn(s, generator=g, device=dev, dtype=f32).to(dtype)
-                       for s in ((b, h, l, d), (b, hkv, l, d), (b, hkv, l, d), (b, h, l, d)))
+                       for s in ((b, h, lq, d), (b, hkv, lk, d), (b, hkv, lk, d), (b, h, lq, d)))
         o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
         o_ref, lse_ref = fa.flash_attention_ref_lse(q, k, v, causal=causal)
         n0 = launches()["flash_attention_bwd"]
@@ -1187,9 +1209,9 @@ def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)
         errs = [_max_float_err(x, w) for x, w in zip(got, want)]
         rels = [_rel_norm_err(x, w) for x, w in zip(got, want)]
         same = all(torch.equal(x, y) for x, y in zip(got, again))
-        _say(f"[check] flash_attention_bwd ({str(dtype)[6:]}"
-             f"{f' at D={fa.padded_head_dim(d)}, padded' if d % 16 else ''}) q {(b, h, l, d)} "
-             f"k {(b, hkv, l, d)} causal={causal}: forward lse max_abs_err "
+        _say(f"[check] flash_attention_bwd {fa.bwd_kernel_variant(dtype, fa.padded_head_dim(d))} "
+             f"({str(dtype)[6:]}{f' at D={fa.padded_head_dim(d)}, padded' if d % 16 else ''}) q "
+             f"{(b, h, lq, d)} k {(b, hkv, lk, d)} causal={causal}: forward lse max_abs_err "
              f"{_max_float_err(lse, lse_ref):.3g} (rtol = atol = 1e-5), o "
              f"{_max_float_err(o, o_ref):.3g}; max_abs_err dq {errs[0]:.3g} dk {errs[1]:.3g} "
              f"dv {errs[2]:.3g} (rtol = atol = {tol}); relative norm error dq {rels[0]:.3g} "
@@ -1198,7 +1220,7 @@ def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)
         assert _close(lse, lse_ref, 1e-5) and _close(o, o_ref, tol)
         assert same and all(_close(x, w, tol) for x, w in zip(got, want))
         assert max(rels) <= rel_tol
-        if l == 2048:
+        if lq == 2048:
             olmo_bwd, olmo_bwd_err = (q, k, v, o, lse, do), max(errs)
         del q, k, v, do, o, lse, o_ref, lse_ref, got, again, want
 
@@ -1402,6 +1424,11 @@ def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)
     lib_b = _events_ms(sdpa_fwd_bwd, reps=10) - lib_fwd
     ops_b, bytes_b = _flash_bwd_work(*q.shape[:3], q.shape[3], True, q.element_size())
     bound_b, by_b = _bound(ops_b, bytes_b, BF16_FLOPS)
+    log6b = _build.build_all(["flash_attention_bwd"])["flash_attention_bwd"].ptxas
+    variant_b = fa.bwd_kernel_variant(q.dtype, q.shape[3])
+    for kname in ("flash_bwd_dkdv_wgmma_kernelILi128E", "flash_bwd_dq_wgmma_kernelILi128E"):
+        _say(f"[K6b] {kname.split('ILi')[0]}<128> ({variant_b}): {_ptxas_regs(log6b, kname)} "
+             f"registers, spill stores/loads {_ptxas_spills(log6b, kname)} bytes (nvcc -Xptxas -v)")
     _say(f"[K6b] flash_attention_bwd {tuple(q.shape)} bf16 causal: kernels {ms_b:.4f} ms "
          f"(CUDA graph of 10 calls; {_short(ev_b)} ms an event in a trace; wrapper "
          f"{wrap_b:.4f} ms); plain {plain_b:.2f} ms; scaled_dot_product_attention's backward "

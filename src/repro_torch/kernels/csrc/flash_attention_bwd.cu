@@ -16,31 +16,36 @@
 // forward, which the training path runs (kernels/flash_attention.py,
 // FlashAttentionFn).
 //
-// Structure (FlashAttention-2's): three kernels on one stream.
-//   1. flash_bwd_delta_kernel: delta_i, one warp a row.
-//   2. the key-tile kernel: a block owns a tile of keys of one (batch, kv
-//      head) and walks every query tile of every query head of its group,
-//      rebuilding S and dP, and keeps dk and dv in registers; it writes
-//      them once, so no two blocks touch one output (no atomics).
-//   3. the query-tile kernel: a block owns a tile of queries of one
-//      (batch, head), walks the key tiles and keeps dq in registers.
+// Structure: a key-tile kernel and a query-tile kernel on one stream.
+//   * the key-tile kernel: a block owns a tile of keys of one (batch, kv
+//     head) and walks every query tile of every query head of its group,
+//     rebuilding S and dP, and keeps dk and dv in registers; it writes them
+//     once, so no two blocks touch one output (no atomics).
+//   * the query-tile kernel: a block owns a tile of queries of one (batch,
+//     head), walks the key tiles and keeps dq in registers.
 // Every sum has one order fixed by the code, so two calls give the same
-// bits.  S and dP are rebuilt in both kernels (7 products a (query, key)
-// pair where 5 would do with atomics on dq): the price of determinism.
-//
-// The accumulators cover at most 128 columns of the head dim: a larger D
-// runs its columns in chunks over grid.z, each chunk rebuilding S and dP
-// over the whole D (D = 256 does the score work twice).
+// bits.  S and dP are rebuilt in both kernels: 7 products a (query, key)
+// pair where 5 would do.  A single key-tile kernel that adds each query
+// tile's dQ share in key-tile order (semaphores, fp32 bulk adds: 5
+// products and the same bits every call) measured slower on the card.
 //
 // What bounds it on this card: operations, 2 D flops for each of the five
 // products of a (query, key) pair the mask keeps, against q, k, v, o, do
-// read once and dq, dk, dv written once.  Two variants, chosen by dtype:
+// read once and dq, dk, dv written once.  Three variants, chosen by dtype
+// and D (kernels/flash_attention.py, bwd_kernel_variant):
 //   * fp32: FMAs on the CUDA cores, 32 x 32 tiles, 256 threads each
-//     holding 2 x 2 scores; no TF32.  The parity path;
-//   * bf16: mma.sync m16n8k16 (bf16 products, fp32 sums) with ldmatrix
-//     fragments, 64 x 64 tiles, four warps of 16 rows; P and dS are
-//     rounded to bf16 as the A operands of their products, as the forward
-//     rounds P before P.V.  wgmma and TMA are later work.
+//     holding 2 x 2 scores; no TF32.  The parity path.  A delta pass (one
+//     warp a row) runs first;
+//   * bf16, D = 64 or 128 (namespace wgb below): wgmma with TMA loads,
+//     128 keys a key-tile block and 128 queries a query-tile block.  The
+//     training path of OLMo-1B (D = 128) runs here;
+//   * bf16, other D: mma.sync m16n8k16 with ldmatrix fragments, 64 x 64
+//     tiles, four warps of 16 rows, after the delta pass.  Its
+//     accumulators cover at most 128 columns of the head dim: a larger D
+//     runs its columns in chunks over grid.z, each chunk rebuilding S and
+//     dP over the whole D (D = 256 does the score work twice).
+// In the bf16 kernels P and dS are rounded to bf16 as the A operands of
+// their products, as the forward rounds P before P.V; every sum is fp32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -66,33 +71,20 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // ---- 1. delta_i = do_i . o_i ------------------------------------------------
-// Rows [0, pitch) of each (batch, head): delta (0 past Lq) and, where `lse2`
-// is given (the wgmma kernels), lse * log2(e) (+inf past Lq, so that the
-// padded rows' P is 0 without a mask).
 template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       const float* __restrict__ lse, float* __restrict__ delta,
-                       float* __restrict__ lse2, int pitch, BwdShape s) {
+                       float* __restrict__ delta, BwdShape s) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * 8 + warp;
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
-  if (row >= pitch) return;
+  if (row >= s.Lq) return;
+  const T* op = o + b * s.os[0] + h * s.os[1] + row * s.os[2];
+  const T* dp = dout + b * s.dos[0] + h * s.dos[1] + row * s.dos[2];
   float acc = 0.f;
-  if (row < s.Lq) {
-    const T* op = o + b * s.os[0] + h * s.os[1] + row * s.os[2];
-    const T* dp = dout + b * s.dos[0] + h * s.dos[1] + row * s.dos[2];
-    for (int c = lane; c < s.D; c += 32) acc = fmaf(to_f(op[c]), to_f(dp[c]), acc);
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xFFFFFFFFu, acc, off);
-  }
-  if (lane == 0) {
-    const long long at = static_cast<long long>(bh) * pitch + row;
-    delta[at] = acc;
-    if (lse2 != nullptr) {
-      lse2[at] = row < s.Lq ? lse[static_cast<long long>(bh) * s.Lq + row] * 1.4426950408889634f
-                            : __int_as_float(0x7f800000);
-    }
-  }
+  for (int c = lane; c < s.D; c += 32) acc = fmaf(to_f(op[c]), to_f(dp[c]), acc);
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xFFFFFFFFu, acc, off);
+  if (lane == 0) delta[static_cast<long long>(bh) * s.Lq + row] = acc;
 }
 
 // ---- fp32: CUDA cores ---------------------------------------------------------
@@ -624,53 +616,48 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- bf16, D in {64, 128}: wgmma, TMA, and an ordered dQ -------------------
-// FlashAttention-3's backward with a fixed summation order.  A persistent
-// grid (one block an SM) takes work items, a key tile of 128 keys of one
-// (batch, kv head), from an atomic counter in the order of the host's list
-// (kernels/flash_attention.py, bwd_schedule).  Warpgroups 0 and 1 consume,
-// 64 keys each; warpgroup 2 produces: one thread takes the items and issues
-// every load (K and V once an item; Q and dO tiles of 64 queries, with their
-// lse * log2(e) and delta rows, through a ring of STAGES stages with full and
-// empty mbarriers), and, under ORDERED_DQ, a second thread adds each query
-// tile's dQ share into an fp32 accumulator in global memory.  setmaxnreg
-// moves registers from the producer (24 a thread) to the consumers (240),
-// which hold dK and dV (D / 2 each), S^T and dP^T (32 each).  A pair of
-// (query tile, key tile) takes five products, all wgmma with fp32 sums:
-//   S^T = K Q^T, dP^T = V dO^T      (m64n64k16, both operands from smem);
-//   P^T = exp2(S^T scale log2(e) - lse log2(e)), dS^T = P^T (dP^T - delta);
-//   dV += P^T dO, dK += dS^T Q      (P^T, dS^T as bf16 register fragments);
-//   dQ_tile = dS K                  (dS^T staged in smem, read transposed).
-// dK and dV stay in registers over every query tile and head of the group
-// and are stored once.  dQ: key tile j adds its share to query tile i when
-// the tile's semaphore says that key tiles 0 .. j - 1 have added theirs (key
-// tile 0 stores), then bumps it; so every dQ entry is summed in key-tile
-// order, whatever the order the blocks run in, and two calls give the same
-// bits.  An item waits only on items earlier in the list, which running
-// blocks have taken, so no dispatch order deadlocks.  A convert pass writes
-// dq = bf16(scale * acc).  Without ORDERED_DQ the kernel computes dK and dV
-// alone (four products) and flash_bwd_dq_wgmma_kernel computes dQ.
+// ---- bf16, D in {64, 128}: wgmma and TMA --------------------------------------
+// FlashAttention-3's pieces on two kernels, each output with one owner.
+//   * flash_bwd_dq_wgmma_kernel runs first: a block owns 128 queries of one
+//     (batch, head), K6's forward shape: a producer warpgroup loads Q, dO
+//     and O once and K and V tiles of 64 keys through a ring; two consumer
+//     warpgroups form delta = rowsum(dO * O) from shared memory, write it
+//     and lse * log2(e) for the other kernel, then rebuild S = Q K^T and
+//     dP = dO V^T tile by tile, form dS and add dS K into dq.
+//   * flash_bwd_dkdv_wgmma_kernel: a block owns 128 keys of one (batch, kv
+//     head), warpgroups 0 and 1 64 keys each, and walks every 64-query tile
+//     of every query head of its group.  Thread 0 issues the TMA loads: K
+//     and V once, Q and dO tiles (with their lse * log2(e) and delta rows)
+//     through a ring of STAGES stages, each refilled once every thread has
+//     released it (full and empty mbarriers).  A tile takes four products:
+//     S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16 from shared memory; P^T
+//     is computed while dP^T runs), then dV += P^T dO and dK += dS^T Q (P^T
+//     and dS^T as bf16 register fragments).  dK and dV stay in registers
+//     and are stored once.  256 threads and no producer warpgroup: ptxas
+//     gives such a block 255 registers a thread, and the consumers need
+//     about 232 (dK and dV hold D / 2 each); with a producer warpgroup and
+//     setmaxnreg ptxas kept them under about 200, spilled, and serialized
+//     the wgmmas.
+// Below the bound (PERF.md, Findings) each warpgroup runs its products, its
+// exponentials and its waits in turn; and by count the key-tile kernel's
+// S^T and dP^T (m64n64k16, both operands from shared memory: 4 KB an
+// instruction of 32 tensor clocks) ask for shared memory at about its
+// 128 bytes a clock (not measured apart).
 namespace wgb {
 
 using namespace hopper;
 
-constexpr int BN = 128;       // keys an item (two consumer warpgroups of 64)
+constexpr int BN = 128;       // keys a block (two consumer warpgroups of 64)
 constexpr int BM = 64;        // queries a tile
+constexpr int STAGES = 3;     // Q/dO tiles in the ring
 constexpr int THREADS = 256;  // two consumer warpgroups; thread 0 also loads
-constexpr int DQ_THREADS = 384;  // the dQ kernel: two consumer warpgroups and a producer
-// Q/dO tiles in the ring: the ordered design's dS^T and dQ staging buffers
-// leave room for two stages, the other for three
-__host__ __device__ constexpr int stages(bool ordered_dq) { return ordered_dq ? 2 : 3; }
-constexpr int ACC_TILE = 2 * 64 * 64;  // fp32 of one query tile's dQ share (both layouts)
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Work {
-  const int* schedule;  // items in the order they are taken: key tile * n_bg + batch * Hkv + kv head
-  int n_items, n_bg, n_qt, pitch;  // n_qt query tiles of BM; pitch: rows of lse2 and delta
-  int* counter;         // [0]: the next item; [1 + bh * n_qt + i]: key tiles added into tile i
-  const float* lse2;    // [B * H][pitch]
-  const float* delta;   // [B * H][pitch]
-  float* acc;           // [B * H * n_qt][ACC_TILE]: each query tile's dQ sum, staging layout
+  int n_bg, n_qt, pitch;  // batch * Hkv; query tiles of BM; rows of lse2 and delta
+  const float* lse;       // the forward's [B * H][Lq]
+  float* lse2;            // [B * H][pitch]: lse * log2(e), +inf past Lq (the dQ kernel writes it)
+  float* delta;           // [B * H][pitch]: rowsum(dO * O), 0 past Lq (the dQ kernel writes it)
   bf16* dk;
   bf16* dv;
 };
@@ -682,20 +669,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
-}
-
-// Wait until the key tiles added into a query tile number `want`.  Ten
-// seconds means a contributor was lost: trap rather than hang.
-__device__ __forceinline__ void wait_count(const int* sem, int want) {
-  uint64_t t0 = 0;
-  for (;;) {
-    int v;
-    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(sem) : "memory");
-    if (v == want) return;
-    const uint64_t now = globaltimer_ns();
-    if (t0 == 0) t0 = now;
-    if (now - t0 > 10000000000ull) __trap();
-  }
 }
 
 // P^T over one 64 x 64 tile of S^T, in place (a wgmma accumulator: this
@@ -730,36 +703,51 @@ __device__ __forceinline__ void to_frags(uint32_t (&a)[4][4], const float (&x)[3
   }
 }
 
-template <int D, bool ORDERED_DQ>
+// Block x: key tile x / n_bg of bg = x % n_bg (batch * Hkv + kv head), so
+// key tile 0 of every bg, under the causal mask the longest, starts first.
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap tdo, const BwdShape s, const Work w) {
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo, const BwdShape s,
+                            const Work w) {
   constexpr int NCH = D / CHUNK;
   constexpr int KV = BN * D;  // elements of the K (or V) tile
   constexpr int QT = BM * D;  // elements of a Q (or dO) tile
-  constexpr int DS = BN * 64;  // elements of dS^T [128 keys][64 queries]
-  constexpr int STAGES = stages(ORDERED_DQ);
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], kv_full;
   __shared__ __align__(16) float slse[STAGES][BM], sdel[STAGES][BM];
-  __shared__ int s_item[2];  // the item taken, by the parity of the loop's round
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on 1024
   bf16* sk = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                      ~static_cast<uintptr_t>(1023));
   bf16* sv = sk + KV;
-  bf16* sq = sv + KV;          // stage st: sq + st QT
+  bf16* sq = sv + KV;  // stage st: sq + st QT
   bf16* sdo = sq + STAGES * QT;
-  bf16* sds = sdo + STAGES * QT;  // [2][128 keys][64 queries], swizzled
-  float* sacc = reinterpret_cast<float*>(sds + 2 * DS);  // [ACC_TILE]
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g8 = lane / 4, t4 = lane % 4;
-  const int hkv = s.H / s.group;
+  const int j = blockIdx.x / w.n_bg, bg = blockIdx.x % w.n_bg;
+  const int hkv = s.H / s.group, b = bg / hkv, g = bg % hkv;
+  const int i0 = s.causal ? j * BN / BM : 0;  // queries before the tile's first key are masked
+  const int per = w.n_qt - i0, tiles = s.group * per;
   const float sl2 = s.scale * kLog2e;
   const bf16* kw = sk + wg * 64 * CHUNK;  // this warpgroup's K and V rows, chunk 0
   const bf16* vw = sv + wg * 64 * CHUNK;
 
+  // tile t (query head g group + t / per, query tile i0 + t % per) into
+  // stage t % STAGES: Q and dO boxes, lse2 and delta rows
+  auto issue = [&](int t) {
+    const int h = g * s.group + t / per, i = i0 + t % per, st = t % STAGES;
+    mbar_expect_tx(&full[st], 2 * QT * 2 + 2 * BM * 4);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      tma_load(sq + st * QT + c * BM * CHUNK, &tq, &full[st], c * CHUNK, i * BM, h, b);
+      tma_load(sdo + st * QT + c * BM * CHUNK, &tdo, &full[st], c * CHUNK, i * BM, h, b);
+    }
+    const long long row = static_cast<long long>(b * s.H + h) * w.pitch + i * BM;
+    bulk_load(slse[st], w.lse2 + row, BM * 4, &full[st]);
+    bulk_load(sdel[st], w.delta + row, BM * 4, &full[st]);
+  };
   if (threadIdx.x == 0) {
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(&full[st], 1);
@@ -767,264 +755,125 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     mbar_init(&kv_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(&kv_full, 2 * KV * 2);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int off = c * BN * CHUNK + half * 64 * CHUNK;
+        tma_load(sk + off, &tk, &kv_full, c * CHUNK, j * BN + half * 64, g, b);
+        tma_load(sv + off, &tv, &kv_full, c * CHUNK, j * BN + half * 64, g, b);
+      }
+    }
+    for (int t = 0; t < STAGES && t < tiles; ++t) issue(t);
   }
+  __syncthreads();  // the barriers are initialised
 
   float dk[D / 2], dv[D / 2];
-  int n = 0;       // tiles this block has consumed: the ring's position
-  int pend = -1;   // ORDERED_DQ, thread 128: the semaphore of the dQ add in flight
-  for (int round = 0;; ++round) {
-    if (threadIdx.x == 0) s_item[round & 1] = atomicAdd(w.counter, 1);
-    __syncthreads();  // the item is set; every thread is done with the last item's K, V and ring
-    const int idx = s_item[round & 1];
-    if (idx >= w.n_items) break;
-    const int item = w.schedule[idx];
-    const int j = item / w.n_bg, bg = item % w.n_bg, b = bg / hkv, g = bg % hkv;
-    const int i0 = s.causal ? j * BN / BM : 0;  // queries before the tile's first key are masked
-    const int per = w.n_qt - i0, tiles = s.group * per;
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+  const int k0 = j * BN + wg * 64;
+  const int key0 = k0 + warp * 16 + g8;  // this thread's keys: key0 and key0 + 8
+  mbar_wait(&kv_full, 0);
 
-    // tile t of the item into stage nn % STAGES: Q and dO boxes, lse2 and delta rows
-    auto issue = [&](int t, int nn) {
-      const int h = g * s.group + t / per, i = i0 + t % per, st = nn % STAGES;
-      mbar_expect_tx(&full[st], 2 * QT * 2 + 2 * BM * 4);
+  for (int t = 0; t < tiles; ++t) {
+    const int m0 = (i0 + t % per) * BM, st = t % STAGES;
+    mbar_wait(&full[st], (t / STAGES) & 1);
+    const bf16* cq = sq + st * QT;
+    const bf16* cdo = sdo + st * QT;
+
+    // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 queries, both operands
+    // K-major (k steps of 16 walk 32 bytes along a swizzled row); P^T is
+    // computed while dP^T runs, then dS^T, then both as bf16 fragments
+    float sT[32], dpT[32];
+    wg_fence();
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        tma_load(sq + st * QT + c * BM * CHUNK, &tq, &full[st], c * CHUNK, i * BM, h, b);
-        tma_load(sdo + st * QT + c * BM * CHUNK, &tdo, &full[st], c * CHUNK, i * BM, h, b);
-      }
-      const long long row = static_cast<long long>(b * s.H + h) * w.pitch + i * BM;
-      bulk_load(slse[st], w.lse2 + row, BM * 4, &full[st]);
-      bulk_load(sdel[st], w.delta + row, BM * 4, &full[st]);
-    };
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(&kv_full, 2 * KV * 2);
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int off = c * BN * CHUNK + half * 64 * CHUNK;
-          tma_load(sk + off, &tk, &kv_full, c * CHUNK, j * BN + half * 64, g, b);
-          tma_load(sv + off, &tv, &kv_full, c * CHUNK, j * BN + half * 64, g, b);
-        }
-      }
-      for (int t = 0; t < STAGES && t < tiles; ++t) issue(t, n + t);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ok = (kk / 4) * BN * CHUNK + (kk % 4) * 16;
+      const int oq = (kk / 4) * BM * CHUNK + (kk % 4) * 16;
+      wgmma_ss_n64(sT, desc(kw + ok, 16, 1024), desc(cq + oq, 16, 1024), kk > 0);
     }
+    wg_commit();
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
-    mbar_wait(&kv_full, round & 1);
-    const int k0 = j * BN + wg * 64;
-    const int key0 = k0 + warp * 16 + g8;  // this thread's keys: key0 and key0 + 8
-
-    for (int t = 0; t < tiles; ++t, ++n) {
-      const int h = g * s.group + t / per, i = i0 + t % per, m0 = i * BM;
-      const int st = n % STAGES;
-      mbar_wait(&full[st], (n / STAGES) & 1);
-      const bf16* cq = sq + st * QT;
-      const bf16* cdo = sdo + st * QT;
-
-      // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 queries, both operands
-      // K-major (k steps of 16 walk 32 bytes along a swizzled row); P^T is
-      // computed while dP^T runs, then dS^T, then both as bf16 fragments
-      float sT[32], dpT[32];
-      wg_fence();
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ok = (kk / 4) * BN * CHUNK + (kk % 4) * 16;
+      const int oq = (kk / 4) * BM * CHUNK + (kk % 4) * 16;
+      wgmma_ss_n64(dpT, desc(vw + ok, 16, 1024), desc(cdo + oq, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait_one();  // S^T is in; dP^T may still run
+    fence_regs(sT);
+    if (k0 + 64 > s.Lk || (s.causal && k0 + 63 > m0)) {
+      p_tile<true>(sT, slse[st], key0, m0, t4, s.Lk, s.causal, sl2);
+    } else {
+      p_tile<false>(sT, slse[st], key0, m0, t4, s.Lk, s.causal, sl2);
+    }
+    wg_wait_all();
+    fence_regs(dpT);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int ok = (kk / 4) * BN * CHUNK + (kk % 4) * 16;
-        const int oq = (kk / 4) * BM * CHUNK + (kk % 4) * 16;
-        wgmma_ss_n64<0, 0>(sT, desc(kw + ok, 16, 1024), desc(cq + oq, 16, 1024), kk > 0);
-      }
-      wg_commit();
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 dl = *reinterpret_cast<const float2*>(sdel[st] + 8 * jj + 2 * t4);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int ok = (kk / 4) * BN * CHUNK + (kk % 4) * 16;
-        const int oq = (kk / 4) * BM * CHUNK + (kk % 4) * 16;
-        wgmma_ss_n64<0, 0>(dpT, desc(vw + ok, 16, 1024), desc(cdo + oq, 16, 1024), kk > 0);
-      }
-      wg_commit();
-      wg_wait_one();  // S^T is in; dP^T may still run
-      fence_regs(sT);
-      if (k0 + 64 > s.Lk || (s.causal && k0 + 63 > m0)) {
-        p_tile<true>(sT, slse[st], key0, m0, t4, s.Lk, s.causal, sl2);
-      } else {
-        p_tile<false>(sT, slse[st], key0, m0, t4, s.Lk, s.causal, sl2);
-      }
-      wg_wait_all();
-      fence_regs(dpT);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 dl = *reinterpret_cast<const float2*>(sdel[st] + 8 * jj + 2 * t4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dpT[4 * jj + e] = sT[4 * jj + e] * (dpT[4 * jj + e] - ((e & 1) ? dl.y : dl.x));
-        }
-      }
-      uint32_t pa[4][4], dsa[4][4];
-      to_frags(pa, sT);
-      to_frags(dsa, dpT);
-      bf16* cds = sds + (n & 1) * DS;
-      if (ORDERED_DQ) {  // dS^T rounded to bf16 into [128 keys][64 queries], swizzled
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int kl = wg * 64 + warp * 16 + g8 + 8 * r;
-            *reinterpret_cast<uint32_t*>(cds + kl * 64 + ((jj ^ (kl & 7)) * 8) + 2 * t4) =
-                dsa[jj >> 1][(jj & 1) * 2 + r];
-          }
-        }
-        fence_async_smem();
-        // D = 128: each warpgroup's dQ columns read every key's dS; D = 64:
-        // each reads its own keys
-        if (D == 128) named_sync(1, 256); else named_sync(2 + wg, 128);
-      }
-
-      // dV += P^T dO and dK += dS^T Q: A from registers (k = query), B
-      // MN-major: k steps of 16 queries are 2048 bytes apart, chunks BM rows
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        rs_mma<D>(dv, pa[kk], desc(cdo + kk * 16 * CHUNK, BM * CHUNK * 2, 1024));
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        rs_mma<D>(dk, dsa[kk], desc(cq + kk * 16 * CHUNK, BM * CHUNK * 2, 1024));
-      }
-      float dq[32];
-      if (ORDERED_DQ) {
-        // dQ share = dS K, A = dS^T read transposed (M = queries), B = K
-        // MN-major.  D = 128: warpgroup wg takes columns 64 wg .., all 128
-        // keys; D = 64: all columns over its own 64 keys (the convert pass
-        // adds the two)
-        constexpr int KSTEPS = D == 128 ? 8 : 4;
-        const bf16* a0 = D == 128 ? cds : cds + wg * 64 * 64;
-        const bf16* b0 = D == 128 ? sk + wg * BN * CHUNK : kw;
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-          wgmma_ss_n64<1, 1>(dq, desc(a0 + kk * 16 * 64, BN * 64 * 2, 1024),
-                             desc(b0 + kk * 16 * CHUNK, BN * CHUNK * 2, 1024), kk > 0);
-        }
-      }
-      wg_commit();
-      wg_wait_all();
-      fence_regs(dv);
-      fence_regs(dk);
-      if (ORDERED_DQ) fence_regs(dq);
-      mbar_arrive(&empty[st]);
-      if (threadIdx.x == 0 && t + STAGES < tiles) {  // refill the stage once every thread is done
-        mbar_wait(&empty[st], (n / STAGES) & 1);
-        issue(t + STAGES, n + STAGES);
-      }
-
-      if (ORDERED_DQ) {
-        if (threadIdx.x == 128 && pend >= 0) {  // the last add is done: release its tile
-          asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-          asm volatile("fence.proxy.async.global;\n" ::: "memory");
-          asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(w.counter + 1 + pend)
-                       : "memory");
-          pend = -1;
-        }
-        named_sync(1, 256);  // the staging buffer is free
-        float* dst = sacc + wg * 64 * 64;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          *reinterpret_cast<float4*>(dst + (jj * 128 + tid) * 4) =
-              make_float4(dq[4 * jj], dq[4 * jj + 1], dq[4 * jj + 2], dq[4 * jj + 3]);
-        }
-        fence_async_smem();
-        named_sync(1, 256);  // the share is staged
-        if (threadIdx.x == 128) {  // add it after key tiles 0 .. j - 1 (key tile 0 stores)
-          const int tag = (b * s.H + h) * w.n_qt + i;
-          float* acc = w.acc + static_cast<long long>(tag) * ACC_TILE;
-          wait_count(w.counter + 1 + tag, j);
-          asm volatile("fence.proxy.async.global;\n" ::: "memory");
-          if (j == 0) {
-            asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-                         ::"l"(acc), "r"(smem_u32(sacc)), "r"(ACC_TILE * 4) : "memory");
-          } else {
-            asm volatile(
-                "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
-                ::"l"(acc), "r"(smem_u32(sacc)), "r"(ACC_TILE * 4) : "memory");
-          }
-          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-          pend = tag;
-        }
+      for (int e = 0; e < 4; ++e) {
+        dpT[4 * jj + e] = sT[4 * jj + e] * (dpT[4 * jj + e] - ((e & 1) ? dl.y : dl.x));
       }
     }
+    uint32_t pa[4][4], dsa[4][4];
+    to_frags(pa, sT);
+    to_frags(dsa, dpT);
 
-    // the item's dK (scaled) and dV, once
-    bf16* dkb = w.dk + b * s.dks[0] + g * s.dks[1];
-    bf16* dvb = w.dv + b * s.dvs[0] + g * s.dvs[1];
+    // dV += P^T dO and dK += dS^T Q: A from registers (k = query), B
+    // MN-major: k steps of 16 queries are 2048 bytes apart, chunks BM rows
+    wg_fence();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (key >= s.Lk) continue;
+    for (int kk = 0; kk < 4; ++kk) {
+      rs_mma<D>(dv, pa[kk], desc(cdo + kk * 16 * CHUNK, BM * CHUNK * 2, 1024));
+    }
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {
-        const int c = jj * 8 + 2 * t4;
-        *reinterpret_cast<uint32_t*>(dkb + key * s.dks[2] + c) =
-            pack_bf16(dk[4 * jj + 2 * r] * s.scale, dk[4 * jj + 2 * r + 1] * s.scale);
-        *reinterpret_cast<uint32_t*>(dvb + key * s.dvs[2] + c) =
-            pack_bf16(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      rs_mma<D>(dk, dsa[kk], desc(cq + kk * 16 * CHUNK, BM * CHUNK * 2, 1024));
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(&empty[st]);
+    if (threadIdx.x == 0 && t + STAGES < tiles) {  // refill the stage once every thread is done
+      mbar_wait(&empty[st], (t / STAGES) & 1);
+      issue(t + STAGES);
     }
   }
-  if (ORDERED_DQ && threadIdx.x == 128 && pend >= 0) {
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-    asm volatile("fence.proxy.async.global;\n" ::: "memory");
-    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(w.counter + 1 + pend)
-                 : "memory");
-  }
-}
 
-// dq = bf16(scale * acc): one block a query tile, reading the staging
-// layout (element 4 (jj 128 + tid) + e of warpgroup part wp: row warp 16 +
-// g8 + 8 (e >> 1), column 8 jj + 2 t4 + (e & 1), plus 64 wp for D = 128;
-// for D = 64 the two parts are summed, part 0 first), the bf16 tile staged
-// in shared memory for 16-byte row stores
-template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_convert_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, BwdShape s,
-                            int n_qt) {
-  __shared__ __align__(16) bf16 tile[BM][D + 8];  // + 8: row stores hit other banks
-  const int t = blockIdx.x, bh = t / n_qt, i = t % n_qt;
-  const int b = bh / s.H, h = bh % s.H;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g8 = lane / 4, t4 = lane % 4;
-  const float4* src = reinterpret_cast<const float4*>(acc + static_cast<long long>(t) * ACC_TILE);
+  bf16* dkb = w.dk + b * s.dks[0] + g * s.dks[1];
+  bf16* dvb = w.dv + b * s.dvs[0] + g * s.dvs[1];
 #pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
-    float4 x[2] = {src[jj * 128 + tid], src[(8 + jj) * 128 + tid]};
-    if (D == 64) {
-      x[0] = make_float4(x[0].x + x[1].x, x[0].y + x[1].y, x[0].z + x[1].z, x[0].w + x[1].w);
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= s.Lk) continue;
 #pragma unroll
-    for (int wp = 0; wp < (D == 128 ? 2 : 1); ++wp) {
-      const int c = wp * 64 + jj * 8 + 2 * t4, r = warp * 16 + g8;
-      *reinterpret_cast<uint32_t*>(&tile[r][c]) = pack_bf16(s.scale * x[wp].x, s.scale * x[wp].y);
-      *reinterpret_cast<uint32_t*>(&tile[r + 8][c]) =
-          pack_bf16(s.scale * x[wp].z, s.scale * x[wp].w);
-    }
-  }
-  __syncthreads();
-  bf16* dqb = dq + b * s.dqs[0] + h * s.dqs[1];
-  for (int u = tid; u < BM * (D / 8); u += 128) {
-    const int r = u / (D / 8), c = (u % (D / 8)) * 8, row = i * BM + r;
-    if (row < s.Lq) {
-      *reinterpret_cast<uint4*>(dqb + row * s.dqs[2] + c) =
-          *reinterpret_cast<const uint4*>(&tile[r][c]);
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int c = jj * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(dkb + key * s.dks[2] + c) =
+          pack_bf16(dk[4 * jj + 2 * r] * s.scale, dk[4 * jj + 2 * r + 1] * s.scale);
+      *reinterpret_cast<uint32_t*>(dvb + key * s.dvs[2] + c) =
+          pack_bf16(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
     }
   }
 }
 
-// The query-tile dQ kernel of the two-kernel design (7 products a pair):
-// 128 queries a block (warpgroup wg owns 64), Q and dO loaded once, K and V
-// tiles of 64 keys through a ring; S = Q K^T, dP = dO V^T, dS, dq += dS K.
-constexpr int DQ_BM = 128, DQ_BN = 64, DQ_STAGES = 3;
+// The query-tile dQ kernel: 128 queries a block (warpgroup wg owns 64), Q,
+// dO and O loaded once (O for delta), K and V tiles of 64 keys through a
+// ring; S = Q K^T, dP = dO V^T, dS, dq += dS K.  setmaxnreg moves registers from the
+// producer (24 a thread) to the consumers (240), which need fewer than 168.
+constexpr int DQ_BM = 128, DQ_BN = 64, DQ_STAGES = 3, DQ_THREADS = 384;
 
 template <int D>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tdo, const BwdShape s,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap to, const BwdShape s,
                           const Work w, bf16* __restrict__ dq) {
   constexpr int NCH = D / CHUNK;
   constexpr int QT = DQ_BM * D, KT = DQ_BN * D;
@@ -1033,7 +882,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   bf16* sq = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                      ~static_cast<uintptr_t>(1023));
   bf16* sdo = sq + QT;
-  bf16* sk = sdo + QT;  // stage st: sk + 2 st KT, sv = sk + KT
+  bf16* so = sdo + QT;  // O, for delta
+  bf16* sk = so + QT;   // stage st: sk + 2 st KT, sv = sk + KT
   const int m0 = (gridDim.x - 1 - blockIdx.x) * DQ_BM;  // the longest causal blocks first
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H, g_kv = h / s.group;
   const int n_end = s.causal ? min(s.Lk, m0 + DQ_BM) : s.Lk;
@@ -1053,7 +903,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(&bar_q, 2 * QT * 2);
+      mbar_expect_tx(&bar_q, 3 * QT * 2);
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
 #pragma unroll
@@ -1061,6 +911,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const int off = c * DQ_BM * CHUNK + half * 64 * CHUNK;
           tma_load(sq + off, &tq, &bar_q, c * CHUNK, m0 + half * 64, h, b);
           tma_load(sdo + off, &tdo, &bar_q, c * CHUNK, m0 + half * 64, h, b);
+          tma_load(so + off, &to, &bar_q, c * CHUNK, m0 + half * 64, h, b);
         }
       }
       for (int n = 0; n < n_tiles; ++n) {
@@ -1083,20 +934,51 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int g8 = lane / 4, t4 = lane % 4;
   const int row0 = m0 + wg * 64 + warp * 16 + g8;  // and row0 + 8
   const float sl2 = s.scale * kLog2e;
-  float l2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long at = static_cast<long long>(bh) * w.pitch + row0 + 8 * r;
-    l2[r] = w.lse2[at];
-    dl[r] = w.delta[at];
-  }
   const bf16* qw = sq + wg * 64 * CHUNK;
   const bf16* dow = sdo + wg * 64 * CHUNK;
   float acc[D / 2];
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
 
+  // delta = rowsum(dO * O) for this thread's rows row0 and row0 + 8: the four
+  // threads of a row each take two 16-byte units of every chunk (O and dO
+  // share the swizzle, so the units pair up as stored); rows past Lq are
+  // zeros.  Then lse * log2(e), +inf past Lq, and both written for the
+  // key-tile kernel, which runs next.
   mbar_wait(&bar_q, 0);
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rl = wg * 64 + warp * 16 + g8 + 8 * r, row = m0 + rl;
+    float x = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+      for (int u = t4; u < 8; u += 4) {
+        const int off = c * DQ_BM * CHUNK + rl * CHUNK + u * 8;
+        const uint4 a = *reinterpret_cast<const uint4*>(so + off);
+        const uint4 d = *reinterpret_cast<const uint4*>(sdo + off);
+        const uint32_t as[4] = {a.x, a.y, a.z, a.w}, ds[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 af = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&as[e]));
+          const float2 df = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ds[e]));
+          x = fmaf(af.x, df.x, fmaf(af.y, df.y, x));
+        }
+      }
+    }
+    x += __shfl_xor_sync(0xFFFFFFFFu, x, 1);
+    x += __shfl_xor_sync(0xFFFFFFFFu, x, 2);
+    dl[r] = x;
+    l2[r] = row < s.Lq ? w.lse[static_cast<long long>(bh) * s.Lq + row] * kLog2e
+                       : __int_as_float(0x7f800000);
+    if (t4 == 0) {
+      const long long at = static_cast<long long>(bh) * w.pitch + row;
+      w.delta[at] = dl[r];
+      w.lse2[at] = l2[r];
+    }
+  }
+
   for (int n = 0; n < n_tiles; ++n) {
     const int st = n % DQ_STAGES;
     mbar_wait(&full[st], (n / DQ_STAGES) & 1);
@@ -1107,14 +989,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int oq = (kk / 4) * DQ_BM * CHUNK + (kk % 4) * 16, ok = (kk / 4) * DQ_BN * CHUNK + (kk % 4) * 16;
-      wgmma_ss_n64<0, 0>(sc, desc(qw + oq, 16, 1024), desc(ck + ok, 16, 1024), kk > 0);
+      const int oq = (kk / 4) * DQ_BM * CHUNK + (kk % 4) * 16;
+      const int ok = (kk / 4) * DQ_BN * CHUNK + (kk % 4) * 16;
+      wgmma_ss_n64(sc, desc(qw + oq, 16, 1024), desc(ck + ok, 16, 1024), kk > 0);
     }
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int oq = (kk / 4) * DQ_BM * CHUNK + (kk % 4) * 16, ok = (kk / 4) * DQ_BN * CHUNK + (kk % 4) * 16;
-      wgmma_ss_n64<0, 0>(dp, desc(dow + oq, 16, 1024), desc(cv + ok, 16, 1024), kk > 0);
+      const int oq = (kk / 4) * DQ_BM * CHUNK + (kk % 4) * 16;
+      const int ok = (kk / 4) * DQ_BN * CHUNK + (kk % 4) * 16;
+      wgmma_ss_n64(dp, desc(dow + oq, 16, 1024), desc(cv + ok, 16, 1024), kk > 0);
     }
     wg_commit();
     wg_wait_all();
@@ -1170,8 +1054,7 @@ int launch_f32(const float* q, const float* k, const float* v, const float* o,
                const float* dout, const float* lse, float* delta, float* dq, float* dk, float* dv,
                int B, const BwdShape& s, cudaStream_t st) {
   const int nz = (s.D + s.dc - 1) / s.dc, hkv = s.H / s.group;
-  flash_bwd_delta_kernel<float><<<dim3((s.Lq + 7) / 8, B * s.H), 256, 0, st>>>(o, dout, lse, delta,
-                                                                               nullptr, s.Lq, s);
+  flash_bwd_delta_kernel<float><<<dim3((s.Lq + 7) / 8, B * s.H), 256, 0, st>>>(o, dout, delta, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t tile = static_cast<size_t>(FT) * (s.D + 1) * sizeof(float);
@@ -1191,8 +1074,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o, cons
                 const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int B,
                 const BwdShape& s, cudaStream_t st) {
   const int nz = (s.D + s.dc - 1) / s.dc, hkv = s.H / s.group;
-  flash_bwd_delta_kernel<bf16><<<dim3((s.Lq + 7) / 8, B * s.H), 256, 0, st>>>(o, dout, lse, delta,
-                                                                              nullptr, s.Lq, s);
+  flash_bwd_delta_kernel<bf16><<<dim3((s.Lq + 7) / 8, B * s.H), 256, 0, st>>>(o, dout, delta, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t tile = static_cast<size_t>(BT) * (s.D + 8) * sizeof(bf16);
@@ -1208,55 +1090,41 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-      sms = 0;
-      return 132;
-    }
-  }
-  return sms;
-}
-
-// The wgmma kernels: delta and lse2 rows, then the persistent key-tile
-// kernel and, ORDERED_DQ, the convert pass (else the query-tile dQ kernel).
-template <int D, bool ORDERED_DQ>
+// The wgmma kernels: the query-tile dQ kernel, which also writes delta and
+// lse2, then the key-tile dK/dV kernel.
+template <int D>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
-                 const float* lse, bf16* dq, int B, int Hkv, const BwdShape& s, wgb::Work w,
-                 cudaStream_t st) {
+                 const float* lse, float* delta, float* lse2, bf16* dq, bf16* dk, bf16* dv,
+                 int B, int Hkv, const BwdShape& s, cudaStream_t st) {
   using namespace wgb;
-  cudaError_t err = cudaMemsetAsync(w.counter, 0, sizeof(int) * (1 + static_cast<size_t>(B) *
-                                                                    s.H * w.n_qt), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_delta_kernel<bf16><<<dim3((w.pitch + 7) / 8, B * s.H), 256, 0, st>>>(
-      o, dout, lse, const_cast<float*>(w.delta), const_cast<float*>(w.lse2), w.pitch, s);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap mq, mk, mv, mdo;  // boxes of 64 rows: Q and dO tiles, K and V halves
-  CUresult res = hopper::make_map(&mq, q, B, s.H, s.Lq, D, s.qs, BM);
+  Work w{};
+  w.n_bg = B * Hkv;
+  w.n_qt = (s.Lq + BM - 1) / BM;
+  w.pitch = (s.Lq + DQ_BM - 1) / DQ_BM * DQ_BM;
+  w.lse = lse;
+  w.lse2 = lse2;
+  w.delta = delta;
+  w.dk = dk;
+  w.dv = dv;
+  CUtensorMap mq, mk, mv, mdo, mo;  // boxes of 64 rows
+  CUresult res = hopper::make_map(&mq, q, B, s.H, s.Lq, D, s.qs, 64);
   if (res == CUDA_SUCCESS) res = hopper::make_map(&mk, k, B, Hkv, s.Lk, D, s.ks, 64);
   if (res == CUDA_SUCCESS) res = hopper::make_map(&mv, v, B, Hkv, s.Lk, D, s.vs, 64);
-  if (res == CUDA_SUCCESS) res = hopper::make_map(&mdo, dout, B, s.H, s.Lq, D, s.dos, BM);
+  if (res == CUDA_SUCCESS) res = hopper::make_map(&mdo, dout, B, s.H, s.Lq, D, s.dos, 64);
+  if (res == CUDA_SUCCESS) res = hopper::make_map(&mo, o, B, s.H, s.Lq, D, s.os, 64);
   if (res != CUDA_SUCCESS) return hopper::kTensorMapError + static_cast<int>(res);
-  size_t bytes = static_cast<size_t>(2 * BN + 2 * stages(ORDERED_DQ) * BM) * D * sizeof(bf16) + 1024;
-  if (ORDERED_DQ) bytes += 2 * BN * 64 * sizeof(bf16) + ACC_TILE * sizeof(float);
-  const auto fn = flash_bwd_wgmma_kernel<D, ORDERED_DQ>;
-  if ((err = allow_smem(fn, bytes)) != cudaSuccess) return static_cast<int>(err);
-  const int sms = sm_count();
-  fn<<<w.n_items < sms ? w.n_items : sms, THREADS, bytes, st>>>(mq, mk, mv, mdo, s, w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (ORDERED_DQ) {
-    flash_bwd_dq_convert_kernel<D><<<B * s.H * w.n_qt, 128, 0, st>>>(w.acc, dq, s, w.n_qt);
-    return static_cast<int>(cudaGetLastError());
-  }
   const size_t dq_bytes =
-      static_cast<size_t>(2 * DQ_BM + 2 * DQ_STAGES * DQ_BN) * D * sizeof(bf16) + 1024;
+      static_cast<size_t>(3 * DQ_BM + 2 * DQ_STAGES * DQ_BN) * D * sizeof(bf16) + 1024;
   const auto fdq = flash_bwd_dq_wgmma_kernel<D>;
-  if ((err = allow_smem(fdq, dq_bytes)) != cudaSuccess) return static_cast<int>(err);
-  fdq<<<dim3((s.Lq + DQ_BM - 1) / DQ_BM, B * s.H), DQ_THREADS, dq_bytes, st>>>(mq, mk, mv, mdo, s, w,
-                                                                          dq);
+  cudaError_t err = allow_smem(fdq, dq_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fdq<<<dim3((s.Lq + DQ_BM - 1) / DQ_BM, B * s.H), DQ_THREADS, dq_bytes, st>>>(mq, mk, mv, mdo, mo,
+                                                                             s, w, dq);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = static_cast<size_t>(2 * BN + 2 * STAGES * BM) * D * sizeof(bf16) + 1024;
+  const auto fkv = flash_bwd_dkdv_wgmma_kernel<D>;
+  if ((err = allow_smem(fkv, bytes)) != cudaSuccess) return static_cast<int>(err);
+  fkv<<<w.n_bg * ((s.Lk + BN - 1) / BN), THREADS, bytes, st>>>(mq, mk, mv, mdo, s, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1268,33 +1136,27 @@ extern "C" {
 // gradient, all fp32 (variant 0) or all bf16, the head dimension
 // contiguous, D a multiple of 16 in [16, 256].  variant
 // (kernels/flash_attention.py, bwd_kernel_variant): 0 = fp32 on the CUDA
-// cores, 1 = bf16 with mma.sync, 2 = bf16 with wgmma and the ordered dQ,
-// 3 = bf16 with wgmma and a query-tile dQ kernel (2 and 3: D = 64 or 128).
-// lse: the forward's fp32 [B, H, Lq] log-sum-exp, contiguous.  delta: fp32
-// scratch, [B, H, Lq] for variants 0 and 1, [B, H, pitch] for 2 and 3.  dq
-// [B, H, Lq, D], dk and dv [B, Hkv, Lk, D] in the input type, written
-// whole.  strides: 24 element strides, (batch, head, position) of q, k, v,
-// o, dout, dq, dk, dv in turn; for bf16 every stride a multiple of 8 and
-// every pointer 16-byte aligned.  dc: the columns a block accumulates (a
-// multiple of 16, at most 128: kernels/flash_attention.py, BWD_CHUNK;
-// variants 0 and 1).  Variants 2 and 3 also take: lse2, fp32 [B, H, pitch]
-// scratch (pitch = Lq rounded up to 128); acc, fp32 scratch of B H
-// ceil(Lq / 64) 8192 entries (variant 2); counter, int32 scratch of 1 + B H
-// ceil(Lq / 64) entries; schedule, the n_items work items in the order the
-// kernel takes them (bwd_schedule).  Returns the launches' cudaError_t
-// (0 = launched), or 10000 + the CUresult of a tensor map that was refused.
+// cores, 1 = bf16 with mma.sync, 2 = bf16 with wgmma and TMA (D = 64 or
+// 128).  lse: the forward's fp32 [B, H, Lq] log-sum-exp, contiguous.
+// delta: fp32 scratch, [B, H, Lq] for variants 0 and 1, [B, H, pitch] for
+// 2, pitch = Lq rounded up to 128; lse2: fp32 [B, H, pitch] scratch for
+// variant 2 (null otherwise).  dq [B, H, Lq, D], dk and dv [B, Hkv, Lk, D]
+// in the input type, written whole.  strides: 24 element strides, (batch,
+// head, position) of q, k, v, o, dout, dq, dk, dv in turn; for bf16 every
+// stride a multiple of 8 and every pointer 16-byte aligned.  dc: the
+// columns a block accumulates (a multiple of 16, at most 128:
+// kernels/flash_attention.py, BWD_CHUNK; variants 0 and 1).  Returns the
+// launches' cudaError_t (0 = launched), or 10000 + the CUresult of a
+// tensor map that was refused.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
-                               const void* dout, const void* lse, void* delta, void* dq,
-                               void* dk, void* dv, int variant, int B, int H, int Hkv,
+                               const void* dout, const void* lse, void* delta, void* lse2,
+                               void* dq, void* dk, void* dv, int variant, int B, int H, int Hkv,
                                int Lq, int Lk, int D, int dc, const long long* strides,
-                               float scale, int causal, void* lse2, void* acc, void* counter,
-                               const void* schedule, int n_items, void* stream) {
-  const bool wgmma = variant == 2 || variant == 3;
+                               float scale, int causal, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Lq < 1 || Lk < 1 || D < 16 || D > 256 ||
       D % 16 != 0 || dc < 16 || dc > DC_MAX || dc % 16 != 0 || (causal && Lq != Lk) ||
-      static_cast<long long>(B) * H > 65535 || variant < 0 || variant > 3 ||
-      (wgmma && ((D != 64 && D != 128) || n_items < 1 || schedule == nullptr ||
-                 counter == nullptr || lse2 == nullptr || (variant == 2 && acc == nullptr)))) {
+      static_cast<long long>(B) * H > 65535 || variant < 0 || variant > 2 ||
+      (variant == 2 && ((D != 64 && D != 128) || lse2 == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdShape s{};
@@ -1312,31 +1174,19 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* del = static_cast<float*>(delta);
-  if (wgmma) {
-    wgb::Work w{};
-    w.schedule = static_cast<const int*>(schedule);
-    w.n_items = n_items;
-    w.n_bg = B * Hkv;
-    w.n_qt = (Lq + wgb::BM - 1) / wgb::BM;
-    w.pitch = (Lq + 127) / 128 * 128;
-    w.counter = static_cast<int*>(counter);
-    w.lse2 = static_cast<const float*>(lse2);
-    w.delta = del;
-    w.acc = static_cast<float*>(acc);
-    w.dk = static_cast<bf16*>(dk);
-    w.dv = static_cast<bf16*>(dv);
+  if (variant == 2) {
     const auto* qb = static_cast<const bf16*>(q);
     const auto* kb = static_cast<const bf16*>(k);
     const auto* vb = static_cast<const bf16*>(v);
     const auto* ob = static_cast<const bf16*>(o);
     const auto* db = static_cast<const bf16*>(dout);
+    auto* l2 = static_cast<float*>(lse2);
     auto* dqb = static_cast<bf16*>(dq);
-    if (variant == 2) {
-      return D == 64 ? launch_wgmma<64, true>(qb, kb, vb, ob, db, l, dqb, B, Hkv, s, w, st)
-                     : launch_wgmma<128, true>(qb, kb, vb, ob, db, l, dqb, B, Hkv, s, w, st);
-    }
-    return D == 64 ? launch_wgmma<64, false>(qb, kb, vb, ob, db, l, dqb, B, Hkv, s, w, st)
-                   : launch_wgmma<128, false>(qb, kb, vb, ob, db, l, dqb, B, Hkv, s, w, st);
+    auto* dkb = static_cast<bf16*>(dk);
+    auto* dvb = static_cast<bf16*>(dv);
+    return D == 64 ? launch_wgmma<64>(qb, kb, vb, ob, db, l, del, l2, dqb, dkb, dvb, B, Hkv, s, st)
+                   : launch_wgmma<128>(qb, kb, vb, ob, db, l, del, l2, dqb, dkb, dvb, B, Hkv, s,
+                                       st);
   }
   if (variant == 1) {
     return launch_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),

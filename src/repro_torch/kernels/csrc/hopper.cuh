@@ -113,15 +113,8 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// a barrier among `threads` threads (a multiple of 32) under id 1..15
-__device__ __forceinline__ void named_sync(int id, int threads = 128) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// order this thread's generic-proxy writes to shared memory before the
-// async proxy's reads (wgmma operands, bulk copies) that a barrier releases
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 // d (64 x 128, fp32) {+}= A (smem, K-major) * B (smem, K-major); scale_d = 0 overwrites d
@@ -154,9 +147,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x 64, fp32) {+}= A (smem) * B (smem); TA / TB = 1: that operand is
-// MN-major (transposed), 0: K-major
-template <int TA, int TB>
+// d (64 x 64, fp32) {+}= A (smem, K-major) * B (smem, K-major); scale_d = 0 overwrites d
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                              int scale_d) {
   asm volatile(
@@ -164,7 +155,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -173,23 +164,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-// d (64 x 32, fp32) {+}= A (smem) * B (smem), TA / TB as above
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (64 x 64, fp32) += A (registers, bf16 fragments) * B (smem, MN-major)

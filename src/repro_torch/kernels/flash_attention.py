@@ -31,11 +31,12 @@ Gradients: ``flash_attention`` goes through ``FlashAttentionFn`` when grad
 is enabled and q, k or v requires it.  On the card its forward is the same
 kernel asked for each row's log-sum-exp as well (fp32 ``[B, H, Lq]``), and
 its backward is ``flash_attention_bwd``: the kernels of
-``csrc/flash_attention_bwd.cu`` (a pass for delta = rowsum(dO * O), a
-key-tile kernel for dK and dV, a query-tile kernel for dQ; no atomics, so
-two calls give the same bits).  On the CPU it runs
-``flash_attention_ref_lse`` and ``flash_attention_bwd_ref``.  The JAX
-package has no backward kernel: it differentiates its plain attention.
+``csrc/flash_attention_bwd.cu`` (a key-tile kernel for dK and dV and a
+query-tile kernel for dQ, chosen by ``bwd_kernel_variant``: wgmma and TMA
+for bf16 at D = 64 and 128; no atomics, so two calls give the same
+bits).  On the CPU it runs ``flash_attention_ref_lse`` and
+``flash_attention_bwd_ref``.  The JAX package has no backward kernel: it
+differentiates its plain attention.
 """
 from __future__ import annotations
 
@@ -55,9 +56,6 @@ _DTYPES = (torch.float32, torch.bfloat16)
 VARIANTS = ("fp32_cuda_cores", "bf16_mma_sync", "bf16_wgmma")
 WGMMA_HEAD_DIMS = (64, 128)
 BWD_CHUNK = 128  # head-dim columns a backward block accumulates (csrc: DC_MAX)
-# the wgmma backward: keys a work item, queries a tile (csrc: wgb::BN, wgb::BM)
-BWD_KEYS, BWD_QUERIES = 128, 64
-_BWD_WGMMA_INDEX = 2  # the C entry point's wgmma design: 2 ordered dQ, 3 a dQ kernel
 
 
 def padded_head_dim(d: int) -> int:
@@ -102,41 +100,10 @@ def bwd_kernel_variant(dtype: torch.dtype, d: int) -> str:
     """The backward kernels for inputs of ``dtype`` with head dim ``d`` (a
     kernel's own): the forward's rule (``kernel_variant``), so that a
     training step's forward and backward take the same route.  fp32 on the
-    CUDA cores; bf16 at D = 64 and 128 with wgmma and TMA (one persistent
-    key-tile kernel, five products a pair, dQ summed in key-tile order);
-    bf16 at other D with mma.sync (a key-tile and a query-tile kernel)."""
+    CUDA cores; bf16 at D = 64 and 128 with wgmma and TMA; bf16 at other D
+    with mma.sync.  Each runs a key-tile kernel for dK and dV and a
+    query-tile kernel for dQ, so every output has one owner."""
     return kernel_variant(dtype, d)
-
-
-def bwd_schedule(bh: int, group: int, lq: int, lk: int, causal: bool) -> list[tuple[int, int]]:
-    """The order in which the wgmma backward's persistent blocks take their
-    work items, (key tile j of ``BWD_KEYS`` keys, bg = batch * kv heads + kv
-    head) for ``bh`` = batch * query heads, ``group`` query heads a kv head.
-    Key tile j adds its dQ share to a query tile after key tiles 0 .. j - 1
-    of the same bg, so each item must come after those: key tile 0 of every
-    bg first (under the causal mask also the longest items), then key tile
-    1, and so on.  Every item has work: under the causal mask (Lq == Lk)
-    key tile j sees the query tiles from its first key on, else all of
-    them."""
-    if bh < 1 or group < 1 or bh % group or lq < 1 or lk < 1 or (causal and lq != lk):
-        raise ValueError(f"bwd_schedule: bad shape {(bh, group, lq, lk, causal)}")
-    n_bg, n_kt = bh // group, -(-lk // BWD_KEYS)
-    return [(j, bg) for j in range(n_kt) for bg in range(n_bg)]
-
-
-_SCHEDULES: dict[tuple, torch.Tensor] = {}
-
-
-def _schedule_on(device, bh: int, group: int, lq: int, lk: int, causal: bool) -> torch.Tensor:
-    """``bwd_schedule`` as the kernel reads it (int32, j * n_bg + bg), kept
-    on the card per shape: the first call uploads it, so that a call
-    captured in a CUDA graph copies nothing from the host."""
-    key = (str(device), bh, group, lq, lk, causal)
-    if key not in _SCHEDULES:
-        n_bg = bh // group
-        items = [j * n_bg + bg for j, bg in bwd_schedule(bh, group, lq, lk, causal)]
-        _SCHEDULES[key] = torch.tensor(items, dtype=torch.int32, device=device)
-    return _SCHEDULES[key]
 
 
 def reset_launches() -> None:
@@ -331,38 +298,27 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     dv = torch.empty((b, lk, hkv, dp), dtype=v.dtype, device=q.device).transpose(1, 2)
     if lq == 0 or b == 0:
         return dq, dk.zero_(), dv.zero_()
-    index = VARIANTS.index(variant)
     f32 = dict(dtype=torch.float32, device=q.device)
-    lse2 = acc = counter = schedule = None
-    n_items, pitch = 0, lq
-    if variant == "bf16_wgmma":
-        index = _BWD_WGMMA_INDEX
-        n_qt, pitch = -(-lq // BWD_QUERIES), -(-lq // 128) * 128
+    lse2 = None
+    pitch = lq
+    if variant == "bf16_wgmma":  # rows padded to the dQ kernel's 128, lse * log2(e)
+        pitch = -(-lq // 128) * 128
         lse2 = torch.empty((b, h, pitch), **f32)
-        if index == 2:
-            acc = torch.empty((b * h * n_qt, 2 * BWD_QUERIES * 64), **f32)
-        counter = torch.empty(1 + b * h * n_qt, dtype=torch.int32, device=q.device)
-        schedule = _schedule_on(q.device, b * h, h // hkv, lq, lk, causal)
-        n_items = schedule.numel()
     delta = torch.empty((b, h, pitch), **f32)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3])
     )
     fn = library("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-    ] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
     fn.restype = ctypes.c_int
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            index, b, h, hkv, lq, lk, dp, bwd_chunk(dp), strides, scale, int(causal),
-            ptr(lse2), ptr(acc), ptr(counter), ptr(schedule), n_items, _stream(q.device),
+            lse.data_ptr(), delta.data_ptr(), None if lse2 is None else lse2.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), VARIANTS.index(variant),
+            b, h, hkv, lq, lk, dp, bwd_chunk(dp), strides, scale, int(causal), _stream(q.device),
         )
     if err != 0:
         what = f"CUresult {err - 10000} for a tensor map" if err >= 10000 else f"cudaError {err}"

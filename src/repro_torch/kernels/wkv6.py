@@ -17,7 +17,10 @@ rather than broadcast to ``[B*H, hd]``.
 
 ``wkv6`` takes the hand-written CUDA kernel (``csrc/wkv6.cu``) for CUDA
 tensors and the plain ``wkv6_ref`` for CPU tensors; a CUDA tensor never
-falls back to the plain version.  The kernel reads r, k, v and w through
+falls back to the plain version.  The kernel has no backward yet: on the
+card ``wkv6`` refuses inputs that require grad while grad is enabled
+(training RWKV-6 there waits for ROADMAP queue 1, item 20); the plain
+version differentiates.  The kernel reads r, k, v and w through
 their strides (the reshapes of ``time_mix``'s projections are not copied)
 and takes any ``L >= 1``.  It splits each (b, h) over ``hd / JC`` blocks of
 JC state columns and, inside a block, gives each thread C columns of
@@ -223,6 +226,14 @@ def wkv6(
         return y, s
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (r, k, v, w, u, s0)
+    ):
+        raise RuntimeError(
+            "wkv6: the CUDA kernel has no backward yet (ROADMAP queue 1, item 20), so its "
+            "output would carry no gradient to r, k, v, w, u or s0; call it under "
+            "torch.no_grad(), or on CPU tensors, whose plain version differentiates"
+        )
     out = _launch(r, k, v, w, u, s0, state_out)
     count_launch(LAUNCHES, "wkv6")
     return out

@@ -22,8 +22,10 @@ with them in float32.  The JAX package's activation-sharding hook and its
 performance knobs (``REPRO_WKV_UNROLL``, ``REPRO_WKV_IO_DTYPE``) are not
 carried over: the recurrence's inputs are float32 here.
 
-Training (gradients, remat) is not ported yet: ``loss_fn`` is forward only
-(K7 has no backward kernel; ROADMAP queue 1 item 20).
+Training (gradients, remat) is not ported yet: on the card ``loss_fn`` is
+forward only, and ``kernels.wkv6.wkv6`` raises where a gradient is wanted
+(K7 has no backward kernel; ROADMAP queue 1 item 20); on the CPU the plain
+recurrence differentiates.
 """
 from __future__ import annotations
 

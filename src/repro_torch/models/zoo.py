@@ -34,8 +34,9 @@ class ModelApi:
     device: torch.device
     init_params: Callable[..., dict]  # (seed, dtype=float32) -> params
     # (params, batch, dtype=, remat=, loss_chunk=) -> scalar; differentiable
-    # for the dense family (ssm: forward only, and no ``remat``: its
-    # recurrence K7 has no backward kernel yet, ROADMAP queue 1 item 20)
+    # for the dense family (ssm: no ``remat``, and differentiable on the CPU
+    # only: on the card its recurrence K7 has no backward kernel yet and
+    # ``wkv6`` raises when a gradient is wanted, ROADMAP queue 1 item 20)
     loss_fn: Callable[..., torch.Tensor]
     init_cache: Callable[..., dict] | None  # (batch, max_seq, dtype) -> cache
     decode_step: Callable[..., tuple] | None  # (params, cache, tokens, pos, **kw)

@@ -177,6 +177,30 @@ def test_kernel_variant_rejects(dtype, d, err):
         fa.kernel_variant(dtype, d)
 
 
+@pytest.mark.parametrize("d", list(range(16, fa.MAX_HEAD_DIM + 1, 16)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_variant_by_dtype_and_head_dim(dtype, d):
+    """The backward takes the forward's route: fp32 on the CUDA cores, bf16
+    with wgmma and TMA at D = 64 and 128 (a key-tile and a query-tile
+    kernel), bf16 with mma.sync at every other head dim."""
+    got = fa.bwd_kernel_variant(dtype, d)
+    assert got in fa.VARIANTS and got == fa.kernel_variant(dtype, d)
+    if dtype == torch.float32:
+        assert got == "fp32_cuda_cores"
+    else:
+        assert got == ("bf16_wgmma" if d in (64, 128) else "bf16_mma_sync")
+
+
+@pytest.mark.parametrize("dtype,d,err", [
+    (torch.float16, 64, TypeError), (torch.float64, 128, TypeError),
+    (torch.bfloat16, 24, ValueError), (torch.bfloat16, 272, ValueError),
+    (torch.float32, 0, ValueError),
+])
+def test_bwd_kernel_variant_rejects(dtype, d, err):
+    with pytest.raises(err):
+        fa.bwd_kernel_variant(dtype, d)
+
+
 def test_olmo_attention_takes_the_wgmma_kernel():
     """OLMo-1B's heads (128) in bf16 reach the wgmma kernel; its fp32 parity
     path stays on the CUDA cores."""

@@ -608,6 +608,14 @@ _BWD_CASES = [  # b, h, hkv, lq, lk, d, causal, dtype
     (1, 8, 2, 150, 150, 40, True, _BF16),  # padded to 48
     (1, 2, 2, 130, 130, 144, True, _BF16),  # chunks of 80 and 64 columns
     (1, 2, 1, 77, 300, 128, False, _BF16),
+    # the wgmma kernels (bf16, D = 64 and 128): GQA 4:1, ragged, Lq != Lk,
+    # L = 1 and L below a 64-query tile
+    (2, 8, 2, 1000, 1000, 64, True, _BF16),
+    (2, 8, 2, 200, 200, 64, False, _BF16),
+    (1, 8, 2, 77, 300, 64, False, _BF16),
+    (2, 4, 1, 1, 1, 128, True, _BF16),
+    (1, 4, 1, 1, 100, 64, False, _BF16),
+    (1, 8, 2, 40, 40, 128, True, _BF16),
 ]
 
 
@@ -644,6 +652,30 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, hkv, lq, lk, d, ca
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
 
 
+def test_flash_attention_bwd_bits_hold_under_contention(cuda):
+    """Five calls of the wgmma backward at [2, 8, 1000, 128] causal while
+    another stream runs matmuls give the same bits: every output has one
+    owner and one summation order, however the blocks are scheduled."""
+    q, k, v, do = _qkv_do(2, 8, 8, 1000, 1000, 128, _BF16, cuda, 21)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    assert fa.bwd_kernel_variant(q.dtype, q.shape[-1]) == "bf16_wgmma"
+    a = torch.randn(4096, 4096, device=cuda, dtype=_BF16)
+    side = torch.cuda.Stream(cuda)
+    outs = []
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with torch.cuda.stream(side):
+            for _ in range(4):
+                a = (a @ a).mul_(1e-2)
+        outs.append(fa.flash_attention_bwd(q, k, v, o, lse, do))
+    torch.cuda.synchronize()
+    for got in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(got, outs[0]))
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for x, w in zip(outs[0], want):
+        torch.testing.assert_close(x.float(), w.float(), rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.parametrize("dtype", [_F32, _BF16])
 @pytest.mark.parametrize("d", [40, 128])
 def test_flash_attention_autograd_on_card(cuda, d, dtype):
@@ -669,6 +701,28 @@ def test_flash_attention_autograd_on_card(cuda, d, dtype):
     tol = 2e-5 if dtype == _F32 else 2e-2
     for g, want in zip(*grads):
         torch.testing.assert_close(g.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_wkv6_kernel_refuses_gradients(cuda):
+    """K7 has no backward kernel: on the card ``wkv6`` raises, naming ROADMAP
+    item 20, when grad is enabled and an input requires it (its output
+    would carry no gradient, and training would take zeros); under
+    ``torch.no_grad()`` it runs as before and equals the plain version."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, 33, 3, 64, 5, cuda)
+    for i in range(6):
+        args = [r, k, v, w, u, s0]
+        args[i] = args[i].clone().requires_grad_(True)
+        before = wk.LAUNCHES["wkv6"]
+        with pytest.raises(RuntimeError, match="item 20"):
+            wk.wkv6(*args)
+        assert wk.LAUNCHES["wkv6"] == before
+        with torch.no_grad():
+            y, s = wk.wkv6(*args)
+        torch.cuda.synchronize()
+        assert wk.LAUNCHES["wkv6"] == before + 1
+    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("l", [1, 77])

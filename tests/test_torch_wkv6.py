@@ -62,6 +62,32 @@ def test_plain_matches_model_scan_with_state(b, l, h, hd, chunk, unroll):
         np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **_TOL)
 
 
+@pytest.mark.parametrize("h,l,hd", [(2, 24, 8), (3, 40, 16), (1, 9, 32)])
+def test_plain_gradients_match_jax_grad(h, l, hd):
+    """On the CPU the port's ``wkv6`` (its plain version) differentiates:
+    the gradients of sum(y * g) with respect to r, k, v, w and u equal
+    ``jax.grad`` of the JAX package's ``wkv6_ref`` on the same seeded
+    inputs and cotangent g, in fp32 to the kernel tests' 2e-4 (sums over
+    the sequence taken in another order).  On a card ``wkv6`` refuses
+    such inputs instead (tests/test_torch_gpu.py)."""
+    import jax
+
+    r, k, v, w, u, _ = _inputs(1, l, h, hd, 11 * h + l)
+    g = np.random.default_rng(l).normal(size=r.shape).astype(np.float32)
+    flat = [jnp.asarray(a[0].transpose(1, 0, 2)) for a in (r, k, v, w, g)]
+
+    def loss(r_, k_, v_, w_, u_):
+        return jnp.sum(jax_wkv6_ref(r_, k_, v_, w_, u_) * flat[4])
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*flat[:4], jnp.asarray(u))
+    leaves = [t.requires_grad_(True) for t in _t(r, k, v, w, u)]
+    y, _ = wk.wkv6(*leaves)
+    (y * torch.from_numpy(g)).sum().backward()
+    for name, leaf, wnt in zip("rkvwu", leaves, want):
+        got = leaf.grad if name == "u" else leaf.grad[0].transpose(0, 1)
+        np.testing.assert_allclose(got.numpy(), np.asarray(wnt), **_TOL, err_msg=name)
+
+
 def test_state_carries_across_calls():
     """One pass over L equals two passes with the state carried, the second
     updating it in place as a decode step does."""
