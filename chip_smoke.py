@@ -171,7 +171,51 @@ Phases:
  26. K6's backward at the main path's shape, [4, 16, 2048, 128] causal bf16:
      device time (a CUDA graph), plain time, the backward of
      ``scaled_dot_product_attention`` (forward and backward less forward;
-     timed here, never called by the port), bound.
+     timed here, never called by the port), bound;
+ 27. the MoE dispatch (``models.moe``, SharesSkew replica slots) on the card
+     against the CPU, exactly: the top-k order on tie-heavy router rows
+     (fp32 and bf16), then ``assign_slots`` and ``dispatch`` (the replica
+     plan, each choice's slot, loads, each buffer row's choice and token,
+     the inverse map) on seeded top-k choices, uniform,
+     Zipf skewed and all first choices on one expert, at qwen2-moe-a2.7b's
+     [4, 2048] x top-4 of 60 and at [8, 256] x top-2 of 16, extra_slots 0,
+     8 and 16, capacity factors 1.25 and 1.0; then
+     ``benchmarks/bench_moe_skew.py:22-40``'s cell on the port's weights
+     (seed 0; 16 experts, top-2, d = 64, the router biased toward experts
+     0 and 3, x [8, 256, 64] from ``default_rng(0)``): drop rate and
+     slot-load imbalance at extra_slots 0 and 8, cf 1.25 and 1.0, replica
+     slots dropping no more than the capacity router;
+ 28. qwen2-moe-a2.7b at full width in fp32, cut to depth 4 (a full-depth
+     fp32 copy is 57 GB; random weights from seed 0), capacity factor 8.0
+     so that nothing drops: ``forward_hidden`` of [2, 32] through K6
+     against the same call with K6's plain version (2e-4), token-by-token
+     ``decode_step`` logits against the forward's at every position
+     (2e-3), and six requests (prompts of 16 and 32 tokens, max_new 8)
+     behind ``BucketServer``, each equal to ``greedy_generate`` alone;
+ 29. bf16 serving at full width and depth, the MoE main path (14.3·10⁹
+     parameters, built in bf16): a forward-only ``loss_fn`` over [4, 2048]
+     (24 K6 launches a forward, asserted), then ``greedy_generate`` of 4
+     prompts of 128 tokens with 32 new tokens; forward ms, ms per decode
+     step, the host's PyTorch calls in a decode step, peak memory, the busy
+     share of a forward and a decode step, time by CUDA function, and the
+     forward's busy time by part (``record_function`` ranges around each
+     step of ``moe_ffn``: expert GEMMs, K6, the router, the dispatch) with
+     the dispatch's share on a line of its own; layer 0's drop rate and
+     slot loads at extra_slots 0 and 8;
+ 30. one fp32 train step at full width, depth 2, on [2, 256]: through K6
+     and K6b against autograd through plain attention: the loss (1e-5
+     relative), every gradient (1e-3 of each leaf's largest entry; router,
+     experts, shared expert and wq/wk/wv nonzero), the params after AdamW
+     (1e-3 of the update);
+ 31. bf16 training at full width cut to depth 4 (2.9·10⁹ parameters; fp32
+     params, gradients, m and v take about 46 GB): ``make_train_step`` with
+     extra_slots 8 and cf 1.25 on [4, 2048] tokens of ``TokenPipeline(seed=
+     1)``, AdamW as phase 24: eight steps on one batch (the loss must
+     fall); the first two steps run again from the same state (the state
+     after them kept on the host) equal bit for bit in loss, params, m and
+     v; ms a step, tokens/s, peak memory, K6/K6b launches a step, busy
+     share and time by function, and ``mfu=`` by 6·N_active·T of the cut
+     config plus the attention term.
 
 Every kernel's time is device time per call of everything the wrapper
 launches, from CUDA events around the replay of a CUDA graph of repeated
@@ -227,6 +271,9 @@ FLASH_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
 CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"  # phase 25's checkpoint (gitignored)
 HIST_KERNELS = ("histogram_narrow_kernel", "histogram_sparse_kernel")
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
+# moe_ffn's steps by the range each runs in under a trace (``_moe_ranges``)
+MOE_RANGES = {"moe.route": "route", "moe.dispatch": "dispatch", "moe.gather": "_gather",
+              "moe.experts": "_expert_mlp", "moe.combine": "_combine"}
 RETAKEN: list[str] = []  # kernels whose trace lost device events and was taken again
 
 
@@ -250,7 +297,7 @@ def _events_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _traced(fn, counts=None):
+def _traced(fn, counts=None, spans=None):
     """(fn's result, device microseconds by CUDA function name) of one
     call of ``fn`` under ``torch.profiler``.  The profiler's own warm-up
     step, TRACE_WARMUP tiny kernels whose events it drops, comes first:
@@ -258,7 +305,10 @@ def _traced(fn, counts=None):
     records.  The active step also starts and ends with TRACE_PAD_S
     seconds of an idle card around ``fn``, so that no call's device records
     lie near the step's edges, where traces lost records now and then.  A dict given as ``counts`` receives the number
-    of device events by name."""
+    of device events by name.  A dict given as ``spans`` (range name -> 0)
+    receives the device microseconds of the kernels launched inside each
+    ``record_function`` range of that name; the ranges' own device-side
+    markers are not device work and stay out of the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -279,6 +329,10 @@ def _traced(fn, counts=None):
         prof.step()
     us: dict[str, float] = {}
     for ev in ready[0]:
+        if spans is not None and ev.name in spans:
+            if ev.device_type == DeviceType.CPU:
+                spans[ev.name] += ev.device_time_total
+            continue
         # the step's own span is an annotation, not device work
         if ev.device_type == DeviceType.CUDA and not ev.name.startswith("ProfilerStep"):
             us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
@@ -1446,6 +1500,472 @@ def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)
     }, train_launches
 
 
+def _moe_ranges(moe):
+    """A context in which each step of ``moe.moe_ffn`` runs inside a
+    ``torch.profiler.record_function`` range named in MOE_RANGES (the
+    module's functions wrapped, restored on exit), so a trace can add up
+    each step's device time."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ranges():
+        saved = {fn: getattr(moe, fn) for fn in MOE_RANGES.values()}
+
+        def wrap(fn, label):
+            def inner(*args, **kw):
+                with torch.profiler.record_function(label):
+                    return fn(*args, **kw)
+            return inner
+
+        for label, fn in MOE_RANGES.items():
+            setattr(moe, fn, wrap(saved[fn], label))
+        try:
+            yield
+        finally:
+            for fn, f in saved.items():
+                setattr(moe, fn, f)
+
+    return ranges()
+
+
+def _topi_case(rng, kind, g, tg, k, e):
+    """Each token's k distinct experts, from ``rng``: uniform, Zipf skewed,
+    or every token's first choice on expert 0."""
+    import numpy as np
+
+    if kind == "skewed":
+        p = 1.0 / np.arange(1, e + 1) ** 1.2
+        out = np.stack([rng.choice(e, k, replace=False, p=p / p.sum()) for _ in range(g * tg)])
+        return out.reshape(g, tg, k).astype(np.int64)
+    out = np.argsort(rng.random((g, tg, e)), -1)[..., :k]
+    if kind == "one_hot":
+        hit = out == 0
+        out[hit] = out[..., :1].repeat(k, -1)[hit]  # the choices stay distinct
+        out[..., 0] = 0
+    return out.astype(np.int64)
+
+
+def _same_dispatch(topi, dev, n_experts: int, cap: int, extra: int) -> int:
+    """``moe.assign_slots`` (each choice's slot, the replica plan) and every
+    field of ``moe.dispatch`` on ``topi`` [g, tg, k] on ``dev`` equal the
+    CPU's, bit for bit; returns the dropped choices."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe
+
+    topi = topi.cpu()
+    runs = []
+    for t in (topi.to(dev), topi):
+        disp = moe.dispatch(t, n_experts, cap, extra)
+        slot, slot_expert = moe.assign_slots(t.reshape(t.shape[0], -1).long(), n_experts, cap,
+                                             extra)
+        fields = {f.name: getattr(disp, f.name) for f in dataclasses.fields(disp)}
+        runs.append({**fields, "slot": slot, "plan": slot_expert})
+    for name, x in runs[0].items():
+        y = runs[1][name]
+        if not isinstance(x, torch.Tensor) or not isinstance(y, torch.Tensor):
+            assert x == y, (name, x, y)
+            continue
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y), name
+    return int((runs[1]["pos"] < 0).sum())
+
+
+def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(2, 256),
+                train=(4, 2048)):
+    """Phases 27-31; returns the MoE path's launches (phases 29 and 31).
+    The shapes are the card's; a CPU rehearsal cuts them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import build_model, layers, moe
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve import BucketServer, Request, greedy_generate
+    from repro_torch.train import OptConfig, adamw_update, init_train_state, make_train_step
+    from repro_torch.train.optimizer import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    cpu = torch.device("cpu")
+    full = get_config("qwen2-moe-a2.7b")
+    e, k = full.n_experts, full.top_k
+    t_phase = time.perf_counter()
+
+    # ---- 27. the dispatch on the card against the CPU, exactly ----------------
+    # routing on ties: one-hot tokens read router rows of four values as
+    # their logits exactly
+    rng = np.random.default_rng(27)
+    router = torch.from_numpy(rng.choice([0.0, 0.5, 1.0, 1.5], (64, e)).astype(np.float32))
+    for dtype in (f32, bf16):
+        x = torch.eye(64, dtype=dtype)[None]
+        _, w_cpu, i_cpu = moe.route({"router": router}, x, k)
+        _, w_dev, i_dev = moe.route({"router": router.to(dev)}, x.to(dev), k)
+        ties = sum(int(len(set(row)) < len(row)) for row in
+                   (x.float() @ router).to(dtype).tolist()[0])
+        assert torch.equal(i_dev.cpu(), i_cpu), dtype
+        assert _max_float_err(w_dev.cpu(), w_cpu) <= 1e-6
+        _say(f"[moe] top-{k} of {e} experts on tie-heavy rows ({ties} of 64 rows hold ties, "
+             f"{str(dtype)[6:]}): the card's order equals the CPU's (lower index first)")
+    n_cases = 0
+    for g, tg, kk, ee in [(serve[0], serve[1], k, e), (8, 256, 2, 16)]:
+        for kind in ("uniform", "skewed", "one_hot"):
+            topi = torch.from_numpy(_topi_case(rng, kind, g, tg, kk, ee))
+            drops = []
+            for extra in (0, 8, 16):
+                for cf in (1.25, 1.0):
+                    cap = max(8, int(np.ceil(tg * kk * cf / (ee + extra))))
+                    drops.append(f"x{extra}/cf{cf}: {_same_dispatch(topi, dev, ee, cap, extra)}")
+                    n_cases += 1
+            _say(f"[moe] dispatch [{g}, {tg}] x top-{kk} of {ee} experts, {kind}: card equals CPU "
+                 f"in every field (plan, slots, loads, each buffer row's choice and token, the "
+                 f"inverse map); "
+                 f"dropped {'; '.join(drops)}")
+    # benchmarks/bench_moe_skew.py:22-40's cell, on the port's own weights
+    cell = dataclasses.replace(full.reduced(), n_experts=16, top_k=2, d_model=64, n_layers=1)
+    blk = moe.init_params(cell, 0, dev, f32)["blocks"][0]
+    bias = torch.zeros((cell.d_model, cell.n_experts), device=dev)
+    bias[:, 0], bias[:, 3] = 0.35, 0.25
+    blk["router"] = blk["router"] + bias
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 256, cell.d_model))
+                         .astype(np.float32)).to(dev)
+    dropped = {}
+    for cf in (1.25, 1.0):
+        for extra in (0, 8):
+            _, _, st = moe.moe_ffn(blk, x, cell, cf, extra, return_stats=True)
+            _, _, topi = moe.route(blk, x, cell.top_k)
+            cap = max(8, int(np.ceil(256 * cell.top_k * cf / (cell.n_experts + extra))))
+            _same_dispatch(topi, dev, cell.n_experts, cap, extra)
+            loads = st["slot_loads"].double()
+            dropped[cf, extra] = int(st["dropped"])
+            _say(f"[moe] skew cell (bench_moe_skew: 16 experts, top-2, d=64, router +0.35 on "
+                 f"expert 0 and +0.25 on 3, x [8, 256, 64]) cf={cf} extra_slots={extra}: "
+                 f"dropped {dropped[cf, extra]} of {8 * 256 * 2}, drop rate "
+                 f"{100 * float(st['drop_rate']):.3f} %, slot-load imbalance (max/mean) "
+                 f"{float(loads.max() / loads.mean()):.4f}, loads {loads.long().tolist()}")
+    assert dropped[1.25, 8] <= dropped[1.25, 0] and dropped[1.0, 8] <= dropped[1.0, 0], dropped
+    _say(f"[moe] phase 27: {n_cases} dispatches equal on card and CPU; SharesSkew drops no more "
+         f"than the capacity router at cf 1.25 and 1.0 ({time.perf_counter() - t_phase:.1f} s)")
+
+    # ---- 28. qwen2-moe-a2.7b at full width in fp32, depth 4 -------------------
+    cfg4 = dataclasses.replace(full, n_layers=4)
+    model = build_model(cfg4, device=dev)
+    t = time.perf_counter()
+    params = model.init_params(0, dtype=f32)
+    torch.cuda.synchronize()
+    _say(f"[moe] qwen2-moe-a2.7b at full width, cut to depth {cfg4.n_layers} in fp32 (a full-depth "
+         f"fp32 copy is {4 * full.n_params() / 1e9:.1f} GB): "
+         f"{sum(p.numel() for p in leaves(params))} parameters, init "
+         f"{time.perf_counter() - t:.2f} s")
+    gen = np.random.default_rng(28)
+    prompts = torch.from_numpy(gen.integers(0, cfg4.vocab, check).astype(np.int32)).to(dev)
+    reset_launches()
+    hid, _ = model.forward_hidden(params, {"tokens": prompts}, dtype=f32, capacity_factor=8.0)
+    assert launches()["flash_attention"] == cfg4.n_layers, launches()
+    layers.flash_attention = fa.flash_attention_ref  # the same call, plain attention
+    try:
+        hid_plain, _ = model.forward_hidden(params, {"tokens": prompts}, dtype=f32,
+                                            capacity_factor=8.0)
+    finally:
+        layers.flash_attention = fa.flash_attention
+    err_hid = _max_float_err(hid, hid_plain)
+    want = hid @ tt.logits_table(cfg4, params).T  # [B, L, V] fp32
+    cache = model.init_cache(check[0], check[1], dtype=f32)
+    err_dec = 0.0
+    for pos in range(check[1]):
+        logits, cache = model.decode_step(params, cache, prompts[:, pos:pos + 1], pos, dtype=f32,
+                                          capacity_factor=8.0)
+        assert _close(logits, want[:, pos], 2e-3), pos
+        err_dec = max(err_dec, _max_float_err(logits, want[:, pos]))
+    _say(f"[moe] fp32 forward_hidden {list(prompts.shape)} through K6 vs plain attention: "
+         f"max_abs_err={err_hid:.3g} (tolerance 2e-4); token-by-token decode_step logits vs "
+         f"the forward's at all {check[1]} positions: max_abs_err={err_dec:.3g} (rtol = atol = "
+         f"2e-3), logits scale {float(want.abs().max()):.3g}; capacity factor 8.0")
+    assert err_hid <= 2e-4
+    del hid, hid_plain, want, cache
+    server = BucketServer(model, params, max_batch=8, dtype=f32)
+    reqs = [Request(uid=i, prompt=gen.integers(0, cfg4.vocab, 16 if i % 2 else 32)
+                    .astype(np.int32), max_new=8) for i in range(6)]
+    for r in reqs:
+        server.submit(r)
+    t = time.perf_counter()
+    done = server.drain()
+    t_drain = time.perf_counter() - t
+    assert sorted(c.uid for c in done) == list(range(6))
+    for c in done:
+        solo = greedy_generate(model, params, reqs[c.uid].prompt[None], 8, dtype=f32)
+        assert c.tokens.shape == (8,) and np.array_equal(c.tokens, solo[0]), \
+            (c.uid, c.tokens, solo[0])
+    _say(f"[moe] BucketServer fp32: 6 requests (prompts of 16 and 32 tokens, max_new=8) drained "
+         f"in two waves in {t_drain:.2f} s; each completion equals greedy_generate of its prompt "
+         f"alone")
+    del params, server
+    torch.cuda.empty_cache()
+
+    # ---- 29. bf16 serving at full width and depth, the MoE main path ----------
+    model = build_model(full, device=dev)
+    t = time.perf_counter()
+    params = model.init_params(0, dtype=bf16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    _say(f"[moe] qwen2-moe-a2.7b at full width and depth in bf16: {full.n_layers} layers, d="
+         f"{full.d_model}, {full.n_heads} heads of {full.hd}, {e} experts of {full.d_expert} "
+         f"top-{k}, shared expert {full.d_ff}, vocab {full.vocab}; {n_params} parameters "
+         f"({full.n_active_params()} active by n_active_params), init "
+         f"{time.perf_counter() - t:.2f} s")
+    batch, l_prompt, n_new = prompt
+    long = torch.from_numpy(gen.integers(0, full.vocab, serve).astype(np.int32)).to(dev)
+    prompts = gen.integers(0, full.vocab, (batch, l_prompt)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def do_forward():
+        t = time.perf_counter()
+        out = model.loss_fn(params, {"tokens": long}, dtype=bf16)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    step_ms = []
+
+    def timed_step(*args, **kw):
+        t = time.perf_counter()
+        out = model.decode_step(*args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    reset_launches()
+    fwd_ms = []
+    for _ in range(4):  # the first is a warm-up
+        n0 = launches()["flash_attention"]
+        fwd_ms.append(do_forward()[1])
+        assert launches()["flash_attention"] - n0 == full.n_layers, launches()
+    spans = {label: 0.0 for label in MOE_RANGES}
+    n_ev_fwd: dict[str, int] = {}
+    with _moe_ranges(moe):
+        (loss, ms_traced), busy_fwd = _traced(do_forward, n_ev_fwd, spans)
+    t = time.perf_counter()
+    tokens = greedy_generate(dataclasses.replace(model, decode_step=timed_step), params,
+                             prompts, n_new, dtype=bf16)
+    t_gen = time.perf_counter() - t
+    serve_launches = launches()
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = step_ms[l_prompt:]  # after the prompt's scan
+    cache = model.init_cache(batch, l_prompt + n_new, dtype=bf16)
+    tok = torch.from_numpy(prompts[:, :1]).to(dev)
+
+    def one_step():
+        t = time.perf_counter()
+        lg, _ = model.decode_step(params, cache, tok, 0, dtype=bf16)
+        torch.cuda.synchronize()
+        return lg, (time.perf_counter() - t) * 1e3
+
+    one_step()
+    (_, ms_step_traced), busy_dec = _traced(one_step)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        one_step()
+    n_calls = sum(1 for ev in prof.events() if ev.cpu_parent is None)
+    _say(f"[moe] one decode step makes {n_calls} top-level PyTorch calls on the host "
+         f"({full.n_layers} layers)")
+    _say(f"[moe] bf16 serving qwen2-moe-a2.7b: forward-only loss_fn {list(long.shape)} = "
+         f"{float(loss):.4f}, ms {[round(x, 3) for x in fwd_ms]} (first is the warm-up); "
+         f"greedy_generate of [{batch}, {l_prompt}] prompts, {n_new} new tokens in {t_gen:.2f} s: "
+         f"{len(step_ms)} decode steps ({l_prompt} of the prompt's scan), ms per step ({batch} "
+         f"sequences) after the prompt median {float(np.median(decode_ms)):.3f} min "
+         f"{min(decode_ms):.3f} max {max(decode_ms):.3f}, over all median "
+         f"{float(np.median(step_ms)):.3f}; {float(np.median(decode_ms)) / batch:.3f} ms per token")
+    _say(f"[moe] generated tokens (sequence 0): {tokens[0].tolist()}")
+    _say(f"[moe] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); "
+         f"launches={serve_launches}")
+    for what, busy, wall in [("forward", busy_fwd, ms_traced),
+                             ("decode step", busy_dec, ms_step_traced)]:
+        assert busy, f"the {what}'s profiler trace holds no device events"
+        b_ms = sum(busy.values()) / 1e3
+        _say(f"[moe] one {what} under the profiler: device busy {b_ms:.3f} ms of {wall:.3f} ms "
+             f"({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} %); by function "
+             "(ms): " + "; ".join(f"{k_[:60]} {v / 1e3:.3f}" for k_, v in
+                                  sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
+    # the forward's busy time by the step of the layer that launched it
+    busy_ms = sum(busy_fwd.values()) / 1e3
+    k6_ms = sum(v for k_, v in busy_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS)) / 1e3
+    n_k6 = sum(n for k_, n in n_ev_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS))
+    span_ms = {label: us / 1e3 for label, us in spans.items()}
+    disp_ms = span_ms["moe.dispatch"] + span_ms["moe.gather"] + span_ms["moe.combine"]
+    rest = busy_ms - k6_ms - sum(span_ms.values())
+    _say("[moe] the forward's device busy time by part (ms, % of busy): "
+         f"expert GEMMs and silu (moe.experts) {span_ms['moe.experts']:.3f} "
+         f"({100 * span_ms['moe.experts'] / busy_ms:.2f} %); attention K6 {k6_ms:.3f} over "
+         f"{n_k6} events ({100 * k6_ms / busy_ms:.2f} %); router GEMM, softmax and top-k sort "
+         f"(moe.route) {span_ms['moe.route']:.3f} ({100 * span_ms['moe.route'] / busy_ms:.2f} %); "
+         f"dispatch {disp_ms:.3f}: plan, hash, bin (moe.dispatch) {span_ms['moe.dispatch']:.3f}, "
+         f"gather (moe.gather) {span_ms['moe.gather']:.3f}, combine (moe.combine) "
+         f"{span_ms['moe.combine']:.3f}; the rest (attention projections, norms, the shared "
+         f"expert, the loss) {rest:.3f} ({100 * rest / busy_ms:.2f} %)")
+    _say(f"[moe] dispatch share of the forward's busy time: {100 * disp_ms / busy_ms:.2f} % "
+         f"({disp_ms:.3f} of {busy_ms:.3f} ms; with the router's top-k "
+         f"{100 * (disp_ms + span_ms['moe.route']) / busy_ms:.2f} %)"
+         + ("" if disp_ms > 0 else ": the trace linked no kernel to the ranges, not measured"))
+    # layer 0's routing statistics on the batch
+    x0 = layers.embed(params["embed"], long, bf16)
+    blk0 = params["blocks"][0]
+    x0 = x0 + layers.attention(blk0["attn"], tt.attn_config(full),
+                               layers.apply_norm(full.norm, blk0["ln1"], x0))
+    h0 = layers.apply_norm(full.norm, blk0["ln2"], x0)
+    for extra in (0, 8):
+        _, _, st = moe.moe_ffn(blk0, h0, full, 1.25, extra, return_stats=True)
+        loads = st["slot_loads"].double()
+        _say(f"[moe] layer 0 on the batch, cf 1.25, extra_slots={extra}: dropped "
+             f"{int(st['dropped'])} of {long.numel() * k} choices (drop rate "
+             f"{100 * float(st['drop_rate']):.3f} %), slot-load imbalance (max/mean) "
+             f"{float(loads.max() / loads.mean()):.4f}, slot loads max {int(loads.max())} min "
+             f"{int(loads.min())} over {loads.numel()} slots")
+    assert np.isfinite(float(loss)) and tokens.shape == (batch, n_new)
+    assert len(step_ms) == l_prompt + n_new - 1
+    assert serve_launches["flash_attention"] == 5 * full.n_layers, serve_launches
+    del params, cache, x0, h0, long
+    torch.cuda.empty_cache()
+
+    # ---- 30. one fp32 train step at depth 2 through K6 and K6b ----------------
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    model2 = build_model(cfg2, device=dev)
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
+    tokens2 = torch.from_numpy(np.random.default_rng(30).integers(0, cfg2.vocab, grad)
+                               .astype(np.int32)).to(dev)
+    runs = []
+    for plain in (False, True):
+        p2, opt = init_train_state(model2, 0)
+        reset_launches()
+        if plain:
+            layers.flash_attention = fa.flash_attention_ref  # autograd through the plain version
+        try:
+            loss = model2.loss_fn(p2, {"tokens": tokens2}, dtype=f32)
+            loss.backward()
+        finally:
+            layers.flash_attention = fa.flash_attention
+        torch.cuda.synchronize()
+        n = launches()
+        assert (n["flash_attention"], n["flash_attention_bwd"]) == (
+            (0, 0) if plain else (2 * cfg2.n_layers, cfg2.n_layers)), n
+        grads = [p.grad for p in leaves(p2)]
+        for p in leaves(p2):
+            p.grad = None
+        p0 = [p.detach().clone() for p in leaves(p2)] if not plain else None
+        adamw_update(p2, grads, opt, opt_cfg)
+        runs.append((float(loss.detach()), grads, [p.detach() for p in leaves(p2)], p0))
+        del opt
+    (loss_k, g_k, p_k, p0), (loss_p, g_p, p_p, _) = runs
+    names = ["/".join(path) for path in _leaf_paths(p2)]
+    g_err = {nm: float((a - w).abs().max() / w.abs().max().clamp(min=1e-30))
+             for nm, a, w in zip(names, g_k, g_p)}
+    worst = max(g_err, key=g_err.get)
+    nonzero = {nm: float(g.abs().max()) > 0 for nm, g in zip(names, g_k)
+               if nm.split("/")[-1] in ("wq", "wk", "wv", "router", "w_gate", "w_up", "w_down",
+                                        "shared_gate")}
+    moved = torch.sqrt(sum(((w - a) ** 2).sum() for w, a in zip(p_p, p0)))
+    diff = torch.sqrt(sum(((a - w) ** 2).sum() for a, w in zip(p_k, p_p)))
+    _say(f"[moe] fp32 train step on {list(tokens2.shape)} ({cfg2.n_layers} layers at full width): "
+         f"loss K6 {loss_k:.7f} vs plain attention {loss_p:.7f}; gradients, max |err| over each "
+         f"leaf's largest entry: worst {worst} {g_err[worst]:.3g}; router, experts, shared and "
+         f"wq/wk/wv nonzero: {all(nonzero.values())} ({len(nonzero)} leaves); params after AdamW "
+         f"differ by {float(diff):.3g} against an update of norm {float(moved):.3g} "
+         f"(tolerances: loss 1e-5 relative, gradients 1e-3, params 1e-3 of the update)")
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert max(g_err.values()) <= 1e-3 and all(nonzero.values())
+    assert len(nonzero) == cfg2.n_layers * (3 + 1 + 3 + 3 + 1), sorted(nonzero)
+    assert float(diff) <= 1e-3 * float(moved)
+    del runs, g_k, g_p, p_k, p_p, p0, p2, grads
+    torch.cuda.empty_cache()
+
+    # ---- 31. bf16 training at full width, cut to depth 4 ----------------------
+    model4 = build_model(cfg4, device=dev)
+    step_fn = make_train_step(model4, opt_cfg, {"dtype": bf16, "extra_slots": 8,
+                                                "capacity_factor": 1.25})
+    pipe = TokenPipeline(vocab=cfg4.vocab, batch=train[0], seq=train[1] - 1, seed=1)
+    first = {"tokens": torch.from_numpy(pipe.next_batch()).to(dev)}
+    params, opt = init_train_state(model4, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms, snap = [], [], None
+
+    def timed(batch):
+        nonlocal params, opt
+        t = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        return m
+
+    for i in range(8):
+        timed(first)
+        if i == 1:  # the state after two steps, kept on the host
+            snap = [x.detach().to("cpu", copy=True)
+                    for x in leaves(params) + leaves(opt["m"]) + leaves(opt["v"])]
+    peak = torch.cuda.max_memory_allocated()
+    n_ev: dict[str, int] = {}
+    (m, ms_traced), busy = _traced(lambda: (timed(first), step_ms[-1]), n_ev)
+    steps = 9
+    n_params = sum(p.numel() for p in leaves(params))
+    del params, opt
+    torch.cuda.empty_cache()
+    # two steps again from the same state on the same batch
+    params, opt = init_train_state(model4, 0)
+    again = []
+    for _ in range(2):
+        params, opt, m = step_fn(params, opt, first)
+        again.append(float(m["loss"]))
+    same = all(torch.equal(x.detach().cpu(), y) for x, y in zip(
+        leaves(params) + leaves(opt["m"]) + leaves(opt["v"]), snap))
+    train_launches = launches()  # the nine steps above and these two
+    _say(f"[moe] bf16 qwen2-moe-a2.7b training, full width cut to depth {cfg4.n_layers} "
+         f"({n_params} parameters; fp32 master weights, AdamW), extra_slots=8, cf 1.25, on "
+         f"[{train[0]}, {train[1]}] tokens: losses on one batch {[round(x, 4) for x in losses[:8]]}")
+    _say(f"[moe] two steps from the same state and batch, run twice: losses {losses[:2]} and "
+         f"{again}; params, m and v equal bit for bit: {same}")
+    assert all(np.isfinite(losses)) and losses[7] < losses[0], losses
+    assert again == losses[:2] and same
+    per_step = {k_: train_launches[k_] // (steps + 2) for k_ in ("flash_attention",
+                                                                  "flash_attention_bwd")}
+    assert train_launches["flash_attention"] == 2 * cfg4.n_layers * (steps + 2), train_launches
+    assert train_launches["flash_attention_bwd"] == cfg4.n_layers * (steps + 2), train_launches
+    ms_med = float(np.median(step_ms[1:8]))
+    n_tok = train[0] * train[1]
+    flops = 6.0 * cfg4.n_active_params() * n_tok + 6.0 * cfg4.n_layers * train[0] \
+        * cfg4.n_heads * train[1] ** 2 * cfg4.hd
+    mfu = flops / (ms_med / 1e3) / BF16_FLOPS
+    b_ms = sum(busy.values()) / 1e3
+    k6f = {k_: v for k_, v in busy.items() if any(nm in k_ for nm in FLASH_KERNELS)}
+    k6b = {k_: v for k_, v in busy.items() if any(nm in k_ for nm in FLASH_BWD_KERNELS)}
+    _say(f"[moe] train step ms {[round(x, 2) for x in step_ms[:8]]} (the first a warm-up), "
+         f"median after it {ms_med:.2f} ms, {n_tok / (ms_med / 1e3):.0f} tokens/s; peak device "
+         f"memory {peak} bytes ({peak / 2**30:.2f} GiB); K6 {per_step['flash_attention']} "
+         f"forward and {per_step['flash_attention_bwd']} backward launches a step")
+    _say(f"[moe] one train step under the profiler: device busy {b_ms:.3f} ms of {ms_traced:.3f} "
+         f"ms ({100 * b_ms / ms_traced:.2f} %, idle {100 - 100 * b_ms / ms_traced:.2f} %); K6 "
+         f"forward {sum(k6f.values()) / 1e3:.3f} ms over {sum(n_ev[k_] for k_ in k6f)} events, "
+         f"backward {sum(k6b.values()) / 1e3:.3f} ms over {sum(n_ev[k_] for k_ in k6b)} events; "
+         "by function (ms): " + "; ".join(f"{k_[:60]} {v / 1e3:.3f}" for k_, v in
+                                         sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
+    _say(f"[moe] mfu={mfu:.4f} (6 N_active T + 6 layers B H L^2 D = {flops:.4g} model flops a "
+         f"step, N_active = {cfg4.n_active_params()} of the depth-{cfg4.n_layers} cut, over "
+         f"{ms_med:.2f} ms at 989 TFLOP/s bf16)")
+    del params, opt, snap, step_fn
+    torch.cuda.empty_cache()
+    _say(f"[moe] phases 27-31: {time.perf_counter() - t_phase:.1f} s")
+    return {k_: serve_launches.get(k_, 0) + train_launches.get(k_, 0)
+            for k_ in set(serve_launches) | set(train_launches)}
+
+
 def _leaf_paths(tree, prefix=()):
     """Paths of ``train.optimizer.leaves(tree)``, in its order."""
     if tree is None:
@@ -2476,12 +2996,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     k6b, train_launches = _train_phases(dev)
     kernels.append(k6b)
+    torch.cuda.empty_cache()
+    moe_launches = _moe_phases(dev)
 
-    for entry in kernels:  # beside each path's own count, phases 4b's, 10b's, 10c's and 24's
+    # beside each path's own count, phases 4b's, 10b's, 10c's, 24's and 29 + 31's
+    for entry in kernels:
         entry["launches_speculative"] = spec_launches.get(entry["name"], 0)
         entry["launches_recovery"] = rec_launches.get(entry["name"], 0)
         entry["launches_tenancy"] = ten_launches.get(entry["name"], 0)
         entry["launches_train"] = train_launches.get(entry["name"], 0)
+        entry["launches_moe"] = moe_launches.get(entry["name"], 0)
     _say(f"[trace] {len(RETAKEN)} trace(s) lost device events and were taken again: "
          f"{RETAKEN}")
     assert len(RETAKEN) <= 1, f"more than one trace lost device events: {RETAKEN}"

@@ -62,7 +62,10 @@ def group_by_reducer(
     bins[bid, rid] = rs
     valid = torch.zeros((k + 1, cap), dtype=torch.bool, device=dev)
     valid[bid, rid] = ok
-    loads = torch.bincount(d, minlength=k + 1)[:k].to(torch.int32)
+    # arrivals per bin from the sorted ids: no host sync (CUDA bincount reads
+    # its input's max on the host)
+    edges = torch.searchsorted(ds, torch.arange(k + 1, device=dev))
+    loads = (edges[1:] - edges[:-1]).to(torch.int32)
     overflow = ((ds < k) & (rank >= cap)).sum()
     return bins[:k], valid[:k], loads, overflow
 

@@ -55,6 +55,26 @@ def attn_config(cfg: ArchConfig) -> AttnConfig:
 
 
 # ---------------------------------------------------------------------- init
+def init_attention(cfg: ArchConfig, dense, device: torch.device, dtype: torch.dtype) -> dict:
+    """One layer's attention parameters: ``dense(d_in, d_out)`` draws wq,
+    wk, wv and wo in that order; biases 0 and qk-norm scales 1 in
+    ``dtype``."""
+    d, hd = cfg.d_model, cfg.hd
+    attn = {
+        "wq": dense(d, cfg.n_heads * hd),
+        "wk": dense(d, cfg.n_kv * hd),
+        "wv": dense(d, cfg.n_kv * hd),
+        "wo": dense(cfg.n_heads * hd, d),
+    }
+    if cfg.attn_bias:
+        attn.update({name: torch.zeros(n * hd, dtype=dtype, device=device)
+                     for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv), ("bv", cfg.n_kv))})
+    if cfg.qk_norm:
+        attn["q_norm"] = {"scale": torch.ones(hd, dtype=dtype, device=device)}
+        attn["k_norm"] = {"scale": torch.ones(hd, dtype=dtype, device=device)}
+    return attn
+
+
 def init_params(
     cfg: ArchConfig, seed: int, device: torch.device | str = "cuda",
     dtype: torch.dtype = torch.float32,
@@ -75,21 +95,10 @@ def init_params(
     def zeros(n: int) -> torch.Tensor:
         return torch.zeros(n, dtype=dtype, device=dev)
 
-    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    d, f = cfg.d_model, cfg.d_ff
     blocks = []
     for _ in range(cfg.n_layers):
-        attn = {
-            "wq": dense(d, cfg.n_heads * hd),
-            "wk": dense(d, cfg.n_kv * hd),
-            "wv": dense(d, cfg.n_kv * hd),
-            "wo": dense(cfg.n_heads * hd, d),
-        }
-        if cfg.attn_bias:
-            attn.update(bq=zeros(cfg.n_heads * hd), bk=zeros(cfg.n_kv * hd),
-                        bv=zeros(cfg.n_kv * hd))
-        if cfg.qk_norm:
-            attn["q_norm"] = {"scale": torch.ones(hd, dtype=dtype, device=dev)}
-            attn["k_norm"] = {"scale": torch.ones(hd, dtype=dtype, device=dev)}
+        attn = init_attention(cfg, dense, dev, dtype)
         ffn = {"w_up": dense(d, f), "w_down": dense(f, d)}
         if cfg.family != "audio":  # hubert uses a plain gelu FFN
             ffn["w_gate"] = dense(d, f)

@@ -6,8 +6,9 @@ whose members share one signature per role, so the serving loop treats
 every architecture alike.  The model lives on one device, chosen here:
 ``device="cuda"`` unless the caller asks for the CPU, and a CUDA device
 without a card raises.  ``dense``, ``vlm`` and ``audio`` run on
-``transformer``, ``ssm`` (RWKV-6) on ``rwkv6``; ``moe`` and ``hybrid`` are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+``transformer``, ``moe`` on ``moe`` (SharesSkew expert dispatch), ``ssm``
+(RWKV-6) on ``rwkv6``; ``hybrid`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,10 +21,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.mapreduce.executor import _device
 
-from . import rwkv6, transformer
+from . import moe, rwkv6, transformer
 
 _NOT_PORTED = {
-    "moe": "models/moe.py (ROADMAP queue 1, item 15)",
     "hybrid": "models/mamba2.py (ROADMAP queue 1, item 17)",
 }
 
@@ -34,13 +34,15 @@ class ModelApi:
     device: torch.device
     init_params: Callable[..., dict]  # (seed, dtype=float32) -> params
     # (params, batch, dtype=, remat=, loss_chunk=) -> scalar; differentiable
-    # for the dense family (ssm: no ``remat``, and differentiable on the CPU
-    # only: on the card its recurrence K7 has no backward kernel yet and
-    # ``wkv6`` raises when a gradient is wanted, ROADMAP queue 1 item 20)
+    # for the dense and moe families (moe also takes capacity_factor=,
+    # extra_slots= (SharesSkew replica slots) and aux_coef=;
+    # ssm: no ``remat``, and differentiable on the CPU only: on the card its
+    # recurrence K7 has no backward kernel yet and ``wkv6`` raises when a
+    # gradient is wanted, ROADMAP queue 1 item 20)
     loss_fn: Callable[..., torch.Tensor]
     init_cache: Callable[..., dict] | None  # (batch, max_seq, dtype) -> cache
     decode_step: Callable[..., tuple] | None  # (params, cache, tokens, pos, **kw)
-    forward_hidden: Callable[..., Any]  # (params, batch, **kw) -> hidden
+    forward_hidden: Callable[..., Any]  # (params, batch, **kw) -> hidden (moe: (hidden, aux))
 
 
 def build_model(cfg: ArchConfig, device: torch.device | str = "cuda") -> ModelApi:
@@ -61,6 +63,19 @@ def build_model(cfg: ArchConfig, device: torch.device | str = "cuda") -> ModelAp
                 cfg, params, cache, tokens, pos, **kw),
             forward_hidden=lambda params, batch, **kw: rwkv6.forward_hidden(
                 cfg, params, batch["tokens"], **kw),
+        )
+    if fam == "moe":
+        return ModelApi(
+            cfg=cfg,
+            device=dev,
+            init_params=lambda seed, dtype=torch.float32: moe.init_params(cfg, seed, dev, dtype),
+            loss_fn=lambda params, batch, **kw: moe.loss_fn(cfg, params, batch, **kw),
+            init_cache=lambda batch, max_seq, dtype=torch.bfloat16: moe.init_kv_cache(
+                cfg, batch, max_seq, dtype, dev),
+            decode_step=lambda params, cache, tokens, pos, **kw: moe.decode_step(
+                cfg, params, cache, tokens, pos, **kw),
+            forward_hidden=lambda params, batch, **kw: moe.forward_hidden(
+                cfg, params, batch["tokens"], batch.get("prefix_embeds"), **kw),
         )
     if fam not in ("dense", "vlm", "audio"):
         raise ValueError(f"unknown family {fam}")

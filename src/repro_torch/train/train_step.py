@@ -8,8 +8,8 @@ Params are fp32 leaves with ``requires_grad``; the step clears their
 gradients before the backward and after the update, and updates params,
 m and v in place.  ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as
 device scalars, so a step never waits for the card.  ``loss_kwargs``
-(dtype, remat, loss_chunk; MoE's capacity knobs once MoE is ported)
-thread through to the model's loss.
+(dtype, remat, loss_chunk; for the moe family also capacity_factor,
+extra_slots and aux_coef) thread through to the model's loss.
 """
 from __future__ import annotations
 

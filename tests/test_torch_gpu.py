@@ -1183,3 +1183,96 @@ def test_two_tenants_on_card_match_a_solo_engine(cuda):
         eng = mq.engine(nm)
         assert eng.sketch_ingest_calls == 0
         assert eng.reports == solo.reports
+
+
+# ---- the MoE family (SharesSkew expert dispatch) on the card ------------------
+
+
+@pytest.mark.parametrize("extra", [0, 8])
+@pytest.mark.parametrize("cf", [1.25, 1.0])
+def test_moe_dispatch_on_card_equals_cpu(cuda, extra, cf):
+    """The integer half of ``moe_ffn`` on the card equals the CPU's in every
+    field, on Zipf-skewed top-2 choices of 16 experts, and the top-k order
+    on tie-heavy router rows too."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(int(extra + 100 * cf))
+    p = 1.0 / np.arange(1, 17) ** 1.2
+    topi = torch.from_numpy(np.stack([rng.choice(16, 2, replace=False, p=p / p.sum())
+                                      for _ in range(8 * 256)]).reshape(8, 256, 2))
+    cap = max(8, int(np.ceil(256 * 2 * cf / (16 + extra))))
+    want = moe.dispatch(topi, 16, cap, extra)
+    got = moe.dispatch(topi.to(cuda), 16, cap, extra)
+    pairs = [(name, getattr(got, name), getattr(want, name))
+             for name in ("slot_expert", "loads", "choice", "src", "pos")]
+    pairs += zip(("slot", "slot_expert"),
+                 moe.assign_slots(topi.to(cuda).reshape(8, -1), 16, cap, extra),
+                 moe.assign_slots(topi.reshape(8, -1), 16, cap, extra))
+    for name, a, b in pairs:
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+    router = torch.from_numpy(rng.choice([0.0, 0.5, 1.0], (32, 16)).astype(np.float32))
+    x = torch.eye(32)[None]
+    _, _, i_cpu = moe.route({"router": router}, x, 4)
+    _, _, i_dev = moe.route({"router": router.to(cuda)}, x.to(cuda), 4)
+    assert torch.equal(i_dev.cpu(), i_cpu)
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
+def test_moe_on_card_matches_cpu(cuda, name):
+    """Reduced MoE configs in fp32, replica slots on: the forward (K6 a
+    layer) and a decode step on the card against the CPU (rtol = atol =
+    2e-4), the aux loss too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_config(name).reduced()
+    cpu = tmodels.build_model(cfg, device="cpu")
+    params = cpu.init_params(1)
+    card = tmodels.build_model(cfg, device=cuda)
+    params_card = _to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+                            .astype(np.int32))
+    kw = dict(dtype=torch.float32, extra_slots=4, capacity_factor=1.0)
+    fa.reset_launches()
+    got, got_aux = card.forward_hidden(params_card, {"tokens": toks.to(cuda)}, **kw)
+    want, want_aux = cpu.forward_hidden(params, {"tokens": toks}, **kw)
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=2e-4, atol=2e-4)
+    c_card = card.init_cache(2, 4, dtype=torch.float32)
+    c_cpu = cpu.init_cache(2, 4, dtype=torch.float32)
+    d_card, _ = card.decode_step(params_card, c_card, toks[:, :1].to(cuda), 0, dtype=torch.float32)
+    d_cpu, _ = cpu.decode_step(params, c_cpu, toks[:, :1], 0, dtype=torch.float32)
+    torch.testing.assert_close(d_card.cpu(), d_cpu, rtol=2e-4, atol=2e-4)
+
+
+def test_moe_train_steps_on_card_are_bit_for_bit(cuda):
+    """Two bf16 train steps (K6 and K6b, replica slots on) from one state
+    and batch, run twice on the card: losses, params, m and v equal bit for
+    bit: every float sum of the dispatch, the combine and the replica slots'
+    weights runs in a fixed order."""
+    from repro_torch import train as ttrain
+    from repro_torch.train.optimizer import leaves
+
+    cfg = tconfigs.get_config("qwen2-moe-a2.7b").reduced()
+    model = tmodels.build_model(cfg, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (4, 128))
+                            .astype(np.int32)).to(cuda)
+    step = ttrain.make_train_step(model, ttrain.OptConfig(lr=1e-3, warmup_steps=1),
+                                  {"dtype": torch.bfloat16, "extra_slots": 8,
+                                   "capacity_factor": 1.0})
+    runs = []
+    for _ in range(2):
+        params, state = ttrain.init_train_state(model, 0)
+        fa.reset_launches()
+        losses = []
+        for _ in range(2):
+            params, state, m = step(params, state, {"tokens": toks})
+            losses.append(float(m["loss"]))
+        assert fa.LAUNCHES == {"flash_attention": 4 * cfg.n_layers,
+                               "flash_attention_bwd": 2 * cfg.n_layers}
+        runs.append((losses, [x.detach().clone() for x in
+                              leaves(params) + leaves(state["m"]) + leaves(state["v"])]))
+    (l_a, s_a), (l_b, s_b) = runs
+    assert l_a == l_b and all(np.isfinite(l_a))
+    assert all(torch.equal(a, b) for a, b in zip(s_a, s_b))
