@@ -28,6 +28,12 @@ Phases:
      earlier nested-loop kernel's operations (C + 2 a pair of valid rows);
   6. the paper's 3-way query (§9.2, at the scale of
      ``examples/multiway_join.py``) on the card against the host oracle;
+6b. the distributed shuffle (``run_distributed``, ``_distributed_phase``)
+     over this process's one-rank NCCL group: the §9.1 join of phase 4,
+     three times, equal to ``run_join`` in count, checksum, every
+     ``comm_tuples`` entry and every reducer load, with no overflow, and to
+     the oracle; the 3-way query of phase 6 likewise; wall seconds and K1's
+     launches (one a run);
   7. the streaming engine's fused path on the card: six micro-batches of
      ``benchmarks/bench_stream.py``'s drifting Zipf stream at 100,000 R and
      25,000 S rows each (q=1000), against the host group-by oracle, with
@@ -216,6 +222,44 @@ Phases:
      v; ms a step, tokens/s, peak memory, K6/K6b launches a step, busy
      share and time by function, and ``mfu=`` by 6·N_active·T of the cut
      config plus the attention term.
+ 32. the Zamba2 hybrid (``models.mamba2``, zamba2-2.7b: 54 Mamba2 layers,
+     d = 2560, the shared attention-and-MLP block of 32 heads of 80 after
+     every 6; ``_hybrid_phases``) at full width in fp32, cut to depth 12 (two
+     invocations of the shared block; random weights from seed 0):
+     ``forward_hidden`` of [2, 32] through K6 against the same call with
+     K6's plain version (2e-4), token-by-token ``decode_step`` logits (the
+     SSD's direct update) against the forward's (the chunked SSD) at every
+     position (2e-3);
+ 33. one fp32 train step at that depth on [2, 256] through K6 and K6b
+     against autograd through plain attention: the loss (1e-5 relative),
+     every gradient (1e-3 of each leaf's largest entry, every leaf nonzero),
+     the params after AdamW (1e-3 of the update); then
+     ``compressed_tree_psum`` over that gradient tree on the one-rank NCCL
+     group: each mean equal to ``dequantize(quantize(g))`` and each residual
+     to g - mean, bit for bit;
+ 34. bf16 serving at full width and depth, the hybrid's main path (2.31·10⁹
+     parameters, built in bf16): a forward-only ``loss_fn`` over [4, 2048]
+     (9 K6 launches a forward on the ``bf16_mma_sync`` route at D = 80,
+     asserted), then ``greedy_generate`` of 4 prompts of 128 tokens with 32
+     new tokens; forward ms, ms per decode step, the host's PyTorch calls in
+     a decode step, peak memory, the busy share of a forward and a decode
+     step, time by CUDA function, and the forward's busy time by part
+     (``record_function`` ranges around ``mamba2.ssd``, ``_causal_conv`` and
+     ``_shared_apply``) with the SSD's share on a line of its own;
+ 35. bf16 training at full width and depth (fp32 params, gradients, m and v:
+     about 37 GB) with ``make_train_step`` on [4, 2048] tokens of
+     ``TokenPipeline(seed=1)``, AdamW as phase 24: eight steps on one batch
+     (the loss must fall); the first two steps run again from the same state
+     (kept on the host) equal bit for bit in loss, params, m and v; ms a
+     step, tokens/s, peak memory, K6/K6b launches a step (18 and 9), busy
+     share, the SSD's share and time by function, and ``mfu=`` by 6·N·T,
+     N every matrix a token passes through (the shared block once an
+     invocation), plus the attention term;
+ 36. K6 and K6b at the hybrid's shape, [4, 32, 2048, 80] causal bf16 (the
+     ``mma.sync`` route; q, k, v of the shared block's first invocation):
+     each against its plain version (2e-2; K6b also by relative norm,
+     1e-2), device time (a CUDA graph), plain time, SDPA's forward and
+     backward, bound; the kernels line carries them as ``*_d80``.
 
 Every kernel's time is device time per call of everything the wrapper
 launches, from CUDA events around the replay of a CUDA graph of repeated
@@ -229,7 +273,9 @@ step) may still lose one, shown by the count of the port's kernels in it,
 and its busy share then reads low.  The wrapper's time, host work
 included, is CUDA events around repeated calls.
 
-Prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+Prints a ``kernels`` JSON line (each entry's launches on the main path and
+on each other path: ``launches_speculative``, ``launches_distributed``, ...,
+``launches_hybrid``) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -271,9 +317,13 @@ FLASH_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
 CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"  # phase 25's checkpoint (gitignored)
 HIST_KERNELS = ("histogram_narrow_kernel", "histogram_sparse_kernel")
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
-# moe_ffn's steps by the range each runs in under a trace (``_moe_ranges``)
+# moe_ffn's steps by the range each runs in under a trace (``_ranges``)
 MOE_RANGES = {"moe.route": "route", "moe.dispatch": "dispatch", "moe.gather": "_gather",
               "moe.experts": "_expert_mlp", "moe.combine": "_combine"}
+# the hybrid's parts likewise: the SSD recurrence, the causal conv, the
+# shared attention-and-MLP block (K6 inside it)
+HYBRID_RANGES = {"mamba2.ssd": "ssd", "mamba2.conv": "_causal_conv",
+                 "mamba2.shared": "_shared_apply"}
 RETAKEN: list[str] = []  # kernels whose trace lost device events and was taken again
 
 
@@ -1500,18 +1550,19 @@ def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)
     }, train_launches
 
 
-def _moe_ranges(moe):
-    """A context in which each step of ``moe.moe_ffn`` runs inside a
-    ``torch.profiler.record_function`` range named in MOE_RANGES (the
-    module's functions wrapped, restored on exit), so a trace can add up
-    each step's device time."""
+def _ranges(module, table):
+    """A context in which each function of ``module`` named in ``table``
+    (range name -> function name) runs inside a
+    ``torch.profiler.record_function`` range of that name (the module's
+    functions wrapped, restored on exit), so a trace can add up each
+    part's device time."""
     import contextlib
 
     import torch
 
     @contextlib.contextmanager
     def ranges():
-        saved = {fn: getattr(moe, fn) for fn in MOE_RANGES.values()}
+        saved = {fn: getattr(module, fn) for fn in table.values()}
 
         def wrap(fn, label):
             def inner(*args, **kw):
@@ -1519,13 +1570,13 @@ def _moe_ranges(moe):
                     return fn(*args, **kw)
             return inner
 
-        for label, fn in MOE_RANGES.items():
-            setattr(moe, fn, wrap(saved[fn], label))
+        for label, fn in table.items():
+            setattr(module, fn, wrap(saved[fn], label))
         try:
             yield
         finally:
             for fn, f in saved.items():
-                setattr(moe, fn, f)
+                setattr(module, fn, f)
 
     return ranges()
 
@@ -1574,6 +1625,241 @@ def _same_dispatch(topi, dev, n_experts: int, cap: int, extra: int) -> int:
     return int((runs[1]["pos"] < 0).sum())
 
 
+def _step_vs_plain(tag, model, tokens, opt_cfg, n_fwd, n_bwd):
+    """One fp32 train step (``loss_fn`` with remat, backward, ``adamw_update``)
+    from seed 0 through K6 and K6b (``n_fwd`` and ``n_bwd`` launches) and
+    again through autograd of plain attention: the loss (1e-5 relative),
+    every gradient (1e-3 of each leaf's largest entry) and the params after
+    AdamW (1e-3 of the update), printed on a ``[tag]`` line and asserted.
+    Returns the kernels' gradients by leaf path (phases 30 and 33)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import layers
+    from repro_torch.train import adamw_update, init_train_state
+    from repro_torch.train.optimizer import leaves
+
+    runs = []
+    for plain in (False, True):
+        params, opt = init_train_state(model, 0)
+        reset_launches()
+        if plain:
+            layers.flash_attention = fa.flash_attention_ref  # autograd through the plain version
+        try:
+            loss = model.loss_fn(params, {"tokens": tokens}, dtype=torch.float32)
+            loss.backward()
+        finally:
+            layers.flash_attention = fa.flash_attention
+        torch.cuda.synchronize()
+        n = launches()
+        assert (n["flash_attention"], n["flash_attention_bwd"]) == (
+            (0, 0) if plain else (n_fwd, n_bwd)), n
+        grads = [p.grad for p in leaves(params)]
+        for p in leaves(params):
+            p.grad = None
+        p0 = [p.detach().clone() for p in leaves(params)] if not plain else None
+        adamw_update(params, grads, opt, opt_cfg)
+        runs.append((float(loss.detach()), grads, [p.detach() for p in leaves(params)], p0))
+        del opt
+    (loss_k, g_k, p_k, p0), (loss_p, g_p, p_p, _) = runs
+    names = ["/".join(path) for path in _leaf_paths(params)]
+    g_err = {nm: float((a - w).abs().max() / w.abs().max().clamp(min=1e-30))
+             for nm, a, w in zip(names, g_k, g_p)}
+    worst = max(g_err, key=g_err.get)
+    moved = torch.sqrt(sum(((w - a) ** 2).sum() for w, a in zip(p_p, p0)))
+    diff = torch.sqrt(sum(((a - w) ** 2).sum() for a, w in zip(p_k, p_p)))
+    _say(f"[{tag}] fp32 train step on {list(tokens.shape)} ({model.cfg.n_layers} layers at full "
+         f"width): loss K6 {loss_k:.7f} vs plain attention {loss_p:.7f}; gradients, max |err| "
+         f"over each leaf's largest entry: worst {worst} {g_err[worst]:.3g}; params after AdamW "
+         f"differ by {float(diff):.3g} against an update of norm {float(moved):.3g} (tolerances: "
+         f"loss 1e-5 relative, gradients 1e-3, params 1e-3 of the update)")
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert max(g_err.values()) <= 1e-3
+    assert float(diff) <= 1e-3 * float(moved)
+    return dict(zip(names, g_k))
+
+
+def _serve_bf16(tag, model, params, long, prompts, n_new, n_attn, ranges=None):
+    """The bf16 serving main path of a model (phases 29 and 34): a
+    forward-only ``loss_fn`` over ``long`` four times (the first a warm-up;
+    ``n_attn`` K6 launches each, asserted) and once under the profiler
+    (inside ``_ranges(*ranges)`` when given), then ``greedy_generate`` of
+    ``prompts`` with ``n_new`` new tokens, one decode step under the
+    profiler and the host's PyTorch calls in one.  Prints the ``[tag]``
+    lines; returns (the forward's busy microseconds by function, its event
+    counts, the ranges' microseconds, the launches)."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serve import greedy_generate
+
+    bf16 = torch.bfloat16
+    batch, l_prompt = prompts.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def do_forward():
+        t = time.perf_counter()
+        out = model.loss_fn(params, {"tokens": long}, dtype=bf16)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    step_ms = []
+
+    def timed_step(*args, **kw):
+        t = time.perf_counter()
+        out = model.decode_step(*args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    reset_launches()
+    fwd_ms = []
+    for _ in range(4):  # the first is a warm-up
+        n0 = launches()["flash_attention"]
+        fwd_ms.append(do_forward()[1])
+        assert launches()["flash_attention"] - n0 == n_attn, launches()
+    spans = {label: 0.0 for label in (ranges[1] if ranges else {})}
+    n_ev_fwd: dict[str, int] = {}
+    with _ranges(*ranges) if ranges else contextlib.nullcontext():
+        (loss, ms_traced), busy_fwd = _traced(do_forward, n_ev_fwd, spans)
+    t = time.perf_counter()
+    tokens = greedy_generate(dataclasses.replace(model, decode_step=timed_step), params,
+                             prompts, n_new, dtype=bf16)
+    t_gen = time.perf_counter() - t
+    serve_launches = launches()
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = step_ms[l_prompt:]  # after the prompt's scan
+    cache = model.init_cache(batch, l_prompt + n_new, dtype=bf16)
+    tok = torch.from_numpy(prompts[:, :1]).to(model.device)
+
+    def one_step():
+        t = time.perf_counter()
+        lg, _ = model.decode_step(params, cache, tok, 0, dtype=bf16)
+        torch.cuda.synchronize()
+        return lg, (time.perf_counter() - t) * 1e3
+
+    one_step()
+    (_, ms_step_traced), busy_dec = _traced(one_step)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        one_step()
+    n_calls = sum(1 for ev in prof.events() if ev.cpu_parent is None)
+    _say(f"[{tag}] one decode step makes {n_calls} top-level PyTorch calls on the host "
+         f"({model.cfg.n_layers} layers)")
+    _say(f"[{tag}] bf16 serving {model.cfg.name}: forward-only loss_fn {list(long.shape)} = "
+         f"{float(loss):.4f}, ms {[round(x, 3) for x in fwd_ms]} (first is the warm-up); "
+         f"greedy_generate of [{batch}, {l_prompt}] prompts, {n_new} new tokens in {t_gen:.2f} s: "
+         f"{len(step_ms)} decode steps ({l_prompt} of the prompt's scan), ms per step ({batch} "
+         f"sequences) after the prompt median {float(np.median(decode_ms)):.3f} min "
+         f"{min(decode_ms):.3f} max {max(decode_ms):.3f}, over all median "
+         f"{float(np.median(step_ms)):.3f}; {float(np.median(decode_ms)) / batch:.3f} ms per token")
+    _say(f"[{tag}] generated tokens (sequence 0): {tokens[0].tolist()}")
+    _say(f"[{tag}] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); "
+         f"launches={serve_launches}")
+    for what, busy, wall in [("forward", busy_fwd, ms_traced),
+                             ("decode step", busy_dec, ms_step_traced)]:
+        assert busy, f"the {what}'s profiler trace holds no device events"
+        b_ms = sum(busy.values()) / 1e3
+        _say(f"[{tag}] one {what} under the profiler: device busy {b_ms:.3f} ms of {wall:.3f} ms "
+             f"({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} %); by function "
+             "(ms): " + "; ".join(f"{k_[:60]} {v / 1e3:.3f}" for k_, v in
+                                  sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
+    assert np.isfinite(float(loss)) and tokens.shape == (batch, n_new)
+    assert len(step_ms) == l_prompt + n_new - 1
+    assert serve_launches["flash_attention"] == 5 * n_attn, serve_launches
+    return busy_fwd, n_ev_fwd, spans, serve_launches
+
+
+def _train_bf16(tag, model, step_fn, batch, n_fwd, n_bwd, ranges=None):
+    """bf16 training from seed 0 (phases 31 and 35): eight steps on
+    ``batch`` (the loss must fall), the state after the second kept on the
+    host, a ninth under the profiler (inside ``_ranges(*ranges)`` when
+    given); then two steps again from seed 0, equal bit for bit in loss,
+    params, m and v; ``n_fwd`` and ``n_bwd`` K6 and K6b launches a step
+    (asserted).  Prints the ``[tag]`` lines; returns (median ms a step
+    after the first, parameters, the traced step's busy microseconds by
+    function, the ranges' microseconds, the launches)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.train import init_train_state
+    from repro_torch.train.optimizer import leaves
+
+    params, opt = init_train_state(model, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms, snap = [], [], None
+
+    def timed():
+        nonlocal params, opt
+        t = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        return step_ms[-1]
+
+    for i in range(8):
+        timed()
+        if i == 1:  # the state after two steps, kept on the host
+            snap = [x.detach().to("cpu", copy=True)
+                    for x in leaves(params) + leaves(opt["m"]) + leaves(opt["v"])]
+    peak = torch.cuda.max_memory_allocated()
+    n_ev: dict[str, int] = {}
+    spans = {label: 0.0 for label in (ranges[1] if ranges else {})}
+    with _ranges(*ranges) if ranges else contextlib.nullcontext():
+        ms_traced, busy = _traced(timed, n_ev, spans)
+    steps = 9
+    n_params = sum(p.numel() for p in leaves(params))
+    del params, opt
+    torch.cuda.empty_cache()
+    # two steps again from the same state on the same batch
+    params, opt = init_train_state(model, 0)
+    again = []
+    for _ in range(2):
+        params, opt, m = step_fn(params, opt, batch)
+        again.append(float(m["loss"]))
+    same = all(torch.equal(x.detach().cpu(), y) for x, y in zip(
+        leaves(params) + leaves(opt["m"]) + leaves(opt["v"]), snap))
+    train_launches = launches()  # the nine steps above and these two
+    shape = list(batch["tokens"].shape)
+    _say(f"[{tag}] bf16 {model.cfg.name} training at full width, depth {model.cfg.n_layers} "
+         f"({n_params} parameters; fp32 master weights, AdamW) on {shape} tokens: losses on one "
+         f"batch {[round(x, 4) for x in losses[:8]]}")
+    _say(f"[{tag}] two steps from the same state and batch, run twice: losses {losses[:2]} and "
+         f"{again}; params, m and v equal bit for bit: {same}")
+    assert all(np.isfinite(losses)) and losses[7] < losses[0], losses
+    assert again == losses[:2] and same
+    assert train_launches["flash_attention"] == n_fwd * (steps + 2), train_launches
+    assert train_launches["flash_attention_bwd"] == n_bwd * (steps + 2), train_launches
+    ms_med = float(np.median(step_ms[1:8]))
+    b_ms = sum(busy.values()) / 1e3
+    k6f = {k_: v for k_, v in busy.items() if any(nm in k_ for nm in FLASH_KERNELS)}
+    k6b = {k_: v for k_, v in busy.items() if any(nm in k_ for nm in FLASH_BWD_KERNELS)}
+    _say(f"[{tag}] train step ms {[round(x, 2) for x in step_ms[:8]]} (the first a warm-up), "
+         f"median after it {ms_med:.2f} ms, {shape[0] * shape[1] / (ms_med / 1e3):.0f} tokens/s; "
+         f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); K6 {n_fwd} forward and "
+         f"{n_bwd} backward launches a step")
+    _say(f"[{tag}] one train step under the profiler: device busy {b_ms:.3f} ms of {ms_traced:.3f} "
+         f"ms ({100 * b_ms / ms_traced:.2f} %, idle {100 - 100 * b_ms / ms_traced:.2f} %); K6 "
+         f"forward {sum(k6f.values()) / 1e3:.3f} ms over {sum(n_ev[k_] for k_ in k6f)} events, "
+         f"backward {sum(k6b.values()) / 1e3:.3f} ms over {sum(n_ev[k_] for k_ in k6b)} events; "
+         "by function (ms): " + "; ".join(f"{k_[:60]} {v / 1e3:.3f}" for k_, v in
+                                         sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
+    del params, opt, snap
+    torch.cuda.empty_cache()
+    return ms_med, n_params, busy, spans, train_launches
+
+
 def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(2, 256),
                 train=(4, 2048)):
     """Phases 27-31; returns the MoE path's launches (phases 29 and 31).
@@ -1590,13 +1876,12 @@ def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(
     from repro_torch.models import build_model, layers, moe
     from repro_torch.models import transformer as tt
     from repro_torch.serve import BucketServer, Request, greedy_generate
-    from repro_torch.train import OptConfig, adamw_update, init_train_state, make_train_step
+    from repro_torch.train import OptConfig, make_train_step
     from repro_torch.train.optimizer import leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     f32, bf16 = torch.float32, torch.bfloat16
-    cpu = torch.device("cpu")
     full = get_config("qwen2-moe-a2.7b")
     e, k = full.n_experts, full.top_k
     t_phase = time.perf_counter()
@@ -1725,75 +2010,8 @@ def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(
     batch, l_prompt, n_new = prompt
     long = torch.from_numpy(gen.integers(0, full.vocab, serve).astype(np.int32)).to(dev)
     prompts = gen.integers(0, full.vocab, (batch, l_prompt)).astype(np.int32)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    def do_forward():
-        t = time.perf_counter()
-        out = model.loss_fn(params, {"tokens": long}, dtype=bf16)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
-
-    step_ms = []
-
-    def timed_step(*args, **kw):
-        t = time.perf_counter()
-        out = model.decode_step(*args, **kw)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    reset_launches()
-    fwd_ms = []
-    for _ in range(4):  # the first is a warm-up
-        n0 = launches()["flash_attention"]
-        fwd_ms.append(do_forward()[1])
-        assert launches()["flash_attention"] - n0 == full.n_layers, launches()
-    spans = {label: 0.0 for label in MOE_RANGES}
-    n_ev_fwd: dict[str, int] = {}
-    with _moe_ranges(moe):
-        (loss, ms_traced), busy_fwd = _traced(do_forward, n_ev_fwd, spans)
-    t = time.perf_counter()
-    tokens = greedy_generate(dataclasses.replace(model, decode_step=timed_step), params,
-                             prompts, n_new, dtype=bf16)
-    t_gen = time.perf_counter() - t
-    serve_launches = launches()
-    peak = torch.cuda.max_memory_allocated()
-    decode_ms = step_ms[l_prompt:]  # after the prompt's scan
-    cache = model.init_cache(batch, l_prompt + n_new, dtype=bf16)
-    tok = torch.from_numpy(prompts[:, :1]).to(dev)
-
-    def one_step():
-        t = time.perf_counter()
-        lg, _ = model.decode_step(params, cache, tok, 0, dtype=bf16)
-        torch.cuda.synchronize()
-        return lg, (time.perf_counter() - t) * 1e3
-
-    one_step()
-    (_, ms_step_traced), busy_dec = _traced(one_step)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        one_step()
-    n_calls = sum(1 for ev in prof.events() if ev.cpu_parent is None)
-    _say(f"[moe] one decode step makes {n_calls} top-level PyTorch calls on the host "
-         f"({full.n_layers} layers)")
-    _say(f"[moe] bf16 serving qwen2-moe-a2.7b: forward-only loss_fn {list(long.shape)} = "
-         f"{float(loss):.4f}, ms {[round(x, 3) for x in fwd_ms]} (first is the warm-up); "
-         f"greedy_generate of [{batch}, {l_prompt}] prompts, {n_new} new tokens in {t_gen:.2f} s: "
-         f"{len(step_ms)} decode steps ({l_prompt} of the prompt's scan), ms per step ({batch} "
-         f"sequences) after the prompt median {float(np.median(decode_ms)):.3f} min "
-         f"{min(decode_ms):.3f} max {max(decode_ms):.3f}, over all median "
-         f"{float(np.median(step_ms)):.3f}; {float(np.median(decode_ms)) / batch:.3f} ms per token")
-    _say(f"[moe] generated tokens (sequence 0): {tokens[0].tolist()}")
-    _say(f"[moe] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); "
-         f"launches={serve_launches}")
-    for what, busy, wall in [("forward", busy_fwd, ms_traced),
-                             ("decode step", busy_dec, ms_step_traced)]:
-        assert busy, f"the {what}'s profiler trace holds no device events"
-        b_ms = sum(busy.values()) / 1e3
-        _say(f"[moe] one {what} under the profiler: device busy {b_ms:.3f} ms of {wall:.3f} ms "
-             f"({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} %); by function "
-             "(ms): " + "; ".join(f"{k_[:60]} {v / 1e3:.3f}" for k_, v in
-                                  sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
+    busy_fwd, n_ev_fwd, spans, serve_launches = _serve_bf16(
+        "moe", model, params, long, prompts, n_new, full.n_layers, (moe, MOE_RANGES))
     # the forward's busy time by the step of the layer that launched it
     busy_ms = sum(busy_fwd.values()) / 1e3
     k6_ms = sum(v for k_, v in busy_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS)) / 1e3
@@ -1828,10 +2046,7 @@ def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(
              f"{100 * float(st['drop_rate']):.3f} %), slot-load imbalance (max/mean) "
              f"{float(loads.max() / loads.mean()):.4f}, slot loads max {int(loads.max())} min "
              f"{int(loads.min())} over {loads.numel()} slots")
-    assert np.isfinite(float(loss)) and tokens.shape == (batch, n_new)
-    assert len(step_ms) == l_prompt + n_new - 1
-    assert serve_launches["flash_attention"] == 5 * full.n_layers, serve_launches
-    del params, cache, x0, h0, long
+    del params, x0, h0, long
     torch.cuda.empty_cache()
 
     # ---- 30. one fp32 train step at depth 2 through K6 and K6b ----------------
@@ -1840,49 +2055,15 @@ def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(
     opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
     tokens2 = torch.from_numpy(np.random.default_rng(30).integers(0, cfg2.vocab, grad)
                                .astype(np.int32)).to(dev)
-    runs = []
-    for plain in (False, True):
-        p2, opt = init_train_state(model2, 0)
-        reset_launches()
-        if plain:
-            layers.flash_attention = fa.flash_attention_ref  # autograd through the plain version
-        try:
-            loss = model2.loss_fn(p2, {"tokens": tokens2}, dtype=f32)
-            loss.backward()
-        finally:
-            layers.flash_attention = fa.flash_attention
-        torch.cuda.synchronize()
-        n = launches()
-        assert (n["flash_attention"], n["flash_attention_bwd"]) == (
-            (0, 0) if plain else (2 * cfg2.n_layers, cfg2.n_layers)), n
-        grads = [p.grad for p in leaves(p2)]
-        for p in leaves(p2):
-            p.grad = None
-        p0 = [p.detach().clone() for p in leaves(p2)] if not plain else None
-        adamw_update(p2, grads, opt, opt_cfg)
-        runs.append((float(loss.detach()), grads, [p.detach() for p in leaves(p2)], p0))
-        del opt
-    (loss_k, g_k, p_k, p0), (loss_p, g_p, p_p, _) = runs
-    names = ["/".join(path) for path in _leaf_paths(p2)]
-    g_err = {nm: float((a - w).abs().max() / w.abs().max().clamp(min=1e-30))
-             for nm, a, w in zip(names, g_k, g_p)}
-    worst = max(g_err, key=g_err.get)
-    nonzero = {nm: float(g.abs().max()) > 0 for nm, g in zip(names, g_k)
+    grads = _step_vs_plain("moe", model2, tokens2, opt_cfg, 2 * cfg2.n_layers, cfg2.n_layers)
+    nonzero = {nm: float(g.abs().max()) > 0 for nm, g in grads.items()
                if nm.split("/")[-1] in ("wq", "wk", "wv", "router", "w_gate", "w_up", "w_down",
                                         "shared_gate")}
-    moved = torch.sqrt(sum(((w - a) ** 2).sum() for w, a in zip(p_p, p0)))
-    diff = torch.sqrt(sum(((a - w) ** 2).sum() for a, w in zip(p_k, p_p)))
-    _say(f"[moe] fp32 train step on {list(tokens2.shape)} ({cfg2.n_layers} layers at full width): "
-         f"loss K6 {loss_k:.7f} vs plain attention {loss_p:.7f}; gradients, max |err| over each "
-         f"leaf's largest entry: worst {worst} {g_err[worst]:.3g}; router, experts, shared and "
-         f"wq/wk/wv nonzero: {all(nonzero.values())} ({len(nonzero)} leaves); params after AdamW "
-         f"differ by {float(diff):.3g} against an update of norm {float(moved):.3g} "
-         f"(tolerances: loss 1e-5 relative, gradients 1e-3, params 1e-3 of the update)")
-    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
-    assert max(g_err.values()) <= 1e-3 and all(nonzero.values())
+    _say(f"[moe] router, experts, shared and wq/wk/wv gradients nonzero: "
+         f"{all(nonzero.values())} ({len(nonzero)} leaves)")
+    assert all(nonzero.values())
     assert len(nonzero) == cfg2.n_layers * (3 + 1 + 3 + 3 + 1), sorted(nonzero)
-    assert float(diff) <= 1e-3 * float(moved)
-    del runs, g_k, g_p, p_k, p_p, p0, p2, grads
+    del grads
     torch.cuda.empty_cache()
 
     # ---- 31. bf16 training at full width, cut to depth 4 ----------------------
@@ -1891,79 +2072,303 @@ def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(
                                                 "capacity_factor": 1.25})
     pipe = TokenPipeline(vocab=cfg4.vocab, batch=train[0], seq=train[1] - 1, seed=1)
     first = {"tokens": torch.from_numpy(pipe.next_batch()).to(dev)}
-    params, opt = init_train_state(model4, 0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    losses, step_ms, snap = [], [], None
-
-    def timed(batch):
-        nonlocal params, opt
-        t = time.perf_counter()
-        params, opt, m = step_fn(params, opt, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        losses.append(float(m["loss"]))
-        return m
-
-    for i in range(8):
-        timed(first)
-        if i == 1:  # the state after two steps, kept on the host
-            snap = [x.detach().to("cpu", copy=True)
-                    for x in leaves(params) + leaves(opt["m"]) + leaves(opt["v"])]
-    peak = torch.cuda.max_memory_allocated()
-    n_ev: dict[str, int] = {}
-    (m, ms_traced), busy = _traced(lambda: (timed(first), step_ms[-1]), n_ev)
-    steps = 9
-    n_params = sum(p.numel() for p in leaves(params))
-    del params, opt
-    torch.cuda.empty_cache()
-    # two steps again from the same state on the same batch
-    params, opt = init_train_state(model4, 0)
-    again = []
-    for _ in range(2):
-        params, opt, m = step_fn(params, opt, first)
-        again.append(float(m["loss"]))
-    same = all(torch.equal(x.detach().cpu(), y) for x, y in zip(
-        leaves(params) + leaves(opt["m"]) + leaves(opt["v"]), snap))
-    train_launches = launches()  # the nine steps above and these two
-    _say(f"[moe] bf16 qwen2-moe-a2.7b training, full width cut to depth {cfg4.n_layers} "
-         f"({n_params} parameters; fp32 master weights, AdamW), extra_slots=8, cf 1.25, on "
-         f"[{train[0]}, {train[1]}] tokens: losses on one batch {[round(x, 4) for x in losses[:8]]}")
-    _say(f"[moe] two steps from the same state and batch, run twice: losses {losses[:2]} and "
-         f"{again}; params, m and v equal bit for bit: {same}")
-    assert all(np.isfinite(losses)) and losses[7] < losses[0], losses
-    assert again == losses[:2] and same
-    per_step = {k_: train_launches[k_] // (steps + 2) for k_ in ("flash_attention",
-                                                                  "flash_attention_bwd")}
-    assert train_launches["flash_attention"] == 2 * cfg4.n_layers * (steps + 2), train_launches
-    assert train_launches["flash_attention_bwd"] == cfg4.n_layers * (steps + 2), train_launches
-    ms_med = float(np.median(step_ms[1:8]))
+    ms_med, _, _, _, train_launches = _train_bf16("moe", model4, step_fn, first,
+                                                  2 * cfg4.n_layers, cfg4.n_layers)
     n_tok = train[0] * train[1]
     flops = 6.0 * cfg4.n_active_params() * n_tok + 6.0 * cfg4.n_layers * train[0] \
         * cfg4.n_heads * train[1] ** 2 * cfg4.hd
     mfu = flops / (ms_med / 1e3) / BF16_FLOPS
-    b_ms = sum(busy.values()) / 1e3
-    k6f = {k_: v for k_, v in busy.items() if any(nm in k_ for nm in FLASH_KERNELS)}
-    k6b = {k_: v for k_, v in busy.items() if any(nm in k_ for nm in FLASH_BWD_KERNELS)}
-    _say(f"[moe] train step ms {[round(x, 2) for x in step_ms[:8]]} (the first a warm-up), "
-         f"median after it {ms_med:.2f} ms, {n_tok / (ms_med / 1e3):.0f} tokens/s; peak device "
-         f"memory {peak} bytes ({peak / 2**30:.2f} GiB); K6 {per_step['flash_attention']} "
-         f"forward and {per_step['flash_attention_bwd']} backward launches a step")
-    _say(f"[moe] one train step under the profiler: device busy {b_ms:.3f} ms of {ms_traced:.3f} "
-         f"ms ({100 * b_ms / ms_traced:.2f} %, idle {100 - 100 * b_ms / ms_traced:.2f} %); K6 "
-         f"forward {sum(k6f.values()) / 1e3:.3f} ms over {sum(n_ev[k_] for k_ in k6f)} events, "
-         f"backward {sum(k6b.values()) / 1e3:.3f} ms over {sum(n_ev[k_] for k_ in k6b)} events; "
-         "by function (ms): " + "; ".join(f"{k_[:60]} {v / 1e3:.3f}" for k_, v in
-                                         sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
     _say(f"[moe] mfu={mfu:.4f} (6 N_active T + 6 layers B H L^2 D = {flops:.4g} model flops a "
          f"step, N_active = {cfg4.n_active_params()} of the depth-{cfg4.n_layers} cut, over "
-         f"{ms_med:.2f} ms at 989 TFLOP/s bf16)")
-    del params, opt, snap, step_fn
+         f"{ms_med:.2f} ms at 989 TFLOP/s bf16; extra_slots 8, cf 1.25)")
+    del step_fn
     torch.cuda.empty_cache()
     _say(f"[moe] phases 27-31: {time.perf_counter() - t_phase:.1f} s")
     return {k_: serve_launches.get(k_, 0) + train_launches.get(k_, 0)
             for k_ in set(serve_launches) | set(train_launches)}
+
+
+def _distributed_phase(dev, query, data, plan, base, oracle, base_s, per_run, three):
+    """Phase 6b: the distributed shuffle (``run_distributed``) over this
+    process's one-rank NCCL group on the card: the §9.1 join at full scale
+    against ``run_join`` (``base``, which took ``base_s`` seconds and
+    launched K1 ``per_run`` times) and the oracle, then the 3-way query
+    (``three``: query, data, plan, ``run_join``'s result, the oracle).
+    Returns the phase's kernel launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import resolve_group
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.mapreduce import predicted_comm, run_distributed
+
+    group = resolve_group(None, dev)
+    _say(f"[dist] group: backend {group.name()}, world {group.size()}, rank {group.rank()} "
+         f"(this process's own, on a private FileStore; torch.distributed initialized: "
+         f"{dist.is_initialized()})")
+    assert group.size() == 1 and not dist.is_initialized()
+    assert group.name() == ("nccl" if dev.type == "cuda" else "gloo")
+    reset_launches()
+    secs = []
+    for _ in range(3):  # the first builds the group and warms the caches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = run_distributed(query, data, plan, cap_factor=3.0, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        assert (res.count, res.checksum) == oracle and res.overflow == 0
+        assert (res.count, res.checksum, res.comm_tuples) == (
+            base.count, base.checksum, base.comm_tuples)
+        assert np.array_equal(res.reducer_loads, base.reducer_loads)
+    n = launches()
+    _say(f"[dist] §9.1 run_distributed ({group.name()}, world {group.size()}): count={res.count} "
+         f"checksum="
+         f"{res.checksum} overflow={res.overflow} comm={res.comm_tuples}; equal to run_join in "
+         f"count, checksum, every comm_tuples entry and all {res.reducer_loads.size} "
+         f"reducer_loads, and to the oracle; wall s {[round(x, 4) for x in secs]} (run_join "
+         f"{base_s:.4f}); K1 launches {n['reducer_join']} over 3 runs")
+    assert res.comm_tuples == predicted_comm(plan)
+    assert n["reducer_join"] == 3 * per_run > 0, n
+    q3, d3, plan3, base3, oracle3 = three
+    t = time.perf_counter()
+    res3 = run_distributed(q3, d3, plan3, cap_factor=5.0, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter() - t
+    _say(f"[dist] §9.2 3-way run_distributed: count={res3.count} checksum={res3.checksum} "
+         f"overflow={res3.overflow}, oracle {oracle3}; {t3:.3f} s")
+    assert (res3.count, res3.checksum) == oracle3 and res3.overflow == 0
+    assert res3.comm_tuples == base3.comm_tuples
+    assert np.array_equal(res3.reducer_loads, base3.reducer_loads)
+    return launches()
+
+
+def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
+                   prompt=(4, 128, 32), train=(4, 2048)):
+    """Phases 32-36; returns the kernels line's numbers at the hybrid's
+    shapes (K6 and K6b: ms, plain ms, bound, SDPA's ms, max_abs_err) and the
+    hybrid path's launches (phases 34 and 35).  The shapes are the card's;
+    a CPU rehearsal cuts them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import resolve_group
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import build_model, layers, mamba2
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import (OptConfig, compressed_tree_psum, dequantize, init_residuals,
+                                   make_train_step, quantize)
+    from repro_torch.train.optimizer import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    full = get_config("zamba2-2.7b")
+    n_groups = full.n_layers // full.hybrid_period
+    t_phase = time.perf_counter()
+
+    # ---- 32. fp32 at full width, cut in depth: K6 vs plain, decode vs forward -
+    # two invocations of the shared block: the fewest that show its
+    # parameters shared across invocations and one KV cache for each
+    cfg_c = dataclasses.replace(full, n_layers=2 * full.hybrid_period)
+    groups_c = cfg_c.n_layers // cfg_c.hybrid_period
+    model = build_model(cfg_c, device=dev)
+    params = model.init_params(0, dtype=f32)
+    gen = np.random.default_rng(32)
+    prompts = torch.from_numpy(gen.integers(0, full.vocab, check).astype(np.int32)).to(dev)
+    reset_launches()
+    hid = model.forward_hidden(params, {"tokens": prompts}, dtype=f32)
+    assert launches()["flash_attention"] == groups_c, launches()
+    layers.flash_attention = fa.flash_attention_ref  # the same call, plain attention
+    try:
+        hid_plain = model.forward_hidden(params, {"tokens": prompts}, dtype=f32)
+    finally:
+        layers.flash_attention = fa.flash_attention
+    err_hid = _max_float_err(hid, hid_plain)
+    want = hid @ tt.logits_table(cfg_c, params).T  # [B, L, V] fp32
+    cache = model.init_cache(check[0], check[1], dtype=f32)
+    err_dec = 0.0
+    for pos in range(check[1]):
+        logits, cache = model.decode_step(params, cache, prompts[:, pos:pos + 1], pos, dtype=f32)
+        assert _close(logits, want[:, pos], 2e-3), pos
+        err_dec = max(err_dec, _max_float_err(logits, want[:, pos]))
+    _say(f"[hybrid] zamba2-2.7b at full width in fp32, cut to depth {cfg_c.n_layers} ({groups_c} "
+         f"invocations of the shared block; {sum(p.numel() for p in leaves(params))} "
+         f"parameters): forward_hidden {list(prompts.shape)} through K6 "
+         f"({fa.kernel_variant(f32, full.hd)}) vs plain attention: max_abs_err={err_hid:.3g} "
+         f"(tolerance 2e-4); token-by-token decode_step logits (the SSD's direct update, conv "
+         f"and KV states in place) vs the forward's (chunked SSD) at all {check[1]} positions: "
+         f"max_abs_err={err_dec:.3g} (rtol = atol = 2e-3), logits scale "
+         f"{float(want.abs().max()):.3g}")
+    assert err_hid <= 2e-4
+    del hid, hid_plain, want, cache, params
+    torch.cuda.empty_cache()
+
+    # ---- 33. one fp32 train step through K6 and K6b against plain attention ---
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
+    tokens2 = torch.from_numpy(np.random.default_rng(33).integers(0, full.vocab, grad)
+                               .astype(np.int32)).to(dev)
+    tree = _step_vs_plain("hybrid", model, tokens2, opt_cfg, 2 * groups_c, groups_c)
+    _say(f"[hybrid] every one of the {len(tree)} gradient leaves nonzero: "
+         f"{all(float(g.abs().max()) > 0 for g in tree.values())}")
+    assert all(float(g.abs().max()) > 0 for g in tree.values())
+    # the int8 gradient all-reduce on this real gradient tree, world one:
+    # the mean is the dequantized grid, the residual what it leaves
+    reset = init_residuals(tree)
+    t = time.perf_counter()
+    mean, residual = compressed_tree_psum(tree, reset)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t
+    exact = all(torch.equal(mean[nm], dequantize(*quantize(g)).to(f32))
+                and torch.equal(residual[nm], g - mean[nm]) for nm, g in tree.items())
+    # each leaf's error against half its grid step, scale / 2 (scale = its
+    # largest entry / 127 + 1e-12)
+    steps = {nm: float((mean[nm] - g).abs().max() / (g.abs().max() / 127 + 1e-12) / 0.5)
+             for nm, g in tree.items()}
+    group = resolve_group(None, dev)
+    _say(f"[dist] compressed_tree_psum ({group.name()}, world {group.size()}) over the step's "
+         f"{len(tree)} gradient leaves ({sum(g.numel() for g in tree.values())} values) in "
+         f"{t_c * 1e3:.1f} ms: each mean equals dequantize(quantize(g)) and each residual g - "
+         f"mean, bit for bit: {exact}; the largest error is {max(steps.values()):.7f} of half a "
+         f"leaf's grid step")
+    assert exact and max(steps.values()) <= 1 + 1e-5
+    del tree, mean, residual, reset, model
+    torch.cuda.empty_cache()
+
+    # ---- 34. bf16 serving at full width and depth, the hybrid's main path -----
+    model = build_model(full, device=dev)
+    t = time.perf_counter()
+    params = model.init_params(0, dtype=bf16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    n_block = sum(p.numel() for p in leaves(params["blocks"][0]))
+    n_shared = sum(p.numel() for p in leaves(params["shared_attn"]))
+    n_embed = params["embed"]["table"].numel()
+    _say(f"[hybrid] zamba2-2.7b at full width and depth in bf16: {full.n_layers} Mamba2 layers, "
+         f"d={full.d_model}, d_inner {full.d_inner} ({full.ssm_heads} SSM heads of "
+         f"{full.d_inner // full.ssm_heads}, state {full.ssm_state}), a shared block of "
+         f"{full.n_heads} heads of {full.hd} and d_ff {full.d_ff} after every "
+         f"{full.hybrid_period} ({n_groups} invocations), vocab {full.vocab} tied: {n_params} "
+         f"parameters (a Mamba2 block {n_block}, the shared block {n_shared}, the embedding "
+         f"{n_embed}; ArchConfig.n_params() says {full.n_params()}), init "
+         f"{time.perf_counter() - t:.2f} s")
+    batch, l_prompt, n_new = prompt
+    long = torch.from_numpy(gen.integers(0, full.vocab, serve).astype(np.int32)).to(dev)
+    prompts = gen.integers(0, full.vocab, (batch, l_prompt)).astype(np.int32)
+    busy_fwd, n_ev_fwd, spans, serve_launches = _serve_bf16(
+        "hybrid", model, params, long, prompts, n_new, n_groups, (mamba2, HYBRID_RANGES))
+    busy_ms = sum(busy_fwd.values()) / 1e3
+    k6_ms = sum(v for k_, v in busy_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS)) / 1e3
+    n_k6 = sum(n for k_, n in n_ev_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS))
+    span_ms = {label: us / 1e3 for label, us in spans.items()}
+    rest = busy_ms - sum(span_ms.values())
+    _say("[hybrid] the forward's device busy time by part (ms, % of busy): the SSD "
+         f"(mamba2.ssd, fp32) {span_ms['mamba2.ssd']:.3f} "
+         f"({100 * span_ms['mamba2.ssd'] / busy_ms:.2f} %); the shared block (mamba2.shared) "
+         f"{span_ms['mamba2.shared']:.3f} ({100 * span_ms['mamba2.shared'] / busy_ms:.2f} %), of "
+         f"it K6 {k6_ms:.3f} over {n_k6} events ({100 * k6_ms / busy_ms:.2f} %); the causal "
+         f"conv (mamba2.conv) {span_ms['mamba2.conv']:.3f} "
+         f"({100 * span_ms['mamba2.conv'] / busy_ms:.2f} %); the rest (in/out projections, "
+         f"gating, norms, the head and loss) {rest:.3f} ({100 * rest / busy_ms:.2f} %)")
+    _say(f"[hybrid] SSD share of the forward's busy time: "
+         f"{100 * span_ms['mamba2.ssd'] / busy_ms:.2f} % ({span_ms['mamba2.ssd']:.3f} of "
+         f"{busy_ms:.3f} ms)" + ("" if span_ms["mamba2.ssd"] > 0 else
+                                 ": the trace linked no kernel to the range, not measured"))
+    assert fa.kernel_variant(bf16, full.hd) == "bf16_mma_sync"
+    # the shared block's q, k, v at its first invocation, for phase 36
+    acfg = tt.attn_config(full)
+    with torch.no_grad():
+        x = layers.embed(params["embed"], long, bf16)
+        for blk in params["blocks"][:full.hybrid_period]:
+            x = mamba2._mamba_body(full, blk, x, 64)
+        hybrid_qkv = layers.rotated_qkv(params["shared_attn"]["attn"], acfg,
+                                        layers.apply_norm(full.norm,
+                                                          params["shared_attn"]["ln1"], x))
+    del params, long, x
+    torch.cuda.empty_cache()
+
+    # ---- 35. bf16 training at full width and depth ----------------------------
+    step_fn = make_train_step(model, opt_cfg, {"dtype": bf16})
+    pipe = TokenPipeline(vocab=full.vocab, batch=train[0], seq=train[1] - 1, seed=1)
+    first = {"tokens": torch.from_numpy(pipe.next_batch()).to(dev)}
+    ms_med, _, busy, spans, train_launches = _train_bf16(
+        "hybrid", model, step_fn, first, 2 * n_groups, n_groups, (mamba2, HYBRID_RANGES))
+    n_tok = train[0] * train[1]
+    # the matmul parameters a token passes through: every Mamba2 block, the
+    # shared block once an invocation, the tied head
+    n_eff = n_block * full.n_layers + n_shared * n_groups + n_embed
+    flops = 6.0 * n_eff * n_tok + 6.0 * n_groups * train[0] * full.n_heads * train[1] ** 2 \
+        * full.hd
+    mfu = flops / (ms_med / 1e3) / BF16_FLOPS
+    b_ms = sum(busy.values()) / 1e3
+    ssd_ms = spans["mamba2.ssd"] / 1e3
+    _say(f"[hybrid] the train step's SSD forwards (remat runs each twice; the backward is outside "
+         f"the range) {ssd_ms:.3f} ms of {b_ms:.3f} ms busy ({100 * ssd_ms / b_ms:.2f} %)")
+    _say(f"[hybrid] mfu={mfu:.4f} (6 N T + 6 invocations B H L^2 D = {flops:.4g} model flops a "
+         f"step, N = {n_eff}: {full.n_layers} Mamba2 blocks, the shared block {n_groups} times, "
+         f"the tied head; over {ms_med:.2f} ms at 989 TFLOP/s bf16)")
+    del step_fn, first
+    torch.cuda.empty_cache()
+
+    # ---- 36. K6 and K6b at the hybrid's shape ([4, 32, 2048, 80], mma.sync) -
+    q, k, v = (x.contiguous() for x in hybrid_qkv)
+    got = fa.flash_attention(q, k, v)
+    want, plain6 = _plain_ms(lambda: fa.flash_attention_ref(q, k, v))
+    err6 = _max_float_err(got, want)
+    assert _close(got, want, 2e-2), err6
+    ms6, ev6, wrap6 = _kernel_ms(lambda: fa.flash_attention(q, k, v), FLASH_KERNELS, reps=10)
+    lib6 = _events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=10)
+    ops6, bytes6 = _flash_work(*q.shape[:3], q.shape[3], True, q.element_size())
+    bound6, by6 = _bound(ops6, bytes6, BF16_FLOPS)
+    _say(f"[K6] flash_attention {tuple(q.shape)} bf16 causal, the hybrid's shared block "
+         f"({fa.kernel_variant(q.dtype, q.shape[3])}): max_abs_err={err6:.3g} (rtol = atol = "
+         f"2e-2); kernel {ms6:.4f} ms (CUDA graph of 10 calls; {_short(ev6)} ms an event in a "
+         f"trace; wrapper {wrap6:.4f} ms); plain {plain6:.2f} ms; scaled_dot_product_attention "
+         f"{lib6:.4f} ms; bound {bound6:.4f} ms by {by6} ({ops6:.4g} operations at 989 TFLOP/s); "
+         f"{100 * bound6 / ms6:.1f} % of the bound")
+    o, lse = fa.flash_attention_lse(q, k, v)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(36),
+                     device=dev, dtype=f32).to(bf16)
+    got_b = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    o_ref, lse_ref = fa.flash_attention_ref_lse(q, k, v)
+    want_b, plain_b = _plain_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do))
+    err_b = max(_max_float_err(x, w) for x, w in zip(got_b, want_b))
+    rel_b = max(_rel_norm_err(x, w) for x, w in zip(got_b, want_b))
+    assert all(_close(x, w, 2e-2) for x, w in zip(got_b, want_b)) and rel_b <= 1e-2, (err_b, rel_b)
+    ms_b, ev_b, wrap_b = _kernel_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                                    FLASH_BWD_KERNELS, reps=10)
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    lib_fwd = _events_ms(sdpa_fwd, reps=10)
+    lib_b = _events_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do), reps=10) \
+        - lib_fwd
+    ops_b, bytes_b = _flash_bwd_work(*q.shape[:3], q.shape[3], True, q.element_size())
+    bound_b, by_b = _bound(ops_b, bytes_b, BF16_FLOPS)
+    _say(f"[K6b] flash_attention_bwd {tuple(q.shape)} bf16 causal, the hybrid's shared block "
+         f"({fa.bwd_kernel_variant(q.dtype, q.shape[3])}): max_abs_err={err_b:.3g} (rtol = atol "
+         f"= 2e-2), relative norm {rel_b:.3g} (limit 1e-2); kernels {ms_b:.4f} ms (CUDA graph of "
+         f"10 calls; {_short(ev_b)} ms an event in a trace; wrapper {wrap_b:.4f} ms); plain "
+         f"{plain_b:.2f} ms; scaled_dot_product_attention's backward {lib_b:.4f} ms; bound "
+         f"{bound_b:.4f} ms by {by_b}; {100 * bound_b / ms_b:.1f} % of the bound")
+    del q, k, v, o, lse, do, qg, kg, vg, got, want, got_b, want_b, o_ref, lse_ref, hybrid_qkv
+    torch.cuda.empty_cache()
+    _say(f"[hybrid] phases 32-36: {time.perf_counter() - t_phase:.1f} s")
+    d80 = {"flash_attention": {"ms_d80": ms6, "plain_ms_d80": plain6, "bound_ms_d80": bound6,
+                               "library_ms_d80": lib6, "max_abs_err_d80": err6},
+           "flash_attention_bwd": {"ms_d80": ms_b, "plain_ms_d80": plain_b,
+                                   "bound_ms_d80": bound_b, "library_ms_d80": lib_b,
+                                   "max_abs_err_d80": err_b}}
+    return d80, {k_: serve_launches.get(k_, 0) + train_launches.get(k_, 0)
+                 for k_ in set(serve_launches) | set(train_launches)}
 
 
 def _leaf_paths(tree, prefix=()):
@@ -2709,6 +3114,11 @@ def main() -> int:
     assert (res3.count, res3.checksum) == (c3, k3) and res3.overflow == 0
     assert res3.comm_tuples == predicted_comm(plan3)
 
+    # ---- 6b. the distributed shuffle: §9.1 and §9.2 over NCCL at world one --
+    dist_launches = _distributed_phase(dev, query, data, plan, res, (want_count, want_checksum),
+                                       t_e2e, main_launches["reducer_join"],
+                                       (q3, d3, plan3, res3, (c3, k3)))
+
     # ---- 7. the streaming engine, fused path, at scale ----------------------
     t = time.perf_counter()
     rng_s = np.random.default_rng(0)
@@ -2998,14 +3408,20 @@ def main() -> int:
     kernels.append(k6b)
     torch.cuda.empty_cache()
     moe_launches = _moe_phases(dev)
+    torch.cuda.empty_cache()
+    d80, hybrid_launches = _hybrid_phases(dev)
 
-    # beside each path's own count, phases 4b's, 10b's, 10c's, 24's and 29 + 31's
+    # beside each path's own count, phases 4b's, 6b's, 10b's, 10c's, 24's,
+    # 29 + 31's and 34 + 35's; K6 and K6b at the hybrid's head dim of 80
     for entry in kernels:
         entry["launches_speculative"] = spec_launches.get(entry["name"], 0)
+        entry["launches_distributed"] = dist_launches.get(entry["name"], 0)
         entry["launches_recovery"] = rec_launches.get(entry["name"], 0)
         entry["launches_tenancy"] = ten_launches.get(entry["name"], 0)
         entry["launches_train"] = train_launches.get(entry["name"], 0)
         entry["launches_moe"] = moe_launches.get(entry["name"], 0)
+        entry["launches_hybrid"] = hybrid_launches.get(entry["name"], 0)
+        entry.update(d80.get(entry["name"], {}))
     _say(f"[trace] {len(RETAKEN)} trace(s) lost device events and were taken again: "
          f"{RETAKEN}")
     assert len(RETAKEN) <= 1, f"more than one trace lost device events: {RETAKEN}"

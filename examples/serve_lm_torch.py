@@ -7,12 +7,15 @@ random weights from seed 0), submits a mixed bag of requests with
 different prompt lengths, and serves them in length-bucketed waves
 (prefill + greedy decode) behind ``BucketServer``.  Works identically for
 KV-cache models and recurrent-state models — swap ``--arch rwkv6-3b`` to
-serve the attention-free architecture with O(1) state, or ``--arch
-qwen2-moe-a2.7b`` for the mixture of experts.  The weights come
+serve the attention-free architecture with O(1) state, ``--arch
+qwen2-moe-a2.7b`` for the mixture of experts, or ``--arch zamba2-2.7b`` for
+the Mamba2 hybrid (SSM and conv states beside a KV cache for each
+invocation of its shared attention block).  The weights come
 from a ``torch.Generator``, so the tokens differ from the JAX twin's.
 ``--device`` defaults to ``cuda`` and fails without a card.
 
-Run:  PYTHONPATH=src python examples/serve_lm_torch.py [--arch rwkv6-3b | qwen2-moe-a2.7b] [--device cpu]
+Run:  PYTHONPATH=src python examples/serve_lm_torch.py [--arch rwkv6-3b | qwen2-moe-a2.7b |
+      zamba2-2.7b] [--device cpu]
 """
 import argparse
 import time

@@ -1,5 +1,6 @@
 """PyTorch MapReduce join engine: map-phase key generation, binning by
-reducer, reduce-side join, and speculative reduce shards."""
+reducer, reduce-side join, speculative reduce shards, and the distributed
+shuffle over ``torch.distributed``."""
 from .executor import (
     JoinResult,
     map_and_bin,
@@ -18,6 +19,7 @@ from .local_join import (
 )
 from .naive import NaiveStats, naive_two_way
 from .oracle import groupby_oracle_two_way, oracle_join
+from .shuffle import run_distributed
 from .straggler import (
     ChecksumMismatch,
     FailureDetector,
@@ -45,6 +47,7 @@ __all__ = [
     "naive_two_way",
     "oracle_join",
     "predicted_comm",
+    "run_distributed",
     "run_join",
     "run_join_speculative",
     "run_with_speculation",

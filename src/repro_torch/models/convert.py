@@ -1,13 +1,14 @@
 """Carry the JAX package's parameters into the port.
 
 ``params_from_jax(cfg, params)`` takes the parameter tree of
-``repro.models.transformer.init_params``, ``repro.models.moe.init_params``
-or ``repro.models.rwkv6.init_params`` with numpy (or array-like) leaves, its
-blocks stacked on axis 0, and returns the port's parameters: the same
-nested keys (``ln0``, the nested ``tm`` / ``cm`` / ``ln_x`` dicts, MoE's
-``router``, ``experts`` [L, E, d, f] sliced to [E, d, f] a layer,
-``shared`` and ``shared_gate``, and all) with ``blocks`` as a list of
-per-layer dicts.  It imports nothing of JAX; a caller hands it
+``repro.models.transformer.init_params``, ``repro.models.moe.init_params``,
+``repro.models.rwkv6.init_params`` or ``repro.models.mamba2.init_params``
+with numpy (or array-like) leaves, its blocks stacked on axis 0, and returns
+the port's parameters: the same nested keys (``ln0``, the nested ``tm`` /
+``cm`` / ``ln_x`` dicts, MoE's ``router``, ``experts`` [L, E, d, f] sliced
+to [E, d, f] a layer, ``shared`` and ``shared_gate``, the hybrid's
+``shared_attn`` block, one block as it is, and all) with ``blocks`` as a
+list of per-layer dicts.  It imports nothing of JAX; a caller hands it
 ``jax.tree.map(np.asarray, params)``.
 Tests use it to run both packages on identical weights, since
 ``jax.random`` and ``torch.Generator`` draw different numbers.
@@ -40,8 +41,8 @@ def _tree(node, fn):
 
 def params_from_jax(cfg: ArchConfig, params: dict, device: torch.device | str = "cuda") -> dict:
     """The port's parameters, float32 on ``device`` as the JAX package
-    keeps them, from the JAX package's tree (dense, vlm, audio, moe and ssm
-    families)."""
+    keeps them, from the JAX package's tree (dense, vlm, audio, moe, ssm
+    and hybrid families)."""
     dev = _device(device)
 
     def put(a) -> torch.Tensor:

@@ -7,8 +7,8 @@ every architecture alike.  The model lives on one device, chosen here:
 ``device="cuda"`` unless the caller asks for the CPU, and a CUDA device
 without a card raises.  ``dense``, ``vlm`` and ``audio`` run on
 ``transformer``, ``moe`` on ``moe`` (SharesSkew expert dispatch), ``ssm``
-(RWKV-6) on ``rwkv6``; ``hybrid`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+(RWKV-6) on ``rwkv6`` and ``hybrid`` (Zamba2: Mamba2 blocks and a shared
+attention block) on ``mamba2``.
 """
 from __future__ import annotations
 
@@ -21,11 +21,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.mapreduce.executor import _device
 
-from . import moe, rwkv6, transformer
-
-_NOT_PORTED = {
-    "hybrid": "models/mamba2.py (ROADMAP queue 1, item 17)",
-}
+from . import mamba2, moe, rwkv6, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +30,7 @@ class ModelApi:
     device: torch.device
     init_params: Callable[..., dict]  # (seed, dtype=float32) -> params
     # (params, batch, dtype=, remat=, loss_chunk=) -> scalar; differentiable
-    # for the dense and moe families (moe also takes capacity_factor=,
+    # for the dense, moe and hybrid families (moe also takes capacity_factor=,
     # extra_slots= (SharesSkew replica slots) and aux_coef=;
     # ssm: no ``remat``, and differentiable on the CPU only: on the card its
     # recurrence K7 has no backward kernel yet and ``wkv6`` raises when a
@@ -48,8 +44,20 @@ class ModelApi:
 def build_model(cfg: ArchConfig, device: torch.device | str = "cuda") -> ModelApi:
     dev = _device(device)
     fam = cfg.family
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(f"family {fam!r} is not ported yet: {_NOT_PORTED[fam]}")
+    if fam == "hybrid":
+        return ModelApi(
+            cfg=cfg,
+            device=dev,
+            init_params=lambda seed, dtype=torch.float32: mamba2.init_params(
+                cfg, seed, dev, dtype),
+            loss_fn=lambda params, batch, **kw: mamba2.loss_fn(cfg, params, batch, **kw),
+            init_cache=lambda batch, max_seq, dtype=torch.bfloat16: mamba2.init_state(
+                cfg, batch, max_seq, dtype, dev),
+            decode_step=lambda params, cache, tokens, pos, **kw: mamba2.decode_step(
+                cfg, params, cache, tokens, pos, **kw),
+            forward_hidden=lambda params, batch, **kw: mamba2.forward_hidden(
+                cfg, params, batch["tokens"], batch.get("prefix_embeds"), **kw),
+        )
     if fam == "ssm":
         return ModelApi(
             cfg=cfg,

@@ -67,9 +67,9 @@ The binned state, the sorted delta index and the sketches live on the host
 in numpy, as in the reference; the device runs routing, the fused pass and
 the delta joins.  ``device`` defaults to ``"cuda"`` and raises without a
 card; ``device="cpu"`` runs the kernels' plain versions.
-
-Not ported yet: ``recompute_distributed`` raises ``NotImplementedError``
-(ROADMAP.md queue 1 item 10).
+``recompute_distributed`` replays the retained input through the
+distributed shuffle (``mapreduce.shuffle.run_distributed``) on the same
+device.
 """
 from __future__ import annotations
 
@@ -98,6 +98,7 @@ from repro_torch.kernels.ingest_fused import (
 from repro_torch.mapreduce.executor import _device
 from repro_torch.mapreduce.keys import map_phase, static_route_table
 from repro_torch.mapreduce.local_join import LocalJoinSpec, local_join_count_checksum
+from repro_torch.mapreduce.shuffle import run_distributed
 from repro_torch.mapreduce.straggler import FailureDetector
 from repro_torch.obs import NULL_OBS, Observability, ObsPolicy, cms_window_error, hh_hit_counts
 from repro_torch.testing.faults import FaultInjector
@@ -127,9 +128,6 @@ from .sketch import StreamHHTracker
 _MASK32 = 0xFFFFFFFF
 
 CHECKPOINT_FORMAT = 1  # bump on any layout change; restore() validates it
-
-# ROADMAP.md queue 1 item that brings what this engine does not do yet
-_DISTRIBUTED_ITEM = "ROADMAP.md queue 1 item 10 (distributed shuffle)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1454,10 +1452,30 @@ class StreamingJoinEngine:
         }
 
     def recompute_distributed(self, window: bool = False, **kwargs):
-        """Replay through the distributed shuffle: not ported yet."""
-        raise NotImplementedError(
-            f"recompute_distributed is not ported yet: {_DISTRIBUTED_ITEM}"
-        )
+        """Replay the retained input through the distributed shuffle under
+        the current plan, on the engine's device (correctness cross-check
+        for carried state); ``kwargs`` go to ``run_distributed`` (``group``,
+        ``cap_factor``, ``route_cap_factor``).
+
+        With retention off this reproduces the cumulative fingerprint.
+        With retention on and history expired, the full-stream input no
+        longer exists — the replay covers the retained window only, whose
+        reference is (``window_count``, ``window_checksum``); pass
+        ``window=True`` to acknowledge that, otherwise this refuses rather
+        than silently comparing a truncated replay against the full-stream
+        fingerprint."""
+        if self.plan is None:
+            raise RuntimeError("no batches ingested yet")
+        if self.expired_batches and not window:
+            raise RuntimeError(
+                f"retention has expired {self.expired_batches} batch(es): "
+                "the retained window cannot reproduce the full-stream "
+                "fingerprint (total_count/total_checksum).  Call "
+                "recompute_distributed(window=True) to cross-check the "
+                "retained suffix against (window_count, window_checksum)."
+            )
+        return run_distributed(self.query, self.history_data(), self.plan,
+                               device=self.device, **kwargs)
 
     @property
     def replan_count(self) -> int:

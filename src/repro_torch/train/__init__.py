@@ -1,6 +1,5 @@
-"""Training substrate: optimizer, train step, checkpointing, elasticity (the
-port of ``repro.train``, less the cross-pod gradient compression, which
-comes with the distributed shuffle: ROADMAP.md queue 1 item 10)."""
+"""Training substrate: optimizer, train step, checkpointing, elasticity and
+the cross-pod gradient compression (the port of ``repro.train``)."""
 from .checkpoint import (
     AsyncCheckpointer,
     latest_step,
@@ -9,6 +8,13 @@ from .checkpoint import (
     restore_tree,
     save_checkpoint,
     tenant_checkpoint_dir,
+)
+from .compression import (
+    compressed_psum,
+    compressed_tree_psum,
+    dequantize,
+    init_residuals,
+    quantize,
 )
 from .elastic import MeshPlan, PreemptionGuard, plan_mesh_shape, run_elastic_loop
 from .optimizer import OptConfig, adamw_update, init_opt_state, schedule
@@ -20,13 +26,18 @@ __all__ = [
     "OptConfig",
     "PreemptionGuard",
     "adamw_update",
+    "compressed_psum",
+    "compressed_tree_psum",
+    "dequantize",
     "init_opt_state",
+    "init_residuals",
     "init_train_state",
     "latest_step",
     "load_checkpoint",
     "load_manifest",
     "make_train_step",
     "plan_mesh_shape",
+    "quantize",
     "restore_tree",
     "run_elastic_loop",
     "save_checkpoint",

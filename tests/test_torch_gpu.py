@@ -1276,3 +1276,178 @@ def test_moe_train_steps_on_card_are_bit_for_bit(cuda):
     (l_a, s_a), (l_b, s_b) = runs
     assert l_a == l_b and all(np.isfinite(l_a))
     assert all(torch.equal(a, b) for a, b in zip(s_a, s_b))
+
+
+# ------------------------------------------------- distributed shuffle, hybrid
+@pytest.mark.parametrize("three", [False, True])
+def test_run_distributed_nccl_world_one_equals_run_join(cuda, three):
+    """``run_distributed`` over this process's one-rank NCCL group equals
+    ``run_join`` on the card in every field, and the oracle; K1 reduces the
+    2-way join."""
+    import torch.distributed as dist
+
+    from repro_torch import distributed as tdist
+
+    if three:
+        query = tcore.three_way_paper()
+        data = tdata.paper_3way(np.random.default_rng(2), n=600, domain=500)
+        q, cap = 150, 5.0
+    else:
+        query = tcore.two_way()
+        data = tdata.paper_2way(np.random.default_rng(0), n_r=30_000, n_s=5_000, domain=4_000)
+        q, cap = 300, 3.0
+    plan = tcore.plan_shares_skew(query, data, q=q)
+    bj.reset_launches()
+    got = tmr.run_distributed(query, data, plan, cap_factor=cap, device=cuda)
+    assert bj.LAUNCHES["reducer_join"] == (0 if three else 1)
+    want = tmr.run_join(query, data, plan, cap_factor=cap, device=cuda)
+    assert (got.count, got.checksum, got.comm_tuples, got.overflow) == (
+        want.count, want.checksum, want.comm_tuples, want.overflow)
+    assert np.array_equal(got.reducer_loads, want.reducer_loads)
+    count, checksum, _, _ = tmr.oracle_join(query, data)
+    assert (got.count, got.checksum) == (count, checksum) and got.overflow == 0
+    assert tdist.resolve_group(None, cuda).name() == "nccl" and not dist.is_initialized()
+    with pytest.raises(ValueError, match="gloo"):
+        tmr.run_distributed(query, data, plan, group=tdist.one_rank_group("gloo"), device=cuda)
+
+
+def test_compressed_psum_on_card_world_one(cuda):
+    from repro_torch import train as ttrain
+
+    g = torch.randn(3, 1000, device=cuda) * 5
+    r = torch.randn(3, 1000, device=cuda) * 1e-2
+    mean, res = ttrain.compressed_psum(g, r)
+    want_mean, want_res = ttrain.compressed_psum(g.cpu(), r.cpu())
+    assert torch.equal(mean.cpu(), want_mean) and torch.equal(res.cpu(), want_res)
+    q, scale = ttrain.quantize(g + r)
+    assert torch.equal(mean, ttrain.dequantize(q, scale))
+
+
+
+def test_one_rank_nccl_group_exits_promptly(cuda, tmp_path):
+    """A process that used the one-rank NCCL group exits at once and leaves
+    no store directory: the group is shut down before its store goes, so
+    NCCL's heartbeat monitor does not hold the exit."""
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    code = (
+        "import torch, torch.distributed as dist\n"
+        "from repro_torch.distributed import one_rank_group\n"
+        "x = torch.ones(4, device='cuda')\n"
+        "dist.all_reduce(x, group=one_rank_group('nccl'))\n"
+        "torch.cuda.synchronize()\n"
+        "print('done', flush=True)\n"
+    )
+    src = Path(__file__).resolve().parents[1] / "src"
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=240, env={**os.environ, "PYTHONPATH": str(src),
+                                           "TMPDIR": str(tmp_path)})
+    secs = time.perf_counter() - t
+    assert out.returncode == 0 and out.stdout.strip() == "done", out.stderr
+    assert secs < 60, (secs, out.stderr[-2000:])
+    assert not list(tmp_path.glob("repro_pg_*"))
+
+def _hybrid_d80():
+    """Reduced zamba2-2.7b with the full model's attention head dim of 80."""
+    import dataclasses
+
+    return dataclasses.replace(tconfigs.get_config("zamba2-2.7b").reduced(), head_dim=80)
+
+
+def test_hybrid_forward_on_card_matches_plain_attention(cuda):
+    """bf16 through K6 on the ``mma.sync`` route at D = 80: the shared
+    block's attention on one input against plain attention (rtol = atol =
+    2e-2), and the whole forward (one launch an invocation of the shared
+    block) by relative norm (1e-2: bf16 rounds each attention output and
+    the layers after it carry one-ulp differences on; elementwise, 130 of
+    19,200 hidden entries differed by up to 0.07); in fp32 the forward on
+    the card against the CPU (2e-4)."""
+    from repro_torch.models import layers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _hybrid_d80()
+    assert fa.kernel_variant(torch.bfloat16, cfg.hd) == "bf16_mma_sync"
+    cpu = tmodels.build_model(cfg, device="cpu")
+    params = cpu.init_params(2)
+    card = tmodels.build_model(cfg, device=cuda)
+    params_card = _to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 150))
+                            .astype(np.int32))
+    shared = params_card["shared_attn"]
+    h = layers.apply_norm(cfg.norm, shared["ln1"], layers.embed(
+        params_card["embed"], toks.to(cuda), torch.bfloat16))
+    acfg = tt.attn_config(cfg)
+    fa.reset_launches()
+    got = layers.attention(shared["attn"], acfg, h)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    layers.flash_attention = fa.flash_attention_ref
+    try:
+        want = layers.attention(shared["attn"], acfg, h)
+        want_h = card.forward_hidden(params_card, {"tokens": toks.to(cuda)},
+                                     dtype=torch.bfloat16)
+    finally:
+        layers.flash_attention = fa.flash_attention
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    fa.reset_launches()
+    got_h = card.forward_hidden(params_card, {"tokens": toks.to(cuda)}, dtype=torch.bfloat16)
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers // cfg.hybrid_period
+    assert float((got_h.float() - want_h.float()).norm() / want_h.float().norm()) <= 1e-2
+    got32 = card.forward_hidden(params_card, {"tokens": toks.to(cuda)}, dtype=torch.float32)
+    want32 = cpu.forward_hidden(params, {"tokens": toks}, dtype=torch.float32)
+    torch.testing.assert_close(got32.cpu(), want32, rtol=2e-4, atol=2e-4)
+
+
+def test_hybrid_train_step_on_card_through_k6b(cuda):
+    """fp32: the loss and every gradient through K6 and K6b against autograd
+    through plain attention (1e-5 relative; 1e-3 of each leaf's largest
+    entry).  bf16 (K6b on the ``mma.sync`` route at D = 80): two runs of two
+    train steps from one state equal bit for bit."""
+    from repro_torch import train as ttrain
+    from repro_torch.models import layers
+    from repro_torch.train.optimizer import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _hybrid_d80()
+    model = tmodels.build_model(cfg, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 130))
+                            .astype(np.int32)).to(cuda)
+    grads = []
+    for plain in (False, True):
+        params, _ = ttrain.init_train_state(model, 0)
+        fa.reset_launches()
+        if plain:
+            layers.flash_attention = fa.flash_attention_ref
+        try:
+            loss = model.loss_fn(params, {"tokens": toks}, dtype=torch.float32)
+            loss.backward()
+        finally:
+            layers.flash_attention = fa.flash_attention
+        n_inv = cfg.n_layers // cfg.hybrid_period
+        assert fa.LAUNCHES == ({"flash_attention": 0, "flash_attention_bwd": 0} if plain else
+                               {"flash_attention": 2 * n_inv, "flash_attention_bwd": n_inv})
+        grads.append((float(loss), [p.grad for p in leaves(params)]))
+    (l_k, g_k), (l_p, g_p) = grads
+    assert abs(l_k - l_p) <= 1e-5 * abs(l_p)
+    for a, w in zip(g_k, g_p):
+        assert float(w.abs().max()) > 0
+        assert float((a - w).abs().max()) <= 1e-3 * float(w.abs().max())
+    step = ttrain.make_train_step(model, ttrain.OptConfig(lr=1e-3, warmup_steps=1),
+                                  {"dtype": torch.bfloat16})
+    assert fa.bwd_kernel_variant(torch.bfloat16, cfg.hd) == "bf16_mma_sync"
+    runs = []
+    for _ in range(2):
+        params, state = ttrain.init_train_state(model, 0)
+        losses = []
+        for _ in range(2):
+            params, state, m = step(params, state, {"tokens": toks})
+            losses.append(float(m["loss"]))
+        runs.append((losses, [x.detach().clone() for x in
+                              leaves(params) + leaves(state["m"]) + leaves(state["v"])]))
+    (l_a, s_a), (l_b, s_b) = runs
+    assert l_a == l_b and all(np.isfinite(l_a))
+    assert all(torch.equal(a, b) for a, b in zip(s_a, s_b))

@@ -121,8 +121,11 @@ def test_port_imports_with_jax_blocked():
                 "repro_torch.models.convert", "repro_torch.serve.engine",
                 "repro_torch.core.closed_forms", "repro_torch.testing.faults",
                 "repro_torch.train.checkpoint", "repro_torch.train.elastic",
-                "repro_torch.stream.tenancy"):
+                "repro_torch.stream.tenancy", "repro_torch.mapreduce.shuffle",
+                "repro_torch.train.compression", "repro_torch.models.mamba2",
+                "repro_torch.distributed"):
         assert mod in mods
     assert {Path(p).name for p in examples} >= {
-        "quickstart_torch.py", "serve_lm_torch.py", "streaming_join_torch.py"}
+        "quickstart_torch.py", "serve_lm_torch.py", "streaming_join_torch.py",
+        "multiway_join_torch.py"}
     assert len(mods) >= 55

@@ -158,7 +158,7 @@ def test_mlp_activations_match_jax(act):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **_TOL)
 
 
-@pytest.mark.parametrize("name", _NAMES + ["internvl2-1b"])
+@pytest.mark.parametrize("name", _NAMES + ["internvl2-1b", "zamba2-2.7b"])
 def test_make_batch_matches_jax(name):
     cfg = jconfigs.get_config(name).reduced()
     want = jax_make_batch(cfg, np.random.default_rng(6), 2, 16)
@@ -183,10 +183,31 @@ def test_configs_are_a_copy_of_the_reference():
 
 
 @pytest.mark.parametrize("name", ["zamba2-2.7b"])
-def test_unported_families_raise(name):
-    cfg = tconfigs.get_config(name)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(cfg, device="cpu")
+def test_hybrid_family_builds_a_working_model(name):
+    """The hybrid family's ``ModelApi`` on the CPU: init (a tied embedding,
+    one shared block), forward, loss with a gradient through the shared
+    block, and a decode step."""
+    cfg = tconfigs.get_config(name).reduced()
+    model = build_model(cfg, device="cpu")
+    assert model.device == torch.device("cpu")
+    params = model.init_params(0)
+    assert len(params["blocks"]) == cfg.n_layers and "lm_head" not in params
+    batch = make_batch(cfg, np.random.default_rng(0), 2, 16, device="cpu")
+    h = model.forward_hidden(params, batch, dtype=torch.float32)
+    assert h.shape == (2, 16, cfg.d_model) and bool(torch.isfinite(h).all())
+    for p in jax.tree.leaves(params, is_leaf=lambda x: isinstance(x, torch.Tensor)):
+        p.requires_grad_(True)
+    loss = model.loss_fn(params, batch, dtype=torch.float32)
+    loss.backward()
+    assert bool(torch.isfinite(loss))
+    assert float(params["shared_attn"]["attn"]["wq"].grad.abs().max()) > 0
+    assert float(params["blocks"][0]["A_log"].grad.abs().max()) > 0
+    cache = model.init_cache(2, 8, dtype=torch.float32)
+    with torch.no_grad():
+        logits, cache = model.decode_step(params, cache, batch["tokens"][:, :1], 0,
+                                          dtype=torch.float32)
+    assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert float(cache["ssm"].abs().max()) > 0 and float(cache["k"][:, :, :, 0].abs().max()) > 0
 
 
 @pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
@@ -226,6 +247,21 @@ def test_serve_example_runs_the_moe_family(capsys):
                          "--max-new", "4"]) == 0
     out = capsys.readouterr().out
     assert "arch=qwen2-moe-a2.7b: served 5 requests, 20 tokens" in out
+
+
+def test_serve_example_runs_the_hybrid_family(capsys):
+    """``examples/serve_lm_torch.py --arch zamba2-2.7b --device cpu``."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "serve_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_lm_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    assert example.main(["--arch", "zamba2-2.7b", "--device", "cpu", "--requests", "5",
+                         "--max-new", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=zamba2-2.7b: served 5 requests, 20 tokens" in out
 
 
 def test_init_params_shapes_match_jax():

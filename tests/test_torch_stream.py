@@ -183,19 +183,6 @@ def test_engine_defaults_to_the_card():
         tstream.StreamingJoinEngine(tcore.two_way(), tstream.StreamConfig(q=10))
 
 
-def test_unported_methods_raise():
-    """Only the distributed recompute is left unported; recovery and
-    checkpoints run (``tests/test_torch_recovery.py``,
-    ``tests/test_torch_checkpoint.py``)."""
-    cfg = tstream.StreamConfig(q=40, recovery=tstream.RecoveryPolicy(n_hosts=2))
-    eng = tstream.StreamingJoinEngine(tcore.two_way(), cfg, device="cpu")
-    eng.ingest(_drifting_stream(n_batches=1)[0])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.recompute_distributed()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.recompute_distributed(window=True)
-
-
 def test_failure_detector_matches_reference():
     beats = [("a", 0.0), ("b", 1.0), ("c", 2.5), ("a", 3.0), ("d", 3.0)]
     for deadline in (0.5, 1.0, 2.0):
