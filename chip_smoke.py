@@ -260,6 +260,36 @@ Phases:
      each against its plain version (2e-2; K6b also by relative norm,
      1e-2), device time (a CUDA graph), plain time, SDPA's forward and
      backward, bound; the kernels line carries them as ``*_d80``.
+ 37. K7b, the recurrence's backward (``kernels.wkv6.wkv6_bwd``), against
+     ``wkv6_bwd_ref`` on the card (``_rwkv_train_phases``): [4, 2048, 40] at
+     hd 64 (the model's), hd 16, 80, 72 (run padded to 80) and 128, L = 1 and
+     ragged L, with and without s0 and dS_final, fp32 and bf16 inputs; every
+     gradient within 2e-4 of its largest entry in fp32 (1e-2 in bf16: the
+     gradients are rounded to bf16), two calls equal bit for bit;
+ 38. one fp32 rwkv6-3b train step at full width, cut to depth 4, on [2, 256]
+     through K7 and K7b (``Wkv6Fn``) against autograd through the plain
+     recurrence: the loss (1e-5 relative), every gradient (1e-3 of each
+     leaf's largest entry; every time-mix leaf nonzero), the params after
+     AdamW (1e-3 of the update);
+ 39. rwkv6-3b bf16 training at full width and depth (fp32 params,
+     gradients, m and v: about 49 GB) with ``make_train_step`` on [4, 2048]
+     tokens of ``TokenPipeline(seed=1)``, AdamW as phase 24, through
+     ``_train_bf16``: eight steps on one batch (the loss must fall), a traced
+     ninth, two steps again from seed 0 equal bit for bit; ms a step,
+     tokens/s, peak memory, K7 and K7b launches a step (64 and 32) and their
+     share of busy time, ``mfu=`` by 6·N·T;
+ 40. K7b at the model's shape, [4, 2048, 40, 64] fp32 from zero: device time
+     (a CUDA graph), plain time, bound (no single PyTorch call computes it);
+ 41. the launcher (``_launcher_phase``): ``python -m
+     repro_torch.launch.train`` as a subprocess at a world of one (NCCL),
+     OLMo-1B at full size, three steps on [2, 512]: preempted by SIGTERM
+     during its first step (a checkpoint of step 1, 14.1 GB, the phase's
+     one save) and resumed with ``--resume`` to the end (one restore, no
+     save); ``make_train_step`` driven by hand, uninterrupted, in this
+     process on the same batches gives the launcher's logged losses bit
+     for bit: step 0's, and step 2's after the resume, which reads every
+     restored parameter, moment and the step count.  The checkpoint under
+     ``build/chip_smoke_launcher``, removed after.
 
 Every kernel's time is device time per call of everything the wrapper
 launches, from CUDA events around the replay of a CUDA graph of repeated
@@ -275,13 +305,16 @@ included, is CUDA events around repeated calls.
 
 Prints a ``kernels`` JSON line (each entry's launches on the main path and
 on each other path: ``launches_speculative``, ``launches_distributed``, ...,
-``launches_hybrid``) and, last, ``{"ok": true, "device": ...}``.
+``launches_hybrid``, ``launches_rwkv_train``, ``launches_launcher``; K7b's
+entry, ``wkv6_bwd``, counts phase 39's) and, last, ``{"ok": true, "device":
+...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -317,6 +350,9 @@ FLASH_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
 CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"  # phase 25's checkpoint (gitignored)
 HIST_KERNELS = ("histogram_narrow_kernel", "histogram_sparse_kernel")
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
+WKV_BWD_KERNELS = ("wkv6_bwd_kernel", "wkv6_bwd_sum_kernel", "wkv6_bwd_du_kernel")
+K6_SHARES = {"K6 forward": FLASH_KERNELS, "K6 backward": FLASH_BWD_KERNELS}
+LAUNCHER_DIR = ROOT / "build" / "chip_smoke_launcher"  # phase 41's checkpoints (gitignored)
 # moe_ffn's steps by the range each runs in under a trace (``_ranges``)
 MOE_RANGES = {"moe.route": "route", "moe.dispatch": "dispatch", "moe.gather": "_gather",
               "moe.experts": "_expert_mlp", "moe.combine": "_combine"}
@@ -937,7 +973,6 @@ def _lm_phases(dev, r_col):
 
 def _rwkv_phases(dev):
     """Phases 17-21; returns the kernels line's K7 entry."""
-    import contextlib
     import dataclasses
 
     import numpy as np
@@ -952,16 +987,6 @@ def _rwkv_phases(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     f32, bf16 = torch.float32, torch.bfloat16
     tol = 2e-4  # the JAX package's wkv6 kernel tests
-
-    @contextlib.contextmanager
-    def plain_recurrence():
-        """The model's recurrence through the plain version, not K7."""
-        rwkv6.wkv6 = lambda r, k, v, w, u, s0=None, state_out=None: wk.wkv6_ref(
-            r, k, v, w, u, s0)
-        try:
-            yield
-        finally:
-            rwkv6.wkv6 = wk.wkv6
 
     def wkv_inputs(b, l, h, hd, seed):
         """r, k, v, w, u, s0 drawn as the JAX kernel tests draw them: k
@@ -1042,7 +1067,7 @@ def _rwkv_phases(dev):
             logits, state = model.decode_step(params, state, prompts[:, pos:pos + 1], pos,
                                               dtype=f32)
             err_dec = max(err_dec, _max_float_err(logits, want[:, pos]))
-        with plain_recurrence():
+        with _plain_recurrence():
             hid_plain = model.forward_hidden(params, {"tokens": prompts}, dtype=f32)
         return err_dec, _max_float_err(hid, hid_plain), float(want.abs().max())
 
@@ -1066,7 +1091,7 @@ def _rwkv_phases(dev):
     t = time.perf_counter()
     for i, blk in enumerate(params["blocks"]):
         out = rwkv6._block_apply(cfg, blk, x)
-        with plain_recurrence():
+        with _plain_recurrence():
             out_plain = rwkv6._block_apply(cfg, blk, x)
         steps = torch.cat([rwkv6._block_step(cfg, blk, x[:, pos:pos + 1], state, i)
                            for pos in range(prompts.shape[1])], dim=1)
@@ -1238,6 +1263,256 @@ def _rwkv_phases(dev):
         "ms": ms7, "plain_ms": plain7, "bound_ms": bound7, "bound_by": by7,
         "library_ms": None,
     }]
+
+
+def _wkv_bwd_work(b, l, h, hd, with_s0, with_ds):
+    """(fp32 operations, bytes) of one wkv6 backward from its inputs, per
+    (b, t, h): for each state element, the state S_{t-1} (3 operations:
+    w S + k v, needed again since the forward saves none), G's update
+    w G + r dy (3), and the sums over a row or a column, a multiply and an
+    add each: dr's sum_j S_ij dy_j, dk's sum_j G_ij v_j, dv's sum_i G_ij k_i
+    and dw's sum_j G_ij S_ij (2 each): 14 hd^2.  The bonus terms, factored
+    through a = v.dy and c = sum_i r_i u_i k_i: a (2 hd), dr's u_i k_i a
+    (3 hd), dk's u_i (r_i a) (3 hd), du's k_i (r_i a) (2 hd), c (2 hd) and
+    dv's dy_j c (2 hd): 14 hd.  Bytes: r, k, v, w and dy read and dr, dk,
+    dv and dw written once (36 an element), u read and du written, ds0
+    written, s0 and dS_final read when given."""
+    n = b * l * h
+    state = 4.0 * b * h * hd * hd
+    return float(n * (14 * hd * hd + 14 * hd)), 36.0 * n * hd + 8.0 * h * hd + state * (
+        1 + with_s0 + with_ds)
+
+
+def _rwkv_train_phases(dev, check=(4, 2048, 40), grad=(2, 256), grad_depth=4, train=(4, 2048)):
+    """Phases 37-40: K7b against its plain version, one fp32 rwkv6-3b train
+    step through K7/K7b against the plain recurrence, bf16 training at full
+    width (the path's launches), K7b's time at the model's shape.  Returns
+    (the kernels line's K7b entry, the training path's launches).  The
+    shapes are the card's; a CPU rehearsal cuts them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import build_model
+    from repro_torch.train import OptConfig, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_phase = time.perf_counter()
+
+    def inputs(b, l, h, hd, seed, dtype):
+        """r, k, v, w, u, s0 as phase 17 draws them, dy and dS_final normal;
+        r, k, v, w, u and dy in ``dtype``, the states fp32."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        r, k, v, dy = (torch.randn((b, l, h, hd), generator=g, device=dev) for _ in range(4))
+        w = 0.6 + 0.399 * torch.rand((b, l, h, hd), generator=g, device=dev)
+        u = 0.1 * torch.randn((h, hd), generator=g, device=dev)
+        s0, ds = (torch.randn((b, h, hd, hd), generator=g, device=dev) for _ in range(2))
+        return [t.to(dtype) for t in (r, 0.3 * k, v, w, u, dy)] + [0.5 * s0, ds]
+
+    # ---- 37. K7b against its plain version ------------------------------------
+    b0, l0, h0 = check
+    cases = [(b0, l0, h0, 64, False, False, f32), (2, 77, 3, 16, True, True, f32),
+             (2, 77, 3, 80, True, False, f32), (2, 77, 3, 72, True, True, f32),
+             (2, 300, 3, 128, False, True, f32),
+             (b0, 1, h0, 64, True, True, f32), (2, 1, 3, 24, False, True, f32),
+             (2, 77, 3, 64, True, True, bf16), (b0, l0, h0, 64, True, True, bf16)]
+    reset_launches()
+    for b, l, h, hd, with_s0, with_ds, dtype in cases:
+        r, k, v, w, u, dy, s0, ds = inputs(b, l, h, hd, b * 100 + l + hd, dtype)
+        args = (r, k, v, w, u, dy, s0 if with_s0 else None, ds if with_ds else None)
+        got = wk.wkv6_bwd(*args)
+        again = wk.wkv6_bwd(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        want = wk.wkv6_bwd_ref(*args)
+        tol = 2e-4 if dtype == f32 else 1e-2
+        errs = {nm: float((x.float() - y.float()).abs().max()
+                          / y.float().abs().max().clamp(min=1e-30))
+                for nm, x, y in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want)}
+        _say(f"[check] wkv6_bwd {(b, l, h, hd)} {str(dtype)[6:]} "
+             f"s0={'given' if with_s0 else 'zero'} dS_final={'given' if with_ds else 'zero'} "
+             f"(hd {hd} runs at "
+             f"{wk.padded_head_dim(hd)}): max |err| over each gradient's largest entry "
+             + ", ".join(f"{nm} {e:.3g}" for nm, e in errs.items())
+             + f" (tolerance {tol}); two calls equal bit for bit: {same}")
+        assert same and max(errs.values()) <= tol, errs
+        if (b, l, h, hd, dtype) == (b0, l0, h0, 64, f32):
+            main_in = args
+            main_err = max(_max_float_err(x, y) for x, y in zip(got, want))
+        del got, again, want
+    assert launches()["wkv6_bwd"] == 2 * len(cases), launches()
+    torch.cuda.empty_cache()
+
+    # ---- 38. one fp32 train step through K7 and K7b against the plain recurrence
+    full = get_config("rwkv6-3b")
+    cfg = dataclasses.replace(full, n_layers=grad_depth)
+    model = build_model(cfg, device=dev)
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
+    tokens = torch.from_numpy(np.random.default_rng(38).integers(0, cfg.vocab, grad)
+                              .astype(np.int32)).to(dev)
+    tree = _step_vs_plain("rwkv-train", model, tokens, opt_cfg,
+                          {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers},
+                          _plain_recurrence)
+    rec = {nm: float(g.abs().max()) > 0 for nm, g in tree.items()
+           if "/tm/" in nm and nm.split("/")[-1] in ("u", "w0", "wA", "wB", "Wr", "Wk", "Wv")}
+    _say(f"[rwkv-train] the time mix's gradient leaves (u, w0, wA, wB, Wr, Wk, Wv of every "
+         f"layer) nonzero: {all(rec.values())} ({len(rec)} leaves)")
+    assert all(rec.values()) and len(rec) == 7 * cfg.n_layers, sorted(rec)
+    del tree, model
+    torch.cuda.empty_cache()
+
+    # ---- 39. bf16 training at full width ---------------------------------------
+    cfg = full
+    model = build_model(cfg, device=dev)
+    step_fn = make_train_step(model, opt_cfg, {"dtype": bf16})
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=train[0], seq=train[1] - 1, seed=1)
+    first = {"tokens": torch.from_numpy(pipe.next_batch()).to(dev)}
+    ms_med, n_params, busy, _, train_launches = _train_bf16(
+        "rwkv-train", model, step_fn, first, {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers},
+        {"K7": WKV_KERNELS, "K7b": WKV_BWD_KERNELS})
+    n_tok = train[0] * train[1]
+    n_mat = n_params - cfg.vocab * cfg.d_model  # every matrix but the embedding's lookup
+    flops = 6.0 * n_mat * n_tok
+    mfu = flops / (ms_med / 1e3) / BF16_FLOPS
+    _say(f"[rwkv-train] mfu={mfu:.4f} (6 N T = {flops:.4g} model flops a step, N = {n_mat} "
+         f"parameters less the embedding table, depth {cfg.n_layers}; the recurrence's own "
+         f"5 hd^2 a token and head, about 0.5 %, left out; over {ms_med:.2f} ms at 989 TFLOP/s "
+         f"bf16)")
+    del step_fn, first, model
+    torch.cuda.empty_cache()
+
+    # ---- 40. K7b at the model's shape --------------------------------------------
+    r, k, v, w, u, dy, _, _ = main_in
+    ms, ev, wrap = _kernel_ms(lambda: wk.wkv6_bwd(r, k, v, w, u, dy), WKV_BWD_KERNELS, reps=10)
+    _, plain = _plain_ms(lambda: wk.wkv6_bwd_ref(r, k, v, w, u, dy))
+    ops, n_bytes = _wkv_bwd_work(*r.shape, False, False)
+    bound, by = _bound(ops, n_bytes, FP32_FLOPS)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    _say(f"[K7b] wkv6_bwd {tuple(r.shape)} fp32 from zero: kernels {ms:.4f} ms (CUDA graph of "
+         f"10 calls; {_short(ev)} ms an event in a trace; wrapper {wrap:.4f} ms); plain "
+         f"{plain:.2f} ms; bound {bound:.4f} ms by {by} ({ops:.4g} fp32 operations at 67 TFLOP/s; "
+         f"{n_bytes:.4g} bytes, {t_bytes:.4f} ms at 3.35 TB/s); {100 * bound / ms:.1f} % of the "
+         f"bound; no single PyTorch call computes it")
+    del main_in, r, k, v, w, u, dy
+    torch.cuda.empty_cache()
+    _say(f"[rwkv-train] phases 37-40: {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+        "replaces": "none: the JAX package differentiates _wkv_scan "
+                    "(src/repro/models/rwkv6.py:95) by autodiff; no Pallas backward",
+        "launches": train_launches["wkv6_bwd"], "max_abs_err": main_err,
+        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None,
+    }, train_launches
+
+
+def _launcher_phase(dev, shape=(2, 512), reduced=False):
+    """Phase 41: ``python -m repro_torch.launch.train`` as a subprocess at a
+    world of one on the card, olmo-1b at full size, three steps on
+    ``shape`` tokens: preempted by SIGTERM during its first step (it
+    checkpoints step 1 and exits: the phase's one save), then run again
+    with ``--resume`` to the end (one restore; ``--ckpt-every`` beyond the
+    last step, so it writes nothing); then ``make_train_step`` driven by
+    hand in this process on the same pipeline batches, uninterrupted.  The
+    hand-driven run's losses equal the ones the launcher logged bit for
+    bit: step 0's before the preemption, and step 2's after the resume,
+    which reads every restored parameter, AdamW moment and the step count
+    (step 1's update).  The CPU tests compare the whole resumed state.
+    Returns the launcher's kernel launches over both runs, as it prints
+    them.  ``reduced`` (a CPU rehearsal) passes ``--reduced``."""
+    import ast
+    import os
+    import re
+    import shutil
+    import signal
+    import threading
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import OptConfig, init_train_state, latest_step, make_train_step
+
+    arch, steps = "olmo-1b", 3
+    t_phase = time.perf_counter()
+    shutil.rmtree(LAUNCHER_DIR, ignore_errors=True)
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--steps",
+            str(steps), "--batch", str(shape[0]), "--seq", str(shape[1]), "--ckpt-every",
+            str(steps + 1), "--ckpt-dir", str(LAUNCHER_DIR), "--device", dev.type] + (
+                ["--reduced"] if reduced else [])
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+
+    def drive(*extra, preempt=False):
+        t = time.perf_counter()
+        proc = subprocess.Popen(argv + list(extra), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+        watchdog = threading.Timer(600, proc.kill)
+        watchdog.start()
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if preempt and line.startswith("training "):
+                    proc.send_signal(signal.SIGTERM)  # during the first step
+            rc = proc.wait()
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        assert rc == 0, "\n".join(lines[-40:])
+        losses = {int(m_.group(1)): float(m_.group(2)) for m_ in
+                  re.finditer(r"^step +(\d+) loss=(\S+)", "\n".join(lines), re.M)}
+        counts = [ast.literal_eval(ln[len("kernel launches "):]) for ln in lines
+                  if ln.startswith("kernel launches ")]
+        _say(f"[launcher] {' '.join(extra) or 'first run'}"
+             f"{' (SIGTERM during the first step)' if preempt else ''}: "
+             f"{time.perf_counter() - t:.1f} s; "
+             + " | ".join(ln for ln in lines if not ln.startswith("kernel launches ")))
+        return lines, losses, counts[0]
+
+    lines_b, loss_b, launches_b = drive(preempt=True)
+    assert any(ln.startswith("preempted") for ln in lines_b), lines_b
+    assert latest_step(str(LAUNCHER_DIR)) == 1 and list(loss_b) == [0]
+    n_bytes = sum(f.stat().st_size for f in LAUNCHER_DIR.rglob("*") if f.is_file())
+    lines_r, loss_r, launches_r = drive("--resume")
+    assert any(ln.startswith("resumed from step 1") for ln in lines_r), lines_r
+    assert latest_step(str(LAUNCHER_DIR)) == 1 and list(loss_r) == [steps - 1]
+    launches = {k_: launches_b[k_] + launches_r[k_] for k_ in launches_b}
+    cfg = get_config(arch).reduced() if reduced else get_config(arch)
+    n_attn = 0 if dev.type == "cpu" else cfg.n_layers  # the CPU launches no kernel
+    assert launches["flash_attention"] == 2 * n_attn * steps, launches
+    assert launches["flash_attention_bwd"] == n_attn * steps, launches
+
+    # make_train_step by hand on the same batches, uninterrupted, in this process
+    model = build_model(cfg, device=dev)
+    step = make_train_step(model, OptConfig(total_steps=steps, warmup_steps=max(5, steps // 20)))
+    params, opt = init_train_state(model, 0)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=shape[0], seq=shape[1], seed=0)
+    losses = []
+    for _ in range(steps):
+        tokens = torch.from_numpy(pipe.next_batch()).to(dev)
+        params, opt, m = step(params, opt, {"tokens": tokens})
+        losses.append(float(m["loss"]))
+    del params, opt, step, model
+    torch.cuda.empty_cache()
+    size = "reduced" if reduced else "at full size"
+    _say(f"[launcher] {arch} {size}, {steps} steps on {list(shape)} tokens: the launcher "
+         f"logged losses {loss_b} (preempted; its checkpoint of step 1 is {n_bytes} bytes) and "
+         f"{loss_r} (resumed from it); make_train_step by hand, uninterrupted: {losses}; equal "
+         f"bit for bit: {loss_b[0] == losses[0] and loss_r[steps - 1] == losses[-1]}; kernel "
+         f"launches over both runs {launches}")
+    assert loss_b[0] == losses[0] and loss_r[steps - 1] == losses[-1]
+    shutil.rmtree(LAUNCHER_DIR, ignore_errors=True)
+    _say(f"[launcher] phase 41: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def _flash_bwd_work(b, h, l, d, causal, elem_bytes):
@@ -1625,40 +1900,63 @@ def _same_dispatch(topi, dev, n_experts: int, cap: int, extra: int) -> int:
     return int((runs[1]["pos"] < 0).sum())
 
 
-def _step_vs_plain(tag, model, tokens, opt_cfg, n_fwd, n_bwd):
+@contextlib.contextmanager
+def _plain_attention():
+    """The models' attention through K6's plain version (autograd through
+    it), not K6 and K6b."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    layers.flash_attention = fa.flash_attention_ref
+    try:
+        yield
+    finally:
+        layers.flash_attention = fa.flash_attention
+
+
+@contextlib.contextmanager
+def _plain_recurrence():
+    """RWKV-6's recurrence through K7's plain version (autograd through it),
+    not K7 and K7b."""
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import rwkv6
+
+    rwkv6.wkv6 = lambda r, k, v, w, u, s0=None, state_out=None: wk.wkv6_ref(r, k, v, w, u, s0)
+    try:
+        yield
+    finally:
+        rwkv6.wkv6 = wk.wkv6
+
+
+def _step_vs_plain(tag, model, tokens, opt_cfg, per_call, plain=_plain_attention):
     """One fp32 train step (``loss_fn`` with remat, backward, ``adamw_update``)
-    from seed 0 through K6 and K6b (``n_fwd`` and ``n_bwd`` launches) and
-    again through autograd of plain attention: the loss (1e-5 relative),
-    every gradient (1e-3 of each leaf's largest entry) and the params after
-    AdamW (1e-3 of the update), printed on a ``[tag]`` line and asserted.
-    Returns the kernels' gradients by leaf path (phases 30 and 33)."""
+    from seed 0 through the kernels (``per_call``: launches by wrapper,
+    asserted) and again with ``plain()`` swapping in autograd through their
+    plain version (none launched): the loss (1e-5 relative), every gradient
+    (1e-3 of each leaf's largest entry) and the params after AdamW (1e-3 of
+    the update), printed on a ``[tag]`` line and asserted.  Returns the
+    kernels' gradients by leaf path (phases 30, 33 and 38)."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import launches, reset_launches
-    from repro_torch.models import layers
     from repro_torch.train import adamw_update, init_train_state
     from repro_torch.train.optimizer import leaves
 
     runs = []
-    for plain in (False, True):
+    for swap in (False, True):
         params, opt = init_train_state(model, 0)
         reset_launches()
-        if plain:
-            layers.flash_attention = fa.flash_attention_ref  # autograd through the plain version
-        try:
+        with plain() if swap else contextlib.nullcontext():
             loss = model.loss_fn(params, {"tokens": tokens}, dtype=torch.float32)
             loss.backward()
-        finally:
-            layers.flash_attention = fa.flash_attention
         torch.cuda.synchronize()
         n = launches()
-        assert (n["flash_attention"], n["flash_attention_bwd"]) == (
-            (0, 0) if plain else (n_fwd, n_bwd)), n
+        assert {k_: n[k_] for k_ in per_call} == (
+            dict.fromkeys(per_call, 0) if swap else per_call), n
         grads = [p.grad for p in leaves(params)]
         for p in leaves(params):
             p.grad = None
-        p0 = [p.detach().clone() for p in leaves(params)] if not plain else None
+        p0 = [p.detach().clone() for p in leaves(params)] if not swap else None
         adamw_update(params, grads, opt, opt_cfg)
         runs.append((float(loss.detach()), grads, [p.detach() for p in leaves(params)], p0))
         del opt
@@ -1670,7 +1968,8 @@ def _step_vs_plain(tag, model, tokens, opt_cfg, n_fwd, n_bwd):
     moved = torch.sqrt(sum(((w - a) ** 2).sum() for w, a in zip(p_p, p0)))
     diff = torch.sqrt(sum(((a - w) ** 2).sum() for a, w in zip(p_k, p_p)))
     _say(f"[{tag}] fp32 train step on {list(tokens.shape)} ({model.cfg.n_layers} layers at full "
-         f"width): loss K6 {loss_k:.7f} vs plain attention {loss_p:.7f}; gradients, max |err| "
+         f"width): loss through {'/'.join(per_call)} {loss_k:.7f} vs the plain version "
+         f"{loss_p:.7f}; gradients, max |err| "
          f"over each leaf's largest entry: worst {worst} {g_err[worst]:.3g}; params after AdamW "
          f"differ by {float(diff):.3g} against an update of norm {float(moved):.3g} (tolerances: "
          f"loss 1e-5 relative, gradients 1e-3, params 1e-3 of the update)")
@@ -1775,15 +2074,17 @@ def _serve_bf16(tag, model, params, long, prompts, n_new, n_attn, ranges=None):
     return busy_fwd, n_ev_fwd, spans, serve_launches
 
 
-def _train_bf16(tag, model, step_fn, batch, n_fwd, n_bwd, ranges=None):
-    """bf16 training from seed 0 (phases 31 and 35): eight steps on
+def _train_bf16(tag, model, step_fn, batch, per_step, shares, ranges=None):
+    """bf16 training from seed 0 (phases 31, 35 and 39): eight steps on
     ``batch`` (the loss must fall), the state after the second kept on the
     host, a ninth under the profiler (inside ``_ranges(*ranges)`` when
     given); then two steps again from seed 0, equal bit for bit in loss,
-    params, m and v; ``n_fwd`` and ``n_bwd`` K6 and K6b launches a step
-    (asserted).  Prints the ``[tag]`` lines; returns (median ms a step
-    after the first, parameters, the traced step's busy microseconds by
-    function, the ranges' microseconds, the launches)."""
+    params, m and v; ``per_step`` launches a step by wrapper (asserted).
+    ``shares`` (label -> CUDA function names) picks the kernels whose time
+    and share of the traced step's busy time are printed.  Prints the
+    ``[tag]`` lines; returns (median ms a step after the first, parameters,
+    the traced step's busy microseconds by function, the ranges'
+    microseconds, the launches)."""
     import contextlib
 
     import numpy as np
@@ -1839,22 +2140,24 @@ def _train_bf16(tag, model, step_fn, batch, n_fwd, n_bwd, ranges=None):
          f"{again}; params, m and v equal bit for bit: {same}")
     assert all(np.isfinite(losses)) and losses[7] < losses[0], losses
     assert again == losses[:2] and same
-    assert train_launches["flash_attention"] == n_fwd * (steps + 2), train_launches
-    assert train_launches["flash_attention_bwd"] == n_bwd * (steps + 2), train_launches
+    for name, n in per_step.items():
+        assert train_launches[name] == n * (steps + 2), train_launches
     ms_med = float(np.median(step_ms[1:8]))
     b_ms = sum(busy.values()) / 1e3
-    k6f = {k_: v for k_, v in busy.items() if any(nm in k_ for nm in FLASH_KERNELS)}
-    k6b = {k_: v for k_, v in busy.items() if any(nm in k_ for nm in FLASH_BWD_KERNELS)}
+    parts = []
+    for label, names in shares.items():
+        mine = [k_ for k_ in busy if any(nm in k_ for nm in names)]
+        ms_k = sum(busy[k_] for k_ in mine) / 1e3
+        parts.append(f"{label} {ms_k:.3f} ms over {sum(n_ev[k_] for k_ in mine)} events "
+                     f"({100 * ms_k / b_ms:.2f} % of busy)")
     _say(f"[{tag}] train step ms {[round(x, 2) for x in step_ms[:8]]} (the first a warm-up), "
          f"median after it {ms_med:.2f} ms, {shape[0] * shape[1] / (ms_med / 1e3):.0f} tokens/s; "
-         f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); K6 {n_fwd} forward and "
-         f"{n_bwd} backward launches a step")
+         f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); launches a step {per_step}")
     _say(f"[{tag}] one train step under the profiler: device busy {b_ms:.3f} ms of {ms_traced:.3f} "
-         f"ms ({100 * b_ms / ms_traced:.2f} %, idle {100 - 100 * b_ms / ms_traced:.2f} %); K6 "
-         f"forward {sum(k6f.values()) / 1e3:.3f} ms over {sum(n_ev[k_] for k_ in k6f)} events, "
-         f"backward {sum(k6b.values()) / 1e3:.3f} ms over {sum(n_ev[k_] for k_ in k6b)} events; "
-         "by function (ms): " + "; ".join(f"{k_[:60]} {v / 1e3:.3f}" for k_, v in
-                                         sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
+         f"ms ({100 * b_ms / ms_traced:.2f} %, idle {100 - 100 * b_ms / ms_traced:.2f} %); "
+         + "; ".join(parts) + "; by function (ms): " + "; ".join(
+             f"{k_[:60]} {v / 1e3:.3f}" for k_, v in sorted(busy.items(),
+                                                         key=lambda kv: -kv[1])[:8]))
     del params, opt, snap
     torch.cuda.empty_cache()
     return ms_med, n_params, busy, spans, train_launches
@@ -2055,7 +2358,9 @@ def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(
     opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
     tokens2 = torch.from_numpy(np.random.default_rng(30).integers(0, cfg2.vocab, grad)
                                .astype(np.int32)).to(dev)
-    grads = _step_vs_plain("moe", model2, tokens2, opt_cfg, 2 * cfg2.n_layers, cfg2.n_layers)
+    grads = _step_vs_plain("moe", model2, tokens2, opt_cfg,
+                           {"flash_attention": 2 * cfg2.n_layers,
+                            "flash_attention_bwd": cfg2.n_layers})
     nonzero = {nm: float(g.abs().max()) > 0 for nm, g in grads.items()
                if nm.split("/")[-1] in ("wq", "wk", "wv", "router", "w_gate", "w_up", "w_down",
                                         "shared_gate")}
@@ -2072,8 +2377,9 @@ def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(
                                                 "capacity_factor": 1.25})
     pipe = TokenPipeline(vocab=cfg4.vocab, batch=train[0], seq=train[1] - 1, seed=1)
     first = {"tokens": torch.from_numpy(pipe.next_batch()).to(dev)}
-    ms_med, _, _, _, train_launches = _train_bf16("moe", model4, step_fn, first,
-                                                  2 * cfg4.n_layers, cfg4.n_layers)
+    ms_med, _, _, _, train_launches = _train_bf16(
+        "moe", model4, step_fn, first,
+        {"flash_attention": 2 * cfg4.n_layers, "flash_attention_bwd": cfg4.n_layers}, K6_SHARES)
     n_tok = train[0] * train[1]
     flops = 6.0 * cfg4.n_active_params() * n_tok + 6.0 * cfg4.n_layers * train[0] \
         * cfg4.n_heads * train[1] ** 2 * cfg4.hd
@@ -2213,7 +2519,8 @@ def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
     opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
     tokens2 = torch.from_numpy(np.random.default_rng(33).integers(0, full.vocab, grad)
                                .astype(np.int32)).to(dev)
-    tree = _step_vs_plain("hybrid", model, tokens2, opt_cfg, 2 * groups_c, groups_c)
+    tree = _step_vs_plain("hybrid", model, tokens2, opt_cfg,
+                          {"flash_attention": 2 * groups_c, "flash_attention_bwd": groups_c})
     _say(f"[hybrid] every one of the {len(tree)} gradient leaves nonzero: "
          f"{all(float(g.abs().max()) > 0 for g in tree.values())}")
     assert all(float(g.abs().max()) > 0 for g in tree.values())
@@ -2297,7 +2604,9 @@ def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
     pipe = TokenPipeline(vocab=full.vocab, batch=train[0], seq=train[1] - 1, seed=1)
     first = {"tokens": torch.from_numpy(pipe.next_batch()).to(dev)}
     ms_med, _, busy, spans, train_launches = _train_bf16(
-        "hybrid", model, step_fn, first, 2 * n_groups, n_groups, (mamba2, HYBRID_RANGES))
+        "hybrid", model, step_fn, first,
+        {"flash_attention": 2 * n_groups, "flash_attention_bwd": n_groups}, K6_SHARES,
+        (mamba2, HYBRID_RANGES))
     n_tok = train[0] * train[1]
     # the matmul parameters a token passes through: every Mamba2 block, the
     # shared block once an invocation, the tied head
@@ -3410,9 +3719,15 @@ def main() -> int:
     moe_launches = _moe_phases(dev)
     torch.cuda.empty_cache()
     d80, hybrid_launches = _hybrid_phases(dev)
+    torch.cuda.empty_cache()
+    k7b, rwkv_train_launches = _rwkv_train_phases(dev)
+    kernels.append(k7b)
+    torch.cuda.empty_cache()
+    launcher_launches = _launcher_phase(dev)
 
     # beside each path's own count, phases 4b's, 6b's, 10b's, 10c's, 24's,
-    # 29 + 31's and 34 + 35's; K6 and K6b at the hybrid's head dim of 80
+    # 29 + 31's, 34 + 35's, 39's and 41's (the launcher's own counts, summed
+    # over its two runs); K6 and K6b at the hybrid's head dim of 80
     for entry in kernels:
         entry["launches_speculative"] = spec_launches.get(entry["name"], 0)
         entry["launches_distributed"] = dist_launches.get(entry["name"], 0)
@@ -3421,6 +3736,8 @@ def main() -> int:
         entry["launches_train"] = train_launches.get(entry["name"], 0)
         entry["launches_moe"] = moe_launches.get(entry["name"], 0)
         entry["launches_hybrid"] = hybrid_launches.get(entry["name"], 0)
+        entry["launches_rwkv_train"] = rwkv_train_launches.get(entry["name"], 0)
+        entry["launches_launcher"] = launcher_launches.get(entry["name"], 0)
         entry.update(d80.get(entry["name"], {}))
     _say(f"[trace] {len(RETAKEN)} trace(s) lost device events and were taken again: "
          f"{RETAKEN}")

@@ -5,11 +5,14 @@ compression (``train.compression``).  The group is the caller's, the
 default group when ``torch.distributed`` is initialized, or else a one-rank
 group of this process (``one_rank_group``): NCCL for a CUDA device, gloo for
 the CPU.  A gloo group does not take CUDA tensors here, nor NCCL CPU
-tensors: a mismatch raises rather than switching backends.
+tensors: a mismatch raises rather than switching backends.  A launcher
+starts the default group with ``world``: from ``torchrun``'s environment, or
+as a world of this process alone.
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import os
 import shutil
 import tempfile
@@ -85,3 +88,38 @@ def rank_device(dev: torch.device, group: dist.ProcessGroup) -> torch.device:
             f"rank {group.rank()} of {group.size()} on an unindexed CUDA device and LOCAL_RANK "
             "is unset: pass device='cuda:<n>' or launch with torchrun")
     return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+
+
+@contextlib.contextmanager
+def world(device: torch.device | str):
+    """The default process group for a launcher, for the ``with``
+    block: from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``) when ``WORLD_SIZE`` is set, else a
+    world of this process alone on a private ``FileStore``; NCCL for CUDA,
+    gloo for the CPU.  Yields (group, this rank's device: ``rank_device``,
+    with its index on the card, made current there).  A default group the
+    caller started is used as it is and left running; one started here is
+    destroyed on the way out, then its store's directory removed."""
+    dev = torch.device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    root = None
+    started = not dist.is_initialized()
+    try:
+        if started and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend)
+        elif started:
+            root = tempfile.mkdtemp(prefix="repro_world_")
+            dist.init_process_group(backend, rank=0, world_size=1,
+                                    store=dist.FileStore(os.path.join(root, "store"), 1))
+        group = resolve_group(None, dev)
+        dev = rank_device(dev, group)
+        if dev.type == "cuda":
+            if dev.index is None:  # a world of one: the current card
+                dev = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.set_device(dev)
+        yield group, dev
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+        if root is not None:
+            shutil.rmtree(root, ignore_errors=True)

@@ -32,6 +32,7 @@ SOURCES = {
     "histogram": _CSRC / "histogram.cu",
     "ingest_fused": _CSRC / "ingest_fused.cu",
     "wkv6": _CSRC / "wkv6.cu",
+    "wkv6_bwd": _CSRC / "wkv6_bwd.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

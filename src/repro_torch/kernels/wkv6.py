@@ -1,4 +1,5 @@
-"""RWKV-6 wkv recurrence: CUDA kernel and its plain PyTorch version.
+"""RWKV-6 wkv recurrence: CUDA kernels (forward K7, backward K7b) and their
+plain PyTorch versions.
 
 For r, k, v, w ``[B, L, H, hd]``, the bonus ``u [H, hd]`` and an optional
 initial state ``s0 [B, H, hd, hd]`` (zero when omitted), per (b, h) and
@@ -17,12 +18,13 @@ rather than broadcast to ``[B*H, hd]``.
 
 ``wkv6`` takes the hand-written CUDA kernel (``csrc/wkv6.cu``) for CUDA
 tensors and the plain ``wkv6_ref`` for CPU tensors; a CUDA tensor never
-falls back to the plain version.  The kernel has no backward yet: on the
-card ``wkv6`` refuses inputs that require grad while grad is enabled
-(training RWKV-6 there waits for ROADMAP queue 1, item 20); the plain
-version differentiates.  The kernel reads r, k, v and w through
-their strides (the reshapes of ``time_mix``'s projections are not copied)
-and takes any ``L >= 1``.  It splits each (b, h) over ``hd / JC`` blocks of
+falls back to the plain version.  Where grad is enabled and an input
+requires it, ``wkv6`` goes through ``Wkv6Fn``, whose backward is K7b
+(``wkv6_bwd``, ``csrc/wkv6_bwd.cu``) on the card and ``wkv6_bwd_ref``, an
+explicit reverse recurrence, on the CPU: the gradients of r, k, v, w, u
+and s0 from those of y and of the final state.  The kernel reads r, k, v
+and w through their strides (the reshapes of ``time_mix``'s projections
+are not copied) and takes any ``L >= 1``.  It splits each (b, h) over ``hd / JC`` blocks of
 JC state columns and, inside a block, gives each thread C columns of
 ``hd / P`` rows, one geometry a head dim (``launch_geometry(hd, L)`` names
 it); a decode step (``L == 1``) takes a kernel of its own.  The kernel is
@@ -30,9 +32,12 @@ compiled for the head dims ``HEAD_DIMS``, multiples of 16 up to 128; any
 hd in [1, 128] runs at ``padded_head_dim(hd)``, its inputs zero-padded by
 ``pad_head_dim`` (w by ones) and y and the state cropped: a padded row has
 r = k = 0 and a zero state, a padded column v = 0 and a zero state, so both
-stay zero and add nothing to the true sums.  ``state_out``,
+stay zero and add nothing to the true sums.  K7b pads and crops the same
+way (its padded rows and columns of dy and of the state's gradient are
+zeros, so the gradient's recurrence keeps them zero too).  ``state_out``,
 when given, is a contiguous buffer that receives the final state and may be
-``s0`` itself: a decode step updates its state in place.
+``s0`` itself: a decode step updates its state in place (never under a
+gradient).
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ import torch
 
 from ._build import count_launch, library, reset_counts
 
-LAUNCHES = {"wkv6": 0}
+LAUNCHES = {"wkv6": 0, "wkv6_bwd": 0}
 
 # dtypes r, k, v, w and u may have; the state is fp32
 INPUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -113,19 +118,63 @@ def wkv6_ref(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
     s0: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: a loop over t with the state carried, in fp32, in the
-    order of the JAX package's scan; returns (y in r's dtype, final fp32
-    state)."""
+    """Plain version: a loop over t with the state carried, in fp32 (float64
+    for float64 inputs, which only ``Wkv6Fn``'s gradcheck passes), in the
+    order of the JAX package's scan; returns (y in r's dtype, final state)."""
     b, l, h, hd = r.shape
-    s = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device) if s0 is None \
-        else s0.float()
-    uu = u.float()[None, :, :, None]
+    acc = _acc(r)
+    s = torch.zeros((b, h, hd, hd), dtype=acc, device=r.device) if s0 is None else s0.to(acc)
+    uu = u.to(acc)[None, :, :, None]
     ys = []
     for t in range(l):
-        kv = k[:, t].float()[..., :, None] * v[:, t].float()[..., None, :]
-        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t].float(), s + uu * kv))
-        s = w[:, t].float()[..., :, None] * s + kv
+        kv = k[:, t].to(acc)[..., :, None] * v[:, t].to(acc)[..., None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t].to(acc), s + uu * kv))
+        s = w[:, t].to(acc)[..., :, None] * s + kv
     return torch.stack(ys, dim=1).to(r.dtype), s
+
+
+def _acc(r: torch.Tensor) -> torch.dtype:
+    """The plain versions' working dtype: fp32, or float64 for float64."""
+    return torch.float64 if r.dtype == torch.float64 else torch.float32
+
+
+def wkv6_bwd_ref(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+    dy: torch.Tensor, s0: torch.Tensor | None = None, ds: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the backward: the states S_{t-1} by the forward
+    recurrence, then, with G = dL/dS_t from ``ds`` (zero when omitted) and
+    G_{t-1} = w_t ∘ G_t + r_t ⊗ dy_t, token by token from the last::
+
+        dr_t = (S_{t-1} + u k_t ⊗ v_t) dy_t     dw_t = rowsum(G_t ∘ S_{t-1})
+        dk_t = (G_t + r_t u ⊗ dy_t) v_t         dv_t = (G_t + r_t u ⊗ dy_t)ᵀ k_t
+        du = Σ_{b,t} r_t k_t (v_t · dy_t)       ds0 = G_0
+
+    in fp32 (float64 for float64 inputs).  Returns (dr, dk, dv, dw, du) in
+    the dtypes of r, k, v, w, u, and ds0 in the working dtype."""
+    b, l, h, hd = r.shape
+    acc = _acc(r)
+    rr, kk, vv, ww, gy = (t.to(acc) for t in (r, k, v, w, dy))
+    uu = u.to(acc)
+    s = torch.zeros((b, h, hd, hd), dtype=acc, device=r.device) if s0 is None else s0.to(acc)
+    before = []
+    for t in range(l):
+        before.append(s)
+        s = ww[:, t, :, :, None] * s + kk[:, t, :, :, None] * vv[:, t, :, None, :]
+    g = torch.zeros_like(s) if ds is None else ds.to(acc)
+    dr, dk, dv, dw = (torch.empty_like(rr) for _ in range(4))
+    du = torch.zeros_like(uu)
+    for t in reversed(range(l)):
+        rt, kt, vt, wt, dyt = (x[:, t] for x in (rr, kk, vv, ww, gy))  # [B, H, hd]
+        sp = before[t]
+        dr[:, t] = ((sp + (uu * kt)[..., :, None] * vt[..., None, :]) * dyt[..., None, :]).sum(-1)
+        gp = g + (rt * uu)[..., :, None] * dyt[..., None, :]
+        dk[:, t] = (gp * vt[..., None, :]).sum(-1)
+        dv[:, t] = (gp * kt[..., :, None]).sum(-2)
+        dw[:, t] = (g * sp).sum(-1)
+        du += (rt * kt * (vt * dyt).sum(-1, keepdim=True)).sum(0)
+        g = wt[..., :, None] * g + rt[..., :, None] * dyt[..., None, :]
+    return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype), du.to(u.dtype), g
 
 
 def _check(r, k, v, w, u, s0, state_out) -> None:
@@ -212,13 +261,130 @@ def _launch(r, k, v, w, u, s0, state_out) -> tuple[torch.Tensor, torch.Tensor]:
     return y.to(out_dtype), s_out
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as fp32, contiguous and 16-byte aligned, copied only where it
+    is not already."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_bwd(r, k, v, w, u, dy, s0, ds) -> tuple[torch.Tensor, ...]:
+    """K7b on the card; counts no launch.  Inputs are widened to fp32 and,
+    at a head dim that is no kernel's, padded as the forward pads them (dy
+    and ``ds`` with zeros); the gradients come back cropped, in the inputs'
+    dtypes (ds0 fp32)."""
+    b, l, h, hd = r.shape
+    dtypes = (r.dtype, k.dtype, v.dtype, w.dtype, u.dtype)
+    r, k, v, w, u, s0 = pad_head_dim(r, k, v, w, u, s0)
+    hp = r.shape[-1]
+    if hp != hd:
+        dy = torch.nn.functional.pad(dy.float(), (0, hp - hd))
+        if ds is not None:
+            ds = torch.nn.functional.pad(ds.float(), (0, hp - hd, 0, hp - hd))
+    r, k, v, w, u, dy = (_aligned(t) for t in (r, k, v, w, u, dy))
+    s0, ds = (None if t is None else _aligned(t) for t in (s0, ds))
+    nb = hp // 16
+    dev = r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    snap = torch.empty((-(-l // 8), b, h, hp, hp), **f32)
+    part = torch.empty((3, nb, b, l, h, hp), **f32)
+    du_part = torch.empty((b, nb, h, hp), **f32)
+    grads = torch.empty((3, b, l, h, hp), **f32)
+    dv = torch.empty((b, l, h, hp), **f32)
+    du = torch.empty((h, hp), **f32)
+    ds0 = torch.empty((b, h, hp, hp), **f32)
+    fn = library("wkv6_bwd").wkv6_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(ptr(t) for t in (r, k, v, w, u, dy, s0, ds, snap, part, du_part, grads, dv,
+                                    du, ds0)), b, l, h, hp, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: cudaError {err}")
+    del snap, part, du_part
+    dr, dk, dw = grads.unbind(0)
+    out = [dr, dk, dv, dw, du]
+    if hp != hd:
+        out = [t[..., :hd] for t in out]
+        ds0 = ds0[:, :, :hd, :hd]
+    return (*(t.to(dt) for t, dt in zip(out, dtypes)), ds0.contiguous())
+
+
+def wkv6_bwd(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+    dy: torch.Tensor, s0: torch.Tensor | None = None, ds: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """The backward of ``wkv6``: from the forward's inputs, the gradient
+    ``dy`` of y and ``ds`` of the final state (zero when omitted), returns
+    (dr, dk, dv, dw, du) in the dtypes of r, k, v, w, u and ds0 (fp32): K7b
+    for CUDA tensors, ``wkv6_bwd_ref`` for CPU tensors."""
+    _check(r, k, v, w, u, s0, None)
+    b, _, h, hd = r.shape
+    if dy.shape != r.shape:
+        raise ValueError(f"wkv6_bwd: dy must be {tuple(r.shape)}, got {tuple(dy.shape)}")
+    if ds is not None and ds.shape != (b, h, hd, hd):
+        raise ValueError(f"wkv6_bwd: ds must be {(b, h, hd, hd)}, got {tuple(ds.shape)}")
+    if dy.dtype not in INPUT_DTYPES or (ds is not None and ds.dtype != torch.float32):
+        raise TypeError("wkv6_bwd: dy must be float32, bfloat16 or float16 and ds float32")
+    if any(t is not None and t.device != r.device for t in (dy, ds)):
+        raise ValueError("wkv6_bwd: every input must lie on one device")
+    if r.device.type == "cpu":
+        return wkv6_bwd_ref(r, k, v, w, u, dy, s0, ds)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6_bwd: no kernel for device {r.device}")
+    out = _launch_bwd(r, k, v, w, u, dy, s0, ds)
+    count_launch(LAUNCHES, "wkv6_bwd")
+    return out
+
+
+class Wkv6Fn(torch.autograd.Function):
+    """The recurrence with its gradient: K7 forward and K7b backward on the
+    card, ``wkv6_ref`` and ``wkv6_bwd_ref`` on the CPU.  It saves the
+    inputs only; K7b recomputes the states it needs.  The gradient of s0 is
+    returned where s0 was given."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        if r.device.type == "cpu":
+            y, s = wkv6_ref(r, k, v, w, u, s0)
+        else:
+            y, s = _launch(r, k, v, w, u, s0, None)
+            count_launch(LAUNCHES, "wkv6")
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        if r.device.type == "cpu":  # also float64, which only gradcheck passes
+            grads = wkv6_bwd_ref(r, k, v, w, u, dy, s0, ds)
+        else:
+            grads = wkv6_bwd(r, k, v, w, u, dy.to(r.dtype), s0, ds)
+        *drkvwu, ds0 = grads
+        return (*drkvwu, None if s0 is None else ds0.to(s0.dtype))
+
+
 def wkv6(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
     s0: torch.Tensor | None = None, state_out: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The wkv recurrence over ``[B, L, H, hd]``; returns (y, final state),
-    the final state written into ``state_out`` when it is given."""
+    the final state written into ``state_out`` when it is given.
+    Differentiable (``Wkv6Fn``) where grad is enabled and an input requires
+    it; otherwise the forward alone."""
     _check(r, k, v, w, u, s0, state_out)
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (r, k, v, w, u, s0)
+    ):
+        if state_out is not None:
+            raise ValueError("wkv6: state_out is written in place and takes no gradient; "
+                             "leave it out where a gradient is wanted")
+        return Wkv6Fn.apply(r, k, v, w, u, s0)
     if r.device.type == "cpu":
         y, s = wkv6_ref(r, k, v, w, u, s0)
         if state_out is not None:
@@ -226,14 +392,6 @@ def wkv6(
         return y, s
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (r, k, v, w, u, s0)
-    ):
-        raise RuntimeError(
-            "wkv6: the CUDA kernel has no backward yet (ROADMAP queue 1, item 20), so its "
-            "output would carry no gradient to r, k, v, w, u or s0; call it under "
-            "torch.no_grad(), or on CPU tensors, whose plain version differentiates"
-        )
     out = _launch(r, k, v, w, u, s0, state_out)
     count_launch(LAUNCHES, "wkv6")
     return out

@@ -14,7 +14,8 @@ takes the JAX package's default branches as written (the materialised
 ``_sdpa``, the query-chunked ``_sdpa_chunked`` past
 ``ATTN_CHUNK_THRESHOLD``, the windowed mask).  The JAX package's
 activation-sharding hooks (``set_activation_sharding``, ``constrain_*``) are
-not ported until ``launch/sharding.py`` is (ROADMAP).
+not ported: ``launch.sharding`` gives the rules' specs, and running them
+through the layers (tensor parallelism, ``--mesh prod``) is ROADMAP item 22.
 """
 from __future__ import annotations
 

@@ -10,7 +10,10 @@ with the data-dependent decay ``w_t = exp(-exp(w0 + tanh(x W_A) W_B))``
 (arXiv:2404.05892).  The recurrence is ``kernels.wkv6.wkv6``: the
 hand-written kernel (K7) for CUDA tensors, its plain version on the CPU.  It
 takes the whole sequence in one launch, so the JAX package's chunked,
-token-blocked scan (a device of XLA's) has no counterpart here.
+token-blocked scan (a device of XLA's) has no counterpart here; under a
+gradient its backward is K7b, which recomputes the states it needs from
+one saved every 8 tokens of its own, as the JAX package's checkpointed
+outer scan recomputes its chunks.
 
 Parameters are a dict as in ``models.transformer``: ``blocks`` is a list of
 per-layer dicts (``ln1``, ``tm``, ``ln2``, ``cm``).  The projection
@@ -22,14 +25,16 @@ with them in float32.  The JAX package's activation-sharding hook and its
 performance knobs (``REPRO_WKV_UNROLL``, ``REPRO_WKV_IO_DTYPE``) are not
 carried over: the recurrence's inputs are float32 here.
 
-Training (gradients, remat) is not ported yet: on the card ``loss_fn`` is
-forward only, and ``kernels.wkv6.wkv6`` raises where a gradient is wanted
-(K7 has no backward kernel; ROADMAP queue 1 item 20); on the CPU the plain
-recurrence differentiates.
+Training: ``loss_fn`` differentiates on either device (``wkv6``'s
+``Wkv6Fn``: K7 and K7b on the card, the plain recurrence and its explicit
+reverse on the CPU), and ``forward_hidden(remat=True)`` recomputes each
+block's activations in the backward (``layers.remat``, the JAX package's
+``jax.checkpoint`` of a block).
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +44,7 @@ from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.mapreduce.executor import _device
 
 from .layers import chunked_cross_entropy, embed, init_norm, layer_norm
+from .layers import remat as remat_block
 
 _LORA = 64
 _MU = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")
@@ -159,12 +165,15 @@ def forward_hidden(
     params: dict,
     tokens: torch.Tensor,  # [B, L]
     dtype: torch.dtype = torch.bfloat16,
+    remat: bool = True,
 ) -> torch.Tensor:
     """Token embeddings -> final-norm hidden states [B, L, d]; every layer's
-    recurrence starts from a zero state."""
+    recurrence starts from a zero state.  ``remat``: each block's
+    activations are recomputed in the backward (only where one will run)."""
     x = layer_norm(params["ln0"], embed(params["embed"], tokens, dtype))
+    run = remat_block if remat else (lambda fn, *args: fn(*args))
     for blk in params["blocks"]:
-        x = _block_apply(cfg, blk, x)
+        x = run(partial(_block_apply, cfg), blk, x)
     return layer_norm(params["final_norm"], x)
 
 
@@ -173,11 +182,13 @@ def loss_fn(
     params: dict,
     batch: dict,
     dtype: torch.dtype = torch.bfloat16,
+    remat: bool = True,
     loss_chunk: int = 512,
 ) -> torch.Tensor:
-    """Next-token cross entropy through the untied head, forward only."""
+    """Next-token cross entropy through the untied head; differentiable,
+    each block rematerialised in the backward under ``remat``."""
     tokens = batch["tokens"]
-    h = forward_hidden(cfg, params, tokens, dtype=dtype)
+    h = forward_hidden(cfg, params, tokens, dtype=dtype, remat=remat)
     return chunked_cross_entropy(h[:, :-1, :], params["lm_head"]["w"].T, tokens[:, 1:],
                                  chunk=loss_chunk)
 

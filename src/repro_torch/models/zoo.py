@@ -30,11 +30,9 @@ class ModelApi:
     device: torch.device
     init_params: Callable[..., dict]  # (seed, dtype=float32) -> params
     # (params, batch, dtype=, remat=, loss_chunk=) -> scalar; differentiable
-    # for the dense, moe and hybrid families (moe also takes capacity_factor=,
-    # extra_slots= (SharesSkew replica slots) and aux_coef=;
-    # ssm: no ``remat``, and differentiable on the CPU only: on the card its
-    # recurrence K7 has no backward kernel yet and ``wkv6`` raises when a
-    # gradient is wanted, ROADMAP queue 1 item 20)
+    # for every family (moe also takes capacity_factor=, extra_slots=
+    # (SharesSkew replica slots) and aux_coef=; ssm differentiates its
+    # recurrence through K7 and its backward kernel K7b on the card)
     loss_fn: Callable[..., torch.Tensor]
     init_cache: Callable[..., dict] | None  # (batch, max_seq, dtype) -> cache
     decode_step: Callable[..., tuple] | None  # (params, cache, tokens, pos, **kw)

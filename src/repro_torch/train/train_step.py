@@ -10,6 +10,9 @@ m and v in place.  ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as
 device scalars, so a step never waits for the card.  ``loss_kwargs``
 (dtype, remat, loss_chunk; for the moe family also capacity_factor,
 extra_slots and aux_coef) thread through to the model's loss.
+``reduce_grads``, when given, takes the gradient tree before the update and
+returns the one to apply: the launcher's data-parallel mean over its
+ranks (``repro_torch.launch.train``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ def make_train_step(
     model: ModelApi,
     opt_cfg: OptConfig,
     loss_kwargs: dict | None = None,
+    reduce_grads: Callable[[Any], Any] | None = None,
 ) -> Callable:
     loss_kwargs = dict(loss_kwargs or {})
 
@@ -37,6 +41,8 @@ def make_train_step(
             loss.backward()
         grads = map_tree(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
                          params)
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
         params, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
         del grads
         for p in leaves(params):

@@ -44,6 +44,7 @@ def test_attention_sources_hash_the_shared_header(name):
     assert got == [f"{name}.cu", "hopper.cuh"]
 
 
-@pytest.mark.parametrize("name", ["block_join", "cms_update", "histogram", "ingest_fused", "wkv6"])
+@pytest.mark.parametrize("name", ["block_join", "cms_update", "histogram", "ingest_fused", "wkv6",
+                                  "wkv6_bwd"])
 def test_other_sources_include_no_local_header(name):
     assert [p.name for p in _build._inputs(_build.SOURCES[name])] == [f"{name}.cu"]

@@ -703,28 +703,6 @@ def test_flash_attention_autograd_on_card(cuda, d, dtype):
         torch.testing.assert_close(g.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_wkv6_kernel_refuses_gradients(cuda):
-    """K7 has no backward kernel: on the card ``wkv6`` raises, naming ROADMAP
-    item 20, when grad is enabled and an input requires it (its output
-    would carry no gradient, and training would take zeros); under
-    ``torch.no_grad()`` it runs as before and equals the plain version."""
-    r, k, v, w, u, s0 = _wkv_inputs(2, 33, 3, 64, 5, cuda)
-    for i in range(6):
-        args = [r, k, v, w, u, s0]
-        args[i] = args[i].clone().requires_grad_(True)
-        before = wk.LAUNCHES["wkv6"]
-        with pytest.raises(RuntimeError, match="item 20"):
-            wk.wkv6(*args)
-        assert wk.LAUNCHES["wkv6"] == before
-        with torch.no_grad():
-            y, s = wk.wkv6(*args)
-        torch.cuda.synchronize()
-        assert wk.LAUNCHES["wkv6"] == before + 1
-    y_want, s_want = wk.wkv6_ref(r, k, v, w, u, s0)
-    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
-    torch.testing.assert_close(s, s_want, rtol=2e-4, atol=2e-4)
-
-
 @pytest.mark.parametrize("l", [1, 77])
 @pytest.mark.parametrize("hd", [8, 24, 72])
 def test_wkv6_kernel_pads_head_dim(cuda, hd, l):
@@ -982,6 +960,121 @@ def test_wkv6_kernel_state_not_16_byte_aligned(cuda):
     torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(buf, s_want, rtol=2e-4, atol=2e-4)
     assert flat[0] == 0
+
+
+def _wkv_grads_close(got, want, frac):
+    """Each gradient within ``frac`` of its plain version's largest entry."""
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= frac * float(w.float().abs().max()) + 1e-30, (name, err)
+
+
+@pytest.mark.parametrize("with_s0,with_ds", [(False, False), (True, True), (True, False)])
+@pytest.mark.parametrize("l", [1, 77, 300])
+@pytest.mark.parametrize("hd", [16, 64, 80, 128])
+def test_wkv6_bwd_kernel_matches_plain(cuda, hd, l, with_s0, with_ds):
+    """K7b against ``wkv6_bwd_ref`` on the same fp32 inputs (2e-4 of each
+    gradient's largest entry: sums over t and j in another order); hd 80
+    runs padded to 96; L = 1 and a ragged last tile; two calls bit for bit."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, l, 3, hd, hd + l, cuda)
+    rng = np.random.default_rng(l)
+    dy = torch.from_numpy(rng.normal(size=r.shape).astype(np.float32)).to(cuda)
+    ds = torch.from_numpy(rng.normal(size=s0.shape).astype(np.float32)).to(cuda)
+    args = (r, k, v, w, u, dy, s0 if with_s0 else None, ds if with_ds else None)
+    before = wk.LAUNCHES["wkv6_bwd"]
+    got = wk.wkv6_bwd(*args)
+    again = wk.wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _wkv_grads_close(got, wk.wkv6_bwd_ref(*args), 2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_wkv6_bwd_kernel_narrow_inputs(cuda, dtype):
+    """bf16 and fp16 inputs and dy: the wrapper widens them and returns each
+    gradient in its input's dtype; against the plain version on the same
+    narrow values (1e-2 of each largest entry: the gradients are rounded
+    to the narrow dtype, 2^-8 relative for bf16)."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, 65, 3, 64, 21, cuda)
+    dy = torch.randn(r.shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                     device=cuda)
+    narrow = [t.to(dtype) for t in (r, k, v, w, u, dy)]
+    got = wk.wkv6_bwd(*narrow, s0)
+    assert [t.dtype for t in got] == [dtype] * 5 + [torch.float32]
+    _wkv_grads_close(got, wk.wkv6_bwd_ref(*narrow, s0), 1e-2)
+
+
+def test_wkv6_bwd_kernel_underflowing_decay(cuda):
+    """rwkv6's decay exp(-exp(x)) underflows to 0 for large x: K7b recomputes
+    the states forward (no division by w), so every gradient stays finite
+    and equals the plain version."""
+    r, k, v, w, u, s0 = _wkv_inputs(1, 40, 2, 64, 8, cuda)
+    x = torch.linspace(-3.0, 6.0, 64, device=cuda)
+    w = torch.exp(-torch.exp(x)).expand_as(w).contiguous()
+    assert (w == 0).any()
+    dy = torch.ones_like(r)
+    got = wk.wkv6_bwd(r, k, v, w, u, dy, s0, torch.ones_like(s0))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _wkv_grads_close(got, wk.wkv6_bwd_ref(r, k, v, w, u, dy, s0, torch.ones_like(s0)), 2e-4)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_autograd_on_card(cuda, with_s0):
+    """``wkv6`` under a gradient goes through ``Wkv6Fn`` (K7 forward, K7b
+    backward): the gradients of sum(y * g) + sum(S * gs) on the card equal
+    those on the CPU (the plain versions), 2e-4 of each largest entry."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, 50, 3, 64, 9, cuda)
+    g = torch.randn(r.shape, generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in (r, k, v, w, u, s0)]
+        if not with_s0:
+            leaves[5] = None
+        before = dict(wk.LAUNCHES)
+        y, s = wk.wkv6(*leaves)
+        ((y * g.to(dev)).sum() + (s * 0.5).sum()).backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert wk.LAUNCHES["wkv6"] == before["wkv6"] + 1
+            assert wk.LAUNCHES["wkv6_bwd"] == before["wkv6_bwd"] + 1
+        grads.append([t.grad.cpu() for t in leaves if t is not None])
+    _wkv_grads_close(grads[1], grads[0], 2e-4)
+
+
+def test_rwkv6_train_step_on_card_matches_cpu(cuda):
+    """Reduced rwkv6-3b in fp32, remat on: two train steps on the card (K7
+    twice a layer, K7b once) against the same steps on the CPU (the plain
+    recurrence and its plain backward): loss and grad_norm to 2e-4, the
+    params after AdamW to 1e-3 of the update."""
+    from repro_torch import train as ttrain
+    from repro_torch.train.optimizer import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_config("rwkv6-3b").reduced()
+    batch = tmodels.make_batch(cfg, np.random.default_rng(2), 2, 40, device="cpu")
+    opt = ttrain.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params0, state0 = ttrain.init_train_state(tmodels.build_model(cfg, device="cpu"), 1)
+    out = []
+    for dev in ("cpu", cuda):
+        model = tmodels.build_model(cfg, device=dev)
+        params, state = _copy_to(params0, dev), _copy_to(state0, dev)
+        step = ttrain.make_train_step(model, opt, {"dtype": torch.float32})
+        wk.reset_launches()
+        metrics = []
+        for _ in range(2):
+            params, state, m = step(params, state, _to(batch, dev))
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+        if dev != "cpu":
+            assert wk.LAUNCHES == {"wkv6": 4 * cfg.n_layers, "wkv6_bwd": 2 * cfg.n_layers}
+        out.append((metrics, [p.detach().cpu() for p in leaves(params)]))
+    (m_cpu, p_cpu), (m_card, p_card) = out
+    np.testing.assert_allclose(m_card, m_cpu, rtol=2e-4)
+    p0 = [p.detach() for p in leaves(params0)]
+    moved = sum(float(((b - a) ** 2).sum()) for a, b in zip(p0, p_cpu)) ** 0.5
+    diff = sum(float(((a - b) ** 2).sum()) for a, b in zip(p_card, p_cpu)) ** 0.5
+    assert diff <= 1e-3 * moved, (diff, moved)
 
 
 def test_rwkv6_on_card_matches_cpu(cuda):

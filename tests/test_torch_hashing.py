@@ -123,9 +123,11 @@ def test_port_imports_with_jax_blocked():
                 "repro_torch.train.checkpoint", "repro_torch.train.elastic",
                 "repro_torch.stream.tenancy", "repro_torch.mapreduce.shuffle",
                 "repro_torch.train.compression", "repro_torch.models.mamba2",
-                "repro_torch.distributed"):
+                "repro_torch.distributed", "repro_torch.launch", "repro_torch.launch.mesh",
+                "repro_torch.launch.sharding", "repro_torch.launch.train",
+                "repro_torch.launch.dryrun", "repro_torch.kernels.wkv6"):
         assert mod in mods
     assert {Path(p).name for p in examples} >= {
         "quickstart_torch.py", "serve_lm_torch.py", "streaming_join_torch.py",
         "multiway_join_torch.py"}
-    assert len(mods) >= 55
+    assert len(mods) >= 60

@@ -2,8 +2,11 @@
 Pallas kernel (interpret mode on the CPU), its jnp oracle and the model's
 chunked scan ``repro.models.rwkv6._wkv_scan``, on the same seeded inputs;
 the state carried from one call to the next; the wrapper's checks.  The
-CUDA kernel itself is held against the plain version in
+backward's plain version (K7b's, ``wkv6_bwd_ref``) against ``jax.vjp`` of
+the oracle and of the scan, and ``Wkv6Fn`` by a float64 gradcheck.  The
+CUDA kernels themselves are held against the plain versions in
 ``tests/test_torch_gpu.py`` on a card."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -68,8 +71,8 @@ def test_plain_gradients_match_jax_grad(h, l, hd):
     the gradients of sum(y * g) with respect to r, k, v, w and u equal
     ``jax.grad`` of the JAX package's ``wkv6_ref`` on the same seeded
     inputs and cotangent g, in fp32 to the kernel tests' 2e-4 (sums over
-    the sequence taken in another order).  On a card ``wkv6`` refuses
-    such inputs instead (tests/test_torch_gpu.py)."""
+    the sequence taken in another order), through ``Wkv6Fn`` and its plain
+    backward."""
     import jax
 
     r, k, v, w, u, _ = _inputs(1, l, h, hd, 11 * h + l)
@@ -338,3 +341,129 @@ def test_narrow_inputs_match_pallas(dtype, bh, l, hd, chunk):
     # the plain version on narrow inputs is the wrapper's CPU path
     y_ref, s_ref = wk.wkv6_ref(*narrow, tu)
     assert torch.equal(y_ref, y) and torch.equal(s_ref, s)
+
+
+# ---- the backward: wkv6_bwd_ref (K7b's plain version) and Wkv6Fn ----------
+def _frac_close(got, want, frac=2e-4, name=""):
+    """Within ``frac`` of ``want``'s largest entry (the gradients are sums
+    over the sequence and the state's rows or columns, taken in another
+    order)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    assert np.abs(got - want).max() <= frac * np.abs(want).max() + 1e-30, name
+
+
+def _cotangents(b, l, h, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, l, h, hd)).astype(np.float32),
+            rng.normal(size=(b, h, hd, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("with_ds", [False, True])
+@pytest.mark.parametrize("b,l,h,hd,chunk", [
+    (2, 37, 3, 16, 16),  # ragged: the scan pads to 48
+    (1, 1, 2, 32, 1),  # a single token
+    (2, 24, 2, 8, 8),
+])
+def test_plain_backward_matches_jax_vjp_of_model_scan(b, l, h, hd, chunk, with_ds):
+    """``wkv6_bwd_ref`` from a state against ``jax.vjp`` of the model's
+    chunked, checkpointed ``_wkv_scan`` with cotangents (dy, dS_final): dr,
+    dk, dv, dw, du and ds0, each to 2e-4 of its largest entry."""
+    r, k, v, w, u, s0 = _inputs(b, l, h, hd, 7 * l + hd, s0_scale=0.5)
+    dy, ds = _cotangents(b, l, h, hd, l)
+    ds = ds if with_ds else np.zeros_like(ds)
+    _, vjp = jax.vjp(lambda *a: _wkv_scan(*a, chunk=chunk, unroll=1),
+                     *map(jnp.asarray, (r, k, v, w, u, s0)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    got = wk.wkv6_bwd_ref(*_t(r, k, v, w, u, dy), torch.from_numpy(s0),
+                          torch.from_numpy(ds) if with_ds else None)
+    for name, g, wnt in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        _frac_close(g.numpy(), wnt, name=name)
+
+
+@pytest.mark.parametrize("h,l,hd", [(2, 24, 8), (3, 40, 16)])
+def test_plain_backward_matches_jax_vjp_of_oracle(h, l, hd):
+    """From zero, against ``jax.vjp`` of the JAX package's ``wkv6_ref`` (the
+    Pallas kernel's oracle, [BH, L, hd] with per-row u; B = 1, so BH = H)."""
+    r, k, v, w, u, _ = _inputs(1, l, h, hd, 3 * h + l)
+    dy, _ = _cotangents(1, l, h, hd, hd)
+    flat = [jnp.asarray(a[0].transpose(1, 0, 2)) for a in (r, k, v, w, dy)]
+    _, vjp = jax.vjp(jax_wkv6_ref, *flat[:4], jnp.asarray(u))
+    want = vjp(flat[4])
+    got = wk.wkv6_bwd_ref(*_t(r, k, v, w, u, dy))
+    for name, g, wnt in zip("rkvw", got, want):
+        _frac_close(g[0].transpose(0, 1).numpy(), wnt, name=name)
+    _frac_close(got[4].numpy(), want[4], name="u")
+
+
+def test_plain_backward_underflowing_decay():
+    """rwkv6's decay exp(-exp(x)) is exactly 0 in fp32 for x above about
+    4.5: the backward recomputes the states forward (it divides by no w), so
+    every gradient is finite and equals the JAX package's vjp."""
+    b, l, h, hd = 2, 30, 2, 16
+    r, k, v, _, u, s0 = _inputs(b, l, h, hd, 5, s0_scale=0.5)
+    x = np.random.default_rng(6).uniform(-3, 7, size=(b, l, h, hd))
+    w = np.exp(-np.exp(x)).astype(np.float32)
+    assert (w == 0).any()
+    dy, ds = _cotangents(b, l, h, hd, 6)
+    _, vjp = jax.vjp(lambda *a: _wkv_scan(*a, chunk=8, unroll=1),
+                     *map(jnp.asarray, (r, k, v, w, u, s0)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    got = wk.wkv6_bwd_ref(*_t(r, k, v, w, u, dy), torch.from_numpy(s0), torch.from_numpy(ds))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    for name, g, wnt in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        _frac_close(g.numpy(), wnt, name=name)
+
+
+@pytest.mark.parametrize("hd", [8, 24, 72])
+def test_pad_head_dim_keeps_the_backward(hd):
+    """K7b's path at a head dim that is no multiple of 16, through the plain
+    version: inputs padded as the forward pads them, dy and dS_final with
+    zeros, the gradients cropped, equal to the backward at hd itself (1e-5
+    of each largest entry); the padded rows and columns of ds0 stay zero."""
+    b, l, h = 2, 11, 2
+    r, k, v, w, u, s0 = _t(*_inputs(b, l, h, hd, hd, s0_scale=0.5))
+    dy, ds = _t(*_cotangents(b, l, h, hd, hd))
+    hp = wk.padded_head_dim(hd)
+    padded = wk.pad_head_dim(r, k, v, w, u, s0)
+    pad_dy = torch.nn.functional.pad(dy, (0, hp - hd))
+    pad_ds = torch.nn.functional.pad(ds, (0, hp - hd, 0, hp - hd))
+    got = wk.wkv6_bwd_ref(*padded[:5], pad_dy, padded[5], pad_ds)
+    want = wk.wkv6_bwd_ref(r, k, v, w, u, dy, s0, ds)
+    for name, g, wnt in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        _frac_close(g[..., :hd].numpy(), wnt.numpy(), 1e-5, name)
+    _frac_close(got[5][..., :hd, :hd].numpy(), want[5].numpy(), 1e-5, "ds0")
+    assert not got[5][..., hd:, :].any() and not got[5][..., :, hd:].any()
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_fn_gradcheck(with_s0):
+    """``torch.autograd.gradcheck`` in float64 through ``Wkv6Fn`` (on the
+    CPU: ``wkv6_ref`` forward, ``wkv6_bwd_ref`` backward), y and the final
+    state both used."""
+    r, k, v, w, u, s0 = (torch.from_numpy(a).double() for a in
+                         _inputs(2, 6, 2, 4, 9, s0_scale=0.5))
+    args = [t.requires_grad_(True) for t in (r, k, v, w, u, s0)]
+    if not with_s0:
+        args[5] = None
+    assert torch.autograd.gradcheck(wk.Wkv6Fn.apply, tuple(args), eps=1e-6, atol=1e-7)
+
+
+def test_wkv6_takes_wkv6_fn_under_a_gradient():
+    """``wkv6`` goes through ``Wkv6Fn`` where grad is enabled and an input
+    requires it (any one of r, k, v, w, u, s0); a state written in place
+    takes no gradient; under ``no_grad`` the forward alone runs."""
+    r, k, v, w, u, s0 = _t(*_inputs(1, 10, 2, 16, 4, s0_scale=0.5))
+    for i in range(6):
+        args = [r, k, v, w, u, s0]
+        args[i] = args[i].clone().requires_grad_(True)
+        y, s = wk.wkv6(*args)
+        assert type(y.grad_fn).__name__ == "Wkv6FnBackward"
+        (y.sum() + s.sum()).backward()
+        assert args[i].grad is not None and args[i].grad.abs().max() > 0
+        with torch.no_grad():
+            assert wk.wkv6(*args)[0].grad_fn is None
+    with pytest.raises(ValueError, match="state_out"):
+        wk.wkv6(r, k, v, w, u.clone().requires_grad_(True), s0, state_out=s0.clone())
+    with pytest.raises(ValueError, match="dy must be"):
+        wk.wkv6_bwd(r, k, v, w, u, r[:, :3])
