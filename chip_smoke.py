@@ -246,12 +246,13 @@ Phases:
      step, time by CUDA function, and the forward's busy time by part
      (``record_function`` ranges around ``mamba2.ssd``, ``_causal_conv`` and
      ``_shared_apply``) with the SSD's share on a line of its own;
- 35. bf16 training at full width and depth (fp32 params, gradients, m and v:
-     about 37 GB) with ``make_train_step`` on [4, 2048] tokens of
+ 35. bf16 training at full width, cut to depth 18 for the script's time
+     limit (three invocations of the shared block; fp32 params, gradients, m
+     and v: about 13 GB) with ``make_train_step`` on [4, 2048] tokens of
      ``TokenPipeline(seed=1)``, AdamW as phase 24: eight steps on one batch
      (the loss must fall); the first two steps run again from the same state
      (kept on the host) equal bit for bit in loss, params, m and v; ms a
-     step, tokens/s, peak memory, K6/K6b launches a step (18 and 9), busy
+     step, tokens/s, peak memory, K6/K6b launches a step (6 and 3), busy
      share, the SSD's share and time by function, and ``mfu=`` by 6·N·T,
      N every matrix a token passes through (the shared block once an
      invocation), plus the attention term;
@@ -262,10 +263,12 @@ Phases:
      backward, bound; the kernels line carries them as ``*_d80``.
  37. K7b, the recurrence's backward (``kernels.wkv6.wkv6_bwd``), against
      ``wkv6_bwd_ref`` on the card (``_rwkv_train_phases``): [4, 2048, 40] at
-     hd 64 (the model's), hd 16, 80, 72 (run padded to 80) and 128, L = 1 and
+     hd 64 (the model's), hd 16, 80 and 72 (run padded to 128) and 128, L = 1,
+     lengths around K7b's chunk of C = 32 tokens (C - 1, C, C + 1, 2C + 3) and
      ragged L, with and without s0 and dS_final, fp32 and bf16 inputs; every
      gradient within 2e-4 of its largest entry in fp32 (1e-2 in bf16: the
-     gradients are rounded to bf16), two calls equal bit for bit;
+     gradients are rounded to bf16), two calls equal bit for bit; each
+     instantiation's registers and spills (``-Xptxas -v``);
  38. one fp32 rwkv6-3b train step at full width, cut to depth 4, on [2, 256]
      through K7 and K7b (``Wkv6Fn``) against autograd through the plain
      recurrence: the loss (1e-5 relative), every gradient (1e-3 of each
@@ -279,7 +282,10 @@ Phases:
      tokens/s, peak memory, K7 and K7b launches a step (64 and 32) and their
      share of busy time, ``mfu=`` by 6·N·T;
  40. K7b at the model's shape, [4, 2048, 40, 64] fp32 from zero: device time
-     (a CUDA graph), plain time, bound (no single PyTorch call computes it);
+     (a CUDA graph) and each pass's time an event (passes A and B,
+     ``wkv6_bwd_state_kernel``; pass C, ``wkv6_bwd_chunk_kernel``; du), plain
+     time, the function's bound and this design's own operations and bytes
+     (no single PyTorch call computes it);
  41. the launcher (``_launcher_phase``): ``python -m
      repro_torch.launch.train`` as a subprocess at a world of one (NCCL),
      OLMo-1B at full size, three steps on [2, 512]: preempted by SIGTERM
@@ -350,7 +356,7 @@ FLASH_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
 CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"  # phase 25's checkpoint (gitignored)
 HIST_KERNELS = ("histogram_narrow_kernel", "histogram_sparse_kernel")
 WKV_KERNELS = ("wkv6_split_kernel", "wkv6_step_kernel")
-WKV_BWD_KERNELS = ("wkv6_bwd_kernel", "wkv6_bwd_sum_kernel", "wkv6_bwd_du_kernel")
+WKV_BWD_KERNELS = ("wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel", "wkv6_bwd_du_kernel")
 K6_SHARES = {"K6 forward": FLASH_KERNELS, "K6 backward": FLASH_BWD_KERNELS}
 LAUNCHER_DIR = ROOT / "build" / "chip_smoke_launcher"  # phase 41's checkpoints (gitignored)
 # moe_ffn's steps by the range each runs in under a trace (``_ranges``)
@@ -1283,6 +1289,25 @@ def _wkv_bwd_work(b, l, h, hd, with_s0, with_ds):
         1 + with_s0 + with_ds)
 
 
+def _wkv_bwd_design_work(b, l, h, hd):
+    """(fp32 operations, device bytes) of K7b's chunked design from zero,
+    per (b, h) and state element: passes A and B a product and an add a
+    token each (4); pass C's forward walk the state's update (2) over all
+    tiles but a chunk's last, its backward walk the tile's states again
+    (2) and dr, dk, dw, dv and G (2 + 2 + 2 + 2 + 3 = 11): 18.5 hd^2 a
+    token at C = 32 and T = 8; the bonus terms left out.  Bytes: r, k, v,
+    w, dy read by passes A and B (k, w, v and r, w, dy) and again by C; dr,
+    dk, dv, dw written; the chunk boundaries' states, written by A and B
+    and read by C."""
+    from repro_torch.kernels import wkv6 as wk
+
+    chunk, tile = wk.BWD_CHUNK, wk.BWD_TILE
+    n = b * l * h
+    ops = n * hd * hd * (4 + 2 * (1 - tile / chunk) + 2 + 11)
+    states = 2 * 2 * b * h * hd * hd * 4.0 * -(-l // chunk)
+    return float(ops), 4.0 * n * hd * (6 + 5 + 4) + states
+
+
 def _rwkv_train_phases(dev, check=(4, 2048, 40), grad=(2, 256), grad_depth=4, train=(4, 2048)):
     """Phases 37-40: K7b against its plain version, one fp32 rwkv6-3b train
     step through K7/K7b against the plain recurrence, bf16 training at full
@@ -1296,7 +1321,7 @@ def _rwkv_train_phases(dev, check=(4, 2048, 40), grad=(2, 256), grad_depth=4, tr
 
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels import _build, launches, reset_launches
     from repro_torch.kernels import wkv6 as wk
     from repro_torch.models import build_model
     from repro_torch.train import OptConfig, make_train_step
@@ -1317,10 +1342,15 @@ def _rwkv_train_phases(dev, check=(4, 2048, 40), grad=(2, 256), grad_depth=4, tr
 
     # ---- 37. K7b against its plain version ------------------------------------
     b0, l0, h0 = check
+    c = wk.BWD_CHUNK  # lengths around K7b's chunk: C - 1, C, C + 1, 2C + 3
     cases = [(b0, l0, h0, 64, False, False, f32), (2, 77, 3, 16, True, True, f32),
              (2, 77, 3, 80, True, False, f32), (2, 77, 3, 72, True, True, f32),
              (2, 300, 3, 128, False, True, f32),
              (b0, 1, h0, 64, True, True, f32), (2, 1, 3, 24, False, True, f32),
+             (2, c - 1, 3, 64, True, True, f32), (2, c, 3, 64, False, True, f32),
+             (2, c + 1, 3, 128, True, False, f32), (2, 2 * c + 3, 3, 64, True, True, f32),
+             (2, 2 * c + 3, 3, 128, False, False, f32), (2, c + 1, 3, 16, True, True, f32),
+             (2, 2 * c + 3, 3, 24, True, True, f32),
              (2, 77, 3, 64, True, True, bf16), (b0, l0, h0, 64, True, True, bf16)]
     reset_launches()
     for b, l, h, hd, with_s0, with_ds, dtype in cases:
@@ -1338,7 +1368,7 @@ def _rwkv_train_phases(dev, check=(4, 2048, 40), grad=(2, 256), grad_depth=4, tr
         _say(f"[check] wkv6_bwd {(b, l, h, hd)} {str(dtype)[6:]} "
              f"s0={'given' if with_s0 else 'zero'} dS_final={'given' if with_ds else 'zero'} "
              f"(hd {hd} runs at "
-             f"{wk.padded_head_dim(hd)}): max |err| over each gradient's largest entry "
+             f"{wk.bwd_head_dim(hd)}): max |err| over each gradient's largest entry "
              + ", ".join(f"{nm} {e:.3g}" for nm, e in errs.items())
              + f" (tolerance {tol}); two calls equal bit for bit: {same}")
         assert same and max(errs.values()) <= tol, errs
@@ -1347,6 +1377,12 @@ def _rwkv_train_phases(dev, check=(4, 2048, 40), grad=(2, 256), grad_depth=4, tr
             main_err = max(_max_float_err(x, y) for x, y in zip(got, want))
         del got, again, want
     assert launches()["wkv6_bwd"] == 2 * len(cases), launches()
+    log = _build.build_all(["wkv6_bwd"])["wkv6_bwd"].ptxas
+    for hd in wk.BWD_HEAD_DIMS:
+        _say(f"[K7b] hd {hd}: " + "; ".join(
+            f"{nm} {_ptxas_regs(log, f'{nm}ILi{hd}E')} registers, spills (store, load bytes) "
+            f"{_ptxas_spills(log, f'{nm}ILi{hd}E')}"
+            for nm in ("wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel")))
     torch.cuda.empty_cache()
 
     # ---- 38. one fp32 train step through K7 and K7b against the plain recurrence
@@ -1394,11 +1430,19 @@ def _rwkv_train_phases(dev, check=(4, 2048, 40), grad=(2, 256), grad_depth=4, tr
     ops, n_bytes = _wkv_bwd_work(*r.shape, False, False)
     bound, by = _bound(ops, n_bytes, FP32_FLOPS)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    d_ops, d_bytes = _wkv_bwd_design_work(*r.shape)
+    passes = {nm: next((v for k, v in ev.items() if nm in k), float("nan"))
+              for nm in WKV_BWD_KERNELS}
     _say(f"[K7b] wkv6_bwd {tuple(r.shape)} fp32 from zero: kernels {ms:.4f} ms (CUDA graph of "
-         f"10 calls; {_short(ev)} ms an event in a trace; wrapper {wrap:.4f} ms); plain "
-         f"{plain:.2f} ms; bound {bound:.4f} ms by {by} ({ops:.4g} fp32 operations at 67 TFLOP/s; "
-         f"{n_bytes:.4g} bytes, {t_bytes:.4f} ms at 3.35 TB/s); {100 * bound / ms:.1f} % of the "
-         f"bound; no single PyTorch call computes it")
+         f"10 calls; wrapper {wrap:.4f} ms); a pass an event in a trace: A and B "
+         f"(wkv6_bwd_state_kernel) {passes['wkv6_bwd_state_kernel']:.4f} ms, C "
+         f"(wkv6_bwd_chunk_kernel) {passes['wkv6_bwd_chunk_kernel']:.4f} ms, du "
+         f"{passes['wkv6_bwd_du_kernel']:.4f} ms; plain {plain:.2f} ms; the function's bound "
+         f"{bound:.4f} ms by {by} ({ops:.4g} fp32 operations at 67 TFLOP/s; {n_bytes:.4g} bytes, "
+         f"{t_bytes:.4f} ms at 3.35 TB/s); {100 * bound / ms:.1f} % of the bound; this design "
+         f"does {d_ops:.4g} fp32 operations ({d_ops / FP32_FLOPS * 1e3:.4f} ms) and moves "
+         f"{d_bytes:.4g} bytes ({d_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); no single PyTorch "
+         f"call computes it")
     del main_in, r, k, v, w, u, dy
     torch.cuda.empty_cache()
     _say(f"[rwkv-train] phases 37-40: {time.perf_counter() - t_phase:.1f} s")
@@ -2450,7 +2494,7 @@ def _distributed_phase(dev, query, data, plan, base, oracle, base_s, per_run, th
 
 
 def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
-                   prompt=(4, 128, 32), train=(4, 2048)):
+                   prompt=(4, 128, 32), train=(4, 2048), train_depth=18):
     """Phases 32-36; returns the kernels line's numbers at the hybrid's
     shapes (K6 and K6b: ms, plain ms, bound, SDPA's ms, max_abs_err) and the
     hybrid path's launches (phases 34 and 35).  The shapes are the card's;
@@ -2599,19 +2643,24 @@ def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
     del params, long, x
     torch.cuda.empty_cache()
 
-    # ---- 35. bf16 training at full width and depth ----------------------------
+    # ---- 35. bf16 training at full width, cut in depth ------------------------
+    # (a third of the 54 layers, three invocations of the shared block: the
+    # script's time limit; the path and its checks are the full model's)
+    cfg_t = dataclasses.replace(full, n_layers=train_depth)
+    groups_t = cfg_t.n_layers // cfg_t.hybrid_period
+    model = build_model(cfg_t, device=dev)
     step_fn = make_train_step(model, opt_cfg, {"dtype": bf16})
     pipe = TokenPipeline(vocab=full.vocab, batch=train[0], seq=train[1] - 1, seed=1)
     first = {"tokens": torch.from_numpy(pipe.next_batch()).to(dev)}
     ms_med, _, busy, spans, train_launches = _train_bf16(
         "hybrid", model, step_fn, first,
-        {"flash_attention": 2 * n_groups, "flash_attention_bwd": n_groups}, K6_SHARES,
+        {"flash_attention": 2 * groups_t, "flash_attention_bwd": groups_t}, K6_SHARES,
         (mamba2, HYBRID_RANGES))
     n_tok = train[0] * train[1]
     # the matmul parameters a token passes through: every Mamba2 block, the
     # shared block once an invocation, the tied head
-    n_eff = n_block * full.n_layers + n_shared * n_groups + n_embed
-    flops = 6.0 * n_eff * n_tok + 6.0 * n_groups * train[0] * full.n_heads * train[1] ** 2 \
+    n_eff = n_block * cfg_t.n_layers + n_shared * groups_t + n_embed
+    flops = 6.0 * n_eff * n_tok + 6.0 * groups_t * train[0] * full.n_heads * train[1] ** 2 \
         * full.hd
     mfu = flops / (ms_med / 1e3) / BF16_FLOPS
     b_ms = sum(busy.values()) / 1e3
@@ -2619,7 +2668,7 @@ def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
     _say(f"[hybrid] the train step's SSD forwards (remat runs each twice; the backward is outside "
          f"the range) {ssd_ms:.3f} ms of {b_ms:.3f} ms busy ({100 * ssd_ms / b_ms:.2f} %)")
     _say(f"[hybrid] mfu={mfu:.4f} (6 N T + 6 invocations B H L^2 D = {flops:.4g} model flops a "
-         f"step, N = {n_eff}: {full.n_layers} Mamba2 blocks, the shared block {n_groups} times, "
+         f"step, N = {n_eff}: {cfg_t.n_layers} Mamba2 blocks, the shared block {groups_t} times, "
          f"the tied head; over {ms_med:.2f} ms at 989 TFLOP/s bf16)")
     del step_fn, first
     torch.cuda.empty_cache()

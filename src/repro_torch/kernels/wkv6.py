@@ -33,8 +33,11 @@ hd in [1, 128] runs at ``padded_head_dim(hd)``, its inputs zero-padded by
 ``pad_head_dim`` (w by ones) and y and the state cropped: a padded row has
 r = k = 0 and a zero state, a padded column v = 0 and a zero state, so both
 stay zero and add nothing to the true sums.  K7b pads and crops the same
-way (its padded rows and columns of dy and of the state's gradient are
-zeros, so the gradient's recurrence keeps them zero too).  ``state_out``,
+way, to ``bwd_head_dim(hd)``, the next power of two from 16 (its padded
+rows and columns of dy and of the state's gradient are zeros, so the
+gradient's recurrence keeps them zero too).  K7b cuts the sequence into
+chunks of ``BWD_CHUNK`` tokens and runs them in parallel
+(``wkv6_bwd_chunked_ref`` renders its passes in plain torch).  ``state_out``,
 when given, is a contiguous buffer that receives the final state and may be
 ``s0`` itself: a decode step updates its state in place (never under a
 gradient).
@@ -60,6 +63,11 @@ _GEOMETRY = {16: (16, 4, 2), 32: (32, 8, 4), 48: (16, 4, 2), 64: (16, 16, 4),
              80: (16, 4, 2), 96: (32, 8, 4), 112: (16, 4, 2), 128: (32, 16, 4)}
 STEP = (0, 0, 0)  # the decode step's kernel
 MAX_HEAD_DIM = HEAD_DIMS[-1]
+# K7b (csrc/wkv6_bwd.cu): its head dims, and the tokens of a chunk and of a
+# tile of its pass C (the .cu's CH and T)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_CHUNK = 32
+BWD_TILE = 8
 
 
 def padded_head_dim(hd: int) -> int:
@@ -71,6 +79,14 @@ def padded_head_dim(hd: int) -> int:
             f"state and a tile's rows, sized by hd, in registers and shared memory)"
         )
     return -(-hd // 16) * 16
+
+
+def bwd_head_dim(hd: int) -> int:
+    """The head dim of ``BWD_HEAD_DIMS`` that K7b runs ``hd`` at: the next
+    power of two from 16 (a pass-C block holds 16 whole rows, hd / 4 adjacent
+    lanes a row, and the rows' lanes meet by shuffles within a warp)."""
+    padded_head_dim(hd)  # raises outside [1, MAX_HEAD_DIM]
+    return next(x for x in BWD_HEAD_DIMS if x >= hd)
 
 
 def launch_geometry(hd: int, l: int = 2) -> tuple[int, int, int]:
@@ -88,13 +104,13 @@ def launch_geometry(hd: int, l: int = 2) -> tuple[int, int, int]:
     return STEP if l == 1 else _GEOMETRY[hp]
 
 
-def pad_head_dim(r, k, v, w, u, s0=None):
-    """(r, k, v, w, u, s0) at ``padded_head_dim(hd)``, in new fp32 buffers:
-    r, k, v and u padded with zeros, w with ones (any finite decay: it only
-    scales a zero row), s0 with zeros (None stays None).  The inputs
-    themselves when hd is already a kernel's."""
+def pad_head_dim(r, k, v, w, u, s0=None, width=None):
+    """(r, k, v, w, u, s0) at ``width`` (default ``padded_head_dim(hd)``),
+    in new fp32 buffers: r, k, v and u padded with zeros, w with ones (any
+    finite decay: it only scales a zero row), s0 with zeros (None stays
+    None).  The inputs themselves when hd is already that width."""
     hd = r.shape[-1]
-    hp = padded_head_dim(hd)
+    hp = padded_head_dim(hd) if width is None else width
     if hp == hd:
         return r, k, v, w, u, s0
 
@@ -175,6 +191,102 @@ def wkv6_bwd_ref(
         du += (rt * kt * (vt * dyt).sum(-1, keepdim=True)).sum(0)
         g = wt[..., :, None] * g + rt[..., :, None] * dyt[..., None, :]
     return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype), du.to(u.dtype), g
+
+
+def wkv6_bwd_chunked_ref(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+    dy: torch.Tensor, s0: torch.Tensor | None = None, ds: torch.Tensor | None = None,
+    chunk: int = BWD_CHUNK, tile: int = BWD_TILE,
+) -> tuple[torch.Tensor, ...]:
+    """K7b's algorithm in plain torch, for the tests: ``wkv6_bwd_ref``'s
+    function, the sequence cut into chunks of ``chunk`` tokens (the last
+    padded with tokens that change nothing: r = k = v = dy = 0, w = 1).
+
+    A. the state at each chunk's start, chunk after chunk: S_end = diag(P)
+       S_start + K̃ᵀ V, K̃[s] = k_s ∘ Π_{s<τ≤end} w_τ, P the chunk's product
+       of w;
+    B. G at each chunk's end, the last chunk first: G_start-1 = diag(P)
+       G_end + R̃ᵀ dY, R̃[t] = r_t ∘ Π_{start≤τ<t} w_τ; ds0 is G before the
+       first token;
+    C. every chunk at once from its S and G: a forward walk keeps the state
+       before each tile of ``tile`` tokens, then a backward walk recomputes
+       each tile's states and carries G through it.
+
+    Decay products are formed by multiplying w, never by dividing by it.
+    du adds each chunk's sum over b, then over the chunks, in that order.
+    Returns what ``wkv6_bwd_ref`` returns."""
+    b, l, h, hd = r.shape
+    acc = _acc(r)
+    nc = -(-l // chunk)
+    pad = nc * chunk - l
+
+    def chunks(t, fill):  # [B, L, H, hd] -> [nc, chunk, B, H, hd], padded
+        t = t.to(acc)
+        if pad:
+            t = torch.cat([t, t.new_full((b, pad, h, hd), fill)], 1)
+        return t.view(b, nc, chunk, h, hd).permute(1, 2, 0, 3, 4)
+
+    rc, kc, vc, dc = (chunks(t, 0.0) for t in (r, k, v, dy))
+    wc = chunks(w, 1.0)
+    uu = u.to(acc)
+    zero = torch.zeros((b, h, hd, hd), dtype=acc, device=r.device)
+    # A
+    s = zero if s0 is None else s0.to(acc)
+    starts = []
+    for c in range(nc):
+        starts.append(s)
+        decay, kt = torch.ones_like(kc[c, 0]), torch.empty_like(kc[c])
+        for t in reversed(range(chunk)):
+            kt[t] = kc[c, t] * decay
+            decay = decay * wc[c, t]
+        s = decay[..., None] * s + torch.einsum("tbhi,tbhj->bhij", kt, vc[c])
+    # B
+    g = zero if ds is None else ds.to(acc)
+    ends = [zero] * nc
+    for c in reversed(range(nc)):
+        ends[c] = g
+        decay, rt = torch.ones_like(rc[c, 0]), torch.empty_like(rc[c])
+        for t in range(chunk):
+            rt[t] = rc[c, t] * decay
+            decay = decay * wc[c, t]
+        g = decay[..., None] * g + torch.einsum("tbhi,tbhj->bhij", rt, dc[c])
+    ds0 = g
+    # C: every chunk at once, [nc, B, H, hd, hd]
+    def step(state, x):
+        return wc[:, x, ..., None] * state + kc[:, x, ..., None] * vc[:, x, ..., None, :]
+
+    s, g = torch.stack(starts), torch.stack(ends)
+    snaps = []
+    for x in range(chunk):
+        if x % tile == 0:
+            snaps.append(s)
+        s = step(s, x)
+    a = (vc * dc).sum(-1, keepdim=True)  # v_t . dy_t [nc, chunk, B, H, 1]
+    dr, dk, dv, dw = (torch.empty_like(rc) for _ in range(4))
+    for n in reversed(range(len(snaps))):
+        s, before = snaps[n], []
+        xs = range(n * tile, min((n + 1) * tile, chunk))
+        for x in xs:
+            before.append(s)
+            s = step(s, x)
+        for x, sp in zip(reversed(xs), reversed(before)):
+            rt, kt, vt, wt, dyt, at = (t[:, x] for t in (rc, kc, vc, wc, dc, a))
+            dr[:, x] = (sp * dyt[..., None, :]).sum(-1) + uu * kt * at
+            dk[:, x] = (g * vt[..., None, :]).sum(-1) + rt * uu * at
+            dv[:, x] = (g * kt[..., :, None]).sum(-2) + dyt * (rt * uu * kt).sum(-1, keepdim=True)
+            dw[:, x] = (g * sp).sum(-1)
+            g = wt[..., :, None] * g + rt[..., :, None] * dyt[..., None, :]
+    du_part = (rc * kc * a).sum(1)  # [nc, B, H, hd]
+    du = torch.zeros_like(uu)
+    for bb in range(b):
+        for c in range(nc):
+            du = du + du_part[c, bb]
+
+    def unchunk(t):
+        return t.permute(2, 0, 1, 3, 4).reshape(b, nc * chunk, h, hd)[:, :l]
+
+    dr, dk, dv, dw = map(unchunk, (dr, dk, dv, dw))
+    return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype), du.to(u.dtype), ds0
 
 
 def _check(r, k, v, w, u, s0, state_out) -> None:
@@ -270,40 +382,43 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch_bwd(r, k, v, w, u, dy, s0, ds) -> tuple[torch.Tensor, ...]:
     """K7b on the card; counts no launch.  Inputs are widened to fp32 and,
-    at a head dim that is no kernel's, padded as the forward pads them (dy
-    and ``ds`` with zeros); the gradients come back cropped, in the inputs'
-    dtypes (ds0 fp32)."""
+    at a head dim that is not K7b's, padded to ``bwd_head_dim(hd)`` as the
+    forward pads them (dy and ``ds`` with zeros); the gradients come back
+    cropped, in the inputs' dtypes (ds0 fp32)."""
     b, l, h, hd = r.shape
     dtypes = (r.dtype, k.dtype, v.dtype, w.dtype, u.dtype)
-    r, k, v, w, u, s0 = pad_head_dim(r, k, v, w, u, s0)
-    hp = r.shape[-1]
+    hp = bwd_head_dim(hd)
+    r, k, v, w, u, s0 = pad_head_dim(r, k, v, w, u, s0, width=hp)
     if hp != hd:
         dy = torch.nn.functional.pad(dy.float(), (0, hp - hd))
         if ds is not None:
             ds = torch.nn.functional.pad(ds.float(), (0, hp - hd, 0, hp - hd))
     r, k, v, w, u, dy = (_aligned(t) for t in (r, k, v, w, u, dy))
     s0, ds = (None if t is None else _aligned(t) for t in (s0, ds))
-    nb = hp // 16
+    lib = library("wkv6_bwd")
+    if lib.wkv6_bwd_chunk() != BWD_CHUNK:
+        raise RuntimeError("wkv6_bwd: the library's chunk differs from BWD_CHUNK")
+    nc = -(-l // BWD_CHUNK)
     dev = r.device
     f32 = dict(dtype=torch.float32, device=dev)
-    snap = torch.empty((-(-l // 8), b, h, hp, hp), **f32)
-    part = torch.empty((3, nb, b, l, h, hp), **f32)
-    du_part = torch.empty((b, nb, h, hp), **f32)
+    sbuf = torch.empty((nc, b, h, hp, hp), **f32)
+    gbuf = torch.empty((nc, b, h, hp, hp), **f32)
+    du_part = torch.empty((b, nc, h, hp), **f32)
     grads = torch.empty((3, b, l, h, hp), **f32)
     dv = torch.empty((b, l, h, hp), **f32)
     du = torch.empty((h, hp), **f32)
     ds0 = torch.empty((b, h, hp, hp), **f32)
-    fn = library("wkv6_bwd").wkv6_bwd_launch
+    fn = lib.wkv6_bwd_launch
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(ptr(t) for t in (r, k, v, w, u, dy, s0, ds, snap, part, du_part, grads, dv,
+        err = fn(*(ptr(t) for t in (r, k, v, w, u, dy, s0, ds, sbuf, gbuf, du_part, grads, dv,
                                     du, ds0)), b, l, h, hp, stream)
     if err != 0:
         raise RuntimeError(f"wkv6_bwd kernel launch failed: cudaError {err}")
-    del snap, part, du_part
+    del sbuf, gbuf, du_part
     dr, dk, dw = grads.unbind(0)
     out = [dr, dk, dv, dw, du]
     if hp != hd:

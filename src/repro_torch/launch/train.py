@@ -21,10 +21,11 @@ leaf, in the order of the parameter tree, before every rank runs the same
 for bit, so the launcher's steps are ``make_train_step``'s.  Above one
 rank the mean is exact for a loss that is a mean over independent rows
 (the dense, ssm and hybrid families, and MoE's cross entropy).  MoE's
-load-balance aux loss is not: it is a product of two batch means (each
-expert's share of the routed tokens and its mean router probability), so
-the ranks' own aux losses, averaged, are not the global batch's aux that
-the JAX package's SPMD host mesh computes (ROADMAP item 23).  Rank 0 writes
+load-balance aux loss is a product of two batch means (each expert's share
+of the routed choices and its mean router probability): the launcher
+hands its group to the MoE ``loss_fn``, whose ``moe_ffn`` adds both sums
+over the ranks before the product, so every rank's aux is the global
+batch's, as the JAX package's SPMD host mesh computes it.  Rank 0 writes
 the checkpoints (``AsyncCheckpointer``, the JAX package's layout, so either
 package resumes the other's); ``--resume`` restores the latest through
 ``restore_tree`` on every rank and continues the pipeline at its step.
@@ -124,7 +125,8 @@ def run(args: argparse.Namespace) -> dict:
         model = build_model(cfg, device=dev)
 
         opt_cfg = OptConfig(total_steps=args.steps, warmup_steps=max(5, args.steps // 20))
-        loss_kwargs = {"extra_slots": args.extra_slots} if cfg.family == "moe" else {}
+        loss_kwargs = ({"extra_slots": args.extra_slots, "group": group}
+                       if cfg.family == "moe" else {})
         step_fn = make_train_step(model, opt_cfg, loss_kwargs, reduce_grads=_mean_over(group))
         params, opt_state = init_train_state(model, 0)
 

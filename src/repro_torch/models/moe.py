@@ -49,6 +49,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
@@ -162,8 +163,31 @@ def _counts(index: torch.Tensor, n: int) -> torch.Tensor:
 
 
 # -------------------------------------------------------------- the dispatch
+def _spans_ranks(group) -> bool:
+    return group is not None and group.size() > 1
+
+
+def data_parallel_batch(topi: torch.Tensor, n_experts: int, group=None):
+    """What the replica plan and the aux loss need of the global batch:
+    (each expert's choices [E] int64, the dispatch groups, the index of this
+    batch's first group).  For no group, or a group of one rank, that is
+    this batch: its counts, its g, 0.  Where the batch is this rank's share
+    of a data-parallel ``group`` of more than one rank, it is the ranks'
+    batches together, from one SUM ``all_reduce`` of [counts, g at this
+    rank's place] (the last two items then 0-d int64 tensors)."""
+    e, g = n_experts, topi.shape[0]
+    counts = _counts(topi.reshape(-1), e)
+    if not _spans_ranks(group):
+        return counts, g, 0
+    local = torch.zeros(e + group.size(), dtype=torch.int64, device=topi.device)
+    local[:e] = counts
+    local[e + group.rank()] = g
+    dist.all_reduce(local, group=group)
+    return local[:e], local[e:].sum(), local[e:e + group.rank()].sum()
+
+
 def assign_slots(
-    flat_e: torch.Tensor, n_experts: int, cap: int, extra_slots: int,
+    flat_e: torch.Tensor, n_experts: int, cap: int, extra_slots: int, dp=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Each choice's slot and the expert each slot serves.
 
@@ -172,14 +196,19 @@ def assign_slots(
     A choice of an expert granted r replicas goes to its primary slot e or
     to its replica slot ``extra_base[e] + r' - 1`` by r' = mix32(global
     choice index, REPLICA_SEED) % (1 + r); the plan is for g groups of
-    ``cap`` rows a slot."""
+    ``cap`` rows a slot.  ``dp`` (``data_parallel_batch``, this batch's when
+    None): the batch whose counts and groups the plan is for, and where this
+    batch's choices stand in it, so a rank's share of a data-parallel batch
+    is planned as the JAX package's SPMD host mesh plans the whole."""
     if extra_slots == 0:
         return flat_e, None
     g, n = flat_e.shape
     e = n_experts
-    counts = _counts(flat_e.reshape(-1), e)
-    slot_expert, replica_count, extra_base = plan_replica_slots(counts, cap * g, e, extra_slots)
-    gid = torch.arange(g * n, device=flat_e.device).reshape(g, n)
+    counts, groups, first = dp if dp is not None else data_parallel_batch(flat_e, e)
+    gid = ((first + torch.arange(g, device=flat_e.device))[:, None] * n
+           + torch.arange(n, device=flat_e.device))
+    slot_expert, replica_count, extra_base = plan_replica_slots(counts, cap * groups, e,
+                                                                extra_slots)
     r = mix32_torch(gid, REPLICA_SEED) % replica_count.long()[flat_e]
     return torch.where(r == 0, flat_e, extra_base.long()[flat_e] + r - 1), slot_expert
 
@@ -198,15 +227,16 @@ class Dispatch:
     pos: torch.Tensor  # [g*tg*k] each choice's buffer row; -1 where dropped
 
 
-def dispatch(topi: torch.Tensor, n_experts: int, cap: int, extra_slots: int = 0) -> Dispatch:
+def dispatch(topi: torch.Tensor, n_experts: int, cap: int, extra_slots: int = 0,
+             dp=None) -> Dispatch:
     """Bin ``topi`` [g, tg, k] (each token's experts) into S = n_experts +
     extra_slots slots of ``cap`` rows per group, each choice in the slot
-    ``assign_slots`` gives it."""
+    ``assign_slots`` gives it (``dp``: as its)."""
     g, tg, k = topi.shape
     n = tg * k
     s = n_experts + extra_slots
     dev = topi.device
-    slot, slot_expert = assign_slots(topi.reshape(g, n).long(), n_experts, cap, extra_slots)
+    slot, slot_expert = assign_slots(topi.reshape(g, n).long(), n_experts, cap, extra_slots, dp)
     c = torch.arange(n, device=dev)
     reducer = slot * g + torch.arange(g, device=dev)[:, None]
     bins, valid, loads, _ = group_by_reducer(reducer.reshape(-1), c.repeat(g)[:, None], s * g,
@@ -349,6 +379,42 @@ def _combine(y: torch.Tensor, disp: Dispatch, topw: torch.Tensor) -> torch.Tenso
     return _Combine.apply(y.reshape(-1, d), w, disp.pos, disp.choice, k).view(g, tg, d)
 
 
+class _SumOver(torch.autograd.Function):
+    """A SUM ``all_reduce`` over ``group`` that autograd sees: its backward
+    is the same ``all_reduce`` of the gradient, since every rank's loss
+    reads the sum (each input's gradient is the sum of the ranks'
+    gradients of the output)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+def _aux_loss(probs: torch.Tensor, topi: torch.Tensor, e: int, group, dp) -> torch.Tensor:
+    """The Switch-style load-balance loss e·Σ_e frac_e·mean(P_e) of the
+    batch ``dp`` (``data_parallel_batch``) describes: each expert's share of
+    the routed choices times its mean router probability.  Over a
+    data-parallel ``group`` of more than one rank the probability sums are
+    added over the ranks through ``_SumOver`` before the product, so each
+    rank's router gradient is that of the global aux times the world size
+    (the launcher's mean divides it back)."""
+    g, tg, k = topi.shape
+    counts, groups, _ = dp
+    frac = counts.float() / (groups * tg * k)
+    p = probs.reshape(-1, e)
+    mean = _SumOver.apply(p.sum(0), group) / (groups * tg) if _spans_ranks(group) else p.mean(0)
+    return e * torch.sum(frac * mean)
+
+
 def moe_ffn(
     blk: dict,
     x: torch.Tensor,  # [B, L, d]
@@ -356,26 +422,30 @@ def moe_ffn(
     capacity_factor: float = 1.25,
     extra_slots: int = 0,
     return_stats: bool = False,
+    group=None,
 ):
     """Routed experts (+ the shared expert) of one layer; one dispatch group
     per sequence.  Returns (out [B, L, d], aux), and with ``return_stats``
     a third item: ``dropped``, ``drop_rate``, ``slot_loads`` [E +
-    extra_slots] and ``aux_loss``."""
+    extra_slots] and ``aux_loss``.  ``group``: the data-parallel process
+    group whose global batch this batch is a share of (the replica plan and
+    the aux loss are the global batch's, as the JAX package's SPMD host mesh
+    computes them: ``data_parallel_batch``); None, or a group of one rank,
+    takes this batch alone."""
     g, tg, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     s = e + extra_slots
     cap = max(8, int(math.ceil(tg * k * capacity_factor / s)))
     probs, topw, topi = route(blk, x, k)
-    disp = dispatch(topi, e, cap, extra_slots)
+    dp = data_parallel_batch(topi, e, group)
+    disp = dispatch(topi, e, cap, extra_slots, dp)
     y = _expert_mlp(_gather(x, disp, s), blk["experts"], disp, e)
     out = _combine(y, disp, topw)
     if cfg.n_shared:
         gate = torch.sigmoid((x @ blk["shared_gate"].to(x.dtype)).float()).to(x.dtype)
         out = out + gate * mlp(blk["shared"], x, cfg.act)
 
-    # load-balance auxiliary loss (Switch-style)
-    frac = _counts(topi.reshape(-1), e).float() / (g * tg * k)
-    aux = e * torch.sum(frac * probs.reshape(-1, e).mean(0))
+    aux = _aux_loss(probs, topi, e, group, dp)  # load-balance auxiliary loss (Switch-style)
     if not return_stats:
         return out, aux
     dropped = g * tg * k - (disp.pos >= 0).sum()
@@ -384,12 +454,12 @@ def moe_ffn(
 
 
 # ------------------------------------------------------------------ the model
-def _block_apply(cfg: ArchConfig, cap_factor: float, extra_slots: int, blk: dict,
+def _block_apply(cfg: ArchConfig, cap_factor: float, extra_slots: int, group, blk: dict,
                  x: torch.Tensor, is_global: bool):
     h = apply_norm(cfg.norm, blk["ln1"], x)
     x = x + attention(blk["attn"], attn_config(cfg), h, is_global)
     h = apply_norm(cfg.norm, blk["ln2"], x)
-    y, aux = moe_ffn(blk, h, cfg, cap_factor, extra_slots)
+    y, aux = moe_ffn(blk, h, cfg, cap_factor, extra_slots, group=group)
     return x + y, aux
 
 
@@ -402,15 +472,17 @@ def forward_hidden(
     remat: bool = True,
     capacity_factor: float = 1.25,
     extra_slots: int = 0,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (final-norm hidden [B, L*, d], the layers' mean aux loss);
-    ``remat``: recompute each block in the backward."""
+    ``remat``: recompute each block in the backward; ``group``: as
+    ``moe_ffn``'s."""
     x = embed(params["embed"], tokens, dtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     auxs = []
     for blk, is_global in zip(params["blocks"], _layer_flags(cfg)):
-        args = (cfg, capacity_factor, extra_slots, blk, x, is_global)
+        args = (cfg, capacity_factor, extra_slots, group, blk, x, is_global)
         x, aux = remat_block(_block_apply, *args) if remat else _block_apply(*args)
         auxs.append(aux)
     return apply_norm(cfg.norm, params["final_norm"], x), torch.stack(auxs).mean()
@@ -426,14 +498,16 @@ def loss_fn(
     capacity_factor: float = 1.25,
     extra_slots: int = 0,
     aux_coef: float = 0.01,
+    group=None,
 ) -> torch.Tensor:
     """Next-token cross entropy plus ``aux_coef`` times the mean aux loss;
     differentiable, each block rematerialised in the backward under
-    ``remat``."""
+    ``remat``.  ``group``: as ``moe_ffn``'s (the launcher's at a world
+    above one)."""
     tokens = batch["tokens"]
     h, aux = forward_hidden(cfg, params, tokens, batch.get("prefix_embeds"), dtype=dtype,
                             remat=remat, capacity_factor=capacity_factor,
-                            extra_slots=extra_slots)
+                            extra_slots=extra_slots, group=group)
     ce = chunked_cross_entropy(h[:, :-1, :], logits_table(cfg, params), tokens[:, 1:],
                                chunk=loss_chunk)
     return ce + aux_coef * aux

@@ -971,12 +971,14 @@ def _wkv_grads_close(got, want, frac):
 
 
 @pytest.mark.parametrize("with_s0,with_ds", [(False, False), (True, True), (True, False)])
-@pytest.mark.parametrize("l", [1, 77, 300])
-@pytest.mark.parametrize("hd", [16, 64, 80, 128])
+@pytest.mark.parametrize("l", [1, 31, 32, 33, 67, 77, 300, 2048])
+@pytest.mark.parametrize("hd", [16, 24, 32, 64, 80, 128])
 def test_wkv6_bwd_kernel_matches_plain(cuda, hd, l, with_s0, with_ds):
     """K7b against ``wkv6_bwd_ref`` on the same fp32 inputs (2e-4 of each
-    gradient's largest entry: sums over t and j in another order); hd 80
-    runs padded to 96; L = 1 and a ragged last tile; two calls bit for bit."""
+    gradient's largest entry: sums over t and j in another order); every
+    instantiation of the kernel (hd 16, 32, 64, 128), hd 24 running padded
+    to 32 and hd 80 to 128; L = 1, lengths around the chunk of 32 tokens (C - 1,
+    C, C + 1, 2C + 3), ragged last chunks and 2,048; two calls bit for bit."""
     r, k, v, w, u, s0 = _wkv_inputs(2, l, 3, hd, hd + l, cuda)
     rng = np.random.default_rng(l)
     dy = torch.from_numpy(rng.normal(size=r.shape).astype(np.float32)).to(cuda)

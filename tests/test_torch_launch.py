@@ -323,6 +323,23 @@ def _torchrun(argv, nproc):
     return out.stdout
 
 
+def _world_two_against_one(tmp_path, arch):
+    """(the logged losses at worlds one and two, the distance of world two's
+    parameters from world one's after three steps, how far world one's
+    moved from the initial ones)."""
+    argv = ["--arch", arch, "--reduced", "--steps", "3", "--batch", "4", "--seq", "24",
+            "--device", "cpu", "--ckpt-every", "3"]
+    logs = [_torchrun(argv + ["--ckpt-dir", str(tmp_path / f"w{n}")], n) for n in (1, 2)]
+    losses = [[float(x) for x in re.findall(r"loss=([0-9.e+-]+)", log)] for log in logs]
+    assert len(losses[0]) == len(losses[1]) == 2  # steps 0 and 2, logged by rank 0
+    (_, one), (_, two) = (load_checkpoint(str(tmp_path / f"w{n}")) for n in (1, 2))
+    p0 = _init_flat(arch)
+    keys = [k for k in one if k.startswith("params/")]
+    moved = math.sqrt(sum(float(np.sum((one[k] - p0[k]) ** 2)) for k in keys))
+    diff = math.sqrt(sum(float(np.sum((two[k] - one[k]) ** 2)) for k in keys))
+    return losses, diff, moved
+
+
 def test_launcher_gloo_world_two_equals_world_one(tmp_path):
     """``torchrun`` with two gloo ranks, each taking half of the global
     batch and averaging the gradients, against one process with the whole
@@ -333,24 +350,32 @@ def test_launcher_gloo_world_two_equals_world_one(tmp_path):
     1e-4 relative, the parameters after three steps to 2e-2 of the update
     (measured 1e-2; AdamW divides each entry by its own RMS, so a small
     gradient's rounding moves its entry by up to lr)."""
-    argv = ["--arch", "olmo-1b", "--reduced", "--steps", "3", "--batch", "4", "--seq", "24",
-            "--device", "cpu", "--ckpt-every", "3"]
-    logs = [_torchrun(argv + ["--ckpt-dir", str(tmp_path / f"w{n}")], n) for n in (1, 2)]
-    losses = [[float(x) for x in re.findall(r"loss=([0-9.e+-]+)", log)] for log in logs]
-    assert len(losses[0]) == len(losses[1]) == 2  # steps 0 and 2, logged by rank 0
+    losses, diff, moved = _world_two_against_one(tmp_path, "olmo-1b")
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
-    (_, one), (_, two) = (load_checkpoint(str(tmp_path / f"w{n}")) for n in (1, 2))
-    p0 = {k: v for k, v in _init_flat().items()}
-    keys = [k for k in one if k.startswith("params/")]
-    moved = math.sqrt(sum(float(np.sum((one[k] - p0[k]) ** 2)) for k in keys))
-    diff = math.sqrt(sum(float(np.sum((two[k] - one[k]) ** 2)) for k in keys))
     assert 0 < diff <= 2e-2 * moved, (diff, moved)
 
 
-def _init_flat() -> dict:
+def test_launcher_gloo_world_two_equals_world_one_moe(tmp_path):
+    """The same for qwen2-moe-a2.7b (8 replica slots, the launcher's): the
+    replica plan and the aux loss are the global batch's on both ranks
+    (``moe_ffn`` sums its expert counts and router probabilities over the
+    launcher's group), so step 0's loss, before any update, equals world
+    one's to 1e-5 (measured 7e-8; each rank's own plan and aux were 7.6e-3
+    off).  After that the bf16 rounding of the half-batch gradients moves
+    discrete choices (top-k routes, capacity drops) that olmo-1b does not
+    have: step 2's loss to 2e-3 (measured 6.6e-4; 5.6e-3 without the
+    group) and the parameters to 0.25 of the update (measured 0.11; 0.59
+    without the group)."""
+    losses, diff, moved = _world_two_against_one(tmp_path, "qwen2-moe-a2.7b")
+    np.testing.assert_allclose(losses[1][0], losses[0][0], rtol=1e-5)
+    np.testing.assert_allclose(losses[1][1], losses[0][1], rtol=2e-3)
+    assert 0 < diff <= 0.25 * moved, (diff, moved)
+
+
+def _init_flat(arch: str) -> dict:
     from repro_torch.models.convert import train_state_to_jax_layout
     from repro_torch.train.checkpoint import _flatten_with_paths
 
-    model = build_model(tconfigs.get_config("olmo-1b").reduced(), device="cpu")
+    model = build_model(tconfigs.get_config(arch).reduced(), device="cpu")
     params, state = ttrain.init_train_state(model, 0)
     return _flatten_with_paths(train_state_to_jax_layout({"params": params, "opt": state}))

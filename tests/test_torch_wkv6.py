@@ -415,6 +415,71 @@ def test_plain_backward_underflowing_decay():
         _frac_close(g.numpy(), wnt, name=name)
 
 
+# ---- K7b's chunked algorithm in plain torch (wkv6_bwd_chunked_ref) -------
+_C = wk.BWD_CHUNK
+
+
+@pytest.mark.parametrize("with_s0,with_ds", [(False, False), (True, False), (False, True),
+                                             (True, True)])
+@pytest.mark.parametrize("hd", [16, 80])
+@pytest.mark.parametrize("l", [1, _C - 1, _C, _C + 1, 2 * _C + 3])
+def test_chunked_backward_matches_plain_and_jax_vjp(l, hd, with_s0, with_ds):
+    """Passes A-C (chunks of 32 tokens, tiles of 8) against the explicit
+    reverse recurrence ``wkv6_bwd_ref`` and ``jax.vjp`` of the model's
+    ``_wkv_scan``, at lengths around the chunk (L = 1, C - 1, C, C + 1,
+    2C + 3), with and without s0 and dS_final: every gradient to 2e-4 of
+    its largest entry (sums over the chunks in another order)."""
+    b, h = 2, 2
+    r, k, v, w, u, s0 = _inputs(b, l, h, hd, l + hd, s0_scale=0.5 if with_s0 else 0.0)
+    dy, ds = _cotangents(b, l, h, hd, 2 * l + hd)
+    ds = ds if with_ds else np.zeros_like(ds)
+    args = (*_t(r, k, v, w, u, dy), torch.from_numpy(s0) if with_s0 else None,
+            torch.from_numpy(ds) if with_ds else None)
+    got = wk.wkv6_bwd_chunked_ref(*args)
+    plain = wk.wkv6_bwd_ref(*args)
+    _, vjp = jax.vjp(lambda *a: _wkv_scan(*a, chunk=16, unroll=1),
+                     *map(jnp.asarray, (r, k, v, w, u, s0)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    for name, g, p, wnt in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, plain, want):
+        assert g.dtype == p.dtype and g.shape == p.shape, name
+        _frac_close(g.numpy(), p.numpy(), name=name)
+        _frac_close(g.numpy(), wnt, name=name)
+
+
+def test_chunked_backward_underflowing_decay():
+    """The underflowing decay of ``test_plain_backward_underflowing_decay``
+    over three chunks: the chunks' decay products are formed by multiplying
+    w (a 0 gives zeros, no 0/0), so every gradient is finite and equals the
+    plain version and the JAX package's vjp."""
+    b, l, h, hd = 2, 2 * _C + 3, 2, 16
+    r, k, v, _, u, s0 = _inputs(b, l, h, hd, 5, s0_scale=0.5)
+    x = np.random.default_rng(6).uniform(-3, 7, size=(b, l, h, hd))
+    w = np.exp(-np.exp(x)).astype(np.float32)
+    assert (w == 0).any()
+    dy, ds = _cotangents(b, l, h, hd, 6)
+    args = (*_t(r, k, v, w, u, dy), torch.from_numpy(s0), torch.from_numpy(ds))
+    got = wk.wkv6_bwd_chunked_ref(*args)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _, vjp = jax.vjp(lambda *a: _wkv_scan(*a, chunk=8, unroll=1),
+                     *map(jnp.asarray, (r, k, v, w, u, s0)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    for name, g, p, wnt in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                               wk.wkv6_bwd_ref(*args), want):
+        _frac_close(g.numpy(), p.numpy(), name=name)
+        _frac_close(g.numpy(), wnt, name=name)
+
+
+def test_bwd_head_dim_pads_to_a_power_of_two():
+    """K7b's widths: every hd in [1, 128] runs at the next of 16, 32, 64,
+    128 (``_launch_bwd`` pads to it as the forward pads); outside, it
+    raises as the forward does."""
+    assert [wk.bwd_head_dim(hd) for hd in (1, 16, 17, 32, 48, 64, 65, 80, 128)] == [
+        16, 16, 32, 32, 64, 64, 128, 128, 128]
+    for hd in (0, 129):
+        with pytest.raises(ValueError, match="head dim"):
+            wk.bwd_head_dim(hd)
+
+
 @pytest.mark.parametrize("hd", [8, 24, 72])
 def test_pad_head_dim_keeps_the_backward(hd):
     """K7b's path at a head dim that is no multiple of 16, through the plain

@@ -1,21 +1,25 @@
 """Time the Count-Min kernel (K4), the sketch-only fused pass (K3, the same
-kernel on a row block) and the histogram (K5) of one checkout of the port on
-one card, at the shapes the main path gives them, so that two checkouts can
-be compared in one call.
+kernel on a row block), the histogram (K5) and the RWKV-6 recurrence's
+backward (K7b) of one checkout of the port on one card, at the shapes the
+main path gives them, so that two checkouts can be compared in one call.
 
     python3 tools/kernel_ab.py --src DIR [--label NAME] [--reps N]
+                               [--kernels k4,k3,k5,k7b]
 
 DIR is the root of a checkout: its ``src/repro_torch`` is imported and its
 kernels are built into its own ``build/``.  The inputs are made from fixed
 seeds, as ``chip_smoke.py`` makes them: the streaming phase's batch 0 (R's
-join column and R's rows), 100,000 equal keys, and the §9.1 R join column
-(10^6 values, 100,000 bins).  Each result is checked exactly against the
-checkout's plain version.  Prints the card and one JSON line: the label and
-each case's device ms a call by CUDA-graph replay (``chip_smoke._graph_ms``),
-with ``torch.bincount`` beside K5 (CUDA events around repeated calls,
-``chip_smoke._events_ms``: it reads the maximum back to the host, so it
-cannot be captured in a graph).  To compare a parent and a change,
-run them in turns in separate processes: parent, change, change, parent.
+join column and R's rows), 100,000 equal keys, the §9.1 R join column
+(10^6 values, 100,000 bins), and phase 40's rwkv6-3b shape for K7b
+([4, 2048, 40, 64] fp32 from zero, drawn from seed 0 on the card).  Each
+result is checked against the checkout's plain version: exactly, and K7b
+to 2e-4 of each gradient's largest entry.  Prints the card and one JSON
+line: the label and each case's device ms a call by CUDA-graph replay
+(``chip_smoke._graph_ms``), with ``torch.bincount`` beside K5 (CUDA events
+around repeated calls, ``chip_smoke._events_ms``: it reads the maximum back
+to the host, so it cannot be captured in a graph).  ``--kernels`` picks
+the kernels (all four by default).  To compare a parent and a change, run
+them in turns in separate processes: parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -33,7 +37,12 @@ def main() -> int:
     ap.add_argument("--src", type=Path, default=ROOT, help="root of the checkout to time")
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--kernels", default="k4,k3,k5,k7b",
+                    help="comma-separated subset of k4, k3, k5, k7b")
     args = ap.parse_args()
+    picked = set(args.kernels.split(","))
+    if not picked <= {"k4", "k3", "k5", "k7b"}:
+        ap.error(f"unknown kernels {sorted(picked - {'k4', 'k3', 'k5', 'k7b'})}")
     import numpy as np
     import torch
 
@@ -48,6 +57,7 @@ def main() -> int:
     from repro_torch.kernels import histogram as hg
     from repro_torch.kernels import ingest_fused as fi
     from repro_torch.kernels import sketch_update as su
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.stream.sketch import _row_seeds
 
     smi = subprocess.run(
@@ -63,20 +73,39 @@ def main() -> int:
     r_col = paper_2way(np.random.default_rng(0), n_r=1_000_000, n_s=100_000)["R"][:, 1]
     hh = torch.from_numpy(r_col.astype(np.int32)).to(dev)
     cases = {
-        "k4_batch0": (lambda: su.cms_update(col0, seeds, width),
+        "k4_batch0": ("k4", lambda: su.cms_update(col0, seeds, width),
                       lambda: su.cms_update_ref(col0, seeds, width)),
-        "k4_equal": (lambda: su.cms_update(equal, seeds, width),
+        "k4_equal": ("k4", lambda: su.cms_update(equal, seeds, width),
                      lambda: su.cms_update_ref(equal, seeds, width)),
         "k3_sketch_only": (
-            lambda: fi.fused_ingest(rows0, sketch_cols=(1,), seeds=seeds, width=width)[3],
+            "k3", lambda: fi.fused_ingest(rows0, sketch_cols=(1,), seeds=seeds, width=width)[3],
             lambda: fi.fused_ingest_ref(rows0, sketch_cols=(1,), seeds=seeds, width=width)[3]),
-        "k5_91": (lambda: hg.histogram(hh, 100_000), lambda: hg.histogram_ref(hh, 100_000)),
+        "k5_91": ("k5", lambda: hg.histogram(hh, 100_000),
+                  lambda: hg.histogram_ref(hh, 100_000)),
     }
+    if "k7b" in picked:
+        b, l, h, hd = 4, 2048, 40, 64
+        g = torch.Generator(device=dev).manual_seed(0)
+        r, k, v, dy = (torch.randn((b, l, h, hd), generator=g, device=dev) for _ in range(4))
+        w = 0.6 + 0.399 * torch.rand((b, l, h, hd), generator=g, device=dev)
+        u = 0.1 * torch.randn((h, hd), generator=g, device=dev)
+        wkv_in = (r, 0.3 * k, v, w, u, dy)
+        cases["k7b_rwkv6_3b"] = ("k7b", lambda: wk.wkv6_bwd(*wkv_in),
+                                 lambda: wk.wkv6_bwd_ref(*wkv_in))
     out = {"label": args.label or str(args.src), "card": smi}
-    for name, (fn, ref) in cases.items():
-        assert torch.equal(fn(), ref()), name
+    for name, (kernel, fn, ref) in cases.items():
+        if kernel not in picked:
+            continue
+        got, want = fn(), ref()
+        if kernel == "k7b":
+            err = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(got, want))
+            assert err <= 2e-4, (name, err)
+        else:
+            assert torch.equal(got, want), name
+        del got, want
         out[name] = _graph_ms(fn, args.reps)
-    out["bincount_91"] = _events_ms(lambda: torch.bincount(hh, minlength=100_000), args.reps)
+    if "k5" in picked:
+        out["bincount_91"] = _events_ms(lambda: torch.bincount(hh, minlength=100_000), args.reps)
     print(smi)
     print(json.dumps(out), flush=True)
     return 0
