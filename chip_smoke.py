@@ -191,13 +191,18 @@ Phases:
      0 and 3, x [8, 256, 64] from ``default_rng(0)``): drop rate and
      slot-load imbalance at extra_slots 0 and 8, cf 1.25 and 1.0, replica
      slots dropping no more than the capacity router;
- 28. qwen2-moe-a2.7b at full width in fp32, cut to depth 4 (a full-depth
-     fp32 copy is 57 GB; random weights from seed 0), capacity factor 8.0
-     so that nothing drops: ``forward_hidden`` of [2, 32] through K6
-     against the same call with K6's plain version (2e-4), token-by-token
-     ``decode_step`` logits against the forward's at every position
-     (2e-3), and six requests (prompts of 16 and 32 tokens, max_new 8)
-     behind ``BucketServer``, each equal to ``greedy_generate`` alone;
+ 28. qwen2-moe-a2.7b (``_full_size_phases``, as phases 42-56 below) at
+     full width in fp32, cut to depth 4 (a full-depth fp32 copy is 57 GB;
+     random weights from seed 0), capacity factor E / k = 15 so that nothing
+     drops: ``forward_hidden`` of [2, 32] through K6 against the same call
+     with K6's plain version (2e-4), token-by-token ``decode_step`` logits
+     against the forward's at every position (2e-3), and six requests
+     (prompts of 16 and 32 tokens, max_new 8) behind ``BucketServer``, each
+     equal to ``greedy_generate`` alone; then one fp32 train step at depth 2
+     on [2, 256] through K6 and K6b against autograd through plain
+     attention: the loss (1e-5 relative), every gradient (1e-3 of each
+     leaf's largest entry; router, experts, shared expert and its gate and
+     wq/wk/wv nonzero), the params after AdamW (1e-3 of the update);
  29. bf16 serving at full width and depth, the MoE main path (14.3·10⁹
      parameters, built in bf16): a forward-only ``loss_fn`` over [4, 2048]
      (24 K6 launches a forward, asserted), then ``greedy_generate`` of 4
@@ -208,20 +213,17 @@ Phases:
      step of ``moe_ffn``: expert GEMMs, K6, the router, the dispatch) with
      the dispatch's share on a line of its own; layer 0's drop rate and
      slot loads at extra_slots 0 and 8;
- 30. one fp32 train step at full width, depth 2, on [2, 256]: through K6
-     and K6b against autograd through plain attention: the loss (1e-5
-     relative), every gradient (1e-3 of each leaf's largest entry; router,
-     experts, shared expert and wq/wk/wv nonzero), the params after AdamW
-     (1e-3 of the update);
- 31. bf16 training at full width cut to depth 4 (2.9·10⁹ parameters; fp32
+ 30. bf16 training at full width cut to depth 4 (2.9·10⁹ parameters; fp32
      params, gradients, m and v take about 46 GB): ``make_train_step`` with
      extra_slots 8 and cf 1.25 on [4, 2048] tokens of ``TokenPipeline(seed=
      1)``, AdamW as phase 24: eight steps on one batch (the loss must
      fall); the first two steps run again from the same state (the state
      after them kept on the host) equal bit for bit in loss, params, m and
-     v; ms a step, tokens/s, peak memory, K6/K6b launches a step, busy
-     share and time by function, and ``mfu=`` by 6·N_active·T of the cut
-     config plus the attention term.
+     v, and once more with autograd through plain attention (each loss
+     within 2e-2 relative); ms a step, tokens/s, peak memory, K6/K6b
+     launches a step, busy share and time by function, and ``mfu=`` by
+     6·N_active·T of the cut config plus 12·D a kept (query, key) pair a
+     head.
  32. the Zamba2 hybrid (``models.mamba2``, zamba2-2.7b: 54 Mamba2 layers,
      d = 2560, the shared attention-and-MLP block of 32 heads of 80 after
      every 6; ``_hybrid_phases``) at full width in fp32, cut to depth 12 (two
@@ -286,16 +288,66 @@ Phases:
      ``wkv6_bwd_state_kernel``; pass C, ``wkv6_bwd_chunk_kernel``; du), plain
      time, the function's bound and this design's own operations and bytes
      (no single PyTorch call computes it);
- 41. the launcher (``_launcher_phase``): ``python -m
-     repro_torch.launch.train`` as a subprocess at a world of one (NCCL),
-     OLMo-1B at full size, three steps on [2, 512]: preempted by SIGTERM
-     during its first step (a checkpoint of step 1, 14.1 GB, the phase's
-     one save) and resumed with ``--resume`` to the end (one restore, no
-     save); ``make_train_step`` driven by hand, uninterrupted, in this
-     process on the same batches gives the launcher's logged losses bit
-     for bit: step 0's, and step 2's after the resume, which reads every
-     restored parameter, moment and the step count.  The checkpoint under
-     ``build/chip_smoke_launcher``, removed after.
+ 41. the launcher (``_launcher_phase``): ``repro_torch.launch.train``'s
+     ``main`` as a subprocess at a world of one (NCCL), OLMo-1B at full
+     width cut to depth 2 for the script's time limit (at full depth one
+     14.1 GB checkpoint took most of the phase's 112.6 s; the launcher
+     takes no depth, so a bootstrap wraps its ``get_config``),
+     three steps on [2, 512]: preempted by SIGTERM during its first step (a
+     checkpoint of step 1, 2.8 GB, the phase's one save) and resumed with
+     ``--resume`` to the end (one restore, no save); ``make_train_step``
+     driven by hand, uninterrupted, in this process on the same batches
+     gives the launcher's logged losses bit for bit: step 0's, and step 2's
+     after the resume, which reads every restored parameter, moment and the
+     step count.  The checkpoint under ``build/chip_smoke_launcher``,
+     removed after;
+ 42-56. the five configurations the card had run only at reduced size, at
+     full width (``_full_size_phases``, three phases each, in this order:
+     qwen3-moe-30b-a3b 42-44, granite-3-8b 45-47, gemma3-4b 48-50,
+     internvl2-1b 51-53, hubert-xlarge 54-56; random weights from seed 0):
+     (a) fp32 cut to depth 2: ``forward_hidden`` of [2, 32] from the
+     family's ``make_batch`` (internvl2: 8 patch embeddings ahead of the
+     tokens; hubert: frames) through K6 against the same call with K6's
+     plain version (2e-4); for the decoders, token-by-token ``decode_step``
+     logits against the forward's over the tokens at every position (2e-3;
+     MoE at a capacity factor of E / k, so that no choice can drop); one
+     train step on [2, 256] through K6 and K6b against autograd through
+     plain attention (``_step_vs_plain``; wq/wk/wv, and for MoE the router
+     and experts, nonzero); (b) bf16 serving at full width and depth, built
+     in bf16 on the card after the earlier phases' models are freed: the
+     parameter count against ``ArchConfig.n_params()`` (which counts the
+     matrices, and a gate hubert's MLP lacks), peak memory during the
+     build, a forward-only ``loss_fn`` over [4, 2048] from ``make_batch``
+     four times and once traced (K6 launches a forward asserted: 48, 40,
+     0 (gemma3's windowed layers take the plain branches, as the reference
+     routes them), 24, 48), and for the decoders ``greedy_generate`` of 4
+     prompts of 16 tokens with 8 new (cut from phase 29's 128 and 32 for
+     the script's time: the prompt is scanned one ``decode_step`` a token);
+     for qwen3 the dispatch's share of the forward's busy time beside
+     qwen2-moe-a2.7b's from phase 29 and layer 0's drop rate and slot-load
+     imbalance at extra_slots 0 and 8; (c) bf16 training with
+     ``make_train_step`` on [4, 2048] tokens of ``TokenPipeline(seed=1)``
+     (internvl2: and 64 patch embeddings; hubert: frames and labels from
+     ``make_batch``), AdamW as phase 24, MoE with extra_slots 8 at cf 1.25,
+     at depth 4 (qwen3: 49.8 GB of fp32 params, gradients, m and v), 16
+     (granite: 54.2 GB) and full depth (gemma3, internvl2, hubert), through
+     ``_train_bf16``: eight steps on one batch (the loss must fall), a
+     traced ninth, two again from seed 0 bit for bit, and the same two
+     with autograd through plain attention (each loss within 2e-2 of the
+     kernels', relative: a sound kernel path follows the plain one, also
+     where the loss first rises; not for gemma3, whose path is the plain
+     one); ``mfu=`` by 6 N T (N the matrices a position passes through,
+     MoE's active ones) plus 12 D a kept (query, key) pair a head;
+ 57. K6 and K6b at each new shape, on layer 0's bf16 q, k, v of the serving
+     batch (taken at the forward's first K6 call, which then stops), as
+     phase 36: qwen3-moe-30b-a3b's [4, 32, 2048, 128] causal GQA 32:4 and
+     granite-3-8b's GQA 32:8 (wgmma), internvl2-1b's [4, 14, 2112, 64]
+     causal GQA 14:2 (wgmma, a ragged last tile), hubert-xlarge's [4, 16,
+     2048, 80] non-causal (``mma.sync``): each against its plain version
+     (2e-2; K6b also by relative norm, 1e-2), device time (a CUDA graph),
+     plain time, SDPA's forward and backward (``enable_gqa`` under GQA),
+     bound; the kernels line carries them as ``*_qwen3``, ``*_granite``,
+     ``*_internvl2`` and ``*_d80_noncausal``.
 
 Every kernel's time is device time per call of everything the wrapper
 launches, from CUDA events around the replay of a CUDA graph of repeated
@@ -309,11 +361,17 @@ step) may still lose one, shown by the count of the port's kernels in it,
 and its busy share then reads low.  The wrapper's time, host work
 included, is CUDA events around repeated calls.
 
+The training phases keep the state after two steps in page-locked host
+blocks that each reuses (``_HostCopy``) and compare the second run's with
+it on the card.
+
 Prints a ``kernels`` JSON line (each entry's launches on the main path and
 on each other path: ``launches_speculative``, ``launches_distributed``, ...,
-``launches_hybrid``, ``launches_rwkv_train``, ``launches_launcher``; K7b's
-entry, ``wkv6_bwd``, counts phase 39's) and, last, ``{"ok": true, "device":
-...}``.
+``launches_hybrid``, ``launches_rwkv_train``, ``launches_launcher`` and
+``launches_qwen3``, ``launches_granite``, ``launches_gemma3``,
+``launches_internvl2``, ``launches_hubert`` (phases 43-44, ..., 55-56);
+K7b's entry, ``wkv6_bwd``, counts phase 39's), each phase group's seconds,
+and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -366,6 +424,11 @@ MOE_RANGES = {"moe.route": "route", "moe.dispatch": "dispatch", "moe.gather": "_
 # shared attention-and-MLP block (K6 inside it)
 HYBRID_RANGES = {"mamba2.ssd": "ssd", "mamba2.conv": "_causal_conv",
                  "mamba2.shared": "_shared_apply"}
+# phases 42-56: the configurations run on the card at full size in this
+# script alone, each with the K6 launches of a full-depth forward (none in
+# gemma3's windowed layers) and the depth it trains at (None: full depth)
+FULL_SIZE = (("qwen3-moe-30b-a3b", 48, 4), ("granite-3-8b", 40, 16), ("gemma3-4b", 0, None),
+             ("internvl2-1b", 24, None), ("hubert-xlarge", 48, None))
 RETAKEN: list[str] = []  # kernels whose trace lost device events and was taken again
 
 
@@ -400,14 +463,19 @@ def _traced(fn, counts=None, spans=None):
     of device events by name.  A dict given as ``spans`` (range name -> 0)
     receives the device microseconds of the kernels launched inside each
     ``record_function`` range of that name; the ranges' own device-side
-    markers are not device work and stay out of the busy time."""
+    markers are not device work and stay out of the busy time.  Without
+    ``spans`` the profiler records the device alone: parsing the host's
+    events, which nothing here reads, took most of a train step's trace
+    (PERF.md §6)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     ready = []
     warm = torch.zeros(1, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CUDA] if spans is None else [ProfilerActivity.CPU,
+                                                                ProfilerActivity.CUDA]
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=lambda p: ready.append(p.events())) as prof:
         for _ in range(TRACE_WARMUP):
@@ -662,12 +730,13 @@ def _ptxas_spills(log: str, kernel: str):
     return None
 
 
-def _flash_work(b, h, l, d, causal, elem_bytes):
+def _flash_work(b, h, l, d, causal, elem_bytes, hkv=None):
     """(operations, bytes) of one attention forward: 4 D per (query, key)
     pair that the mask keeps (two products, a multiply and an add each),
-    q, k, v and o moved once."""
+    q and o (``h`` heads) and k and v (``hkv`` heads, default ``h``) moved
+    once."""
     pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
-    return 4.0 * d * pairs, 4.0 * b * h * l * d * elem_bytes
+    return 4.0 * d * pairs, 2.0 * b * (h + (hkv or h)) * l * d * elem_bytes
 
 
 def _wkv_work(b, l, h, hd, with_state):
@@ -1392,7 +1461,7 @@ def _rwkv_train_phases(dev, check=(4, 2048, 40), grad=(2, 256), grad_depth=4, tr
     opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
     tokens = torch.from_numpy(np.random.default_rng(38).integers(0, cfg.vocab, grad)
                               .astype(np.int32)).to(dev)
-    tree = _step_vs_plain("rwkv-train", model, tokens, opt_cfg,
+    tree = _step_vs_plain("rwkv-train", model, {"tokens": tokens}, opt_cfg,
                           {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers},
                           _plain_recurrence)
     rec = {nm: float(g.abs().max()) > 0 for nm, g in tree.items()
@@ -1457,8 +1526,10 @@ def _rwkv_train_phases(dev, check=(4, 2048, 40), grad=(2, 256), grad_depth=4, tr
 
 
 def _launcher_phase(dev, shape=(2, 512), reduced=False):
-    """Phase 41: ``python -m repro_torch.launch.train`` as a subprocess at a
-    world of one on the card, olmo-1b at full size, three steps on
+    """Phase 41: the launcher (``repro_torch.launch.train.main``) as a
+    subprocess at a world of one on the card, olmo-1b at full width cut to
+    2 layers (its ``get_config`` wrapped by a bootstrap, since the launcher,
+    as the JAX package's, takes no depth), three steps on
     ``shape`` tokens: preempted by SIGTERM during its first step (it
     checkpoints step 1 and exits: the phase's one save), then run again
     with ``--resume`` to the end (one restore; ``--ckpt-every`` beyond the
@@ -1471,6 +1542,7 @@ def _launcher_phase(dev, shape=(2, 512), reduced=False):
     Returns the launcher's kernel launches over both runs, as it prints
     them.  ``reduced`` (a CPU rehearsal) passes ``--reduced``."""
     import ast
+    import dataclasses
     import os
     import re
     import shutil
@@ -1484,10 +1556,13 @@ def _launcher_phase(dev, shape=(2, 512), reduced=False):
     from repro_torch.models import build_model
     from repro_torch.train import OptConfig, init_train_state, latest_step, make_train_step
 
-    arch, steps = "olmo-1b", 3
+    arch, steps, depth = "olmo-1b", 3, 2
     t_phase = time.perf_counter()
     shutil.rmtree(LAUNCHER_DIR, ignore_errors=True)
-    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--steps",
+    boot = ("import dataclasses, sys; from repro_torch.launch import train; "
+            "get = train.get_config; train.get_config = lambda arch: dataclasses.replace("
+            "get(arch), n_layers=int(sys.argv[1])); train.main(sys.argv[2:])")
+    argv = [sys.executable, "-c", boot, str(depth), "--arch", arch, "--steps",
             str(steps), "--batch", str(shape[0]), "--seq", str(shape[1]), "--ckpt-every",
             str(steps + 1), "--ckpt-dir", str(LAUNCHER_DIR), "--device", dev.type] + (
                 ["--reduced"] if reduced else [])
@@ -1530,7 +1605,8 @@ def _launcher_phase(dev, shape=(2, 512), reduced=False):
     assert any(ln.startswith("resumed from step 1") for ln in lines_r), lines_r
     assert latest_step(str(LAUNCHER_DIR)) == 1 and list(loss_r) == [steps - 1]
     launches = {k_: launches_b[k_] + launches_r[k_] for k_ in launches_b}
-    cfg = get_config(arch).reduced() if reduced else get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    cfg = cfg.reduced() if reduced else cfg
     n_attn = 0 if dev.type == "cpu" else cfg.n_layers  # the CPU launches no kernel
     assert launches["flash_attention"] == 2 * n_attn * steps, launches
     assert launches["flash_attention_bwd"] == n_attn * steps, launches
@@ -1547,7 +1623,7 @@ def _launcher_phase(dev, shape=(2, 512), reduced=False):
         losses.append(float(m["loss"]))
     del params, opt, step, model
     torch.cuda.empty_cache()
-    size = "reduced" if reduced else "at full size"
+    size = "reduced" if reduced else f"at full width, depth {cfg.n_layers}"
     _say(f"[launcher] {arch} {size}, {steps} steps on {list(shape)} tokens: the launcher "
          f"logged losses {loss_b} (preempted; its checkpoint of step 1 is {n_bytes} bytes) and "
          f"{loss_r} (resumed from it); make_train_step by hand, uninterrupted: {losses}; equal "
@@ -1559,14 +1635,14 @@ def _launcher_phase(dev, shape=(2, 512), reduced=False):
     return launches
 
 
-def _flash_bwd_work(b, h, l, d, causal, elem_bytes):
+def _flash_bwd_work(b, h, l, d, causal, elem_bytes, hkv=None):
     """(operations, bytes) of one attention backward: 2 D flops for each of
     the five products of a (query, key) pair that the mask keeps (S = q k^T
     and dP = do v^T rebuilt, dv += P^T do, dq += dS k, dk += dS^T q); q, k,
     v, o and do read once, the fp32 lse read once, dq, dk and dv written
-    once."""
+    once (k, v, dk and dv of ``hkv`` heads, default ``h``)."""
     pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
-    return 10.0 * d * pairs, 8.0 * b * h * l * d * elem_bytes + 4.0 * b * h * l
+    return 10.0 * d * pairs, 4.0 * b * (h + (hkv or h)) * l * d * elem_bytes + 4.0 * b * h * l
 
 
 def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)):
@@ -1972,14 +2048,15 @@ def _plain_recurrence():
         rwkv6.wkv6 = wk.wkv6
 
 
-def _step_vs_plain(tag, model, tokens, opt_cfg, per_call, plain=_plain_attention):
+def _step_vs_plain(tag, model, batch, opt_cfg, per_call, plain=_plain_attention):
     """One fp32 train step (``loss_fn`` with remat, backward, ``adamw_update``)
-    from seed 0 through the kernels (``per_call``: launches by wrapper,
-    asserted) and again with ``plain()`` swapping in autograd through their
-    plain version (none launched): the loss (1e-5 relative), every gradient
-    (1e-3 of each leaf's largest entry) and the params after AdamW (1e-3 of
-    the update), printed on a ``[tag]`` line and asserted.  Returns the
-    kernels' gradients by leaf path (phases 30, 33 and 38)."""
+    on ``batch`` from seed 0 through the kernels (``per_call``: launches by
+    wrapper, asserted) and again with ``plain()`` swapping in autograd
+    through their plain version (none launched): the loss (1e-5 relative),
+    every gradient (1e-3 of each leaf's largest entry) and the params after
+    AdamW (1e-3 of the update), printed on a ``[tag]`` line and asserted.
+    Returns the kernels' gradients by leaf path (phases 33, 38 and the
+    first of each three from 28 on)."""
     import torch
 
     from repro_torch.kernels import launches, reset_launches
@@ -1991,13 +2068,15 @@ def _step_vs_plain(tag, model, tokens, opt_cfg, per_call, plain=_plain_attention
         params, opt = init_train_state(model, 0)
         reset_launches()
         with plain() if swap else contextlib.nullcontext():
-            loss = model.loss_fn(params, {"tokens": tokens}, dtype=torch.float32)
+            loss = model.loss_fn(params, batch, dtype=torch.float32)
             loss.backward()
         torch.cuda.synchronize()
         n = launches()
         assert {k_: n[k_] for k_ in per_call} == (
             dict.fromkeys(per_call, 0) if swap else per_call), n
-        grads = [p.grad for p in leaves(params)]
+        # a leaf the loss does not read (hubert's token table) has no
+        # gradient: zeros, as make_train_step gives it
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves(params)]
         for p in leaves(params):
             p.grad = None
         p0 = [p.detach().clone() for p in leaves(params)] if not swap else None
@@ -2011,7 +2090,8 @@ def _step_vs_plain(tag, model, tokens, opt_cfg, per_call, plain=_plain_attention
     worst = max(g_err, key=g_err.get)
     moved = torch.sqrt(sum(((w - a) ** 2).sum() for w, a in zip(p_p, p0)))
     diff = torch.sqrt(sum(((a - w) ** 2).sum() for a, w in zip(p_k, p_p)))
-    _say(f"[{tag}] fp32 train step on {list(tokens.shape)} ({model.cfg.n_layers} layers at full "
+    shape = list(batch.get("tokens", batch.get("prefix_embeds")).shape[:2])
+    _say(f"[{tag}] fp32 train step on {shape} ({model.cfg.n_layers} layers at full "
          f"width): loss through {'/'.join(per_call)} {loss_k:.7f} vs the plain version "
          f"{loss_p:.7f}; gradients, max |err| "
          f"over each leaf's largest entry: worst {worst} {g_err[worst]:.3g}; params after AdamW "
@@ -2023,15 +2103,16 @@ def _step_vs_plain(tag, model, tokens, opt_cfg, per_call, plain=_plain_attention
     return dict(zip(names, g_k))
 
 
-def _serve_bf16(tag, model, params, long, prompts, n_new, n_attn, ranges=None):
-    """The bf16 serving main path of a model (phases 29 and 34): a
-    forward-only ``loss_fn`` over ``long`` four times (the first a warm-up;
-    ``n_attn`` K6 launches each, asserted) and once under the profiler
-    (inside ``_ranges(*ranges)`` when given), then ``greedy_generate`` of
-    ``prompts`` with ``n_new`` new tokens, one decode step under the
-    profiler and the host's PyTorch calls in one.  Prints the ``[tag]``
-    lines; returns (the forward's busy microseconds by function, its event
-    counts, the ranges' microseconds, the launches)."""
+def _serve_bf16(tag, model, params, batch, prompts, n_new, n_attn, ranges=None):
+    """The bf16 serving main path of a model (phase 34 and the second of
+    each three from 28 on): a forward-only ``loss_fn`` over ``batch``
+    four times (the first a warm-up; ``n_attn`` K6 launches each, asserted)
+    and once under the profiler (inside ``_ranges(*ranges)`` when
+    given); then, for a model with a decode step (``prompts`` not None),
+    ``greedy_generate`` of ``prompts`` with ``n_new`` new tokens, one decode
+    step under the profiler and the host's PyTorch calls in one.  Prints the
+    ``[tag]`` lines; returns (the forward's busy microseconds by function,
+    its event counts, the ranges' microseconds, the launches)."""
     import contextlib
     import dataclasses
 
@@ -2042,13 +2123,13 @@ def _serve_bf16(tag, model, params, long, prompts, n_new, n_attn, ranges=None):
     from repro_torch.serve import greedy_generate
 
     bf16 = torch.bfloat16
-    batch, l_prompt = prompts.shape
+    shape = list(batch.get("tokens", batch.get("prefix_embeds")).shape[:2])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     def do_forward():
         t = time.perf_counter()
-        out = model.loss_fn(params, {"tokens": long}, dtype=bf16)
+        out = model.loss_fn(params, batch, dtype=bf16)
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
@@ -2070,60 +2151,128 @@ def _serve_bf16(tag, model, params, long, prompts, n_new, n_attn, ranges=None):
     spans = {label: 0.0 for label in (ranges[1] if ranges else {})}
     n_ev_fwd: dict[str, int] = {}
     with _ranges(*ranges) if ranges else contextlib.nullcontext():
-        (loss, ms_traced), busy_fwd = _traced(do_forward, n_ev_fwd, spans)
-    t = time.perf_counter()
-    tokens = greedy_generate(dataclasses.replace(model, decode_step=timed_step), params,
-                             prompts, n_new, dtype=bf16)
-    t_gen = time.perf_counter() - t
-    serve_launches = launches()
-    peak = torch.cuda.max_memory_allocated()
-    decode_ms = step_ms[l_prompt:]  # after the prompt's scan
-    cache = model.init_cache(batch, l_prompt + n_new, dtype=bf16)
-    tok = torch.from_numpy(prompts[:, :1]).to(model.device)
-
-    def one_step():
+        (loss, ms_traced), busy_fwd = _traced(do_forward, n_ev_fwd, spans or None)
+    traces = [("forward", busy_fwd, ms_traced)]
+    served = f"forward-only loss_fn {shape} = {float(loss):.4f}, ms " \
+             f"{[round(x, 3) for x in fwd_ms]} (first is the warm-up)"
+    if prompts is not None:
+        batch_p, l_prompt = prompts.shape
         t = time.perf_counter()
-        lg, _ = model.decode_step(params, cache, tok, 0, dtype=bf16)
-        torch.cuda.synchronize()
-        return lg, (time.perf_counter() - t) * 1e3
+        tokens = greedy_generate(dataclasses.replace(model, decode_step=timed_step), params,
+                                 prompts, n_new, dtype=bf16)
+        t_gen = time.perf_counter() - t
+        serve_launches = launches()
+        peak = torch.cuda.max_memory_allocated()
+        decode_ms = step_ms[l_prompt:]  # after the prompt's scan
+        cache = model.init_cache(batch_p, l_prompt + n_new, dtype=bf16)
+        tok = torch.from_numpy(prompts[:, :1]).to(model.device)
 
-    one_step()
-    (_, ms_step_traced), busy_dec = _traced(one_step)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        def one_step():
+            t = time.perf_counter()
+            lg, _ = model.decode_step(params, cache, tok, 0, dtype=bf16)
+            torch.cuda.synchronize()
+            return lg, (time.perf_counter() - t) * 1e3
+
         one_step()
-    n_calls = sum(1 for ev in prof.events() if ev.cpu_parent is None)
-    _say(f"[{tag}] one decode step makes {n_calls} top-level PyTorch calls on the host "
-         f"({model.cfg.n_layers} layers)")
-    _say(f"[{tag}] bf16 serving {model.cfg.name}: forward-only loss_fn {list(long.shape)} = "
-         f"{float(loss):.4f}, ms {[round(x, 3) for x in fwd_ms]} (first is the warm-up); "
-         f"greedy_generate of [{batch}, {l_prompt}] prompts, {n_new} new tokens in {t_gen:.2f} s: "
-         f"{len(step_ms)} decode steps ({l_prompt} of the prompt's scan), ms per step ({batch} "
-         f"sequences) after the prompt median {float(np.median(decode_ms)):.3f} min "
-         f"{min(decode_ms):.3f} max {max(decode_ms):.3f}, over all median "
-         f"{float(np.median(step_ms)):.3f}; {float(np.median(decode_ms)) / batch:.3f} ms per token")
-    _say(f"[{tag}] generated tokens (sequence 0): {tokens[0].tolist()}")
+        (_, ms_step_traced), busy_dec = _traced(one_step)
+        traces.append(("decode step", busy_dec, ms_step_traced))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            one_step()
+        n_calls = sum(1 for ev in prof.events() if ev.cpu_parent is None)
+        _say(f"[{tag}] one decode step makes {n_calls} top-level PyTorch calls on the host "
+             f"({model.cfg.n_layers} layers)")
+        served += (
+            f"; greedy_generate of [{batch_p}, {l_prompt}] prompts, {n_new} new tokens in "
+            f"{t_gen:.2f} s: {len(step_ms)} decode steps ({l_prompt} of the prompt's scan), ms per "
+            f"step ({batch_p} sequences) after the prompt median "
+            f"{float(np.median(decode_ms)):.3f} min {min(decode_ms):.3f} max {max(decode_ms):.3f}, "
+            f"over all median {float(np.median(step_ms)):.3f}; "
+            f"{float(np.median(decode_ms)) / batch_p:.3f} ms per token")
+        assert tokens.shape == (batch_p, n_new) and len(step_ms) == l_prompt + n_new - 1
+    else:
+        serve_launches = launches()
+        peak = torch.cuda.max_memory_allocated()
+    _say(f"[{tag}] bf16 serving {model.cfg.name}: {served}")
+    if prompts is not None:
+        _say(f"[{tag}] generated tokens (sequence 0): {tokens[0].tolist()}")
     _say(f"[{tag}] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); "
          f"launches={serve_launches}")
-    for what, busy, wall in [("forward", busy_fwd, ms_traced),
-                             ("decode step", busy_dec, ms_step_traced)]:
+    for what, busy, wall in traces:
         assert busy, f"the {what}'s profiler trace holds no device events"
         b_ms = sum(busy.values()) / 1e3
         _say(f"[{tag}] one {what} under the profiler: device busy {b_ms:.3f} ms of {wall:.3f} ms "
              f"({100 * b_ms / wall:.2f} %, idle {100 - 100 * b_ms / wall:.2f} %); by function "
              "(ms): " + "; ".join(f"{k_[:60]} {v / 1e3:.3f}" for k_, v in
                                   sorted(busy.items(), key=lambda kv: -kv[1])[:8]))
-    assert np.isfinite(float(loss)) and tokens.shape == (batch, n_new)
-    assert len(step_ms) == l_prompt + n_new - 1
+    assert np.isfinite(float(loss))
     assert serve_launches["flash_attention"] == 5 * n_attn, serve_launches
     return busy_fwd, n_ev_fwd, spans, serve_launches
 
 
-def _train_bf16(tag, model, step_fn, batch, per_step, shares, ranges=None):
-    """bf16 training from seed 0 (phases 31, 35 and 39): eight steps on
-    ``batch`` (the loss must fall), the state after the second kept on the
-    host, a ninth under the profiler (inside ``_ranges(*ranges)`` when
-    given); then two steps again from seed 0, equal bit for bit in loss,
-    params, m and v; ``per_step`` launches a step by wrapper (asserted).
+class _HostCopy:
+    """A copy of device tensors' bytes in page-locked host memory, packed
+    into blocks of 1 GiB (a power of two, so the pinned allocator rounds
+    nothing up) that every later copy reuses: the training phases keep the
+    state after two steps here and compare a second run's with it on the
+    card, at the host link's rate and with no page to fault in after the
+    first use (pageable copies compared on the host took tens of seconds a
+    phase: PERF.md §6).  The blocks stay until the process ends."""
+
+    BLOCK = 1 << 30
+
+    def __init__(self):
+        self.blocks: list = []
+
+    def _spans(self, tensors):
+        """(a slice of a tensor's bytes, its block, its offset there), the
+        tensors' bytes laid end to end."""
+        import torch
+
+        pos = 0
+        for x in tensors:
+            flat = x.detach().reshape(-1).view(torch.uint8)
+            at = 0
+            while at < flat.numel():
+                block, off = divmod(pos, self.BLOCK)
+                n = min(flat.numel() - at, self.BLOCK - off)
+                yield flat[at:at + n], block, off
+                at, pos = at + n, pos + n
+
+    def take(self, tensors) -> None:
+        import torch
+
+        need = -(-sum(x.numel() * x.element_size() for x in tensors) // self.BLOCK)
+        while len(self.blocks) < need:
+            self.blocks.append(torch.empty(self.BLOCK, dtype=torch.uint8,
+                                           pin_memory=torch.cuda.is_available()))
+        for src, block, off in self._spans(tensors):
+            self.blocks[block][off:off + src.numel()].copy_(src, non_blocking=True)
+        torch.cuda.synchronize()  # before a step updates them in place
+
+    def equal(self, tensors) -> bool:
+        import torch
+
+        differ = None
+        for src, block, off in self._spans(tensors):
+            back = self.blocks[block][off:off + src.numel()].to(src.device, non_blocking=True)
+            d = (back != src).any()
+            differ = d if differ is None else differ | d
+        return differ is None or not bool(differ)
+
+
+HOST_COPY = _HostCopy()
+
+
+def _train_bf16(tag, model, step_fn, batch, per_step, shares, ranges=None, plain=None):
+    """bf16 training from seed 0 (phases 35, 39 and the third of each
+    three from 28 on): eight steps on ``batch`` (the loss must fall), the
+    state after the second kept on the host, a ninth under the profiler
+    (inside ``_ranges(*ranges)`` when given); then two steps again from
+    seed 0, equal bit for bit in loss, params, m and v; ``per_step``
+    launches a step by wrapper (asserted).  With ``plain`` (a context that
+    swaps the kernels for autograd through their plain versions), the same
+    two steps once more under it: each loss within 2e-2 of the kernels'
+    (relative), none of their kernels launched.
     ``shares`` (label -> CUDA function names) picks the kernels whose time
     and share of the traced step's busy time are printed.  Prints the
     ``[tag]`` lines; returns (median ms a step after the first, parameters,
@@ -2138,11 +2287,12 @@ def _train_bf16(tag, model, step_fn, batch, per_step, shares, ranges=None):
     from repro_torch.train import init_train_state
     from repro_torch.train.optimizer import leaves
 
+    n_steps, t_parts = 8, [time.perf_counter()]
     params, opt = init_train_state(model, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    losses, step_ms, snap = [], [], None
+    losses, step_ms = [], []
 
     def timed():
         nonlocal params, opt
@@ -2153,17 +2303,18 @@ def _train_bf16(tag, model, step_fn, batch, per_step, shares, ranges=None):
         losses.append(float(m["loss"]))
         return step_ms[-1]
 
-    for i in range(8):
+    for i in range(n_steps):
         timed()
         if i == 1:  # the state after two steps, kept on the host
-            snap = [x.detach().to("cpu", copy=True)
-                    for x in leaves(params) + leaves(opt["m"]) + leaves(opt["v"])]
+            HOST_COPY.take(leaves(params) + leaves(opt["m"]) + leaves(opt["v"]))
     peak = torch.cuda.max_memory_allocated()
+    t_parts.append(time.perf_counter())
     n_ev: dict[str, int] = {}
     spans = {label: 0.0 for label in (ranges[1] if ranges else {})}
     with _ranges(*ranges) if ranges else contextlib.nullcontext():
-        ms_traced, busy = _traced(timed, n_ev, spans)
-    steps = 9
+        ms_traced, busy = _traced(timed, n_ev, spans or None)
+    t_parts.append(time.perf_counter())
+    steps = n_steps + 1
     n_params = sum(p.numel() for p in leaves(params))
     del params, opt
     torch.cuda.empty_cache()
@@ -2173,20 +2324,43 @@ def _train_bf16(tag, model, step_fn, batch, per_step, shares, ranges=None):
     for _ in range(2):
         params, opt, m = step_fn(params, opt, batch)
         again.append(float(m["loss"]))
-    same = all(torch.equal(x.detach().cpu(), y) for x, y in zip(
-        leaves(params) + leaves(opt["m"]) + leaves(opt["v"]), snap))
-    train_launches = launches()  # the nine steps above and these two
-    shape = list(batch["tokens"].shape)
+    same = HOST_COPY.equal(leaves(params) + leaves(opt["m"]) + leaves(opt["v"]))
+    train_launches = launches()  # the steps above and these two
+    t_parts.append(time.perf_counter())
+    plain_losses = []
+    if plain is not None:  # the same two steps through the plain versions
+        del params, opt
+        torch.cuda.empty_cache()
+        params, opt = init_train_state(model, 0)
+        with plain():
+            for _ in range(2):
+                params, opt, m = step_fn(params, opt, batch)
+                plain_losses.append(float(m["loss"]))
+        assert launches() == train_launches, launches()
+        t_parts.append(time.perf_counter())
+    shape = list(batch.get("tokens", batch.get("prefix_embeds")).shape[:2])
     _say(f"[{tag}] bf16 {model.cfg.name} training at full width, depth {model.cfg.n_layers} "
          f"({n_params} parameters; fp32 master weights, AdamW) on {shape} tokens: losses on one "
-         f"batch {[round(x, 4) for x in losses[:8]]}")
+         f"batch {[round(x, 4) for x in losses[:n_steps]]}")
     _say(f"[{tag}] two steps from the same state and batch, run twice: losses {losses[:2]} and "
-         f"{again}; params, m and v equal bit for bit: {same}")
-    assert all(np.isfinite(losses)) and losses[7] < losses[0], losses
+         f"{again}; params, m and v equal bit for bit: {same} (seconds: init and {n_steps} "
+         f"steps, the state after two copied to the host "
+         f"{t_parts[1] - t_parts[0]:.1f}, the traced step {t_parts[2] - t_parts[1]:.1f}, two "
+         f"steps again and the comparison {t_parts[3] - t_parts[2]:.1f})")
+    assert all(np.isfinite(losses)) and losses[n_steps - 1] < losses[0], losses
     assert again == losses[:2] and same
+    if plain_losses:
+        # the kernels round P and dS to bf16 where the plain versions keep
+        # fp32: about 1e-3 of a loss at step 0, more after an AdamW step
+        # that follows each gradient entry's sign
+        rel = max(abs(a - w) / abs(w) for a, w in zip(losses[:2], plain_losses))
+        _say(f"[{tag}] the same two steps with autograd through the plain versions: losses "
+             f"{plain_losses}, against the kernels' {losses[:2]}: largest relative difference "
+             f"{rel:.3g} (tolerance 2e-2; {t_parts[4] - t_parts[3]:.1f} s)")
+        assert rel <= 2e-2, (losses[:2], plain_losses)
     for name, n in per_step.items():
         assert train_launches[name] == n * (steps + 2), train_launches
-    ms_med = float(np.median(step_ms[1:8]))
+    ms_med = float(np.median(step_ms[1:n_steps]))
     b_ms = sum(busy.values()) / 1e3
     parts = []
     for label, names in shares.items():
@@ -2194,40 +2368,85 @@ def _train_bf16(tag, model, step_fn, batch, per_step, shares, ranges=None):
         ms_k = sum(busy[k_] for k_ in mine) / 1e3
         parts.append(f"{label} {ms_k:.3f} ms over {sum(n_ev[k_] for k_ in mine)} events "
                      f"({100 * ms_k / b_ms:.2f} % of busy)")
-    _say(f"[{tag}] train step ms {[round(x, 2) for x in step_ms[:8]]} (the first a warm-up), "
-         f"median after it {ms_med:.2f} ms, {shape[0] * shape[1] / (ms_med / 1e3):.0f} tokens/s; "
+    _say(f"[{tag}] train step ms {[round(x, 2) for x in step_ms[:n_steps]]} (the first a "
+         f"warm-up), median after it {ms_med:.2f} ms, "
+         f"{shape[0] * shape[1] / (ms_med / 1e3):.0f} tokens/s; "
          f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); launches a step {per_step}")
     _say(f"[{tag}] one train step under the profiler: device busy {b_ms:.3f} ms of {ms_traced:.3f} "
          f"ms ({100 * b_ms / ms_traced:.2f} %, idle {100 - 100 * b_ms / ms_traced:.2f} %); "
          + "; ".join(parts) + "; by function (ms): " + "; ".join(
              f"{k_[:60]} {v / 1e3:.3f}" for k_, v in sorted(busy.items(),
                                                          key=lambda kv: -kv[1])[:8]))
-    del params, opt, snap
+    del params, opt
     torch.cuda.empty_cache()
     return ms_med, n_params, busy, spans, train_launches
 
 
-def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(2, 256),
-                train=(4, 2048)):
-    """Phases 27-31; returns the MoE path's launches (phases 29 and 31).
-    The shapes are the card's; a CPU rehearsal cuts them."""
+def _moe_dispatch_share(tag, busy_fwd, n_ev_fwd, spans, beside=""):
+    """Prints one traced forward's device busy time by part (``MOE_RANGES``
+    around each step of ``moe_ffn``, K6, the rest) and the dispatch's share
+    of it (``beside``: text after it); returns that share in %."""
+    busy_ms = sum(busy_fwd.values()) / 1e3
+    k6_ms = sum(v for k_, v in busy_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS)) / 1e3
+    n_k6 = sum(n for k_, n in n_ev_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS))
+    span_ms = {label: us / 1e3 for label, us in spans.items()}
+    disp_ms = span_ms["moe.dispatch"] + span_ms["moe.gather"] + span_ms["moe.combine"]
+    rest = busy_ms - k6_ms - sum(span_ms.values())
+    _say(f"[{tag}] the forward's device busy time by part (ms, % of busy): "
+         f"expert GEMMs and silu (moe.experts) {span_ms['moe.experts']:.3f} "
+         f"({100 * span_ms['moe.experts'] / busy_ms:.2f} %); attention K6 {k6_ms:.3f} over "
+         f"{n_k6} events ({100 * k6_ms / busy_ms:.2f} %); router GEMM, softmax and top-k sort "
+         f"(moe.route) {span_ms['moe.route']:.3f} ({100 * span_ms['moe.route'] / busy_ms:.2f} %); "
+         f"dispatch {disp_ms:.3f}: plan, hash, bin (moe.dispatch) {span_ms['moe.dispatch']:.3f}, "
+         f"gather (moe.gather) {span_ms['moe.gather']:.3f}, combine (moe.combine) "
+         f"{span_ms['moe.combine']:.3f}; the rest (attention projections, norms, the shared "
+         f"expert, the loss) {rest:.3f} ({100 * rest / busy_ms:.2f} %)")
+    _say(f"[{tag}] dispatch share of the forward's busy time: {100 * disp_ms / busy_ms:.2f} % "
+         f"({disp_ms:.3f} of {busy_ms:.3f} ms; with the router's top-k "
+         f"{100 * (disp_ms + span_ms['moe.route']) / busy_ms:.2f} %)"
+         + ("" if disp_ms > 0 else ": the trace linked no kernel to the ranges, not measured")
+         + beside)
+    return 100 * disp_ms / busy_ms
+
+
+def _moe_layer0_stats(tag, cfg, params, tokens):
+    """Layer 0 of a bf16 MoE model on ``tokens``: its drop rate and
+    slot-load imbalance (max/mean) at capacity factor 1.25, extra_slots 0
+    and 8, printed."""
+    import torch
+
+    from repro_torch.models import layers, moe
+    from repro_torch.models import transformer as tt
+
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        x0 = layers.embed(params["embed"], tokens, bf16)
+        blk0 = params["blocks"][0]
+        x0 = x0 + layers.attention(blk0["attn"], tt.attn_config(cfg),
+                                   layers.apply_norm(cfg.norm, blk0["ln1"], x0))
+        h0 = layers.apply_norm(cfg.norm, blk0["ln2"], x0)
+        for extra in (0, 8):
+            _, _, st = moe.moe_ffn(blk0, h0, cfg, 1.25, extra, return_stats=True)
+            loads = st["slot_loads"].double()
+            _say(f"[{tag}] layer 0 on the batch, cf 1.25, extra_slots={extra}: dropped "
+                 f"{int(st['dropped'])} of {tokens.numel() * cfg.top_k} choices (drop rate "
+                 f"{100 * float(st['drop_rate']):.3f} %), slot-load imbalance (max/mean) "
+                 f"{float(loads.max() / loads.mean()):.4f}, slot loads max {int(loads.max())} min "
+                 f"{int(loads.min())} over {loads.numel()} slots")
+
+
+def _moe_dispatch_phase(dev, serve=(4, 2048)):
+    """Phase 27: the MoE dispatch on the card against the CPU, exactly, and
+    ``benchmarks/bench_moe_skew.py``'s skewed layer.  ``serve`` is the
+    serving batch whose dispatch is checked; a CPU rehearsal cuts it."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.data import TokenPipeline
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import launches, reset_launches
-    from repro_torch.models import build_model, layers, moe
-    from repro_torch.models import transformer as tt
-    from repro_torch.serve import BucketServer, Request, greedy_generate
-    from repro_torch.train import OptConfig, make_train_step
-    from repro_torch.train.optimizer import leaves
+    from repro_torch.models import moe
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     f32, bf16 = torch.float32, torch.bfloat16
     full = get_config("qwen2-moe-a2.7b")
     e, k = full.n_experts, full.top_k
@@ -2288,155 +2507,6 @@ def _moe_phases(dev, serve=(4, 2048), prompt=(4, 128, 32), check=(2, 32), grad=(
     _say(f"[moe] phase 27: {n_cases} dispatches equal on card and CPU; SharesSkew drops no more "
          f"than the capacity router at cf 1.25 and 1.0 ({time.perf_counter() - t_phase:.1f} s)")
 
-    # ---- 28. qwen2-moe-a2.7b at full width in fp32, depth 4 -------------------
-    cfg4 = dataclasses.replace(full, n_layers=4)
-    model = build_model(cfg4, device=dev)
-    t = time.perf_counter()
-    params = model.init_params(0, dtype=f32)
-    torch.cuda.synchronize()
-    _say(f"[moe] qwen2-moe-a2.7b at full width, cut to depth {cfg4.n_layers} in fp32 (a full-depth "
-         f"fp32 copy is {4 * full.n_params() / 1e9:.1f} GB): "
-         f"{sum(p.numel() for p in leaves(params))} parameters, init "
-         f"{time.perf_counter() - t:.2f} s")
-    gen = np.random.default_rng(28)
-    prompts = torch.from_numpy(gen.integers(0, cfg4.vocab, check).astype(np.int32)).to(dev)
-    reset_launches()
-    hid, _ = model.forward_hidden(params, {"tokens": prompts}, dtype=f32, capacity_factor=8.0)
-    assert launches()["flash_attention"] == cfg4.n_layers, launches()
-    layers.flash_attention = fa.flash_attention_ref  # the same call, plain attention
-    try:
-        hid_plain, _ = model.forward_hidden(params, {"tokens": prompts}, dtype=f32,
-                                            capacity_factor=8.0)
-    finally:
-        layers.flash_attention = fa.flash_attention
-    err_hid = _max_float_err(hid, hid_plain)
-    want = hid @ tt.logits_table(cfg4, params).T  # [B, L, V] fp32
-    cache = model.init_cache(check[0], check[1], dtype=f32)
-    err_dec = 0.0
-    for pos in range(check[1]):
-        logits, cache = model.decode_step(params, cache, prompts[:, pos:pos + 1], pos, dtype=f32,
-                                          capacity_factor=8.0)
-        assert _close(logits, want[:, pos], 2e-3), pos
-        err_dec = max(err_dec, _max_float_err(logits, want[:, pos]))
-    _say(f"[moe] fp32 forward_hidden {list(prompts.shape)} through K6 vs plain attention: "
-         f"max_abs_err={err_hid:.3g} (tolerance 2e-4); token-by-token decode_step logits vs "
-         f"the forward's at all {check[1]} positions: max_abs_err={err_dec:.3g} (rtol = atol = "
-         f"2e-3), logits scale {float(want.abs().max()):.3g}; capacity factor 8.0")
-    assert err_hid <= 2e-4
-    del hid, hid_plain, want, cache
-    server = BucketServer(model, params, max_batch=8, dtype=f32)
-    reqs = [Request(uid=i, prompt=gen.integers(0, cfg4.vocab, 16 if i % 2 else 32)
-                    .astype(np.int32), max_new=8) for i in range(6)]
-    for r in reqs:
-        server.submit(r)
-    t = time.perf_counter()
-    done = server.drain()
-    t_drain = time.perf_counter() - t
-    assert sorted(c.uid for c in done) == list(range(6))
-    for c in done:
-        solo = greedy_generate(model, params, reqs[c.uid].prompt[None], 8, dtype=f32)
-        assert c.tokens.shape == (8,) and np.array_equal(c.tokens, solo[0]), \
-            (c.uid, c.tokens, solo[0])
-    _say(f"[moe] BucketServer fp32: 6 requests (prompts of 16 and 32 tokens, max_new=8) drained "
-         f"in two waves in {t_drain:.2f} s; each completion equals greedy_generate of its prompt "
-         f"alone")
-    del params, server
-    torch.cuda.empty_cache()
-
-    # ---- 29. bf16 serving at full width and depth, the MoE main path ----------
-    model = build_model(full, device=dev)
-    t = time.perf_counter()
-    params = model.init_params(0, dtype=bf16)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in leaves(params))
-    _say(f"[moe] qwen2-moe-a2.7b at full width and depth in bf16: {full.n_layers} layers, d="
-         f"{full.d_model}, {full.n_heads} heads of {full.hd}, {e} experts of {full.d_expert} "
-         f"top-{k}, shared expert {full.d_ff}, vocab {full.vocab}; {n_params} parameters "
-         f"({full.n_active_params()} active by n_active_params), init "
-         f"{time.perf_counter() - t:.2f} s")
-    batch, l_prompt, n_new = prompt
-    long = torch.from_numpy(gen.integers(0, full.vocab, serve).astype(np.int32)).to(dev)
-    prompts = gen.integers(0, full.vocab, (batch, l_prompt)).astype(np.int32)
-    busy_fwd, n_ev_fwd, spans, serve_launches = _serve_bf16(
-        "moe", model, params, long, prompts, n_new, full.n_layers, (moe, MOE_RANGES))
-    # the forward's busy time by the step of the layer that launched it
-    busy_ms = sum(busy_fwd.values()) / 1e3
-    k6_ms = sum(v for k_, v in busy_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS)) / 1e3
-    n_k6 = sum(n for k_, n in n_ev_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS))
-    span_ms = {label: us / 1e3 for label, us in spans.items()}
-    disp_ms = span_ms["moe.dispatch"] + span_ms["moe.gather"] + span_ms["moe.combine"]
-    rest = busy_ms - k6_ms - sum(span_ms.values())
-    _say("[moe] the forward's device busy time by part (ms, % of busy): "
-         f"expert GEMMs and silu (moe.experts) {span_ms['moe.experts']:.3f} "
-         f"({100 * span_ms['moe.experts'] / busy_ms:.2f} %); attention K6 {k6_ms:.3f} over "
-         f"{n_k6} events ({100 * k6_ms / busy_ms:.2f} %); router GEMM, softmax and top-k sort "
-         f"(moe.route) {span_ms['moe.route']:.3f} ({100 * span_ms['moe.route'] / busy_ms:.2f} %); "
-         f"dispatch {disp_ms:.3f}: plan, hash, bin (moe.dispatch) {span_ms['moe.dispatch']:.3f}, "
-         f"gather (moe.gather) {span_ms['moe.gather']:.3f}, combine (moe.combine) "
-         f"{span_ms['moe.combine']:.3f}; the rest (attention projections, norms, the shared "
-         f"expert, the loss) {rest:.3f} ({100 * rest / busy_ms:.2f} %)")
-    _say(f"[moe] dispatch share of the forward's busy time: {100 * disp_ms / busy_ms:.2f} % "
-         f"({disp_ms:.3f} of {busy_ms:.3f} ms; with the router's top-k "
-         f"{100 * (disp_ms + span_ms['moe.route']) / busy_ms:.2f} %)"
-         + ("" if disp_ms > 0 else ": the trace linked no kernel to the ranges, not measured"))
-    # layer 0's routing statistics on the batch
-    x0 = layers.embed(params["embed"], long, bf16)
-    blk0 = params["blocks"][0]
-    x0 = x0 + layers.attention(blk0["attn"], tt.attn_config(full),
-                               layers.apply_norm(full.norm, blk0["ln1"], x0))
-    h0 = layers.apply_norm(full.norm, blk0["ln2"], x0)
-    for extra in (0, 8):
-        _, _, st = moe.moe_ffn(blk0, h0, full, 1.25, extra, return_stats=True)
-        loads = st["slot_loads"].double()
-        _say(f"[moe] layer 0 on the batch, cf 1.25, extra_slots={extra}: dropped "
-             f"{int(st['dropped'])} of {long.numel() * k} choices (drop rate "
-             f"{100 * float(st['drop_rate']):.3f} %), slot-load imbalance (max/mean) "
-             f"{float(loads.max() / loads.mean()):.4f}, slot loads max {int(loads.max())} min "
-             f"{int(loads.min())} over {loads.numel()} slots")
-    del params, x0, h0, long
-    torch.cuda.empty_cache()
-
-    # ---- 30. one fp32 train step at depth 2 through K6 and K6b ----------------
-    cfg2 = dataclasses.replace(full, n_layers=2)
-    model2 = build_model(cfg2, device=dev)
-    opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
-    tokens2 = torch.from_numpy(np.random.default_rng(30).integers(0, cfg2.vocab, grad)
-                               .astype(np.int32)).to(dev)
-    grads = _step_vs_plain("moe", model2, tokens2, opt_cfg,
-                           {"flash_attention": 2 * cfg2.n_layers,
-                            "flash_attention_bwd": cfg2.n_layers})
-    nonzero = {nm: float(g.abs().max()) > 0 for nm, g in grads.items()
-               if nm.split("/")[-1] in ("wq", "wk", "wv", "router", "w_gate", "w_up", "w_down",
-                                        "shared_gate")}
-    _say(f"[moe] router, experts, shared and wq/wk/wv gradients nonzero: "
-         f"{all(nonzero.values())} ({len(nonzero)} leaves)")
-    assert all(nonzero.values())
-    assert len(nonzero) == cfg2.n_layers * (3 + 1 + 3 + 3 + 1), sorted(nonzero)
-    del grads
-    torch.cuda.empty_cache()
-
-    # ---- 31. bf16 training at full width, cut to depth 4 ----------------------
-    model4 = build_model(cfg4, device=dev)
-    step_fn = make_train_step(model4, opt_cfg, {"dtype": bf16, "extra_slots": 8,
-                                                "capacity_factor": 1.25})
-    pipe = TokenPipeline(vocab=cfg4.vocab, batch=train[0], seq=train[1] - 1, seed=1)
-    first = {"tokens": torch.from_numpy(pipe.next_batch()).to(dev)}
-    ms_med, _, _, _, train_launches = _train_bf16(
-        "moe", model4, step_fn, first,
-        {"flash_attention": 2 * cfg4.n_layers, "flash_attention_bwd": cfg4.n_layers}, K6_SHARES)
-    n_tok = train[0] * train[1]
-    flops = 6.0 * cfg4.n_active_params() * n_tok + 6.0 * cfg4.n_layers * train[0] \
-        * cfg4.n_heads * train[1] ** 2 * cfg4.hd
-    mfu = flops / (ms_med / 1e3) / BF16_FLOPS
-    _say(f"[moe] mfu={mfu:.4f} (6 N_active T + 6 layers B H L^2 D = {flops:.4g} model flops a "
-         f"step, N_active = {cfg4.n_active_params()} of the depth-{cfg4.n_layers} cut, over "
-         f"{ms_med:.2f} ms at 989 TFLOP/s bf16; extra_slots 8, cf 1.25)")
-    del step_fn
-    torch.cuda.empty_cache()
-    _say(f"[moe] phases 27-31: {time.perf_counter() - t_phase:.1f} s")
-    return {k_: serve_launches.get(k_, 0) + train_launches.get(k_, 0)
-            for k_ in set(serve_launches) | set(train_launches)}
-
 
 def _distributed_phase(dev, query, data, plan, base, oracle, base_s, per_run, three):
     """Phase 6b: the distributed shuffle (``run_distributed``) over this
@@ -2493,12 +2563,84 @@ def _distributed_phase(dev, query, data, plan, base, oracle, base_s, per_run, th
     return launches()
 
 
+def _flash_pair(what, q, k, v, causal, seed):
+    """K6 and K6b on a model's own bf16 q, k, v (``what`` names where they
+    come from): each against its plain version (2e-2; K6b also by relative
+    norm, 1e-2), device time (a CUDA graph of 10 calls), plain time,
+    ``scaled_dot_product_attention``'s forward and backward (timed here,
+    never called by the port; ``enable_gqa`` where k and v have fewer heads
+    than q), the bound; the output's gradient drawn from ``seed``.  Prints
+    the ``[K6]`` and ``[K6b]`` lines; returns the kernels line's numbers of
+    each (``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms``,
+    ``max_abs_err``)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    h, hkv = q.shape[1], k.shape[1]
+    gqa = {"enable_gqa": True} if hkv != h else {}
+    mask = ("causal" if causal else "non-causal") + (f", GQA {h}:{hkv}" if gqa else "")
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want, plain6 = _plain_ms(lambda: fa.flash_attention_ref(q, k, v, causal))
+    err6 = _max_float_err(got, want)
+    assert _close(got, want, 2e-2), err6
+    del got, want
+    ms6, ev6, wrap6 = _kernel_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                                 FLASH_KERNELS, reps=10)
+    lib6 = _events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, **gqa), reps=10)
+    ops6, bytes6 = _flash_work(*q.shape[:3], q.shape[3], causal, q.element_size(), hkv)
+    bound6, by6 = _bound(ops6, bytes6, BF16_FLOPS)
+    _say(f"[K6] flash_attention {tuple(q.shape)} bf16 {mask}, {what} "
+         f"({fa.kernel_variant(q.dtype, q.shape[3])}): max_abs_err={err6:.3g} (rtol = atol = "
+         f"2e-2); kernel {ms6:.4f} ms (CUDA graph of 10 calls; {_short(ev6)} ms an event in a "
+         f"trace; wrapper {wrap6:.4f} ms); plain {plain6:.2f} ms; scaled_dot_product_attention "
+         f"{lib6:.4f} ms; bound {bound6:.4f} ms by {by6} ({ops6:.4g} operations at 989 TFLOP/s); "
+         f"{100 * bound6 / ms6:.1f} % of the bound")
+    o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+    do = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(seed),
+                     device=q.device, dtype=torch.float32).to(q.dtype)
+    got_b = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    o_ref, lse_ref = fa.flash_attention_ref_lse(q, k, v, causal)
+    want_b, plain_b = _plain_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
+                                                                    causal))
+    err_b = max(_max_float_err(x, w) for x, w in zip(got_b, want_b))
+    rel_b = max(_rel_norm_err(x, w) for x, w in zip(got_b, want_b))
+    assert all(_close(x, w, 2e-2) for x, w in zip(got_b, want_b)) and rel_b <= 1e-2, (err_b, rel_b)
+    del got_b, want_b, o_ref, lse_ref
+    ms_b, ev_b, wrap_b = _kernel_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal), FLASH_BWD_KERNELS,
+        reps=10)
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                                                **gqa)
+
+    lib_fwd = _events_ms(sdpa_fwd, reps=10)
+    lib_b = _events_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do), reps=10) \
+        - lib_fwd
+    ops_b, bytes_b = _flash_bwd_work(*q.shape[:3], q.shape[3], causal, q.element_size(), hkv)
+    bound_b, by_b = _bound(ops_b, bytes_b, BF16_FLOPS)
+    _say(f"[K6b] flash_attention_bwd {tuple(q.shape)} bf16 {mask}, {what} "
+         f"({fa.bwd_kernel_variant(q.dtype, q.shape[3])}): max_abs_err={err_b:.3g} (rtol = atol "
+         f"= 2e-2), relative norm {rel_b:.3g} (limit 1e-2); kernels {ms_b:.4f} ms (CUDA graph of "
+         f"10 calls; {_short(ev_b)} ms an event in a trace; wrapper {wrap_b:.4f} ms); plain "
+         f"{plain_b:.2f} ms; scaled_dot_product_attention's backward {lib_b:.4f} ms; bound "
+         f"{bound_b:.4f} ms by {by_b}; {100 * bound_b / ms_b:.1f} % of the bound")
+    return ({"ms": ms6, "plain_ms": plain6, "bound_ms": bound6, "bound_by": by6,
+             "library_ms": lib6, "max_abs_err": err6},
+            {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": by_b,
+             "library_ms": lib_b, "max_abs_err": err_b})
+
+
 def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
                    prompt=(4, 128, 32), train=(4, 2048), train_depth=18):
     """Phases 32-36; returns the kernels line's numbers at the hybrid's
-    shapes (K6 and K6b: ms, plain ms, bound, SDPA's ms, max_abs_err) and the
-    hybrid path's launches (phases 34 and 35).  The shapes are the card's;
-    a CPU rehearsal cuts them."""
+    shapes (K6 and K6b: ms, plain ms, bound and what binds it, SDPA's ms,
+    max_abs_err) and the hybrid path's launches (phases 34 and 35).  The
+    shapes are the card's; a CPU rehearsal cuts them."""
     import dataclasses
 
     import numpy as np
@@ -2563,7 +2705,7 @@ def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
     opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
     tokens2 = torch.from_numpy(np.random.default_rng(33).integers(0, full.vocab, grad)
                                .astype(np.int32)).to(dev)
-    tree = _step_vs_plain("hybrid", model, tokens2, opt_cfg,
+    tree = _step_vs_plain("hybrid", model, {"tokens": tokens2}, opt_cfg,
                           {"flash_attention": 2 * groups_c, "flash_attention_bwd": groups_c})
     _say(f"[hybrid] every one of the {len(tree)} gradient leaves nonzero: "
          f"{all(float(g.abs().max()) > 0 for g in tree.values())}")
@@ -2612,7 +2754,8 @@ def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
     long = torch.from_numpy(gen.integers(0, full.vocab, serve).astype(np.int32)).to(dev)
     prompts = gen.integers(0, full.vocab, (batch, l_prompt)).astype(np.int32)
     busy_fwd, n_ev_fwd, spans, serve_launches = _serve_bf16(
-        "hybrid", model, params, long, prompts, n_new, n_groups, (mamba2, HYBRID_RANGES))
+        "hybrid", model, params, {"tokens": long}, prompts, n_new, n_groups,
+        (mamba2, HYBRID_RANGES))
     busy_ms = sum(busy_fwd.values()) / 1e3
     k6_ms = sum(v for k_, v in busy_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS)) / 1e3
     n_k6 = sum(n for k_, n in n_ev_fwd.items() if any(nm in k_ for nm in FLASH_KERNELS))
@@ -2674,59 +2817,289 @@ def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
     torch.cuda.empty_cache()
 
     # ---- 36. K6 and K6b at the hybrid's shape ([4, 32, 2048, 80], mma.sync) -
-    q, k, v = (x.contiguous() for x in hybrid_qkv)
-    got = fa.flash_attention(q, k, v)
-    want, plain6 = _plain_ms(lambda: fa.flash_attention_ref(q, k, v))
-    err6 = _max_float_err(got, want)
-    assert _close(got, want, 2e-2), err6
-    ms6, ev6, wrap6 = _kernel_ms(lambda: fa.flash_attention(q, k, v), FLASH_KERNELS, reps=10)
-    lib6 = _events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True), reps=10)
-    ops6, bytes6 = _flash_work(*q.shape[:3], q.shape[3], True, q.element_size())
-    bound6, by6 = _bound(ops6, bytes6, BF16_FLOPS)
-    _say(f"[K6] flash_attention {tuple(q.shape)} bf16 causal, the hybrid's shared block "
-         f"({fa.kernel_variant(q.dtype, q.shape[3])}): max_abs_err={err6:.3g} (rtol = atol = "
-         f"2e-2); kernel {ms6:.4f} ms (CUDA graph of 10 calls; {_short(ev6)} ms an event in a "
-         f"trace; wrapper {wrap6:.4f} ms); plain {plain6:.2f} ms; scaled_dot_product_attention "
-         f"{lib6:.4f} ms; bound {bound6:.4f} ms by {by6} ({ops6:.4g} operations at 989 TFLOP/s); "
-         f"{100 * bound6 / ms6:.1f} % of the bound")
-    o, lse = fa.flash_attention_lse(q, k, v)
-    do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(36),
-                     device=dev, dtype=f32).to(bf16)
-    got_b = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    o_ref, lse_ref = fa.flash_attention_ref_lse(q, k, v)
-    want_b, plain_b = _plain_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do))
-    err_b = max(_max_float_err(x, w) for x, w in zip(got_b, want_b))
-    rel_b = max(_rel_norm_err(x, w) for x, w in zip(got_b, want_b))
-    assert all(_close(x, w, 2e-2) for x, w in zip(got_b, want_b)) and rel_b <= 1e-2, (err_b, rel_b)
-    ms_b, ev_b, wrap_b = _kernel_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
-                                    FLASH_BWD_KERNELS, reps=10)
-    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-
-    def sdpa_fwd():
-        return torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-
-    lib_fwd = _events_ms(sdpa_fwd, reps=10)
-    lib_b = _events_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do), reps=10) \
-        - lib_fwd
-    ops_b, bytes_b = _flash_bwd_work(*q.shape[:3], q.shape[3], True, q.element_size())
-    bound_b, by_b = _bound(ops_b, bytes_b, BF16_FLOPS)
-    _say(f"[K6b] flash_attention_bwd {tuple(q.shape)} bf16 causal, the hybrid's shared block "
-         f"({fa.bwd_kernel_variant(q.dtype, q.shape[3])}): max_abs_err={err_b:.3g} (rtol = atol "
-         f"= 2e-2), relative norm {rel_b:.3g} (limit 1e-2); kernels {ms_b:.4f} ms (CUDA graph of "
-         f"10 calls; {_short(ev_b)} ms an event in a trace; wrapper {wrap_b:.4f} ms); plain "
-         f"{plain_b:.2f} ms; scaled_dot_product_attention's backward {lib_b:.4f} ms; bound "
-         f"{bound_b:.4f} ms by {by_b}; {100 * bound_b / ms_b:.1f} % of the bound")
-    del q, k, v, o, lse, do, qg, kg, vg, got, want, got_b, want_b, o_ref, lse_ref, hybrid_qkv
+    k6, k6b = _flash_pair("the hybrid's shared block", *hybrid_qkv, causal=True, seed=36)
+    del hybrid_qkv
     torch.cuda.empty_cache()
     _say(f"[hybrid] phases 32-36: {time.perf_counter() - t_phase:.1f} s")
-    d80 = {"flash_attention": {"ms_d80": ms6, "plain_ms_d80": plain6, "bound_ms_d80": bound6,
-                               "library_ms_d80": lib6, "max_abs_err_d80": err6},
-           "flash_attention_bwd": {"ms_d80": ms_b, "plain_ms_d80": plain_b,
-                                   "bound_ms_d80": bound_b, "library_ms_d80": lib_b,
-                                   "max_abs_err_d80": err_b}}
+    d80 = {"flash_attention": {f"{key}_d80": x for key, x in k6.items()},
+           "flash_attention_bwd": {f"{key}_d80": x for key, x in k6b.items()}}
     return d80, {k_: serve_launches.get(k_, 0) + train_launches.get(k_, 0)
                  for k_ in set(serve_launches) | set(train_launches)}
+
+
+def _attn_pairs(cfg, l):
+    """The (query, key) pairs that a forward's attention keeps over a
+    sequence of ``l``, summed over the layers and per (batch row, head):
+    l^2 without a mask, l (l + 1) / 2 causal, fewer in a windowed layer."""
+    from repro_torch.models.transformer import _layer_flags
+
+    def kept(w):
+        return w * (w + 1) // 2 + (l - w) * w
+
+    if not cfg.causal:
+        return cfg.n_layers * l * l
+    return sum(kept(l if is_global or not cfg.window else min(cfg.window, l))
+               for is_global in _layer_flags(cfg))
+
+
+class _Stop(Exception):
+    """Ends a forward at its first attention call (``_first_attention``)."""
+
+
+def _first_attention(run):
+    """The q, k and v of the first K6 call that ``run()`` makes: the
+    forward is stopped there, so no kernel launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    got = []
+
+    def grab(q, k, v, causal=True):
+        got.append((q.detach().clone(), k.detach().clone(), v.detach().clone(), causal))
+        raise _Stop
+
+    layers.flash_attention = grab
+    try:
+        run()
+    except _Stop:
+        pass
+    finally:
+        layers.flash_attention = fa.flash_attention
+    return got[0]
+
+
+def _full_size_phases(dev, name, phase, n_attn, train_depth, check=(2, 32), grad=(2, 256),
+                      serve=(4, 2048), prompt=(4, 16, 8), train=(4, 2048), qwen2_share=None,
+                      check_depth=2, bucket=False):
+    """Phases ``phase`` to ``phase + 2`` (28-30, 42-56): the configuration
+    ``name`` at full width.  First fp32 cut to ``check_depth`` layers (K6
+    against plain attention, decode against the forward, with ``bucket``
+    six requests behind ``BucketServer`` against ``greedy_generate``) and
+    one train step at depth 2 through K6/K6b against plain attention; then
+    bf16 serving at full width and depth (``n_attn`` K6 launches a forward,
+    asserted); then bf16 training at ``train_depth`` layers (None: full
+    depth), its first two steps also through plain attention.  Returns (the
+    serving and training launches; layer 0's bf16 q, k, v and mask on the
+    serving batch, None without K6; for MoE the dispatch's share of the
+    serving forward's busy time in %, else None).  The shapes are the
+    card's; a CPU rehearsal cuts them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import build_model, make_batch, moe
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve import BucketServer, Request, greedy_generate
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.optimizer import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    full = get_config(name)
+    is_moe, decoder = full.family == "moe", full.has_decoder
+    tag = name.split("-")[0]
+    # the fp32 checks route at a capacity of a whole group's tokens, so that
+    # no choice can drop (a drop in the forward that decoding, one token a
+    # group, does not see makes the two differ from that token on)
+    kw = {"capacity_factor": full.n_experts / full.top_k} if is_moe else {}
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=4, total_steps=1000)
+
+    def n_k6(cfg):  # K6 launches of one forward: none in a windowed config
+        return 0 if cfg.window else cfg.n_layers
+
+    def hidden(model, params, batch, dtype):
+        out = model.forward_hidden(params, batch, dtype=dtype, **kw)
+        return out[0] if is_moe else out
+
+    # ---- fp32 at full width, cut in depth ------------------------------------
+    t_phase = time.perf_counter()
+    cfg_c = dataclasses.replace(full, n_layers=check_depth)
+    model = build_model(cfg_c, device=dev)
+    params = model.init_params(0, dtype=f32)
+    batch = make_batch(cfg_c, np.random.default_rng(phase), *check, device=dev)
+    reset_launches()
+    hid = hidden(model, params, batch, f32)
+    assert launches()["flash_attention"] == n_k6(cfg_c), launches()
+    with _plain_attention():
+        hid_plain = hidden(model, params, batch, f32)
+    err_hid = _max_float_err(hid, hid_plain)
+    assert err_hid <= 2e-4, err_hid
+    line = (f"[{tag}] {name} at full width in fp32, cut to depth {cfg_c.n_layers} "
+            f"({sum(p.numel() for p in leaves(params))} parameters): forward_hidden of "
+            f"{list(hid.shape[:2])} positions ({sorted(batch)}) through K6 "
+            f"({n_k6(cfg_c)} launches) vs plain attention: max_abs_err={err_hid:.3g} "
+            f"(tolerance 2e-4)")
+    del hid, hid_plain
+    if decoder:  # the tokens alone, decoded one at a time against the forward
+        tokens = batch["tokens"]
+        want = hidden(model, params, {"tokens": tokens}, f32) @ tt.logits_table(cfg_c, params).T
+        cache = model.init_cache(check[0], check[1], dtype=f32)
+        err_dec = 0.0
+        for pos in range(check[1]):
+            logits, cache = model.decode_step(params, cache, tokens[:, pos:pos + 1], pos,
+                                              dtype=f32, **kw)
+            assert _close(logits, want[:, pos], 2e-3), pos
+            err_dec = max(err_dec, _max_float_err(logits, want[:, pos]))
+        line += (f"; token-by-token decode_step logits vs the forward's at all {check[1]} "
+                 f"positions: max_abs_err={err_dec:.3g} (rtol = atol = 2e-3), logits scale "
+                 f"{float(want.abs().max()):.3g}")
+        del want, cache
+    _say(line + (f"; capacity factor {kw['capacity_factor']}" if is_moe else ""))
+    if bucket:  # six requests in two waves, each equal to its prompt alone
+        gen = np.random.default_rng(phase + 50)
+        server = BucketServer(model, params, max_batch=8, dtype=f32)
+        reqs = [Request(uid=i, prompt=gen.integers(0, full.vocab, 16 if i % 2 else 32)
+                        .astype(np.int32), max_new=8) for i in range(6)]
+        for r in reqs:
+            server.submit(r)
+        t = time.perf_counter()
+        done = server.drain()
+        t_drain = time.perf_counter() - t
+        assert sorted(c.uid for c in done) == list(range(6))
+        for c in done:
+            solo = greedy_generate(model, params, reqs[c.uid].prompt[None], 8, dtype=f32)
+            assert c.tokens.shape == (8,) and np.array_equal(c.tokens, solo[0]), \
+                (c.uid, c.tokens, solo[0])
+        _say(f"[{tag}] BucketServer fp32: 6 requests (prompts of 16 and 32 tokens, max_new=8) "
+             f"drained in two waves in {t_drain:.2f} s; each completion equals greedy_generate "
+             f"of its prompt alone")
+        del server
+    del params, model, batch
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    model = build_model(cfg2, device=dev)
+    gbatch = make_batch(cfg2, np.random.default_rng(phase + 100), *grad, device=dev)
+    grads = _step_vs_plain(tag, model, gbatch, opt_cfg,
+                           {"flash_attention": 2 * n_k6(cfg2),
+                            "flash_attention_bwd": n_k6(cfg2)})
+    # q, k, v of attention; the router and the experts; a shared expert's
+    # three matrices (named as the experts') and its gate
+    names = ("wq", "wk", "wv") + (("router", "w_gate", "w_up", "w_down") if is_moe else ()) \
+        + (("shared_gate",) if full.n_shared else ())
+    per_layer = 3 + (4 if is_moe else 0) + (4 if full.n_shared else 0)
+    nonzero = {nm: float(g.abs().max()) > 0 for nm, g in grads.items()
+               if nm.split("/")[-1] in names}
+    _say(f"[{tag}] {', '.join(names)} gradients nonzero: {all(nonzero.values())} "
+         f"({len(nonzero)} leaves)")
+    assert all(nonzero.values()) and len(nonzero) == cfg2.n_layers * per_layer, sorted(nonzero)
+    del grads, model, gbatch
+    torch.cuda.empty_cache()
+    _say(f"[{tag}] phase {phase}: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- bf16 serving at full width and depth -----------------------------------
+    t_phase = time.perf_counter()
+    model = build_model(full, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = model.init_params(0, dtype=bf16)
+    torch.cuda.synchronize()
+    t_init, build_peak = time.perf_counter() - t, torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in leaves(params))
+    n_mat = sum(p.numel() for p in leaves(params) if p.dim() >= 2)
+    # ArchConfig.n_params() counts the matrices, and a gated MLP in every
+    # dense family: hubert's MLP is a plain GELU of two; it leaves out a
+    # shared expert's gate, a [d, 1] matrix a layer
+    gate = full.n_layers * full.d_model * full.d_ff if full.family == "audio" else 0
+    shared_gate = full.n_layers * full.d_model if full.n_shared else 0
+    weights = sum(p.numel() * p.element_size() for p in leaves(params))
+    _say(f"[{tag}] {name} at full width and depth in bf16: {full.n_layers} layers, d="
+         f"{full.d_model}, {full.n_heads} heads of {full.hd} ({full.n_kv} kv), d_ff {full.d_ff}"
+         + (f", {full.n_experts} experts of {full.d_expert} top-{full.top_k}" if is_moe else "")
+         + (f", window {full.window} (every {full.global_period}th layer global)"
+            if full.window else "")
+         + f", vocab {full.vocab}: {n_params} parameters, {n_mat} in matrices "
+         f"(ArchConfig.n_params() {full.n_params()}"
+         + (f", less a gate matrix a layer, {gate}" if gate else "")
+         + (f", and the shared expert's gates, {shared_gate}" if shared_gate else "") + "; "
+         f"n_active_params() {full.n_active_params()}); weights {weights} bytes; init "
+         f"{t_init:.2f} s, peak device memory during the build {build_peak} bytes "
+         f"({build_peak / 2**30:.2f} GiB)")
+    assert n_mat == full.n_params() - gate + shared_gate, (n_mat, full.n_params())
+    assert n_attn == n_k6(full), (n_attn, n_k6(full))
+    sbatch = make_batch(full, np.random.default_rng(phase + 1), *serve, device=dev)
+    batch_p, l_prompt, n_new = prompt
+    prompts = np.random.default_rng(phase + 2).integers(
+        0, full.vocab, (batch_p, l_prompt)).astype(np.int32) if decoder else None
+    busy_fwd, n_ev_fwd, spans, serve_launches = _serve_bf16(
+        tag, model, params, sbatch, prompts, n_new, n_attn, (moe, MOE_RANGES) if is_moe else None)
+    l_all = sbatch.get("tokens", sbatch.get("prefix_embeds")).shape[1] + (
+        sbatch["prefix_embeds"].shape[1] if full.family == "vlm" else 0)
+    k6_shape = (serve[0], full.n_heads, l_all, full.hd)
+    if n_attn:  # K6 at this model's shape, from the traced forward
+        mine = [k_ for k_ in busy_fwd if any(nm in k_ for nm in FLASH_KERNELS)]
+        ms_k6 = sum(busy_fwd[k_] for k_ in mine) / 1e3
+        bound6, by6 = _bound(*_flash_work(*k6_shape, full.causal, 2, full.n_kv), BF16_FLOPS)
+        _say(f"[{tag}] K6 at {list(k6_shape)} bf16 {'causal' if full.causal else 'non-causal'} "
+             f"(GQA {full.n_heads}:{full.n_kv}, {fa.kernel_variant(bf16, full.hd)}) in the traced "
+             f"forward: {ms_k6:.3f} ms over {sum(n_ev_fwd[k_] for k_ in mine)} events, "
+             f"{ms_k6 / n_attn:.4f} ms a call; bound {bound6:.4f} ms by {by6}"
+             + (f", {100 * bound6 * n_attn / ms_k6:.1f} % of it" if ms_k6 else ""))
+    share = None
+    if is_moe:
+        beside = ("" if qwen2_share is None else
+                  f"; qwen2-moe-a2.7b's in phase 29 of this run {qwen2_share:.2f} %")
+        share = _moe_dispatch_share(tag, busy_fwd, n_ev_fwd, spans, beside)
+        _moe_layer0_stats(tag, full, params, sbatch["tokens"])
+    qkv = None
+    if n_attn:  # layer 0's q, k, v on the serving batch, for K6/K6b at this shape,
+        # kept on the host so that later phases' peaks read as before
+        with torch.no_grad():
+            qkv = _first_attention(lambda: model.loss_fn(params, sbatch, dtype=bf16))
+        assert tuple(qkv[0].shape) == k6_shape and qkv[1].shape[1] == full.n_kv, \
+            [tuple(x.shape) for x in qkv[:3]]
+        qkv = (*(x.cpu() for x in qkv[:3]), qkv[3])
+    del params, sbatch, model
+    torch.cuda.empty_cache()
+    _say(f"[{tag}] phase {phase + 1}: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- bf16 training at full width ----------------------------------------------
+    t_phase = time.perf_counter()
+    cfg_t = full if train_depth is None else dataclasses.replace(full, n_layers=train_depth)
+    model = build_model(cfg_t, device=dev)
+    loss_kw = {"dtype": bf16}
+    if is_moe:  # the JAX launcher's replica slots
+        loss_kw.update(extra_slots=8, capacity_factor=1.25)
+    step_fn = make_train_step(model, opt_cfg, loss_kw)
+    tbatch = make_batch(cfg_t, np.random.default_rng(1), *train, device=dev)
+    if decoder:
+        pipe = TokenPipeline(vocab=full.vocab, batch=train[0], seq=train[1] - 1, seed=1)
+        tbatch["tokens"] = torch.from_numpy(pipe.next_batch()).to(dev)
+    nt = n_k6(cfg_t)
+    ms_med, _, busy, _, train_launches = _train_bf16(
+        tag, model, step_fn, tbatch, {"flash_attention": 2 * nt, "flash_attention_bwd": nt},
+        K6_SHARES, plain=_plain_attention if nt else None)
+    if nt:  # K6b at this model's shape, from the traced step
+        ms_b = sum(v for k_, v in busy.items() if any(nm in k_ for nm in FLASH_BWD_KERNELS)) / 1e3
+        bound_b, by_b = _bound(*_flash_bwd_work(*k6_shape, full.causal, 2, full.n_kv), BF16_FLOPS)
+        _say(f"[{tag}] K6b at {list(k6_shape)} bf16 ({fa.bwd_kernel_variant(bf16, full.hd)}) in "
+             f"the traced step: {ms_b:.3f} ms over {nt} calls, {ms_b / nt:.4f} ms a call; bound "
+             f"{bound_b:.4f} ms by {by_b}"
+             + (f", {100 * bound_b * nt / ms_b:.1f} % of it" if ms_b else ""))
+    # model flops: 6 N T over the positions (patches included) with N the
+    # matrices a position passes through (MoE: n_active_params of the cut
+    # config), and 12 D a kept (query, key) pair a head
+    l_all = train[1] + (tbatch["prefix_embeds"].shape[1] if full.family == "vlm" else 0)
+    n_eff = cfg_t.n_active_params() if is_moe else cfg_t.n_params() - (
+        cfg_t.n_layers * cfg_t.d_model * cfg_t.d_ff if gate else 0)
+    flops = 6.0 * n_eff * train[0] * l_all \
+        + 12.0 * train[0] * cfg_t.n_heads * cfg_t.hd * _attn_pairs(cfg_t, l_all)
+    mfu = flops / (ms_med / 1e3) / BF16_FLOPS
+    _say(f"[{tag}] mfu={mfu:.4f} (6 N T + 12 B H D pairs = {flops:.4g} model flops a step, N = "
+         f"{n_eff}{' active' if is_moe else ''} of depth {cfg_t.n_layers}, T = {train[0]} x "
+         f"{l_all} positions; over {ms_med:.2f} ms at 989 TFLOP/s bf16"
+         + ("; extra_slots 8, cf 1.25)" if is_moe else ")"))
+    del step_fn, tbatch, model
+    torch.cuda.empty_cache()
+    _say(f"[{tag}] phase {phase + 2}: {time.perf_counter() - t_phase:.1f} s")
+    return {k_: serve_launches.get(k_, 0) + train_launches.get(k_, 0)
+            for k_ in set(serve_launches) | set(train_launches)}, qkv, share
 
 
 def _leaf_paths(tree, prefix=()):
@@ -3765,7 +4138,10 @@ def main() -> int:
     k6b, train_launches = _train_phases(dev)
     kernels.append(k6b)
     torch.cuda.empty_cache()
-    moe_launches = _moe_phases(dev)
+    _moe_dispatch_phase(dev)
+    # qwen2-moe-a2.7b's K6 shape is OLMo-1B's, held in phases 16 and 26
+    moe_launches, _, qwen2_share = _full_size_phases(
+        dev, "qwen2-moe-a2.7b", 28, 24, 4, check_depth=4, bucket=True, prompt=(4, 128, 32))
     torch.cuda.empty_cache()
     d80, hybrid_launches = _hybrid_phases(dev)
     torch.cuda.empty_cache()
@@ -3773,10 +4149,35 @@ def main() -> int:
     kernels.append(k7b)
     torch.cuda.empty_cache()
     launcher_launches = _launcher_phase(dev)
+    torch.cuda.empty_cache()
+    full_launches, full_qkv = {}, {}
+    for i, (name, n_attn, depth) in enumerate(FULL_SIZE):
+        full_launches[name], full_qkv[name], _ = _full_size_phases(
+            dev, name, 42 + 3 * i, n_attn, depth, qwen2_share=qwen2_share)
+
+    # ---- 57. K6 and K6b at each new shape: layer 0's q, k, v of phases 43-55 --
+    t = time.perf_counter()
+    at_shapes = {}
+    for name, qkv in full_qkv.items():
+        if qkv is None:  # gemma3-4b runs no K6
+            continue
+        *qkv, causal = qkv
+        tag = name.split("-")[0]
+        k6, k6b = _flash_pair(f"{name}'s first layer", *(x.to(dev) for x in qkv),
+                              causal=causal, seed=57)
+        suffix = "d80_noncausal" if tag == "hubert" else tag
+        for entry, nums in (("flash_attention", k6), ("flash_attention_bwd", k6b)):
+            at_shapes.setdefault(entry, {}).update(
+                {f"{key}_{suffix}": x for key, x in nums.items()})
+    del full_qkv, qkv
+    torch.cuda.empty_cache()
+    _say(f"[K6] phase 57: {time.perf_counter() - t:.1f} s")
 
     # beside each path's own count, phases 4b's, 6b's, 10b's, 10c's, 24's,
-    # 29 + 31's, 34 + 35's, 39's and 41's (the launcher's own counts, summed
-    # over its two runs); K6 and K6b at the hybrid's head dim of 80
+    # 29 + 30's, 34 + 35's, 39's, 41's (the launcher's own counts, summed
+    # over its two runs) and each full-size configuration's serving and
+    # training (43 + 44, ..., 55 + 56); K6 and K6b at the hybrid's head dim
+    # of 80 and at each shape of phase 57
     for entry in kernels:
         entry["launches_speculative"] = spec_launches.get(entry["name"], 0)
         entry["launches_distributed"] = dist_launches.get(entry["name"], 0)
@@ -3787,7 +4188,10 @@ def main() -> int:
         entry["launches_hybrid"] = hybrid_launches.get(entry["name"], 0)
         entry["launches_rwkv_train"] = rwkv_train_launches.get(entry["name"], 0)
         entry["launches_launcher"] = launcher_launches.get(entry["name"], 0)
+        for name, counts in full_launches.items():
+            entry[f"launches_{name.split('-')[0]}"] = counts.get(entry["name"], 0)
         entry.update(d80.get(entry["name"], {}))
+        entry.update(at_shapes.get(entry["name"], {}))
     _say(f"[trace] {len(RETAKEN)} trace(s) lost device events and were taken again: "
          f"{RETAKEN}")
     assert len(RETAKEN) <= 1, f"more than one trace lost device events: {RETAKEN}"

@@ -727,7 +727,8 @@ def test_wkv6_kernel_pads_head_dim(cuda, hd, l):
 # ---- the dense transformer on the card ---------------------------------------
 
 
-@pytest.mark.parametrize("name", ["olmo-1b", "granite-3-8b", "gemma3-4b", "hubert-xlarge"])
+@pytest.mark.parametrize("name", ["olmo-1b", "granite-3-8b", "gemma3-4b", "hubert-xlarge",
+                                  "internvl2-1b"])
 def test_transformer_on_card_matches_cpu(cuda, name):
     """Reduced configs in fp32: the card (K6 for full-window layers) against
     the CPU (the plain attention branches)."""
@@ -763,7 +764,8 @@ def test_transformer_on_card_matches_cpu(cuda, name):
     torch.testing.assert_close(d_card.cpu(), d_cpu, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("name", ["olmo-1b", "granite-3-8b", "hubert-xlarge"])
+@pytest.mark.parametrize("name", ["olmo-1b", "granite-3-8b", "hubert-xlarge", "gemma3-4b",
+                                  "internvl2-1b"])
 def test_train_step_on_card_matches_cpu(cuda, name):
     """Reduced configs in fp32, remat on: two train steps on the card (K6's
     forward twice a layer and its backward kernel once) against the same

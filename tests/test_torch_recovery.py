@@ -8,10 +8,14 @@ exhaustion, on both of the port's ingest paths.
 The JAX side runs its baseline engine (``fused_ingest=False``; its own
 contract is that the fused path equals it), once per stream in a module
 fixture.  The port runs on the CPU through the kernels' plain versions.
-After every scenario the port's window fingerprint is checked against the
-port's ``oracle_join`` and against the join over its carried state;
-``tests/test_recovery.py``'s cross-check through ``recompute_distributed``
-waits for the distributed shuffle (ROADMAP.md queue 1 item 10).
+After every scenario but exhaustion the port's window fingerprint is
+checked against the port's ``oracle_join``, against the join over its
+carried state, and, as ``tests/test_recovery.py:60-71`` checks the JAX
+engine's, against a replay of the retained window through the distributed
+shuffle (``recompute_distributed(window=True)`` at the reference's caps of
+24, on this process's one-rank gloo group): no overflow, the oracle's
+``(count, checksum)``, and the JAX engine's own replay of the same scenario
+field for field.
 """
 import dataclasses
 import re
@@ -121,18 +125,36 @@ def jax_runs():
 
 _VARIANTS = {"baseline": {}, "fused": dict(fused_ingest=True)}
 
+# degraded plans concentrate the window on few reducers; the reference's
+# generous caps keep the replay free of overflow, so it is exact
+_RECOMPUTE = dict(window=True, cap_factor=24.0, route_cap_factor=24.0)
 
-def _assert_window_exact(eng):
+
+@pytest.fixture(scope="module")
+def jax_recomputes(jax_runs):
+    """The JAX engine's distributed replay of each scenario's window."""
+    return {name: jax_runs[name][0].recompute_distributed(**_RECOMPUTE)
+            for name in _SCENARIOS if name != "exhaustion"}
+
+
+def _assert_window_exact(eng, want):
     """The window fingerprint equals the port's oracle on the retained
-    input and the join over the carried binned state."""
+    input, the join over the carried binned state, and the distributed
+    replay of the window, which equals the JAX engine's (``want``)."""
     count, checksum, _, _ = oracle_join(eng.query, eng.history_data())
     assert (eng.window_count, eng.window_checksum) == (count, checksum)
     assert eng._state_join_fingerprint() == (count, checksum)
+    res = eng.recompute_distributed(**_RECOMPUTE)
+    assert res.overflow == 0
+    assert (res.count, res.checksum) == (count, checksum)
+    assert (res.count, res.checksum, res.comm_tuples, res.overflow) == (
+        want.count, want.checksum, want.comm_tuples, want.overflow)
+    np.testing.assert_array_equal(res.reducer_loads, want.reducer_loads)
 
 
 @pytest.mark.parametrize("variant", sorted(_VARIANTS))
 @pytest.mark.parametrize("name", sorted(_SCENARIOS))
-def test_port_recovery_equals_jax(jax_runs, name, variant):
+def test_port_recovery_equals_jax(jax_runs, jax_recomputes, name, variant):
     eng, inj, trace = _run(tstream, tcore, ttesting, name, _VARIANTS[variant], device="cpu")
     _, jinj, want = jax_runs[name]
     assert len(trace) == len(want)
@@ -142,7 +164,7 @@ def test_port_recovery_equals_jax(jax_runs, name, variant):
         inj.assert_all_resolved()
         assert dataclasses.astuple(inj.report()) == dataclasses.astuple(jinj.report())
     if name != "exhaustion":
-        _assert_window_exact(eng)
+        _assert_window_exact(eng, jax_recomputes[name])
     if variant == "fused":
         assert eng.fused_batches == len(eng.reports)
 

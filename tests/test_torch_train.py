@@ -1,6 +1,6 @@
 """The port's training path against the JAX package's, on the CPU in fp32:
 the token pipeline (bit for bit), AdamW, its schedule and the clip, the
-loss and every gradient of four reduced dense-family configs (weights
+loss and every gradient of five reduced dense-family configs (weights
 carried by ``params_from_jax``), remat, three train steps, checkpoints
 (async, elastic, across the packages both ways).  Tolerances: the loss and
 gradients to 2e-4 relative with an absolute floor of 1e-5 (fp32 sums in
@@ -35,7 +35,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.train import optimizer as topt
 from repro_torch.train.checkpoint import _flatten_with_paths
 
-_NAMES = ["olmo-1b", "gemma3-4b", "internvl2-1b", "hubert-xlarge"]
+_NAMES = ["olmo-1b", "gemma3-4b", "internvl2-1b", "hubert-xlarge", "granite-3-8b"]
 _GRAD_TOL = dict(rtol=2e-4, atol=1e-5)
 _OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20, grad_clip=1.0)
 
