@@ -241,7 +241,7 @@ Phases:
      to g - mean, bit for bit;
  34. bf16 serving at full width and depth, the hybrid's main path (2.31·10⁹
      parameters, built in bf16): a forward-only ``loss_fn`` over [4, 2048]
-     (9 K6 launches a forward on the ``bf16_mma_sync`` route at D = 80,
+     (9 K6 launches a forward on the ``bf16_wgmma`` route at D = 80,
      asserted), then ``greedy_generate`` of 4 prompts of 128 tokens with 32
      new tokens; forward ms, ms per decode step, the host's PyTorch calls in
      a decode step, peak memory, the busy share of a forward and a decode
@@ -259,10 +259,13 @@ Phases:
      N every matrix a token passes through (the shared block once an
      invocation), plus the attention term;
  36. K6 and K6b at the hybrid's shape, [4, 32, 2048, 80] causal bf16 (the
-     ``mma.sync`` route; q, k, v of the shared block's first invocation):
-     each against its plain version (2e-2; K6b also by relative norm,
-     1e-2), device time (a CUDA graph), plain time, SDPA's forward and
-     backward, bound; the kernels line carries them as ``*_d80``.
+     ``wgmma`` route at D = 80; q, k, v of the shared block's first
+     invocation): each against its plain version (2e-2; K6b also by
+     relative norm, 1e-2), device time (a CUDA graph), plain time, SDPA's
+     forward and backward, bound, the route's registers and spills
+     (``-Xptxas -v``), and the yardstick of the wgmma kernels at D = 128 on
+     q, k, v and dO zero-padded to 128 (the kernels alone, and the forward
+     with the padding copies); the kernels line carries them as ``*_d80``.
  37. K7b, the recurrence's backward (``kernels.wkv6.wkv6_bwd``), against
      ``wkv6_bwd_ref`` on the card (``_rwkv_train_phases``): [4, 2048, 40] at
      hd 64 (the model's), hd 16, 80 and 72 (run padded to 128) and 128, L = 1,
@@ -343,10 +346,11 @@ Phases:
      phase 36: qwen3-moe-30b-a3b's [4, 32, 2048, 128] causal GQA 32:4 and
      granite-3-8b's GQA 32:8 (wgmma), internvl2-1b's [4, 14, 2112, 64]
      causal GQA 14:2 (wgmma, a ragged last tile), hubert-xlarge's [4, 16,
-     2048, 80] non-causal (``mma.sync``): each against its plain version
+     2048, 80] non-causal (wgmma at D = 80): each against its plain version
      (2e-2; K6b also by relative norm, 1e-2), device time (a CUDA graph),
      plain time, SDPA's forward and backward (``enable_gqa`` under GQA),
-     bound; the kernels line carries them as ``*_qwen3``, ``*_granite``,
+     bound, the route's registers and spills, at D = 80 the padded-to-128
+     yardstick; the kernels line carries them as ``*_qwen3``, ``*_granite``,
      ``*_internvl2`` and ``*_d80_noncausal``.
 
 Every kernel's time is device time per call of everything the wrapper
@@ -777,9 +781,11 @@ def _lm_phases(dev, r_col):
         (1, 8, 1, 256, 256, 32, True, f32, False), (2, 2, 2, 128, 128, 32, False, f32, False),
         (1, 4, 4, 64, 64, 16, True, f32, False), (2, 4, 2, 200, 200, 64, True, f32, False),
         (1, 32, 8, 512, 512, 128, True, bf16, False),
-        # the wgmma kernel: D = 64 and 128, ragged L, GQA 4, Lq != Lk, the
-        # attention layer's [B, L, H, D] views
+        # the wgmma kernel: D = 64, 80 and 128, ragged L, GQA 4, Lq != Lk,
+        # the attention layer's [B, L, H, D] views
         (2, 4, 4, 200, 200, 64, True, bf16, False), (1, 8, 8, 1000, 1000, 128, True, bf16, False),
+        (2, 16, 4, 130, 130, 80, True, bf16, False), (1, 4, 4, 77, 300, 80, False, bf16, False),
+        (2, 16, 16, 333, 333, 80, False, bf16, True),
         (2, 16, 4, 256, 256, 128, True, bf16, False), (2, 8, 2, 1000, 1000, 64, True, bf16, False),
         (2, 4, 4, 77, 300, 128, False, bf16, False), (1, 4, 2, 300, 77, 64, False, bf16, False),
         (2, 16, 4, 333, 333, 128, True, bf16, True), (2, 8, 2, 200, 200, 64, True, bf16, True),
@@ -1681,8 +1687,8 @@ def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)
     f32, bf16 = torch.float32, torch.bfloat16
 
     # ---- 22. K6's backward against its plain version --------------------------
-    # (b, h, hkv, Lq, Lk, d, causal, dtype); bf16 at D = 64 and 128 runs the
-    # wgmma kernels: GQA 4:1, ragged L, Lq != Lk, one query, L below a tile
+    # (b, h, hkv, Lq, Lk, d, causal, dtype); bf16 at D = 64, 80 and 128 runs
+    # the wgmma kernels: GQA 4:1, ragged L, Lq != Lk, one query, L below a tile
     olmo_bwd = None
     for b, h, hkv, lq, lk, d, causal, dtype in [
         (2, 4, 2, 200, 200, 64, True, f32), (1, 4, 1, 200, 200, 128, False, f32),
@@ -1691,6 +1697,7 @@ def _train_phases(dev, depth=None, main=(4, 2048), check=(2, 256), ckpt=(2, 512)
         (2, 4, 4, 200, 200, 96, False, bf16), (2, 8, 2, 200, 200, 40, True, bf16),
         (1, 4, 1, 300, 300, 64, False, bf16), (1, 8, 2, 77, 300, 128, False, bf16),
         (2, 8, 2, 1, 100, 64, False, bf16), (2, 8, 2, 40, 40, 128, True, bf16),
+        (2, 16, 4, 130, 130, 80, True, bf16), (1, 4, 2, 77, 300, 80, False, bf16),
         (4, 16, 16, 2048, 2048, 128, True, bf16),
     ]:
         g = torch.Generator(device=dev).manual_seed(b * 1000 + h + lq + d)
@@ -2197,6 +2204,7 @@ def _serve_bf16(tag, model, params, batch, prompts, n_new, n_attn, ranges=None):
         _say(f"[{tag}] generated tokens (sequence 0): {tokens[0].tolist()}")
     _say(f"[{tag}] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); "
          f"launches={serve_launches}")
+    _k6_in_trace(tag, "forward", busy_fwd, n_ev_fwd, model.cfg.hd)
     for what, busy, wall in traces:
         assert busy, f"the {what}'s profiler trace holds no device events"
         b_ms = sum(busy.values()) / 1e3
@@ -2362,6 +2370,7 @@ def _train_bf16(tag, model, step_fn, batch, per_step, shares, ranges=None, plain
         assert train_launches[name] == n * (steps + 2), train_launches
     ms_med = float(np.median(step_ms[1:n_steps]))
     b_ms = sum(busy.values()) / 1e3
+    _k6_in_trace(tag, "train step", busy, n_ev, model.cfg.hd)
     parts = []
     for label, names in shares.items():
         mine = [k_ for k_ in busy if any(nm in k_ for nm in names)]
@@ -2563,18 +2572,48 @@ def _distributed_phase(dev, query, data, plan, base, oracle, base_s, per_run, th
     return launches()
 
 
+def _k6_in_trace(tag, what, busy, n_ev, hd):
+    """Prints the K6 and K6b CUDA functions of a trace (``busy``: device us
+    by function, ``n_ev``: events) with their events, and asserts that each
+    is a wgmma kernel where ``kernel_variant`` names that route for bf16 at
+    head dim ``hd`` as the wrapper pads it (D = 64, 80 and 128), so no
+    mma.sync kernel (nor its delta pass) runs there."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dp = fa.padded_head_dim(hd)
+    route = fa.kernel_variant(torch.bfloat16, dp)
+    mine = {k_: n_ev.get(k_, 0) for k_ in busy
+            if any(nm in k_ for nm in FLASH_KERNELS + FLASH_BWD_KERNELS)}
+    if not mine:
+        return
+    _say(f"[trace] {tag} {what}: K6/K6b functions ({route} at D = {dp}): "
+         + "; ".join(f"{k_[:90]} x{n}" for k_, n in sorted(mine.items())))
+    if route == "bf16_wgmma":
+        assert all("wgmma_kernel" in k_ for k_ in mine), mine
+
+
 def _flash_pair(what, q, k, v, causal, seed):
     """K6 and K6b on a model's own bf16 q, k, v (``what`` names where they
     come from): each against its plain version (2e-2; K6b also by relative
     norm, 1e-2), device time (a CUDA graph of 10 calls), plain time,
     ``scaled_dot_product_attention``'s forward and backward (timed here,
     never called by the port; ``enable_gqa`` where k and v have fewer heads
-    than q), the bound; the output's gradient drawn from ``seed``.  Prints
-    the ``[K6]`` and ``[K6b]`` lines; returns the kernels line's numbers of
-    each (``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms``,
-    ``max_abs_err``)."""
+    than q), the bound, and the wgmma route's registers and spills (``nvcc
+    -Xptxas -v``); the output's gradient drawn from ``seed``.  At D = 80
+    also the yardstick: the wgmma kernels at D = 128 on q, k, v and dO
+    zero-padded to 128 (scale 1/sqrt(80)), held against the plain version
+    and timed alone (``padded128_ms``) and, for the forward, with the
+    padding copies a call would make (``padded128_route_ms``).  Prints the
+    ``[K6]`` and ``[K6b]`` lines; returns the kernels line's numbers of each
+    (``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms``,
+    ``max_abs_err``, and at D = 80 the yardstick's)."""
+    import math
+
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = (x.contiguous() for x in (q, k, v))
@@ -2629,10 +2668,46 @@ def _flash_pair(what, q, k, v, causal, seed):
          f"10 calls; {_short(ev_b)} ms an event in a trace; wrapper {wrap_b:.4f} ms); plain "
          f"{plain_b:.2f} ms; scaled_dot_product_attention's backward {lib_b:.4f} ms; bound "
          f"{bound_b:.4f} ms by {by_b}; {100 * bound_b / ms_b:.1f} % of the bound")
-    return ({"ms": ms6, "plain_ms": plain6, "bound_ms": bound6, "bound_by": by6,
-             "library_ms": lib6, "max_abs_err": err6},
-            {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": by_b,
-             "library_ms": lib_b, "max_abs_err": err_b})
+    dp = fa.padded_head_dim(q.shape[3])
+    if fa.kernel_variant(q.dtype, dp) == "bf16_wgmma":  # the route's registers and spills
+        built = _build.build_all(["flash_attention", "flash_attention_bwd"])
+        for src, nm in (("flash_attention", "flash_fwd_wgmma_kernel"),
+                        ("flash_attention_bwd", "flash_bwd_dq_wgmma_kernel"),
+                        ("flash_attention_bwd", "flash_bwd_dkdv_wgmma_kernel")):
+            log, nm = built[src].ptxas, f"{nm}ILi{dp}E"
+            _say(f"[K6] {what}: {nm} ({src}.cu): {_ptxas_regs(log, nm)} registers, spill "
+                 f"stores/loads {_ptxas_spills(log, nm)} bytes (nvcc -Xptxas -v)")
+    fwd = {"ms": ms6, "plain_ms": plain6, "bound_ms": bound6, "bound_by": by6,
+           "library_ms": lib6, "max_abs_err": err6}
+    bwd = {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": by_b,
+           "library_ms": lib_b, "max_abs_err": err_b}
+    if q.shape[3] == 80:  # the yardstick: the D = 128 wgmma kernels on zero-padded inputs
+        scale = 1.0 / math.sqrt(80)
+        qp, kp, vp, dop = (fa.pad_head_dim(x, 128) for x in (q, k, v, do))
+        op, lsep = fa._launch(qp, kp, vp, causal, 80, with_lse=True)
+        got_p = fa._launch_bwd(qp, kp, vp, op, lsep, dop, causal, scale)
+        want_p = fa.flash_attention_ref(q, k, v, causal)
+        err_p = _max_float_err(op[..., :80], want_p)
+        o_ref, lse_ref = fa.flash_attention_ref_lse(q, k, v, causal)
+        want_b = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, causal)
+        rel_p = max(_rel_norm_err(x[..., :80], w) for x, w in zip(got_p, want_b))
+        assert _close(op[..., :80], want_p, 2e-2) and rel_p <= 1e-2, (err_p, rel_p)
+        del got_p, want_p, o_ref, lse_ref, want_b
+        pad_ms = _graph_ms(lambda: fa._launch(qp, kp, vp, causal, 80), 10)
+        route_ms = _graph_ms(lambda: fa._launch(
+            *(fa.pad_head_dim(x, 128) for x in (q, k, v)), causal, 80)[0][..., :80], 10)
+        pad_b = _graph_ms(lambda: fa._launch_bwd(qp, kp, vp, op, lsep, dop, causal, scale), 10)
+        _say(f"[K6] the yardstick at {tuple(q.shape)} {mask}: the wgmma kernels at D = 128 on q, "
+             f"k, v and dO zero-padded to 128 (max_abs_err {err_p:.3g}, K6b relative norm "
+             f"{rel_p:.3g}): K6 {pad_ms:.4f} ms alone, {route_ms:.4f} ms with the padding copies; "
+             f"K6b {pad_b:.4f} ms alone (CUDA graphs of 10 calls); the D = 80 route "
+             f"{ms6:.4f} and {ms_b:.4f} ms; faster forward: "
+             f"{'D = 80' if ms6 <= pad_ms else 'padded'}, backward: "
+             f"{'D = 80' if ms_b <= pad_b else 'padded'}")
+        fwd.update(padded128_ms=pad_ms, padded128_route_ms=route_ms)
+        bwd.update(padded128_ms=pad_b)
+        del qp, kp, vp, dop, op, lsep
+    return fwd, bwd
 
 
 def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
@@ -2773,7 +2848,7 @@ def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
          f"{100 * span_ms['mamba2.ssd'] / busy_ms:.2f} % ({span_ms['mamba2.ssd']:.3f} of "
          f"{busy_ms:.3f} ms)" + ("" if span_ms["mamba2.ssd"] > 0 else
                                  ": the trace linked no kernel to the range, not measured"))
-    assert fa.kernel_variant(bf16, full.hd) == "bf16_mma_sync"
+    assert fa.kernel_variant(bf16, full.hd) == fa.bwd_kernel_variant(bf16, full.hd) == "bf16_wgmma"
     # the shared block's q, k, v at its first invocation, for phase 36
     acfg = tt.attn_config(full)
     with torch.no_grad():
@@ -2816,7 +2891,7 @@ def _hybrid_phases(dev, check=(2, 32), grad=(2, 256), serve=(4, 2048),
     del step_fn, first
     torch.cuda.empty_cache()
 
-    # ---- 36. K6 and K6b at the hybrid's shape ([4, 32, 2048, 80], mma.sync) -
+    # ---- 36. K6 and K6b at the hybrid's shape ([4, 32, 2048, 80], wgmma) ----
     k6, k6b = _flash_pair("the hybrid's shared block", *hybrid_qkv, causal=True, seed=36)
     del hybrid_qkv
     torch.cuda.empty_cache()

@@ -28,7 +28,7 @@
 //   * fp32, any D: FMAs on the CUDA cores (67 TFLOP/s at most), 64 queries a
 //     block, 4 x 4 scores per thread; no TF32, so it agrees with the plain
 //     version to 2e-5.  The parity path of the fp32 checks;
-//   * bf16, D = 64 or 128 (the FlashAttention-3 shape, namespace wg below):
+//   * bf16, D = 64, 80 or 128 (the FlashAttention-3 shape, namespace wg below):
 //     128 queries a block, two consumer warpgroups of 64 rows and a
 //     producer warpgroup whose one thread issues the TMA loads: Q once, K
 //     and V through a ring of three 128-key stages with full and empty
@@ -39,7 +39,14 @@
 //     moves registers from the producer to the consumers.  The online
 //     softmax works in log2 units (exp2 with scale * log2(e) folded into one
 //     multiply), masks only the diagonal and the ragged last tile, and the
-//     epilogue stages O in the warpgroup's Q rows for 16-byte stores;
+//     epilogue stages O in the warpgroup's Q rows for 16-byte stores.  At
+//     D = 80 (hubert-xlarge, Zamba2's shared block) a row is two swizzled
+//     chunks, the second holding columns 64-79 and zeros that TMA writes
+//     (hopper.cuh): S takes five k steps of 16, and O += P V is
+//     m64n80k16, so the products run at 80 and not at 128.  A second
+//     score tile in the registers this frees, for FlashAttention-3's
+//     overlap of the next tile's S with this tile's softmax, spilled and
+//     made ptxas serialize the wgmmas (PERF.md, Findings);
 //   * bf16, other D (16 to 256): mma.sync m16n8k16 with ldmatrix fragments,
 //     64 queries a block and 64-key tiles loaded by every thread.
 // In both bf16 kernels the scores are exact products of the bf16 inputs
@@ -415,15 +422,17 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- bf16, D in {64, 128}: wgmma, TMA and a ring of K/V tiles ---------------
+// ---- bf16, D in {64, 80, 128}: wgmma, TMA and a ring of K/V tiles -----------
 // One block owns 128 queries of one (batch, head): warpgroups 0 and 1
 // (threads 0-255) consume, 64 query rows each; warpgroup 2 produces, and of
 // it one thread issues every TMA load.  setmaxnreg moves registers from the
 // producer (24 a thread) to the consumers (240).  Q is loaded once; K and V
 // tiles of 128 keys go through a ring of STAGES stages, each with a "K full",
 // a "V full" and an "empty" mbarrier, so the producer keeps the next tiles in
-// flight while the consumers compute.  Every tile is stored as D / 64 column
-// chunks of [128 rows][64 bf16] with the 128-byte swizzle (hopper.cuh).
+// flight while the consumers compute.  Every tile is stored as chunks(D)
+// column chunks of [128 rows][64 bf16] with the 128-byte swizzle (hopper.cuh;
+// at D = 80 the second chunk's columns 80-127 are zeros that no product
+// reads).
 namespace wg {
 
 constexpr int BM = 128;       // queries a block (two consumer warpgroups of 64)
@@ -487,9 +496,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                        float* __restrict__ lse, const Shape s) {
-  constexpr int NCH = D / CHUNK;                // swizzled column chunks of a row
-  constexpr int TILE = BN * D;                  // elements of a K, V (or the Q) tile
-  constexpr uint32_t TILE_BYTES = TILE * 2;
+  constexpr int NCH = chunks(D);                // swizzled column chunks of a row
+  constexpr int TILE = BN * chunk_cols(D);      // elements of a K, V (or the Q) tile
+  constexpr uint32_t TILE_BYTES = TILE * 2;     // TMA counts the zeros past D too
   static_assert(BM == BN, "Q and a K/V tile share the chunk layout");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, full_k[STAGES], full_v[STAGES], empty[STAGES];
@@ -564,7 +573,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const bf16* cv = sv + 2 * st * TILE;
 
     // S = Q K^T: 64 x 128, both operands K-major; k steps of 16 walk 32 bytes
-    // along a swizzled row, then to the next 64-column chunk
+    // along a swizzled row, then to the next 64-column chunk (D / 16 steps:
+    // five at D = 80)
     float sc[64];
     mbar_wait(&full_k[st], parity);
     wg_fence();
@@ -589,7 +599,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
 
     // O += P V: A = p from registers, B = V, MN-major (transposed): k steps
-    // of 16 keys are 2048 bytes apart, the 64-column chunks 16 KB (LBO)
+    // of 16 keys are 2048 bytes apart, the 64-column chunks 16 KB (LBO); N =
+    // D (at 80 the B operand reaches 16 columns into the second chunk)
     mbar_wait(&full_v[st], parity);
     wg_fence();
 #pragma unroll
@@ -680,8 +691,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   if (res == CUDA_SUCCESS) res = hopper::make_map(&mk, k, B, Hkv, s.Lk, D, s.ks, wg::BN);
   if (res == CUDA_SUCCESS) res = hopper::make_map(&mv, v, B, Hkv, s.Lk, D, s.vs, wg::BN);
   if (res != CUDA_SUCCESS) return hopper::kTensorMapError + static_cast<int>(res);
-  const size_t bytes =
-      static_cast<size_t>(1 + 2 * wg::STAGES) * wg::BN * D * sizeof(bf16) + 1024;  // + alignment
+  const size_t bytes = static_cast<size_t>(1 + 2 * wg::STAGES) * wg::BN * hopper::chunk_cols(D) *
+                           sizeof(bf16) + 1024;  // + alignment
   const auto fn = wg::flash_fwd_wgmma_kernel<D>;
   const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(bytes));
@@ -699,7 +710,7 @@ extern "C" {
 // q, k, v, o: device pointers, all fp32 (variant 0) or all bf16 (1, 2).
 // variant (kernels/flash_attention.py, kernel_variant): 0 = fp32 on the
 // CUDA cores, 1 = bf16 with mma.sync (D a multiple of 16 up to 256),
-// 2 = bf16 with wgmma and TMA (D = 64 or 128).
+// 2 = bf16 with wgmma and TMA (D = 64, 80 or 128).
 // lse: null, or fp32 [B, H, Lq] contiguous for each row's log-sum-exp.
 // strides: 12 element strides, (batch, head, position) of q, k, v and o in
 // turn; the head dimension is contiguous in all four.  For bf16 every
@@ -712,7 +723,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            const long long* strides, float scale, int causal, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Lq < 1 || Lk < 1 || D < 16 ||
       D > 256 || D % 16 != 0 || (causal && Lq != Lk) || static_cast<long long>(B) * H > 65535 ||
-      variant < 0 || variant > 2 || (variant == 2 && D != 64 && D != 128)) {
+      variant < 0 || variant > 2 || (variant == 2 && D != 64 && D != 80 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Shape s{};
@@ -737,8 +748,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     return launch_f32<256>(q, k, v, o, lse, B, s, st);
   }
   if (variant == 2) {
-    return D == 64 ? launch_wgmma<64>(q, k, v, o, lse, B, Hkv, s, st)
-                   : launch_wgmma<128>(q, k, v, o, lse, B, Hkv, s, st);
+    if (D == 64) return launch_wgmma<64>(q, k, v, o, lse, B, Hkv, s, st);
+    if (D == 80) return launch_wgmma<80>(q, k, v, o, lse, B, Hkv, s, st);
+    return launch_wgmma<128>(q, k, v, o, lse, B, Hkv, s, st);
   }
   if (D <= 64) return launch_bf16<64>(q, k, v, o, lse, B, s, st);
   if (D <= 128) return launch_bf16<128>(q, k, v, o, lse, B, s, st);

@@ -36,9 +36,10 @@
 //   * fp32: FMAs on the CUDA cores, 32 x 32 tiles, 256 threads each
 //     holding 2 x 2 scores; no TF32.  The parity path.  A delta pass (one
 //     warp a row) runs first;
-//   * bf16, D = 64 or 128 (namespace wgb below): wgmma with TMA loads,
+//   * bf16, D = 64, 80 or 128 (namespace wgb below): wgmma with TMA loads,
 //     128 keys a key-tile block and 128 queries a query-tile block.  The
-//     training path of OLMo-1B (D = 128) runs here;
+//     training paths of OLMo-1B (D = 128), hubert-xlarge and Zamba2's
+//     shared block (D = 80) run here;
 //   * bf16, other D: mma.sync m16n8k16 with ldmatrix fragments, 64 x 64
 //     tiles, four warps of 16 rows, after the delta pass.  Its
 //     accumulators cover at most 128 columns of the head dim: a larger D
@@ -616,7 +617,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- bf16, D in {64, 128}: wgmma and TMA --------------------------------------
+// ---- bf16, D in {64, 80, 128}: wgmma and TMA ----------------------------------
 // FlashAttention-3's pieces on two kernels, each output with one owner.
 //   * flash_bwd_dq_wgmma_kernel runs first: a block owns 128 queries of one
 //     (batch, head), K6's forward shape: a producer warpgroup loads Q, dO
@@ -638,6 +639,13 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //     about 232 (dK and dV hold D / 2 each); with a producer warpgroup and
 //     setmaxnreg ptxas kept them under about 200, spilled, and serialized
 //     the wgmmas.
+// Tiles are stored as in the forward (hopper.cuh): at D = 80 two swizzled
+// chunks a row, columns 80-127 zeros that TMA writes and no product reads.
+// S^T, dP^T, S and dP take D / 16 = 5 k steps; dV, dK and dQ are m64n80k16
+// (40 accumulator registers a thread for each, 64 at D = 128).  Keeping a
+// tile's dV and dK (or dQ) products in flight while the next tile's scores
+// are issued, which those registers would allow, made ptxas serialize every
+// wgmma (C7515) and measured slower (PERF.md, Findings).
 // Below the bound (PERF.md, Findings) each warpgroup runs its products, its
 // exponentials and its waits in turn; and by count the key-tile kernel's
 // S^T and dP^T (m64n64k16, both operands from shared memory: 4 KB an
@@ -712,9 +720,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tv,
                             const __grid_constant__ CUtensorMap tdo, const BwdShape s,
                             const Work w) {
-  constexpr int NCH = D / CHUNK;
-  constexpr int KV = BN * D;  // elements of the K (or V) tile
-  constexpr int QT = BM * D;  // elements of a Q (or dO) tile
+  constexpr int NCH = chunks(D);
+  constexpr int KV = BN * chunk_cols(D);  // elements of the K (or V) tile
+  constexpr int QT = BM * chunk_cols(D);  // elements of a Q (or dO) tile
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], kv_full;
   __shared__ __align__(16) float slse[STAGES][BM], sdel[STAGES][BM];
@@ -875,8 +883,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const __grid_constant__ CUtensorMap to, const BwdShape s,
                           const Work w, bf16* __restrict__ dq) {
-  constexpr int NCH = D / CHUNK;
-  constexpr int QT = DQ_BM * D, KT = DQ_BN * D;
+  constexpr int NCH = chunks(D);
+  constexpr int QT = DQ_BM * chunk_cols(D), KT = DQ_BN * chunk_cols(D);
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, full[DQ_STAGES], empty[DQ_STAGES];
   bf16* sq = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
@@ -942,9 +950,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // delta = rowsum(dO * O) for this thread's rows row0 and row0 + 8: the four
   // threads of a row each take two 16-byte units of every chunk (O and dO
-  // share the swizzle, so the units pair up as stored); rows past Lq are
-  // zeros.  Then lse * log2(e), +inf past Lq, and both written for the
-  // key-tile kernel, which runs next.
+  // share the swizzle, so the units pair up as stored; at D = 80 the zeros
+  // past column 80 add nothing); rows past Lq are zeros.  Then lse *
+  // log2(e), +inf past Lq, and both written for the key-tile kernel, which
+  // runs next.
   mbar_wait(&bar_q, 0);
   float l2[2], dl[2];
 #pragma unroll
@@ -1113,15 +1122,16 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* o, con
   if (res == CUDA_SUCCESS) res = hopper::make_map(&mdo, dout, B, s.H, s.Lq, D, s.dos, 64);
   if (res == CUDA_SUCCESS) res = hopper::make_map(&mo, o, B, s.H, s.Lq, D, s.os, 64);
   if (res != CUDA_SUCCESS) return hopper::kTensorMapError + static_cast<int>(res);
-  const size_t dq_bytes =
-      static_cast<size_t>(3 * DQ_BM + 2 * DQ_STAGES * DQ_BN) * D * sizeof(bf16) + 1024;
+  const size_t dq_bytes = static_cast<size_t>(3 * DQ_BM + 2 * DQ_STAGES * DQ_BN) *
+                            hopper::chunk_cols(D) * sizeof(bf16) + 1024;
   const auto fdq = flash_bwd_dq_wgmma_kernel<D>;
   cudaError_t err = allow_smem(fdq, dq_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   fdq<<<dim3((s.Lq + DQ_BM - 1) / DQ_BM, B * s.H), DQ_THREADS, dq_bytes, st>>>(mq, mk, mv, mdo, mo,
                                                                              s, w, dq);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const size_t bytes = static_cast<size_t>(2 * BN + 2 * STAGES * BM) * D * sizeof(bf16) + 1024;
+  const size_t bytes =
+      static_cast<size_t>(2 * BN + 2 * STAGES * BM) * chunk_cols(D) * sizeof(bf16) + 1024;
   const auto fkv = flash_bwd_dkdv_wgmma_kernel<D>;
   if ((err = allow_smem(fkv, bytes)) != cudaSuccess) return static_cast<int>(err);
   fkv<<<w.n_bg * ((s.Lk + BN - 1) / BN), THREADS, bytes, st>>>(mq, mk, mv, mdo, s, w);
@@ -1136,8 +1146,8 @@ extern "C" {
 // gradient, all fp32 (variant 0) or all bf16, the head dimension
 // contiguous, D a multiple of 16 in [16, 256].  variant
 // (kernels/flash_attention.py, bwd_kernel_variant): 0 = fp32 on the CUDA
-// cores, 1 = bf16 with mma.sync, 2 = bf16 with wgmma and TMA (D = 64 or
-// 128).  lse: the forward's fp32 [B, H, Lq] log-sum-exp, contiguous.
+// cores, 1 = bf16 with mma.sync, 2 = bf16 with wgmma and TMA (D = 64, 80
+// or 128).  lse: the forward's fp32 [B, H, Lq] log-sum-exp, contiguous.
 // delta: fp32 scratch, [B, H, Lq] for variants 0 and 1, [B, H, pitch] for
 // 2, pitch = Lq rounded up to 128; lse2: fp32 [B, H, pitch] scratch for
 // variant 2 (null otherwise).  dq [B, H, Lq, D], dk and dv [B, Hkv, Lk, D]
@@ -1156,7 +1166,7 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Lq < 1 || Lk < 1 || D < 16 || D > 256 ||
       D % 16 != 0 || dc < 16 || dc > DC_MAX || dc % 16 != 0 || (causal && Lq != Lk) ||
       static_cast<long long>(B) * H > 65535 || variant < 0 || variant > 2 ||
-      (variant == 2 && ((D != 64 && D != 128) || lse2 == nullptr))) {
+      (variant == 2 && ((D != 64 && D != 80 && D != 128) || lse2 == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdShape s{};
@@ -1184,9 +1194,11 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
     auto* dqb = static_cast<bf16*>(dq);
     auto* dkb = static_cast<bf16*>(dk);
     auto* dvb = static_cast<bf16*>(dv);
-    return D == 64 ? launch_wgmma<64>(qb, kb, vb, ob, db, l, del, l2, dqb, dkb, dvb, B, Hkv, s, st)
-                   : launch_wgmma<128>(qb, kb, vb, ob, db, l, del, l2, dqb, dkb, dvb, B, Hkv, s,
-                                       st);
+    if (D == 64)
+      return launch_wgmma<64>(qb, kb, vb, ob, db, l, del, l2, dqb, dkb, dvb, B, Hkv, s, st);
+    if (D == 80)
+      return launch_wgmma<80>(qb, kb, vb, ob, db, l, del, l2, dqb, dkb, dvb, B, Hkv, s, st);
+    return launch_wgmma<128>(qb, kb, vb, ob, db, l, del, l2, dqb, dkb, dvb, B, Hkv, s, st);
   }
   if (variant == 1) {
     return launch_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),

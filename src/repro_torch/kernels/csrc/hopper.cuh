@@ -4,12 +4,17 @@
 // the 128-byte swizzle, the wgmma instructions the kernels issue, and the
 // host-side tensor-map encoding.
 //
-// Layout of every tile: D / 64 column chunks of [rows][64 bf16], each row
-// 128 bytes, with the 128-byte swizzle that TMA writes
+// Layout of every tile: chunks(D) = ceil(D / 64) column chunks of [rows][64
+// bf16], each row 128 bytes, with the 128-byte swizzle that TMA writes
 // (CU_TENSOR_MAP_SWIZZLE_128B) and the descriptors read (layout type 1):
 // the 16-byte unit u of row r sits at unit u ^ (r % 8).  Tiles start on
 // 1024 bytes; a K-major descriptor's start steps 32 bytes along a row for
 // each k step of 16, an MN-major one 8 rows (1024 bytes) for each 8 along K.
+// A D that is no multiple of 64 (80) leaves the last chunk part empty: the
+// tensor map holds the tensor's own D columns, so TMA reads only those and
+// writes zeros into the box's columns past D (no padded copy in device
+// memory), and the products read no column past D (k steps of 16 up to D;
+// an MN-major operand N = D wide reaches into the last chunk by LBO).
 #pragma once
 
 #include <cuda.h>
@@ -23,6 +28,10 @@ namespace hopper {
 using bf16 = __nv_bfloat16;
 
 constexpr int CHUNK = 64;  // bf16 columns of one 128-byte swizzled row
+
+// swizzled column chunks of a row of D columns, and the columns they hold
+__host__ __device__ constexpr int chunks(int d) { return (d + CHUNK - 1) / CHUNK; }
+__host__ __device__ constexpr int chunk_cols(int d) { return chunks(d) * CHUNK; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -186,6 +195,28 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 80, fp32) += A (registers, bf16 fragments) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
+        "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]),
+        "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128, fp32) += A (registers, bf16 fragments) * B (smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -215,12 +246,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x D) += A (registers) * B (smem, MN-major), D = 64 or 128
+// d (64 x D) += A (registers) * B (smem, MN-major), D = 64, 80 or 128
 template <int D>
 __device__ __forceinline__ void rs_mma(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db);
 template <>
 __device__ __forceinline__ void rs_mma<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   wgmma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void rs_mma<80>(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n80(d, a, db);
 }
 template <>
 __device__ __forceinline__ void rs_mma<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
@@ -258,7 +293,7 @@ inline EncodeTiled encode_tiled() {
 // A bf16 [B, heads, L, D] tensor with element strides st = (batch, head,
 // position), the head dimension contiguous, as a rank-4 map over (D, L,
 // heads, B): boxes of 64 columns by `rows` rows, 128-byte swizzle, rows
-// past L read as zeros.
+// past L and columns past D read as zeros.
 inline CUresult make_map(CUtensorMap* map, const void* ptr, int B, int heads, int L, int D,
                          const long long* st, int rows) {
   const EncodeTiled fn = encode_tiled();

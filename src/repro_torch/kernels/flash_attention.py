@@ -15,9 +15,10 @@ and the end-aligned one of the jnp oracle agree) and raises otherwise.
 the plain version.  ``kernel_variant(dtype, d)`` chooses the kernel: fp32
 inputs compute in fp32 on the CUDA cores; bf16 inputs on the tensor cores
 (bf16 products, fp32 sums, p rounded to bf16 before P·V), through wgmma
-with TMA loads for D = 64 and 128 and through mma.sync for the other head
-dims.  The kernels run head dims that are multiples of 16 up to 256; the
-wrapper takes any D in [1, 256] and runs a D that is not one at
+with TMA loads for D = 64, 80 and 128 (so a head dim from 65 to 80, padded
+to 80, takes wgmma too) and through mma.sync for the other head dims.  The
+kernels run head dims that are multiples of 16 up to 256; the wrapper takes
+any D in [1, 256] and runs a D that is not one at
 ``padded_head_dim(D)``, q, k and v zero-padded (``pad_head_dim``) and the
 softmax scale kept at ``1 / sqrt(D)``: the zero columns add nothing to a
 score and give output columns that are cropped, so the result is the
@@ -33,7 +34,7 @@ kernel asked for each row's log-sum-exp as well (fp32 ``[B, H, Lq]``), and
 its backward is ``flash_attention_bwd``: the kernels of
 ``csrc/flash_attention_bwd.cu`` (a key-tile kernel for dK and dV and a
 query-tile kernel for dQ, chosen by ``bwd_kernel_variant``: wgmma and TMA
-for bf16 at D = 64 and 128; no atomics, so two calls give the same
+for bf16 at D = 64, 80 and 128; no atomics, so two calls give the same
 bits).  On the CPU it runs ``flash_attention_ref_lse`` and
 ``flash_attention_bwd_ref``.  The JAX package has no backward kernel: it
 differentiates its plain attention.
@@ -54,7 +55,7 @@ _MASKED = -1e30  # the TPU kernel's finite mask value
 _DTYPES = (torch.float32, torch.bfloat16)
 # the kernels of csrc/flash_attention.cu, by the index its entry point takes
 VARIANTS = ("fp32_cuda_cores", "bf16_mma_sync", "bf16_wgmma")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 BWD_CHUNK = 128  # head-dim columns a backward block accumulates (csrc: DC_MAX)
 
 
@@ -84,7 +85,7 @@ def kernel_variant(dtype: torch.dtype, d: int) -> str:
     """The kernel for inputs of ``dtype`` with head dim ``d`` (a kernel's
     own, a multiple of 16: see ``padded_head_dim``): fp32 on the CUDA cores
     (the fp32 parity path: full fp32 products, no TF32), bf16 with wgmma and
-    TMA for D = 64 and 128, bf16 with mma.sync for the other D."""
+    TMA for D = 64, 80 and 128, bf16 with mma.sync for the other D."""
     if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
         raise ValueError(
             f"flash_attention: head dim {d} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]"
@@ -100,7 +101,7 @@ def bwd_kernel_variant(dtype: torch.dtype, d: int) -> str:
     """The backward kernels for inputs of ``dtype`` with head dim ``d`` (a
     kernel's own): the forward's rule (``kernel_variant``), so that a
     training step's forward and backward take the same route.  fp32 on the
-    CUDA cores; bf16 at D = 64 and 128 with wgmma and TMA; bf16 at other D
+    CUDA cores; bf16 at D = 64, 80 and 128 with wgmma and TMA; bf16 at other D
     with mma.sync.  Each runs a key-tile kernel for dK and dV and a
     query-tile kernel for dQ, so every output has one owner."""
     return kernel_variant(dtype, d)

@@ -181,13 +181,13 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_variant_by_dtype_and_head_dim(dtype, d):
     """fp32 stays on the CUDA cores (no TF32); bf16 takes wgmma and TMA at
-    D = 64 and 128 and mma.sync at every other head dim."""
+    D = 64, 80 and 128 and mma.sync at every other head dim."""
     got = fa.kernel_variant(dtype, d)
     assert got in fa.VARIANTS
     if dtype == torch.float32:
         assert got == "fp32_cuda_cores"
     else:
-        assert got == ("bf16_wgmma" if d in (64, 128) else "bf16_mma_sync")
+        assert got == ("bf16_wgmma" if d in (64, 80, 128) else "bf16_mma_sync")
 
 
 @pytest.mark.parametrize("dtype,d,err", [
@@ -204,14 +204,14 @@ def test_kernel_variant_rejects(dtype, d, err):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_kernel_variant_by_dtype_and_head_dim(dtype, d):
     """The backward takes the forward's route: fp32 on the CUDA cores, bf16
-    with wgmma and TMA at D = 64 and 128 (a key-tile and a query-tile
+    with wgmma and TMA at D = 64, 80 and 128 (a key-tile and a query-tile
     kernel), bf16 with mma.sync at every other head dim."""
     got = fa.bwd_kernel_variant(dtype, d)
     assert got in fa.VARIANTS and got == fa.kernel_variant(dtype, d)
     if dtype == torch.float32:
         assert got == "fp32_cuda_cores"
     else:
-        assert got == ("bf16_wgmma" if d in (64, 128) else "bf16_mma_sync")
+        assert got == ("bf16_wgmma" if d in (64, 80, 128) else "bf16_mma_sync")
 
 
 @pytest.mark.parametrize("dtype,d,err", [
@@ -222,6 +222,16 @@ def test_bwd_kernel_variant_by_dtype_and_head_dim(dtype, d):
 def test_bwd_kernel_variant_rejects(dtype, d, err):
     with pytest.raises(err):
         fa.bwd_kernel_variant(dtype, d)
+
+
+@pytest.mark.parametrize("d", [65, 72, 79, 80])
+def test_head_dims_65_to_80_take_the_wgmma_route(d):
+    """A bf16 head dim from 65 to 80 (72, say) runs padded to 80, and 80
+    takes the wgmma kernels forward and backward: those head dims share the
+    route of hubert-xlarge's and Zamba2's 80."""
+    assert fa.padded_head_dim(d) == 80
+    assert fa.kernel_variant(torch.bfloat16, fa.padded_head_dim(d)) == "bf16_wgmma"
+    assert fa.bwd_kernel_variant(torch.bfloat16, fa.padded_head_dim(d)) == "bf16_wgmma"
 
 
 def test_olmo_attention_takes_the_wgmma_kernel():

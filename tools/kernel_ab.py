@@ -1,25 +1,32 @@
 """Time the Count-Min kernel (K4), the sketch-only fused pass (K3, the same
-kernel on a row block), the histogram (K5) and the RWKV-6 recurrence's
-backward (K7b) of one checkout of the port on one card, at the shapes the
-main path gives them, so that two checkouts can be compared in one call.
+kernel on a row block), the histogram (K5), the RWKV-6 recurrence's
+backward (K7b) and the attention forward and backward at head dim 80 (K6,
+K6b) of one checkout of the port on one card, at the shapes the main path
+gives them, so that two checkouts can be compared in one call.
 
     python3 tools/kernel_ab.py --src DIR [--label NAME] [--reps N]
-                               [--kernels k4,k3,k5,k7b]
+                               [--kernels k4,k3,k5,k7b,k6_80,k6b_80]
 
 DIR is the root of a checkout: its ``src/repro_torch`` is imported and its
 kernels are built into its own ``build/``.  The inputs are made from fixed
 seeds, as ``chip_smoke.py`` makes them: the streaming phase's batch 0 (R's
 join column and R's rows), 100,000 equal keys, the §9.1 R join column
-(10^6 values, 100,000 bins), and phase 40's rwkv6-3b shape for K7b
-([4, 2048, 40, 64] fp32 from zero, drawn from seed 0 on the card).  Each
-result is checked against the checkout's plain version: exactly, and K7b
-to 2e-4 of each gradient's largest entry.  Prints the card and one JSON
+(10^6 values, 100,000 bins), phase 40's rwkv6-3b shape for K7b
+([4, 2048, 40, 64] fp32 from zero, drawn from seed 0 on the card), and for
+K6 and K6b the two bf16 shapes at D = 80 (drawn from seed 0 on the card,
+the output's gradient from seed 1): hubert-xlarge's [4, 16, 2048, 80]
+non-causal and Zamba2-2.7B's shared block's [4, 32, 2048, 80] causal.  Each
+result is checked against the checkout's plain version: exactly, K7b to
+2e-4 of each gradient's largest entry, K6 and K6b to rtol = atol = 2e-2
+and K6b also to 1e-2 by relative norm.  The checkout's own route runs
+(``kernel_variant``; printed).  Prints the card and one JSON
 line: the label and each case's device ms a call by CUDA-graph replay
 (``chip_smoke._graph_ms``), with ``torch.bincount`` beside K5 (CUDA events
 around repeated calls, ``chip_smoke._events_ms``: it reads the maximum back
 to the host, so it cannot be captured in a graph).  ``--kernels`` picks
-the kernels (all four by default).  To compare a parent and a change, run
-them in turns in separate processes: parent, change, change, parent.
+the kernels (k4, k3, k5 and k7b by default).  To compare a parent and a
+change, run them in turns in separate processes: parent, change, change,
+parent.
 """
 from __future__ import annotations
 
@@ -27,9 +34,13 @@ import argparse
 import json
 import subprocess
 import sys
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+KERNELS = ("k4", "k3", "k5", "k7b", "k6_80", "k6b_80")
+# K6/K6b at D = 80: (B, H, L, causal) of hubert-xlarge and Zamba2-2.7B's shared block
+D80_SHAPES = {"hubert": (4, 16, 2048, False), "zamba2": (4, 32, 2048, True)}
 
 
 def main() -> int:
@@ -38,11 +49,11 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--kernels", default="k4,k3,k5,k7b",
-                    help="comma-separated subset of k4, k3, k5, k7b")
+                    help="comma-separated subset of " + ", ".join(KERNELS))
     args = ap.parse_args()
     picked = set(args.kernels.split(","))
-    if not picked <= {"k4", "k3", "k5", "k7b"}:
-        ap.error(f"unknown kernels {sorted(picked - {'k4', 'k3', 'k5', 'k7b'})}")
+    if not picked <= set(KERNELS):
+        ap.error(f"unknown kernels {sorted(picked - set(KERNELS))}")
     import numpy as np
     import torch
 
@@ -50,10 +61,11 @@ def main() -> int:
         print("kernel_ab.py: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import _events_ms, _graph_ms, _zipf_batch
+    from chip_smoke import _close, _events_ms, _graph_ms, _rel_norm_err, _zipf_batch
 
     sys.path.insert(0, str(args.src.resolve() / "src"))
     from repro_torch.data import paper_2way
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import histogram as hg
     from repro_torch.kernels import ingest_fused as fi
     from repro_torch.kernels import sketch_update as su
@@ -92,6 +104,25 @@ def main() -> int:
         wkv_in = (r, 0.3 * k, v, w, u, dy)
         cases["k7b_rwkv6_3b"] = ("k7b", lambda: wk.wkv6_bwd(*wkv_in),
                                  lambda: wk.wkv6_bwd_ref(*wkv_in))
+    if picked & {"k6_80", "k6b_80"}:
+        def bwd_ref(q, k, v, do, causal):
+            o, lse = fa.flash_attention_ref_lse(q, k, v, causal)
+            return fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+
+        g = torch.Generator(device=dev).manual_seed(0)
+        for tag, (b, h, l, causal) in D80_SHAPES.items():
+            q, k, v = (torch.randn((b, h, l, 80), generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+            do = torch.randn((b, h, l, 80), generator=torch.Generator(device=dev).manual_seed(1),
+                             device=dev).to(torch.bfloat16)
+            o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+            cases[f"k6_80_{tag}"] = ("k6_80", partial(fa.flash_attention, q, k, v, causal=causal),
+                                     partial(fa.flash_attention_ref, q, k, v, causal))
+            cases[f"k6b_80_{tag}"] = (
+                "k6b_80", partial(fa.flash_attention_bwd, q, k, v, o, lse, do, causal=causal),
+                partial(bwd_ref, q, k, v, do, causal))
+        print(f"K6 and K6b at D = 80 take {fa.kernel_variant(torch.bfloat16, 80)} and "
+              f"{fa.bwd_kernel_variant(torch.bfloat16, 80)}")
     out = {"label": args.label or str(args.src), "card": smi}
     for name, (kernel, fn, ref) in cases.items():
         if kernel not in picked:
@@ -100,6 +131,12 @@ def main() -> int:
         if kernel == "k7b":
             err = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(got, want))
             assert err <= 2e-4, (name, err)
+        elif kernel == "k6_80":
+            assert _close(got, want, 2e-2), name
+        elif kernel == "k6b_80":
+            assert all(_close(x, y, 2e-2) for x, y in zip(got, want)), name
+            rel = max(_rel_norm_err(x, y) for x, y in zip(got, want))
+            assert rel <= 1e-2, (name, rel)
         else:
             assert torch.equal(got, want), name
         del got, want
