@@ -351,7 +351,21 @@ Phases:
      plain time, SDPA's forward and backward (``enable_gqa`` under GQA),
      bound, the route's registers and spills, at D = 80 the padded-to-128
      yardstick; the kernels line carries them as ``*_qwen3``, ``*_granite``,
-     ``*_internvl2`` and ``*_d80_noncausal``.
+     ``*_internvl2`` and ``*_d80_noncausal``;
+ 58. tensor parallelism (``_tp_phase``): two ranks share this card over
+     gloo (CUDA tensors), a (1, 2) ("data", "model") mesh,
+     ``tools/tensor_parallel.py --smoke`` in two processes: olmo-1b at full
+     width cut to depth 2, split over "model"
+     (``build_model(cfg, tp=mesh)``).  Each rank holds the whole model on
+     one rank, built beside it: the fp32 loss of [2, 256] tokens and the
+     prefill logits of [2, 64] prompts (K6 on the rank's 8 heads) to 1e-4
+     relative, 5 greedy tokens (the prefill's, then 4 decode steps) equal;
+     two bf16 train steps on [2, 512] (K6 and K6b on the rank's heads) whose
+     losses and global norms are the same bits on both ranks and within
+     2e-2 of the whole model's, the replicated leaves the same bits on
+     both (olmo-1b has none: its LayerNorm has no parameters and its table
+     splits on the vocab); K6's and K6b's launches on each rank, counted
+     over the split path alone; the phase's seconds.
 
 Every kernel's time is device time per call of everything the wrapper
 launches, from CUDA events around the replay of a CUDA graph of repeated
@@ -373,7 +387,8 @@ Prints a ``kernels`` JSON line (each entry's launches on the main path and
 on each other path: ``launches_speculative``, ``launches_distributed``, ...,
 ``launches_hybrid``, ``launches_rwkv_train``, ``launches_launcher`` and
 ``launches_qwen3``, ``launches_granite``, ``launches_gemma3``,
-``launches_internvl2``, ``launches_hubert`` (phases 43-44, ..., 55-56);
+``launches_internvl2``, ``launches_hubert`` (phases 43-44, ..., 55-56),
+``launches_tp`` (phase 58, both ranks);
 K7b's entry, ``wkv6_bwd``, counts phase 39's), each phase group's seconds,
 and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -1639,6 +1654,65 @@ def _launcher_phase(dev, shape=(2, 512), reduced=False):
     shutil.rmtree(LAUNCHER_DIR, ignore_errors=True)
     _say(f"[launcher] phase 41: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def _tp_phase(dev, reduced=False):
+    """Phase 58: ``tools/tensor_parallel.py --smoke`` as two ranks on this
+    card over gloo (``reduced``, a CPU rehearsal: on the CPU at the reduced
+    config).  Holds each rank's results to the phase's checks and returns
+    the kernel launches summed over the ranks."""
+    import os
+    import socket
+    import threading
+
+    t = time.perf_counter()
+    with socket.socket() as sock:  # a free port on this host for the ranks' store
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(SRC), "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port), "WORLD_SIZE": "2"}
+    argv = [sys.executable, str(ROOT / "tools" / "tensor_parallel.py"), "--smoke", "--backend",
+            "gloo", "--device", dev.type] + (["--reduced"] if reduced else [])
+    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=ROOT, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+             for r in range(2)]
+    watchdogs = [threading.Timer(300, p.kill) for p in procs]
+    for w in watchdogs:
+        w.start()
+    try:
+        outs = [p.communicate()[0] for p in procs]
+    finally:
+        for w, p in zip(watchdogs, procs):
+            w.cancel()
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    res = [json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1][7:])
+           for out in outs]
+    for r in res:
+        _say(f"[tp] rank {r['rank']} of a (1, 2) mesh on one card over gloo: fp32 loss "
+             f"{r['loss']!r} vs one rank's {r['loss_one']!r} (rel {r['loss_rel']:.3g}), prefill "
+             f"logits {r['logits_rel']:.3g} of the largest off (tol 1e-4); greedy {r['tokens']} "
+             f"(one rank {r['tokens_one']}); bf16 (loss, global norm) of two steps "
+             f"{r['bf16_metrics']} (one rank {r['bf16_metrics_one']}); {r['replicated_leaves']} "
+             f"replicated leaves; K6 {r['launches']['flash_attention']}, K6b "
+             f"{r['launches']['flash_attention_bwd']} launches; the split path "
+             f"{r['path_s']:.2f} s of the rank's {r['seconds']:.2f} s")
+        assert r["loss_rel"] <= 1e-4 and r["logits_rel"] <= 1e-4, r
+        assert r["tokens"] == r["tokens_one"], r
+        for (loss, _), (want, _) in zip(r["bf16_metrics"], r["bf16_metrics_one"]):
+            assert abs(loss - want) <= 2e-2 * abs(want), r
+    for key in ("bf16_metrics", "replicated_sha", "tokens"):
+        assert res[0][key] == res[1][key], (key, res[0][key], res[1][key])
+    n_attn = 2 if dev.type == "cuda" else 0  # olmo-1b cut to 2 layers; the CPU launches none
+    for r in res:  # the fp32 loss, the prefill, two steps of forward + remat
+        assert r["launches"]["flash_attention"] == 6 * n_attn, r["launches"]
+        assert r["launches"]["flash_attention_bwd"] == 2 * n_attn, r["launches"]
+    total = {k: res[0]["launches"][k] + res[1]["launches"][k] for k in res[0]["launches"]}
+    _say(f"[tp] phase 58: {time.perf_counter() - t:.1f} s (both ranks' launches {total})")
+    return total
 
 
 def _flash_bwd_work(b, h, l, d, causal, elem_bytes, hkv=None):
@@ -4248,6 +4322,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     _say(f"[K6] phase 57: {time.perf_counter() - t:.1f} s")
 
+    # ---- 58. tensor parallelism: two ranks of a (1, 2) mesh on this card ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches = _tp_phase(dev)
+
     # beside each path's own count, phases 4b's, 6b's, 10b's, 10c's, 24's,
     # 29 + 30's, 34 + 35's, 39's, 41's (the launcher's own counts, summed
     # over its two runs) and each full-size configuration's serving and
@@ -4263,6 +4342,7 @@ def main() -> int:
         entry["launches_hybrid"] = hybrid_launches.get(entry["name"], 0)
         entry["launches_rwkv_train"] = rwkv_train_launches.get(entry["name"], 0)
         entry["launches_launcher"] = launcher_launches.get(entry["name"], 0)
+        entry["launches_tp"] = tp_launches.get(entry["name"], 0)
         for name, counts in full_launches.items():
             entry[f"launches_{name.split('-')[0]}"] = counts.get(entry["name"], 0)
         entry.update(d80.get(entry["name"], {}))

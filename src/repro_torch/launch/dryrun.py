@@ -15,14 +15,13 @@ the port's own ``init_params`` / ``init_cache`` run under
 seconds.
 
 FLOPs are left out.  The JAX dry run's are per device, read from the
-partitioned program, and the port builds none: tensor parallelism through
-the layers is not ported (ROADMAP item 22), so how a step's FLOPs split over
-the "model" axis is not known.  A whole-model count would mean tracing a
-full-size step under ``FakeTensorMode`` through the plain versions the CPU
-runs: 8 s for olmo-1b at train_4k, but 321 s for rwkv6-3b at 256 tokens a
-sequence (its plain recurrence steps token by token; train_4k has 4,096),
-timed on a CPU host.  Nor are collectives reckoned: there is no partitioned
-program whose traffic could be counted.
+partitioned program XLA compiles; the port compiles none (its layers split
+over "model" by hand, ``models.tensor_parallel``, and only the dense, vlm
+and audio families split), so a count would mean tracing a full-size step
+under ``FakeTensorMode`` through the plain versions the CPU runs: 8 s for
+olmo-1b at train_4k, but 321 s for rwkv6-3b at 256 tokens a sequence (its
+plain recurrence steps token by token; train_4k has 4,096), timed on a CPU
+host.  Nor are collectives reckoned, for the same reason.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes [--out DIR]
@@ -49,7 +48,7 @@ from .mesh import data_axes, production_axes
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun_torch"
 FLOPS_NOTE = ("not reckoned: per-device FLOPs follow from a partitioned program, which the port "
-              "does not build (no tensor parallelism through the layers)")
+              "does not compile (its layers place the model-axis collectives by hand)")
 
 
 def input_shapes(cfg, spec, n_patch: int = 256) -> dict:

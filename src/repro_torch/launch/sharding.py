@@ -23,14 +23,20 @@ other leaf (the embedding, the head, the outer norms, zamba2's unstacked
 both packages and take the rules as they are.
 
 ``placements(mesh, spec)`` turns a spec into ``Shard`` / ``Replicate`` for
-each dim of a ``DeviceMesh``; ``device_bytes`` reckons what one device holds
-under a spec tree from the leaves' shapes alone.
+each dim of a mesh; ``device_bytes`` reckons what one device holds under a
+spec tree from the leaves' shapes alone.  ``shard_tree`` keeps this rank's
+slice of every leaf of a tree by its spec, and ``gather_tree`` puts the
+whole leaves back together (each an ``all_reduce`` of the slices, placed
+in zeros, over the group of the axes that split it: a sum in which one
+term is not zero, so exact).
 """
 from __future__ import annotations
 
 import math
 from typing import Any
 
+import torch
+import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard
 
 # path-suffix -> which logical dim (counted from the END, ignoring the
@@ -243,3 +249,77 @@ def device_bytes(tree: Any, specs: Any, axis_sizes: dict[str, int]) -> int:
 
     _walk(add, tree, specs)
     return total
+
+
+def spec_leaves(specs: Any) -> list[Spec]:
+    """The specs of a params-shaped spec tree in ``jax.tree.leaves`` order
+    (dicts by sorted key, lists by index, ``None`` empty), as
+    ``train.optimizer.leaves`` lists the tensors."""
+    if specs is None:
+        return []
+    if isinstance(specs, dict):
+        return [s for key in sorted(specs) for s in spec_leaves(specs[key])]
+    if isinstance(specs, list):
+        return [s for sub in specs for s in spec_leaves(sub)]
+    return [specs]
+
+
+def sharded_flags(specs: Any, axis: str = "model") -> list[bool]:
+    """Per leaf of a spec tree (``spec_leaves``): does ``axis`` split it?"""
+    return [any(axis in _axes(e) for e in spec) for spec in spec_leaves(specs)]
+
+
+def shard_slices(shape: tuple[int, ...], spec: Spec, mesh) -> tuple[slice, ...]:
+    """This rank's block of a leaf of ``shape`` under ``spec``: each dim
+    that names axes is cut into as many equal parts as those axes have
+    ranks, and this rank takes the part of its index along them
+    (``mesh.size``, ``mesh.index``: a ``launch.mesh.Mesh``)."""
+    out = []
+    for size, entry in zip(shape, spec):
+        axes = _axes(entry)
+        parts = mesh.size(axes) if axes else 1
+        if size % parts:
+            raise ValueError(f"shard_slices: dim of {size} does not split over {axes} "
+                             f"({parts} ranks)")
+        n = size // parts
+        i = mesh.index(axes) if axes else 0
+        out.append(slice(i * n, (i + 1) * n))
+    return tuple(out)
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """``tree`` (tensors, ``None`` subtrees) with every leaf cut to this
+    rank's block under its spec: a copy where a dim was cut, so the whole
+    leaf can be freed; the leaf itself where none was."""
+    def cut(_, leaf, spec):
+        if not any(_axes(e) for e in spec):
+            return leaf
+        return leaf[shard_slices(tuple(leaf.shape), spec, mesh)].clone(
+            memory_format=torch.contiguous_format)
+
+    return _walk(cut, tree, specs)
+
+
+def gather_leaf(leaf: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole leaf of which ``leaf`` is this rank's block under ``spec``
+    (every rank of the groups that split it must call this too)."""
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        if not axes:
+            continue
+        parts, i = mesh.size(axes), mesh.index(axes)
+        n = leaf.shape[d]
+        shape = list(leaf.shape)
+        shape[d] = n * parts
+        full = leaf.new_zeros(shape)
+        full.narrow(d, i * n, n).copy_(leaf)
+        dist.all_reduce(full, group=mesh.group(axes))
+        leaf = full
+    return leaf
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """The whole leaves of a tree that ``shard_tree`` cut, one leaf at a
+    time, on the leaves' device.  A collective: every rank of the mesh
+    calls it, in the same order."""
+    return _walk(lambda _, leaf, spec: gather_leaf(leaf.detach(), spec, mesh), tree, specs)

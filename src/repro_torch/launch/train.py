@@ -36,12 +36,20 @@ starts, every tenth step's global mean loss, exactly (``repr``), and tokens
 a second, and at the end the kernels' launch counts (``kernels.launches``:
 on the card, K6/K6b or K7/K7b ran).
 
-``--mesh prod`` and ``--mesh prod-multipod`` build the JAX package's
+``--mesh prod`` and ``--mesh prod-multipod`` train on the JAX package's
 (16, 16) and (2, 16, 16) meshes (below 256 / 512 ranks they raise, naming
-the world size), then stop: they shard the model over "model", which needs
-the activation-sharding hooks the port's layers leave out and kernels that
-take sharded tensors (ROADMAP item 22).  ``launch.sharding`` gives their
-rules; ``launch.dryrun`` reckons what they would hold per device.
+the world size); ``--model-axis N`` makes ``--mesh host`` a (world / N, N)
+("data", "model") mesh, and ``run(args, mesh)`` trains on any mesh of
+``launch.mesh.make_mesh``.  Over "model" the dense, vlm and audio families
+split as the rules place each leaf (``models.tensor_parallel``: tensor
+parallelism, no FSDP, as the JAX launcher); the moe, ssm and hybrid families
+raise there, naming their ROADMAP items.  The data axes carry the rows:
+each data group takes its rows of the global batch, the gradients are
+averaged over the data group, and the logged loss is the data group's mean
+(every rank of a model group holds the same loss).  A checkpoint holds the
+whole model in the JAX layout (the model group's blocks gathered before
+rank 0 writes), and ``--resume`` gives each rank its blocks of it, so a run
+resumes onto another mesh shape.
 """
 from __future__ import annotations
 
@@ -70,7 +78,8 @@ from repro_torch.train import (
 )
 from repro_torch.train.optimizer import leaves
 
-from .mesh import make_host_mesh, make_production_mesh
+from .mesh import make_host_mesh, make_mesh, make_production_mesh
+from .sharding import gather_tree
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -78,6 +87,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--mesh", choices=("host", "prod", "prod-multipod"), default="host")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="--mesh host: ranks on the 'model' axis of a (world / N, N) mesh")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -104,30 +115,44 @@ def _mean_over(group: dist.ProcessGroup):
     return reduce
 
 
-def run(args: argparse.Namespace) -> dict:
-    """The training loop; returns {"start", "losses" (the global mean loss
-    of each step run, as floats), "params", "opt"} of this rank."""
+def _mesh(args: argparse.Namespace, world_size: int, dev: torch.device):
+    if args.mesh != "host":
+        return make_production_mesh(multi_pod=args.mesh == "prod-multipod", device=dev)
+    if args.model_axis == 1:
+        return make_host_mesh("data", dev)
+    if world_size % args.model_axis:
+        raise ValueError(f"--model-axis {args.model_axis} does not divide {world_size} ranks")
+    return make_mesh((world_size // args.model_axis, args.model_axis), ("data", "model"), dev)
+
+
+def run(args: argparse.Namespace, mesh=None) -> dict:
+    """The training loop on ``mesh`` (default: the one ``args`` names, over
+    the default group); returns {"start", "losses" (the global mean loss of
+    each step run, as floats), "params", "opt"} of this rank (its blocks)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     with world(_device(args.device)) as (group, dev):
-        if args.mesh != "host":
-            mesh = make_production_mesh(multi_pod=args.mesh == "prod-multipod", device=dev)
-            raise NotImplementedError(
-                f"--mesh {args.mesh}: the mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} is "
-                "built, but tensor parallelism over 'model' through the layers is not ported "
-                "(ROADMAP item 22); use --mesh host")
-        mesh = make_host_mesh("data", dev)
-        rank, n = group.rank(), group.size()
+        if mesh is None:
+            mesh = _mesh(args, group.size(), dev)
+        rank = group.rank()
+        data = mesh.data_axes
+        data_group, n = mesh.group(data), mesh.size(data)
         if args.batch % n:
-            raise ValueError(f"--batch {args.batch} does not split over {n} ranks")
-        rows = slice(rank * args.batch // n, (rank + 1) * args.batch // n)
-        model = build_model(cfg, device=dev)
+            raise ValueError(f"--batch {args.batch} does not split over {n} data ranks")
+        i = mesh.index(data)
+        rows = slice(i * args.batch // n, (i + 1) * args.batch // n)
+        model = build_model(cfg, device=dev, tp=mesh)
+        specs = None
+        if model.tp is not None:
+            specs = {"params": model.tp.specs,
+                     "opt": {"m": model.tp.specs, "v": model.tp.specs, "step": ()}}
 
         opt_cfg = OptConfig(total_steps=args.steps, warmup_steps=max(5, args.steps // 20))
-        loss_kwargs = ({"extra_slots": args.extra_slots, "group": group}
+        loss_kwargs = ({"extra_slots": args.extra_slots, "group": data_group}
                        if cfg.family == "moe" else {})
-        step_fn = make_train_step(model, opt_cfg, loss_kwargs, reduce_grads=_mean_over(group))
+        step_fn = make_train_step(model, opt_cfg, loss_kwargs,
+                                  reduce_grads=_mean_over(data_group))
         params, opt_state = init_train_state(model, 0)
 
         pipe = TokenPipeline(vocab=cfg.vocab, batch=args.batch, seq=args.seq, seed=0)
@@ -136,7 +161,7 @@ def run(args: argparse.Namespace) -> dict:
         if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
             start, flat = load_checkpoint(args.ckpt_dir)
             tree = restore_tree({"params": params, "opt": opt_state},
-                                flat_from_jax_layout(flat), device=dev)
+                                flat_from_jax_layout(flat), device=dev, specs=specs, mesh=mesh)
             params, opt_state = tree["params"], tree["opt"]
             for p in leaves(params):
                 p.requires_grad_(True)
@@ -149,27 +174,32 @@ def run(args: argparse.Namespace) -> dict:
         try:
             with PreemptionGuard() as guard:
                 if rank == 0:
-                    print(f"training {cfg.name} from step {start} to {args.steps} on {n} "
-                          f"rank(s) of {dev.type}", flush=True)
+                    print(f"training {cfg.name} from step {start} to {args.steps} on "
+                          f"{group.size()} rank(s) of {dev.type}, mesh "
+                          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
                 t0 = time.time()
                 for step in range(start, args.steps):
                     tokens = torch.from_numpy(pipe.next_batch()[rows]).to(dev)
                     params, opt_state, metrics = step_fn(params, opt_state, {"tokens": tokens})
                     loss = metrics["loss"].detach().clone()
-                    dist.all_reduce(loss, group=group)
+                    dist.all_reduce(loss, group=data_group)
                     losses.append(loss / n)
                     if rank == 0 and (step % 10 == 0 or step == args.steps - 1):
                         tput = (step - start + 1) * args.batch * args.seq / (time.time() - t0)
                         print(f"step {step:5d} loss={float(losses[-1])!r} tok/s={tput:.0f}",
                               flush=True)
                     stop = guard.should_stop
-                    if n > 1:
+                    if group.size() > 1:
                         flag = torch.tensor(int(stop), device=dev)
                         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
                         stop = bool(flag)
-                    if ckpt and (stop or (step + 1) % args.ckpt_every == 0):
-                        ckpt.save(step + 1, train_state_to_jax_layout(
-                            {"params": params, "opt": opt_state}))
+                    if args.ckpt_dir and (stop or (step + 1) % args.ckpt_every == 0):
+                        state = {"params": params, "opt": opt_state}
+                        if specs is not None:  # every rank takes part in the gather
+                            state = gather_tree(state, specs, mesh)
+                        if ckpt:
+                            ckpt.save(step + 1, train_state_to_jax_layout(state))
+                        del state
                     if stop:
                         if rank == 0:
                             print("preempted -> checkpointed", flush=True)

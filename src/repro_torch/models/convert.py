@@ -11,7 +11,9 @@ to [E, d, f] a layer, ``shared`` and ``shared_gate``, the hybrid's
 list of per-layer dicts.  It imports nothing of JAX; a caller hands it
 ``jax.tree.map(np.asarray, params)``.
 Tests use it to run both packages on identical weights, since
-``jax.random`` and ``torch.Generator`` draw different numbers.
+``jax.random`` and ``torch.Generator`` draw different numbers; with ``tp``
+(a ``tensor_parallel.TensorParallel``) each rank keeps its blocks
+(``launch.sharding.shard_tree``).
 
 The training state crosses the same way: ``train_state_from_jax`` takes
 ``{"params", "opt": {"m", "v", "step"}}`` in the JAX layout (blocks
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.sharding import shard_tree
 from repro_torch.mapreduce.executor import _device
 
 
@@ -39,10 +42,11 @@ def _tree(node, fn):
     return fn(node)
 
 
-def params_from_jax(cfg: ArchConfig, params: dict, device: torch.device | str = "cuda") -> dict:
+def params_from_jax(cfg: ArchConfig, params: dict, device: torch.device | str = "cuda",
+                    tp=None) -> dict:
     """The port's parameters, float32 on ``device`` as the JAX package
     keeps them, from the JAX package's tree (dense, vlm, audio, moe, ssm
-    and hybrid families)."""
+    and hybrid families); under ``tp`` this rank's blocks of them."""
     dev = _device(device)
 
     def put(a) -> torch.Tensor:
@@ -53,7 +57,7 @@ def params_from_jax(cfg: ArchConfig, params: dict, device: torch.device | str = 
         _tree(params["blocks"], lambda a, i=i: put(np.asarray(a)[i]))
         for i in range(cfg.n_layers)
     ]
-    return out
+    return out if tp is None else shard_tree(out, tp.specs, tp.mesh)
 
 
 def train_state_from_jax(cfg: ArchConfig, tree: dict, device: torch.device | str = "cuda") -> dict:

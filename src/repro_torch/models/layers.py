@@ -13,9 +13,12 @@ on the CPU, and for windowed or softcapped attention on either device, it
 takes the JAX package's default branches as written (the materialised
 ``_sdpa``, the query-chunked ``_sdpa_chunked`` past
 ``ATTN_CHUNK_THRESHOLD``, the windowed mask).  The JAX package's
-activation-sharding hooks (``set_activation_sharding``, ``constrain_*``) are
-not ported: ``launch.sharding`` gives the rules' specs, and running them
-through the layers (tensor parallelism, ``--mesh prod``) is ROADMAP item 22.
+activation-sharding hooks (``set_activation_sharding``, ``constrain_*``) have
+their counterpart in ``tensor_parallel``: ``attention``,
+``attention_decode``, ``mlp``, ``embed`` and ``chunked_cross_entropy`` take a
+``tp`` (a ``tensor_parallel.TensorParallel``, None for the whole model on
+one rank) and compute on this rank's heads, MLP columns and vocab block,
+with the collectives of a model axis around them.
 """
 from __future__ import annotations
 
@@ -165,6 +168,46 @@ def _qkv(params: Params, cfg: AttnConfig, x: torch.Tensor):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
+def head_split(cfg: AttnConfig, tp) -> tuple[tuple[int, int], tuple[int, int]] | None:
+    """This rank's query heads [q0, q1) and the KV heads [k0, k1) they
+    attend with under ``tp``; None where the heads do not split into equal
+    GQA-aligned parts (then every rank computes every head)."""
+    q = tp.block(cfg.n_heads) if tp is not None else None
+    if q is None:
+        return None
+    per, group = q[1] - q[0], cfg.n_heads // cfg.n_kv
+    if per % group and group % per:
+        return None
+    return q, (q[0] // group, (q[1] - 1) // group + 1)
+
+
+def local_attention(params: Params, cfg: AttnConfig, tp) -> tuple[Params, AttnConfig, bool]:
+    """(the leaves, the config, split?) with which this rank attends.  Split:
+    its heads' columns of ``wq``/``wk``/``wv`` and the biases, its heads'
+    rows of ``wo``, the qk-norm scales through ``tp.copy``, and the config
+    of its heads; the caller puts the input through ``tp.copy`` and the
+    output through ``tp.reduce``.  Not split (``tp`` None, or heads that do
+    not split): the whole leaves (gathered where the rules split them)."""
+    split = head_split(cfg, tp)
+    if split is None:
+        if tp is None:
+            return params, cfg, False
+        return {key: leaf if isinstance(leaf, dict) else tp.whole(leaf, key)  # qk-norm: never split
+                for key, leaf in params.items()}, cfg, False
+    (q0, q1), (k0, k1) = split
+    hd = cfg.head_dim
+    where = {"wq": (1, q0, q1), "wk": (1, k0, k1), "wv": (1, k0, k1), "wo": (0, q0, q1),
+             "bq": (0, q0, q1), "bk": (0, k0, k1), "bv": (0, k0, k1)}
+    out = {}
+    for key, leaf in params.items():
+        if key in where:
+            dim, lo, hi = where[key]
+            out[key] = tp.local(leaf, key, dim, lo * hd, hi * hd)
+        else:  # q_norm / k_norm: one [hd] scale that every head uses
+            out[key] = {k: tp.local(v, None, 0, 0, v.shape[0]) for k, v in leaf.items()}
+    return out, dataclasses.replace(cfg, n_heads=q1 - q0, n_kv=k1 - k0), True
+
+
 def _softcap(s: torch.Tensor, softcap: float | None) -> torch.Tensor:
     return softcap * torch.tanh(s / softcap) if softcap else s
 
@@ -278,11 +321,16 @@ def attention(
     cfg: AttnConfig,
     x: torch.Tensor,  # [B, L, d_model]
     is_global: bool = True,
+    tp=None,
 ) -> torch.Tensor:
     """Full attention; ``is_global=False`` applies cfg.window (Gemma-style
-    local layers)."""
+    local layers).  Under ``tp``, this rank's heads (``local_attention``)."""
+    params, cfg, split = local_attention(params, cfg, tp)
+    if split:
+        x = tp.copy(x)
     q, k, v = rotated_qkv(params, cfg, x)
-    return attention_output(params, cfg, attention_core(q, k, v, cfg, is_global))
+    y = attention_output(params, cfg, attention_core(q, k, v, cfg, is_global))
+    return tp.reduce(y) if split else y
 
 
 def attention_output(params: Params, cfg: AttnConfig, out: torch.Tensor) -> torch.Tensor:
@@ -308,10 +356,15 @@ def attention_decode(
     v_cache: torch.Tensor,
     pos: int,  # current position (number of tokens already cached)
     is_global: bool = True,
+    tp=None,
 ) -> torch.Tensor:
     """One decode step against a KV cache; returns y.  Writes the new k and
     v into the caches at ``pos`` in place.  ``is_global`` lifts the sliding
-    window for Gemma-style global layers."""
+    window for Gemma-style global layers.  Under ``tp`` the caches hold the
+    KV heads of this rank's query heads (``local_attention``)."""
+    params, cfg, split = local_attention(params, cfg, tp)
+    if split:
+        x = tp.copy(x)
     b = x.shape[0]
     q, k, v = _qkv(params, cfg, x)  # q [B,H,1,D], k/v [B,Hkv,1,D]
     cos, sin = rotary_angles(torch.full((1,), pos, device=x.device), cfg.head_dim,
@@ -334,7 +387,8 @@ def attention_decode(
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v_cache.float())
     out = out.reshape(b, cfg.n_heads, 1, cfg.head_dim).to(x.dtype)
     y = out.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return y @ _cast(params["wo"], x)
+    y = y @ _cast(params["wo"], x)
+    return tp.reduce(y) if split else y
 
 
 # ---------------------------------------------------------------------- MLPs
@@ -348,7 +402,26 @@ def _act(name: str):
     }[name]
 
 
-def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def local_mlp(params: Params, tp) -> tuple[Params, bool]:
+    """(the leaves, split?) with which this rank runs the MLP: its block of
+    the d_ff columns of ``w_up``/``w_gate``/``b_up`` and rows of ``w_down``
+    where d_ff splits (the caller then puts the input through ``tp.copy``
+    and the output, before ``b_down``, through ``tp.reduce``), else the
+    whole leaves."""
+    cols = tp.block(tp.leaf_split["w_up"][0][1]) if tp is not None else None
+    if cols is None:
+        if tp is None:
+            return params, False
+        return {key: tp.whole(leaf, key) for key, leaf in params.items()}, False
+    dims = {"w_up": 1, "w_gate": 1, "b_up": 0, "w_down": 0}
+    return {key: (tp.local(leaf, key, dims[key], *cols) if key in dims else tp.whole(leaf, key))
+            for key, leaf in params.items()}, True
+
+
+def mlp(params: Params, x: torch.Tensor, act: str = "silu", tp=None) -> torch.Tensor:
+    params, split = local_mlp(params, tp)
+    if split:
+        x = tp.copy(x)
     a = _act(act)
     up = x @ _cast(params["w_up"], x)
     if "b_up" in params:
@@ -358,14 +431,29 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         h = a(up)
     y = h @ _cast(params["w_down"], x)
+    if split:
+        y = tp.reduce(y)
     if "b_down" in params:
         y = y + _cast(params["b_down"], x)
     return y
 
 
 # ----------------------------------------------------------------- embedding
-def embed(params: Params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    return params["table"].to(dtype)[tokens]
+def embed(params: Params, tokens: torch.Tensor, dtype=torch.bfloat16, tp=None) -> torch.Tensor:
+    """The tokens' rows of the table.  Under ``tp``: a vocab-split table
+    looks up the rows of its block (others 0) and sums over the model
+    group; a table split on d looks up its columns and puts them together."""
+    table = params["table"].to(dtype)
+    split = tp.split_dim("table") if tp is not None else None
+    if split is None:
+        return table[tokens]
+    if split == 1:
+        return tp.gather(table[tokens], -1)
+    n = table.shape[0]
+    local = tokens.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return tp.reduce(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
 
 
 def chunked_cross_entropy(
@@ -374,19 +462,36 @@ def chunked_cross_entropy(
     labels: torch.Tensor,  # [B, L]
     chunk: int = 512,
     logit_softcap: float | None = None,
+    tp=None,
 ) -> torch.Tensor:
     """Mean cross-entropy over labels >= 0, one sequence chunk of logits at
     a time so [B, L, V] never materialises; each chunk's logits are
     rematerialised in the backward (``remat``), as the JAX package
-    checkpoints them.  The count of valid labels stays on the device."""
+    checkpoints them.  The count of valid labels stays on the device.
+
+    Under ``tp`` the table is this rank's vocab block (rows [r * V/n, (r+1)
+    * V/n)): the log-partition is the group's MAX of the row max plus the
+    log of the SUM of every block's exponent sum, and the gold logit the SUM
+    of the one block that holds it (0 elsewhere)."""
     l = x.shape[1]
     chunk = min(chunk, l)
+    if tp is not None:
+        x = tp.copy(x)
+        lo = tp.rank * emb_table.shape[0]
 
     def chunk_loss(xc: torch.Tensor, table: torch.Tensor, yc: torch.Tensor) -> torch.Tensor:
         logits = (xc @ table.T).float()
         logits = _softcap(logits, logit_softcap)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yc.clamp(min=0).long()[..., None])[..., 0]
+        if tp is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, yc.clamp(min=0).long()[..., None])[..., 0]
+        else:
+            m = tp.max(logits.max(dim=-1).values)
+            logz = m + torch.log(tp.reduce(torch.exp(logits - m[..., None]).sum(dim=-1)))
+            local = yc.long() - lo
+            inside = (local >= 0) & (local < logits.shape[-1])
+            picked = torch.gather(logits, -1, local.clamp(0, logits.shape[-1] - 1)[..., None])
+            gold = tp.reduce(torch.where(inside, picked[..., 0], torch.zeros_like(logz)))
         return torch.where(yc >= 0, logz - gold, torch.zeros_like(logz)).sum()
 
     table = emb_table.to(x.dtype)

@@ -38,8 +38,10 @@ Parameters are the JAX package's tree with ``blocks`` a list: per layer
 ``shared`` (a gated MLP of width ``d_ff``) and ``shared_gate`` [d, 1].
 Attention is the dense family's (K6 on the card, K6b under a gradient).
 The JAX package's sharding hooks (``constrain_activations``,
-``constrain_moe_dispatch``) are not ported (tensor parallelism through the
-layers is ROADMAP item 22), nor are ``expert_pad`` and the
+``constrain_moe_dispatch``) are not ported: the dense families split over
+"model" (``tensor_parallel``), and expert parallelism over "model" with
+SharesSkew's replica slots is ROADMAP item 26 (``build_model`` refuses a
+model axis for this family); nor are ``expert_pad`` and the
 ``REPRO_EXPERT_PAD`` environment knob, which pad the expert dim to tile a
 TPU mesh axis.
 """

@@ -1,0 +1,194 @@
+"""Tensor parallelism over a mesh's "model" axis for the transformer
+families: the counterpart of the JAX package's activation-sharding hooks
+(``repro.models.layers.set_activation_sharding`` and ``constrain_*``, which
+the JAX launcher sets under ``--mesh prod``).
+
+Where the JAX package states the shardings and lets XLA partition the step,
+the port computes on each rank's blocks and places the collectives by hand,
+Megatron's way:
+
+  * column-parallel ``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``: the input
+    goes through ``copy`` (identity forward, ``all_reduce`` of its gradient);
+  * row-parallel ``wo``, ``w_down``: the partial outputs go through
+    ``reduce`` (``all_reduce`` forward, identity backward); a bias such as
+    ``b_down`` is added once, after it;
+  * a vocab-split embedding looks up its own rows (the others masked to 0)
+    and ``reduce``s; a vocab-split readout feeds ``layers.
+    chunked_cross_entropy``'s vocab-parallel form (a MAX ``all_reduce`` of
+    the row max, SUM of the exponent sums and of the gold logit);
+  * a leaf whose split is not the one its use site computes on (the rules
+    split columns wherever the column count divides, not heads: internvl2-1b's
+    ``wk`` at model = 4; an embedding split on d where the vocab does not
+    divide) is put together whole (``gather``: an ``all_reduce`` of the
+    block placed in zeros) and sliced.
+
+Only ``all_reduce`` and ``broadcast`` go over the model group: the
+collectives gloo takes on CUDA tensors, so one code path runs over NCCL (a
+rank a card), over gloo on the CPU, and over gloo with several ranks on one
+card.  K6 and K6b are custom autograd functions and run unchanged on each
+rank's heads: the layers work on local tensors, not on DTensors.
+
+The residual stream stays whole on every rank of a model group (the JAX
+launcher's ``P(dp, "model", None)`` also splits its sequence over "model":
+sequence parallelism, ROADMAP item 29).  The results are the same; the
+activation memory is not.  Norm scales and ``b_down`` act on the whole
+stream and stay bit-identical across a model group: each rank computes the
+same gradient for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _Reduce(torch.autograd.Function):
+    """The sum over the group forward; the gradient passed through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    """The whole tensor from each rank's block along ``dim`` (placed in
+    zeros, summed over the group: exact); the gradient's own block back.
+    For a whole tensor that every rank of the group computes the same
+    with."""
+
+    @staticmethod
+    def forward(ctx, x, dim, index, parts, group):
+        ctx.dim, ctx.index, ctx.n = dim, index, x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] *= parts
+        out = x.new_zeros(shape)
+        out.narrow(dim, index * ctx.n, ctx.n).copy_(x)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        block = grad.narrow(ctx.dim, ctx.index * ctx.n, ctx.n)
+        return block.contiguous(), None, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """One rank's part of a model split over ``mesh``'s "model" axis.
+
+    ``specs`` is the parameter tree's specs (``launch.sharding.
+    param_specs``), ``leaf_split`` maps a leaf's name (``wq``, ``w_down``,
+    ... of a block; ``table`` for the embedding, ``lm_head`` for the
+    untied head) to (its whole shape, the dim "model" splits or None)."""
+
+    mesh: object  # launch.mesh.Mesh
+    specs: dict
+    leaf_split: dict
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size("model")
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.index("model")
+
+    @property
+    def group(self) -> dist.ProcessGroup:
+        return self.mesh.group("model")
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return _Copy.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return _Reduce.apply(x, self.group)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _Gather.apply(x, dim % x.dim(), self.rank, self.size, self.group)
+
+    def split_dim(self, name: str | None) -> int | None:
+        return self.leaf_split.get(name, (None, None))[1] if name else None
+
+    def whole(self, w: torch.Tensor, name: str | None) -> torch.Tensor:
+        """Leaf ``name`` whole, for work every rank of the group does alike."""
+        d = self.split_dim(name)
+        return w if d is None else self.gather(w, d)
+
+    def local(self, w: torch.Tensor, name: str | None, dim: int, lo: int,
+              hi: int) -> torch.Tensor:
+        """Entries [lo, hi) along ``dim`` of leaf ``name``, for work that
+        this rank does on its own part (its heads, its MLP columns).  This
+        rank's block where it is just that; else the whole leaf (gathered if
+        split), through ``copy`` so that its gradient sums every rank's
+        part, then sliced."""
+        d = self.split_dim(name)
+        if d == dim and w.shape[dim] * self.rank == lo and w.shape[dim] == hi - lo:
+            return w
+        full = self.copy(w if d is None else self.gather(w, d))
+        return full.narrow(dim, lo, hi - lo)
+
+    def block(self, total: int) -> tuple[int, int] | None:
+        """This rank's equal share [lo, hi) of ``total`` entries, or None
+        where they do not split."""
+        if total % self.size:
+            return None
+        n = total // self.size
+        return self.rank * n, (self.rank + 1) * n
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the group (no gradient)."""
+        x = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+        return x
+
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the group's first rank holds it, on every rank (in place)."""
+        dist.broadcast(x, src=dist.get_global_rank(self.group, 0), group=self.group)
+        return x
+
+
+def _split(leaf, spec) -> tuple:
+    dims = [d for d, e in enumerate(spec) if e == "model"]
+    return tuple(leaf.shape), dims[0] if dims else None
+
+
+def leaf_split(specs: dict, params: dict) -> dict:
+    """(whole shape, split dim) by leaf name, from the first block's leaves
+    and the embedding / head; every block of a config has the same specs."""
+    out = {}
+
+    def visit(tree, spec):
+        for key, sub in tree.items():
+            if isinstance(sub, dict):
+                visit(sub, spec[key])
+            elif sub is not None:
+                out[key] = _split(sub, spec[key])
+
+    if params.get("blocks"):
+        visit(params["blocks"][0], specs["blocks"][0])
+    out["table"] = _split(params["embed"]["table"], specs["embed"]["table"])
+    if "lm_head" in params:
+        out["lm_head"] = _split(params["lm_head"]["w"], specs["lm_head"]["w"])
+    return out

@@ -14,6 +14,13 @@ JAX package): each block runs under ``torch.utils.checkpoint`` where a
 backward will run, the port's ``jax.checkpoint`` of the scanned body, so a
 step holds one block's activations at a time and runs each block's forward
 twice (K6 included).
+
+Every function takes ``tp`` (``tensor_parallel.TensorParallel``; None: the
+whole model on this rank): ``init_params`` then keeps this rank's blocks of
+the leaves, the layers compute on its heads and MLP columns, the readout on
+its vocab block (logits put together over the vocab for serving), and the
+KV cache holds the KV heads of its query heads, as ``cache_specs`` places
+them where the KV heads split.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.sharding import shard_slices, shard_tree
 from repro_torch.mapreduce.executor import _device
 
 from .layers import (
@@ -33,7 +41,9 @@ from .layers import (
     attention_output,
     chunked_cross_entropy,
     embed,
+    head_split,
     init_norm,
+    local_attention,
     mlp,
     remat as remat_block,
     rotated_qkv,
@@ -77,15 +87,21 @@ def init_attention(cfg: ArchConfig, dense, device: torch.device, dtype: torch.dt
 
 def init_params(
     cfg: ArchConfig, seed: int, device: torch.device | str = "cuda",
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, tp=None,
 ) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``,
     from the distributions of ``repro.models.layers``: dense weights
     N(0, 1/fan_in), the embedding N(0, 0.02^2), biases 0, norm scales 1.
     (``jax.random`` draws other numbers: tests carry JAX weights across
     with ``convert.params_from_jax``.)  Kept in ``dtype``, the compute
-    dtype, so no use casts them."""
+    dtype, so no use casts them.  Under ``tp`` every rank draws every
+    whole leaf in the same order, a block at a time, and keeps its block
+    of each: the one-rank model's parameters, sliced."""
     dev = _device(device)
+
+    def keep(tree, spec):
+        return tree if tp is None else shard_tree(tree, spec, tp.mesh)
+
     gen = torch.Generator(device=dev).manual_seed(int(seed))
 
     def dense(d_in: int, d_out: int) -> torch.Tensor:
@@ -97,27 +113,29 @@ def init_params(
 
     d, f = cfg.d_model, cfg.d_ff
     blocks = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         attn = init_attention(cfg, dense, dev, dtype)
         ffn = {"w_up": dense(d, f), "w_down": dense(f, d)}
         if cfg.family != "audio":  # hubert uses a plain gelu FFN
             ffn["w_gate"] = dense(d, f)
         if cfg.attn_bias:
             ffn.update(b_up=zeros(f), b_down=zeros(d))
-        blocks.append({
+        blocks.append(keep({
             "ln1": init_norm(cfg.norm, d, dev, dtype),
             "attn": attn,
             "ln2": init_norm(cfg.norm, d, dev, dtype),
             "mlp": ffn,
-        })
+        }, tp and tp.specs["blocks"][i]))
     table = torch.randn((cfg.vocab, d), generator=gen, device=dev, dtype=torch.float32)
+    if tp is not None:  # the slice before the scale: one whole fp32 table at a time
+        table = table[shard_slices(table.shape, tp.specs["embed"]["table"], tp.mesh)]
     params = {
         "embed": {"table": (table * 0.02).to(dtype)},
         "blocks": blocks,
         "final_norm": init_norm(cfg.norm, d, dev, dtype),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": dense(d, cfg.vocab)}
+        params["lm_head"] = keep({"w": dense(d, cfg.vocab)}, tp and tp.specs["lm_head"])
     return params
 
 
@@ -129,11 +147,12 @@ def _layer_flags(cfg: ArchConfig) -> list[bool]:
     return [True] * cfg.n_layers
 
 
-def _block_apply(cfg: ArchConfig, blk: dict, x: torch.Tensor, is_global: bool) -> torch.Tensor:
+def _block_apply(cfg: ArchConfig, blk: dict, x: torch.Tensor, is_global: bool,
+                 tp=None) -> torch.Tensor:
     h = apply_norm(cfg.norm, blk["ln1"], x)
-    x = x + attention(blk["attn"], attn_config(cfg), h, is_global)
+    x = x + attention(blk["attn"], attn_config(cfg), h, is_global, tp)
     h = apply_norm(cfg.norm, blk["ln2"], x)
-    return x + mlp(blk["mlp"], h, cfg.act)
+    return x + mlp(blk["mlp"], h, cfg.act, tp)
 
 
 def forward_hidden(
@@ -143,6 +162,7 @@ def forward_hidden(
     prefix_embeds: torch.Tensor | None = None,  # [B, P, d] (vlm/audio stub)
     dtype: torch.dtype = torch.bfloat16,
     remat: bool = True,
+    tp=None,
 ) -> torch.Tensor:
     """Token (+ prefix) embeddings -> final-norm hidden states [B, L*, d].
     ``remat``: recompute each block's activations in the backward."""
@@ -151,14 +171,14 @@ def forward_hidden(
             raise ValueError("need tokens and/or prefix_embeds")
         x = prefix_embeds.to(dtype)
     else:
-        x = embed(params["embed"], tokens, dtype)
+        x = embed(params["embed"], tokens, dtype, tp)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     for blk, is_global in zip(params["blocks"], _layer_flags(cfg)):
         if remat:
-            x = remat_block(_block_apply, cfg, blk, x, is_global)
+            x = remat_block(_block_apply, cfg, blk, x, is_global, tp)
         else:
-            x = _block_apply(cfg, blk, x, is_global)
+            x = _block_apply(cfg, blk, x, is_global, tp)
     return apply_norm(cfg.norm, params["final_norm"], x)
 
 
@@ -169,6 +189,18 @@ def logits_table(cfg: ArchConfig, params: dict) -> torch.Tensor:
     return params["lm_head"]["w"].T
 
 
+def split_table(cfg: ArchConfig, params: dict, dtype: torch.dtype, tp) -> tuple:
+    """Under ``tp``: (the readout table in ``dtype``, is it this rank's
+    vocab block?).  A table split on d (the vocab does not divide: granite,
+    internvl2) is put together whole, and every rank reads out alike."""
+    name, vocab_dim = ("table", 0) if cfg.tie_embeddings else ("lm_head", 1)
+    w = (params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]["w"]).to(dtype)
+    split = tp.split_dim(name) == vocab_dim
+    if not split:
+        w = tp.whole(w, name)
+    return (w if vocab_dim == 0 else w.T), split
+
+
 def loss_fn(
     cfg: ArchConfig,
     params: dict,
@@ -176,12 +208,13 @@ def loss_fn(
     dtype: torch.dtype = torch.bfloat16,
     remat: bool = True,
     loss_chunk: int = 512,
+    tp=None,
 ) -> torch.Tensor:
     """Next-token (or frame-label for encoders) cross entropy; differentiable,
     each block rematerialised in the backward under ``remat``."""
     tokens = batch.get("tokens")
     h = forward_hidden(cfg, params, tokens, batch.get("prefix_embeds"), dtype=dtype,
-                       remat=remat)
+                       remat=remat, tp=tp)
     if cfg.causal:
         prefix = h.shape[1] - tokens.shape[1]
         h_txt = h[:, prefix:, :]
@@ -189,28 +222,41 @@ def loss_fn(
         labels = tokens[:, 1:]
     else:
         inputs, labels = h, batch["labels"]
-    return chunked_cross_entropy(inputs, logits_table(cfg, params), labels, chunk=loss_chunk)
+    if tp is None:
+        return chunked_cross_entropy(inputs, logits_table(cfg, params), labels, chunk=loss_chunk)
+    table, split = split_table(cfg, params, inputs.dtype, tp)
+    return chunked_cross_entropy(inputs, table, labels, chunk=loss_chunk,
+                                 tp=tp if split else None)
 
 
 # ------------------------------------------------------------------ serving
 def init_kv_cache(
     cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype = torch.bfloat16,
-    device: torch.device | str = "cuda",
+    device: torch.device | str = "cuda", tp=None,
 ) -> dict:
     """Zeroed KV cache in the JAX package's layout, ``{"k", "v"}`` each
     ``[n_layers, B, n_kv, max_seq, hd]``.  ``decode_step`` and ``prefill``
-    write into it in place (the JAX package returns a new cache)."""
-    shape = (cfg.n_layers, batch, cfg.n_kv, max_seq, cfg.hd)
+    write into it in place (the JAX package returns a new cache).  Under
+    ``tp``, n_kv is the KV heads of this rank's query heads
+    (``layers.head_split``; all of them where the heads do not split)."""
+    split = head_split(attn_config(cfg), tp)
+    n_kv = cfg.n_kv if split is None else split[1][1] - split[1][0]
+    shape = (cfg.n_layers, batch, n_kv, max_seq, cfg.hd)
     dev = _device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _readout(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def _readout(cfg: ArchConfig, params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """Final norm, then last-position logits [B, V] in float32 (the matmul
-    runs in the compute dtype, as in the JAX package)."""
+    runs in the compute dtype, as in the JAX package); under ``tp`` the
+    vocab blocks' logits put together, the same on every rank."""
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    return (x[:, -1, :] @ logits_table(cfg, params).to(x.dtype).T).float()
+    if tp is None:
+        return (x[:, -1, :] @ logits_table(cfg, params).to(x.dtype).T).float()
+    table, split = split_table(cfg, params, x.dtype, tp)
+    logits = x[:, -1, :] @ table.T
+    return (tp.gather(logits, -1) if split else logits).float()
 
 
 def decode_step(
@@ -220,18 +266,19 @@ def decode_step(
     tokens: torch.Tensor,  # [B, 1]
     pos: int,  # tokens already in cache
     dtype: torch.dtype = torch.bfloat16,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One autoregressive step; returns (logits [B, V], cache), the cache
     updated in place at ``pos``."""
-    x = embed(params["embed"], tokens, dtype)
+    x = embed(params["embed"], tokens, dtype, tp)
     acfg = attn_config(cfg)
     for i, (blk, is_global) in enumerate(zip(params["blocks"], _layer_flags(cfg))):
         h = apply_norm(cfg.norm, blk["ln1"], x)
         x = x + attention_decode(blk["attn"], acfg, h, cache["k"][i], cache["v"][i], int(pos),
-                                 is_global)
+                                 is_global, tp)
         h = apply_norm(cfg.norm, blk["ln2"], x)
-        x = x + mlp(blk["mlp"], h, cfg.act)
-    return _readout(cfg, params, x), cache
+        x = x + mlp(blk["mlp"], h, cfg.act, tp)
+    return _readout(cfg, params, x, tp), cache
 
 
 def prefill(
@@ -240,20 +287,24 @@ def prefill(
     tokens: torch.Tensor,  # [B, L]
     cache: dict,
     dtype: torch.dtype = torch.bfloat16,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Prefill the cache with a full prompt: one parallel forward whose
     rotated k and v are written into positions [0, L) of the cache in place.
     Returns (last-position logits, cache).  On the card each full-window
-    layer's attention is one K6 launch."""
-    x = embed(params["embed"], tokens, dtype)
-    acfg = attn_config(cfg)
+    layer's attention is one K6 launch (under ``tp``, on this rank's heads)."""
+    x = embed(params["embed"], tokens, dtype, tp)
     l = tokens.shape[1]
     for i, (blk, is_global) in enumerate(zip(params["blocks"], _layer_flags(cfg))):
         h = apply_norm(cfg.norm, blk["ln1"], x)
-        q, k, v = rotated_qkv(blk["attn"], acfg, h)
+        attn, acfg, split = local_attention(blk["attn"], attn_config(cfg), tp)
+        if split:
+            h = tp.copy(h)
+        q, k, v = rotated_qkv(attn, acfg, h)
         cache["k"][i, :, :, :l] = k.to(cache["k"].dtype)
         cache["v"][i, :, :, :l] = v.to(cache["v"].dtype)
-        x = x + attention_output(blk["attn"], acfg, attention_core(q, k, v, acfg, is_global))
+        y = attention_output(attn, acfg, attention_core(q, k, v, acfg, is_global))
+        x = x + (tp.reduce(y) if split else y)
         h = apply_norm(cfg.norm, blk["ln2"], x)
-        x = x + mlp(blk["mlp"], h, cfg.act)
-    return _readout(cfg, params, x), cache
+        x = x + mlp(blk["mlp"], h, cfg.act, tp)
+    return _readout(cfg, params, x, tp), cache

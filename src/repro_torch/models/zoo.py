@@ -9,6 +9,14 @@ without a card raises.  ``dense``, ``vlm`` and ``audio`` run on
 ``transformer``, ``moe`` on ``moe`` (SharesSkew expert dispatch), ``ssm``
 (RWKV-6) on ``rwkv6`` and ``hybrid`` (Zamba2: Mamba2 blocks and a shared
 attention block) on ``mamba2``.
+
+``build_model(cfg, device, tp=mesh)`` splits a ``dense``, ``vlm`` or
+``audio`` model over the mesh's "model" axis (``tensor_parallel``): the
+rules' specs (``launch.sharding.param_specs`` at that axis's size, no FSDP,
+as the JAX launcher) are reckoned from the whole model's shapes under
+``FakeTensorMode``, and every member of the ``ModelApi`` works on this
+rank's blocks.  The other families raise there, naming their ROADMAP items:
+none silently replicates.
 """
 from __future__ import annotations
 
@@ -17,11 +25,21 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.sharding import param_specs
 from repro_torch.mapreduce.executor import _device
 
 from . import mamba2, moe, rwkv6, transformer
+from .tensor_parallel import TensorParallel, leaf_split
+
+# families whose layers do not yet split over "model", and the ROADMAP item of each
+NOT_SPLIT = {
+    "moe": "item 26 (expert parallelism over 'model' with SharesSkew replica slots)",
+    "ssm": "item 27 (RWKV-6: the time-mix Wv row rule splits the input dim)",
+    "hybrid": "item 28 (Zamba2: in_proj's column split cuts across its segments)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,11 +55,30 @@ class ModelApi:
     init_cache: Callable[..., dict] | None  # (batch, max_seq, dtype) -> cache
     decode_step: Callable[..., tuple] | None  # (params, cache, tokens, pos, **kw)
     forward_hidden: Callable[..., Any]  # (params, batch, **kw) -> hidden (moe: (hidden, aux))
+    tp: TensorParallel | None = None  # this rank's part of a model split over "model"
 
 
-def build_model(cfg: ArchConfig, device: torch.device | str = "cuda") -> ModelApi:
+def tensor_parallel(cfg: ArchConfig, mesh) -> TensorParallel:
+    """The split of ``cfg``'s transformer over ``mesh``'s "model" axis."""
+    with FakeTensorMode():
+        whole = transformer.init_params(cfg, 0, "cpu")
+    specs = param_specs(whole, mesh.size("model"))
+    return TensorParallel(mesh, specs, leaf_split(specs, whole))
+
+
+def build_model(cfg: ArchConfig, device: torch.device | str = "cuda", tp=None) -> ModelApi:
+    """The ``ModelApi`` of ``cfg`` on ``device``; ``tp``: a
+    ``launch.mesh.Mesh`` whose "model" axis splits the model (None, or an
+    axis of one rank: the whole model here)."""
     dev = _device(device)
     fam = cfg.family
+    if tp is not None and "model" in tp.mesh_dim_names and tp.size("model") > 1:
+        if fam in NOT_SPLIT:
+            raise NotImplementedError(
+                f"{cfg.name}: the {fam} family does not split over 'model' "
+                f"({tp.size('model')} ranks); ROADMAP {NOT_SPLIT[fam]}")
+    else:
+        tp = None
     if fam == "hybrid":
         return ModelApi(
             cfg=cfg,
@@ -86,18 +123,20 @@ def build_model(cfg: ArchConfig, device: torch.device | str = "cuda") -> ModelAp
     if fam not in ("dense", "vlm", "audio"):
         raise ValueError(f"unknown family {fam}")
     decoder = fam != "audio"  # hubert is encoder-only
+    tp = tensor_parallel(cfg, tp) if tp is not None else None
     return ModelApi(
         cfg=cfg,
         device=dev,
         init_params=lambda seed, dtype=torch.float32: transformer.init_params(
-            cfg, seed, dev, dtype),
-        loss_fn=lambda params, batch, **kw: transformer.loss_fn(cfg, params, batch, **kw),
+            cfg, seed, dev, dtype, tp),
+        loss_fn=lambda params, batch, **kw: transformer.loss_fn(cfg, params, batch, tp=tp, **kw),
         init_cache=(lambda batch, max_seq, dtype=torch.bfloat16: transformer.init_kv_cache(
-            cfg, batch, max_seq, dtype, dev)) if decoder else None,
+            cfg, batch, max_seq, dtype, dev, tp)) if decoder else None,
         decode_step=(lambda params, cache, tokens, pos, **kw: transformer.decode_step(
-            cfg, params, cache, tokens, pos, **kw)) if decoder else None,
+            cfg, params, cache, tokens, pos, tp=tp, **kw)) if decoder else None,
         forward_hidden=lambda params, batch, **kw: transformer.forward_hidden(
-            cfg, params, batch.get("tokens"), batch.get("prefix_embeds"), **kw),
+            cfg, params, batch.get("tokens"), batch.get("prefix_embeds"), tp=tp, **kw),
+        tp=tp,
     )
 
 

@@ -13,6 +13,11 @@ updated in place.
 Scheduling: requests are grouped by prompt-length bucket into waves of at
 most ``max_batch``; a wave is one prefill plus ``max_new - 1`` decode steps
 for the whole batch, and the fullest bucket goes first.
+
+A model split over "model" (``model.tp``) serves with every rank of the
+model group calling the same functions on the same prompts: the logits are
+put together over the vocab, and each token is the group's first rank's
+argmax, broadcast, so every rank feeds the same token to the next step.
 """
 from __future__ import annotations
 
@@ -50,13 +55,20 @@ def greedy_generate(
     cache = model.init_cache(b, max_seq, dtype=dtype)
     toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int32, device=model.device)
     logits, cache = scan_prefill(model, params, cache, toks, dtype)
-    tok = torch.argmax(logits, -1).to(torch.int32)
+    tok = _argmax(model, logits)
     out = [tok]
     for pos in range(l, l + max_new - 1):
         logits, cache = model.decode_step(params, cache, tok[:, None], pos, dtype=dtype)
-        tok = torch.argmax(logits, -1).to(torch.int32)
+        tok = _argmax(model, logits)
         out.append(tok)
     return torch.stack(out, dim=1).cpu().numpy()
+
+
+def _argmax(model: ModelApi, logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each row; under ``model.tp`` the model group's
+    first rank's, on every rank."""
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    return tok if model.tp is None else model.tp.broadcast(tok)
 
 
 @dataclasses.dataclass

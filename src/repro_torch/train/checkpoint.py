@@ -15,9 +15,14 @@ subtree — and a leaf's key is its path joined by ``/``.
 
 ``restore_tree`` rebuilds a tree of tensors shaped like a template from a
 flat checkpoint, on a given device (where the JAX package takes
-shardings).  ``AsyncCheckpointer`` copies the tree to host numpy before its
-thread starts, so training may go on updating the tensors in place while
-the thread writes.  A training state crosses between the packages through
+shardings); given the template's specs and a mesh, each rank takes its
+block of every whole leaf, so a run resumes onto another mesh shape.  A
+save of a model split over "model" gathers the whole leaves first
+(``launch.sharding.gather_tree``), so the checkpoint is the JAX layout of
+the whole model whatever the mesh.  ``AsyncCheckpointer`` copies the tree
+to host numpy before its thread starts, so training may go on updating the
+tensors in place while the thread writes.  A training state crosses between
+the packages through
 ``models.convert`` (``train_state_to_jax_layout`` before a save,
 ``flat_from_jax_layout`` before a restore).
 """
@@ -32,6 +37,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.launch.sharding import shard_slices
 
 
 def _to_numpy(x: Any) -> np.ndarray:
@@ -161,24 +168,30 @@ def load_manifest(directory: str, step: int | None = None) -> dict:
         return json.load(f)
 
 
-def restore_tree(template: Any, flat: dict[str, np.ndarray], device=None) -> Any:
+def restore_tree(template: Any, flat: dict[str, np.ndarray], device=None, specs: Any = None,
+                 mesh=None) -> Any:
     """A tree shaped like ``template`` (dicts, lists, tuples, ``None``; tensor
     or array leaves) from a flat checkpoint, each leaf a tensor of the
     template leaf's dtype on ``device`` (default: the template leaf's
     device).  Keys are the template's paths; a missing key or a shape that
-    differs raises, as in the JAX package."""
+    differs raises, as in the JAX package.  With ``specs`` (a spec a
+    template leaf, ``launch.sharding``) and ``mesh``, each checkpoint leaf
+    is whole and this rank keeps its block of it."""
 
-    def build(node, prefix: tuple):
+    def build(node, prefix: tuple, spec):
         if node is None:
             return None
         if isinstance(node, dict):
-            return {k: build(node[k], prefix + (k,)) for k in node}
+            return {k: build(node[k], prefix + (k,), spec and spec[k]) for k in node}
         if isinstance(node, (list, tuple)):
-            return type(node)(build(sub, prefix + (i,)) for i, sub in enumerate(node))
+            return type(node)(build(sub, prefix + (i,), spec and spec[i])
+                              for i, sub in enumerate(node))
         key = "/".join(str(p) for p in prefix)
         if key not in flat:
             raise KeyError(f"checkpoint missing {key}")
         arr = np.asarray(flat[key])
+        if spec:
+            arr = arr[shard_slices(arr.shape, spec, mesh)]
         if tuple(arr.shape) != tuple(node.shape):
             raise ValueError(f"{key}: ckpt shape {arr.shape} != model {tuple(node.shape)}")
         like = node if isinstance(node, torch.Tensor) else torch.from_numpy(np.asarray(node))
@@ -186,7 +199,7 @@ def restore_tree(template: Any, flat: dict[str, np.ndarray], device=None) -> Any
         host = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))  # 0-d stays 0-d
         return host.to(device=dev, dtype=like.dtype)
 
-    return build(template, ())
+    return build(template, (), specs)
 
 
 class AsyncCheckpointer:

@@ -19,6 +19,9 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch.sharding import sharded_flags
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,10 +83,21 @@ def init_opt_state(params: Any) -> dict:
     }
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
+def global_norm(tree: Any, tp=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32.  Under ``tp`` (a
+    ``models.tensor_parallel.TensorParallel``) the leaves split over "model"
+    add their squares over the model group and every other leaf, the same
+    on each rank of it, counts once: the whole model's norm on every rank."""
     parts = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
-    return torch.sqrt(torch.stack(parts).sum())
+    if tp is None:
+        return torch.sqrt(torch.stack(parts).sum())
+    flags = sharded_flags(tp.specs)
+    if len(flags) != len(parts):
+        raise ValueError(f"global_norm: {len(parts)} leaves for {len(flags)} specs")
+    zero = parts[0].new_zeros(())
+    split = torch.stack([p for p, f in zip(parts, flags) if f] + [zero]).sum()
+    dist.all_reduce(split, group=tp.group)
+    return torch.sqrt(split + torch.stack([p for p, f in zip(parts, flags) if not f] + [zero]).sum())
 
 
 def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
@@ -98,15 +112,17 @@ _GROUP = 8  # leaves updated together: the update's temporaries stay a few leave
 
 
 @torch.no_grad()
-def adamw_update(params: Any, grads: Any, state: dict, cfg: OptConfig) -> tuple[Any, dict, dict]:
+def adamw_update(params: Any, grads: Any, state: dict, cfg: OptConfig,
+                 tp=None) -> tuple[Any, dict, dict]:
     """One AdamW step: returns (params, state, metrics) with params, m and v
     updated in place (a few leaves at a time, so the temporaries stay
-    small) and ``metrics`` = {grad_norm, lr} as device scalars."""
+    small) and ``metrics`` = {grad_norm, lr} as device scalars.  ``tp``: the
+    model's split over "model", for the clip's ``global_norm``."""
     p_list, g_list = leaves(params), leaves(grads)
     m_list, v_list = leaves(state["m"]), leaves(state["v"])
     if not len(p_list) == len(g_list) == len(m_list) == len(v_list):
         raise ValueError(f"adamw_update: {len(g_list)} gradients for {len(p_list)} params")
-    gnorm = global_norm(g_list)
+    gnorm = global_norm(g_list, tp)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     lr = schedule(cfg, step)

@@ -11,8 +11,11 @@ device scalars, so a step never waits for the card.  ``loss_kwargs``
 (dtype, remat, loss_chunk; for the moe family also capacity_factor,
 extra_slots and aux_coef) thread through to the model's loss.
 ``reduce_grads``, when given, takes the gradient tree before the update and
-returns the one to apply: the launcher's data-parallel mean over its
-ranks (``repro_torch.launch.train``).
+returns the one to apply: the launcher's data-parallel mean over the ranks
+of its data group (``repro_torch.launch.train``).  A model split over
+"model" (``model.tp``) needs no reduction over that axis: each rank holds
+its blocks' whole gradient, and the clip's norm adds the split leaves'
+squares over the model group (``optimizer.global_norm``).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ def make_train_step(
                          params)
         if reduce_grads is not None:
             grads = reduce_grads(grads)
-        params, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        params, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg, model.tp)
         del grads
         for p in leaves(params):
             p.grad = None

@@ -1,0 +1,488 @@
+"""Tensor parallelism over "model" on cards: the transformer split over a
+(data, model) mesh (``repro_torch.models.tensor_parallel``) held against
+data parallelism alone, and timed.
+
+  PYTHONPATH=src torchrun --standalone --nproc_per_node 4 tools/tensor_parallel.py
+  OMP_NUM_THREADS=1 PYTHONPATH=src torchrun --standalone --nproc_per_node 4 \\
+      tools/tensor_parallel.py --device cpu --reduced
+
+Four ranks (NCCL, a card each; gloo on the CPU, where ``--reduced`` cuts
+every configuration and shape):
+
+1. olmo-1b at full width and depth on (2, 2) and (1, 4), granite-3-8b on
+   (1, 4).  Check, fp32 with TF32 off, a [4, 256] batch: the loss (the
+   data groups' mean) against the launcher's ``--mesh host`` at world 4
+   (every rank the whole model, a row each) to 1e-5 relative, and every
+   gradient (averaged over the data group) to 1e-4 of its leaf's largest
+   entry.  Time: bf16 steps of ``make_train_step`` with the launcher's
+   data-group mean on a global [8, 2048] batch, two to warm up, then the
+   median ms of five, tokens a second, each rank's peak memory, and the
+   share of a step the compute stream waits on model-axis collectives
+   (CUDA events around each ``all_reduce``/``broadcast`` over the model
+   group), with ``--mesh host``'s step beside them where the whole model
+   and its AdamW state fit a card (olmo-1b; granite-3-8b's 8.2e9
+   parameters take 131 GB of fp32 state a card, so its host step does
+   not run).  The bytes a step's leaf gathers move (leaves the rules split
+   otherwise than their use: granite's tied table split on d) are counted.
+2. command-r-plus-104b at model = 4.  At depth 2 in fp32: prefill logits
+   of [2, 64] prompts against the same weights on one card (rank 0's) to
+   1e-4 relative, and 8 greedy tokens equal.  At full width and depth in
+   bf16 (104e9 parameters, 52 GB a card): the GiB a rank holds at the
+   build's peak, the prefill of [4, 2048] prompts (ms, the KV cache's
+   GiB), and the median decode-step ms of the 7 steps after a prefill of
+   16-token prompts.
+
+``--smoke`` is ``chip_smoke.py``'s phase 58: two ranks on one card over
+gloo (CUDA tensors), a (1, 2) mesh, olmo-1b at full width cut to depth 2,
+each rank printing one ``RESULT`` line.
+
+Every figure is printed beside the card's name and power limit.  Exits
+non-zero when a check misses its tolerance.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import datetime
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import launches, reset_launches
+from repro_torch.launch.mesh import make_host_mesh, make_mesh
+from repro_torch.launch.sharding import shard_slices, sharded_flags, spec_leaves
+from repro_torch.launch.train import _mean_over
+from repro_torch.models import build_model, transformer
+from repro_torch.serve.engine import _argmax
+from repro_torch.train import OptConfig, init_train_state, make_train_step
+from repro_torch.train.optimizer import leaves
+
+LOSS_TOL, GRAD_TOL, LOGIT_TOL = 1e-5, 1e-4, 1e-4
+GiB = 1 << 30
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _say(*a) -> None:
+    if dist.get_rank() == 0:
+        print(*a, flush=True)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / GiB if dev.type == "cuda" else 0.0
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+class CollectiveClock:
+    """CUDA events around every ``all_reduce`` and ``broadcast`` over one
+    group, while ``on``: the time the compute stream waits on them.  (A
+    wrapper of ``torch.distributed``'s functions, for this tool only.)"""
+
+    def __init__(self, group, dev):
+        self.group, self.dev, self.on, self.pairs = group, dev, False, []
+        self._orig = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+        for name, fn in self._orig.items():
+            setattr(dist, name, self._wrap(fn))
+
+    def _wrap(self, fn):
+        def timed(tensor, *a, group=None, **kw):
+            if not (self.on and group is self.group and self.dev.type == "cuda"):
+                return fn(tensor, *a, group=group, **kw)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(tensor, *a, group=group, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        return timed
+
+    def take_ms(self) -> tuple[float, int]:
+        _sync(self.dev)
+        ms = sum(s.elapsed_time(e) for s, e in self.pairs)
+        n = len(self.pairs)
+        self.pairs = []
+        return ms, n
+
+    def close(self) -> None:
+        for name, fn in self._orig.items():
+            setattr(dist, name, fn)
+
+
+def traced(fn, dev) -> tuple:
+    """(fn's result, where one call's time went on rank 0: its host ms, the
+    device's busy ms, the NCCL kernels' ms, the five costliest kernels)
+    under ``torch.profiler`` (``chip_smoke._traced``); the other ranks, and
+    the CPU, run ``fn`` untraced (None)."""
+    if dev.type != "cuda" or dist.get_rank() != 0:
+        return fn(), None
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    wall = []
+
+    def timed():
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        wall.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    out, us = chip_smoke._traced(timed)
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:5]
+    return out, {"host_ms": wall[0], "busy_ms": sum(us.values()) / 1e3,
+                 "nccl_ms": sum(v for k, v in us.items() if "nccl" in k.lower()) / 1e3,
+                 "top_ms": {k[:80]: v / 1e3 for k, v in top}}
+
+
+def _tokens(cfg, shape, seed, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int32)).to(dev)
+
+
+def _rows(mesh, total: int) -> slice:
+    n, i = mesh.size(mesh.data_axes), mesh.index(mesh.data_axes)
+    return slice(i * total // n, (i + 1) * total // n)
+
+
+def _mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    x = x.detach().clone()
+    dist.all_reduce(x, group=mesh.group(mesh.data_axes))
+    return x / mesh.size(mesh.data_axes)
+
+
+def _loss_and_grads(cfg, mesh, tokens, dev):
+    """fp32 loss (data groups' mean) and this rank's gradients (data-group
+    mean), on the host, with their specs (None: whole leaves)."""
+    model = build_model(cfg, dev, tp=mesh)
+    params = model.init_params(0)  # no AdamW moments: granite's whole model is 33 GB a copy
+    for p in leaves(params):
+        p.requires_grad_(True)
+    loss = model.loss_fn(params, {"tokens": tokens[_rows(mesh, tokens.shape[0])]},
+                         dtype=torch.float32)
+    loss.backward()
+    grads = _mean_over(mesh.group(mesh.data_axes))([p.grad for p in leaves(params)])
+    out = float(_mean(loss, mesh)), [g.cpu() for g in grads], model.tp
+    del params, grads, loss, model
+    return out
+
+
+def check(cfg, meshes, shape, dev) -> dict:
+    """The split runs' loss and gradients against ``--mesh host`` at this
+    world."""
+    tokens = _tokens(cfg, shape, 1, dev)
+    split = {m: _loss_and_grads(cfg, make_mesh(m, ("data", "model"), dev), tokens, dev)
+             for m in meshes}
+    _reset_peak(dev)
+    host_loss, host_grads, _ = _loss_and_grads(cfg, make_host_mesh("data", dev), tokens, dev)
+    out = {}
+    for m, (loss, grads, tp) in split.items():
+        worst = 0.0
+        for g, want, spec in zip(grads, host_grads, spec_leaves(tp.specs)):
+            block = want[shard_slices(tuple(want.shape), spec, tp.mesh)]
+            err = torch.tensor([float((g - block).abs().max())], device=dev)
+            dist.all_reduce(err, op=dist.ReduceOp.MAX, group=tp.group)
+            worst = max(worst, float(err) / max(float(want.abs().max()), 1e-30))
+        rel = abs(loss - host_loss) / abs(host_loss)
+        out[f"{m[0]}x{m[1]}"] = {"loss": loss, "host_loss": host_loss, "loss_rel": rel,
+                                 "grad_rel_max": worst}
+        _say(f"[check] {cfg.name} {m}: fp32 loss {loss!r} vs --mesh host {host_loss!r} "
+             f"(rel {rel:.3g}, tol {LOSS_TOL}); gradients {worst:.3g} of each leaf's largest "
+             f"entry at most (tol {GRAD_TOL})")
+        assert rel <= LOSS_TOL and worst <= GRAD_TOL, out
+    return out
+
+
+def _gathered_bytes(tp, dtype) -> int:
+    """Bytes of leaves a training step's forward puts together whole: the
+    readout table where the rules split it on d (once a step, outside the
+    rematerialised blocks).  The attention leaves of the configurations
+    run here split on whole heads, so none of them is gathered."""
+    if tp is None:
+        return 0
+    name, vocab_dim = ("lm_head", 1) if "lm_head" in tp.leaf_split else ("table", 0)
+    shape, d = tp.leaf_split[name]
+    return 0 if d in (None, vocab_dim) else int(np.prod(shape)) * dtype.itemsize
+
+
+def time_steps(cfg, mesh, shape, dev, steps=5, warm=2) -> dict:
+    """bf16 train steps on a global ``shape`` batch: median ms, tokens/s,
+    peak GiB, the model-axis collectives' share."""
+    _reset_peak(dev)
+    model = build_model(cfg, dev, tp=mesh)
+    params, state = init_train_state(model, 0)
+    step = make_train_step(model, OptConfig(), {}, _mean_over(mesh.group(mesh.data_axes)))
+    batch = {"tokens": _tokens(cfg, shape, 2, dev)[_rows(mesh, shape[0])]}
+    clock = CollectiveClock(model.tp.group if model.tp else object(), dev)
+    ms, waits, losses = [], [], []
+    try:
+        reset_launches()
+        for i in range(warm + steps):
+            dist.barrier()
+            _sync(dev)
+            clock.on = i >= warm
+            t = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            _sync(dev)
+            if i >= warm:
+                ms.append((time.perf_counter() - t) * 1e3)
+                waits.append(clock.take_ms())
+        counts = launches()
+        dist.barrier()
+        (params, state, _), trace = traced(lambda: step(params, state, batch), dev)
+    finally:
+        clock.close()
+    med = statistics.median(ms)
+    share = sum(w for w, _ in waits) / sum(ms)
+    out = {"ms": ms, "median_ms": med, "tokens_per_s": shape[0] * shape[1] / med * 1e3,
+           "peak_gib": _peak_gib(dev), "model_collective_share": share,
+           "model_collectives_per_step": waits[0][1], "losses": losses,
+           "gathered_bytes_per_step": _gathered_bytes(model.tp, torch.bfloat16),
+           "k6": counts["flash_attention"], "k6b": counts["flash_attention_bwd"],
+           "traced_step": trace}
+    peaks = torch.zeros(dist.get_world_size(), dtype=torch.float64, device=dev)
+    peaks[dist.get_rank()] = out["peak_gib"]
+    dist.all_reduce(peaks)
+    out["peak_gib_by_rank"] = peaks.tolist()
+    del params, state, step, model
+    return out
+
+
+def _generate(model, params, prompts, n, dtype):
+    """Prefill (K6 on the card) then greedy decode steps; the model group's
+    first rank's argmax on every rank.  Returns (tokens [B, n], prefill
+    logits, decode-step ms)."""
+    b, l = prompts.shape
+    cache = model.init_cache(b, l + n, dtype)
+    logits, cache = transformer.prefill(model.cfg, params, prompts, cache, dtype, tp=model.tp)
+    first = logits
+    tok = _argmax(model, logits)
+    out, ms = [tok], []
+    for pos in range(l, l + n - 1):
+        _sync(model.device)
+        t = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, tok[:, None], pos, dtype=dtype)
+        tok = _argmax(model, logits)
+        _sync(model.device)
+        ms.append((time.perf_counter() - t) * 1e3)
+        out.append(tok)
+    return torch.stack(out, 1), first, ms
+
+
+def command_r(cfg, dev, reduced: bool) -> dict:
+    out = {}
+    world = dist.get_world_size()
+    mesh = make_mesh((1, world), ("data", "model"), dev)
+    # depth 2 in fp32 against one card
+    small = dataclasses.replace(cfg, n_layers=2)
+    prompts = _tokens(small, (2, 16 if reduced else 64), 3, dev)
+    model = build_model(small, dev, tp=mesh)
+    with torch.no_grad():
+        params = model.init_params(0)
+        toks, logits, _ = _generate(model, params, prompts, 8, torch.float32)
+    del params, model
+    dist.barrier()
+    if dist.get_rank() == 0:
+        one = build_model(small, dev)
+        with torch.no_grad():
+            params = one.init_params(0)
+            want_toks, want_logits, _ = _generate(one, params, prompts, 8, torch.float32)
+        del params, one
+        rel = float((logits - want_logits).abs().max() / want_logits.abs().max())
+        same = bool(torch.equal(toks, want_toks))
+        out["depth2"] = {"logits_rel": rel, "tokens_equal": same, "tokens": toks.tolist()}
+        _say(f"[command-r] depth 2 fp32 at model {world}: prefill logits {rel:.3g} of the "
+             f"largest off one card's (tol {LOGIT_TOL}); 8 greedy tokens equal: {same}")
+        assert rel <= LOGIT_TOL and same, out
+    dist.barrier()
+    _reset_peak(dev)
+    # full width and depth in bf16
+    t = time.perf_counter()
+    model = build_model(cfg, dev, tp=mesh)
+    with torch.no_grad():
+        params = model.init_params(0, torch.bfloat16)
+        _sync(dev)
+        build_s = time.perf_counter() - t
+        build_peak = _peak_gib(dev)
+        held = sum(p.numel() * p.element_size() for p in leaves(params)) / GiB
+        b, l = (2, 64) if reduced else (4, 2048)
+        big = _tokens(cfg, (b, l), 4, dev)
+        reset_launches()
+        pre = []
+        for _ in range(2):
+            cache = model.init_cache(b, l, torch.bfloat16)
+            _sync(dev)
+            t = time.perf_counter()
+            transformer.prefill(cfg, params, big, cache, torch.bfloat16, tp=model.tp)
+            _sync(dev)
+            pre.append((time.perf_counter() - t) * 1e3)
+        cache_gib = sum(c.numel() * c.element_size() for c in cache.values()) / GiB
+        del cache
+        k6 = launches()["flash_attention"]
+        toks, _, dec = _generate(model, params, big[:, :16], 8, torch.bfloat16)
+        cache = model.init_cache(b, 24, torch.bfloat16)
+        transformer.prefill(cfg, params, big[:, :16], cache, torch.bfloat16, tp=model.tp)
+        dist.barrier()
+        _, trace = traced(lambda: model.decode_step(params, cache, toks[:, :1], 16,
+                                                    dtype=torch.bfloat16), dev)
+        del cache
+        peak = _peak_gib(dev)
+    out["full"] = {"layers": cfg.n_layers, "build_s": build_s, "build_peak_gib": build_peak,
+                   "params_gib_per_rank": held, "prefill_ms": pre, "prefill_shape": [b, l],
+                   "kv_cache_gib_per_rank": cache_gib, "decode_ms": dec,
+                   "decode_median_ms": statistics.median(dec), "peak_gib": peak,
+                   "k6_prefill": k6, "traced_decode_step": trace}
+    _say(f"[command-r] {cfg.n_layers} layers bf16 at model {world}: {held:.2f} GiB of "
+         f"parameters a rank, {build_peak:.2f} GiB at the build's peak ({build_s:.1f} s); "
+         f"prefill {[b, l]} {pre} ms (K6 {k6} launches over both, KV cache {cache_gib:.3f} GiB "
+         f"a rank); decode-step median of 7 after a 16-token prompt "
+         f"{statistics.median(dec):.3f} ms; peak {peak:.2f} GiB; one traced decode step {trace}")
+    del params, model
+    return out
+
+
+def smoke(dev, reduced: bool) -> dict:
+    """Phase 58 of ``chip_smoke.py``: this rank's results."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=2)
+    cfg = cfg.reduced() if reduced else cfg
+    mesh = make_mesh((1, dist.get_world_size()), ("data", "model"), dev)
+    check_b, train_b, prompt = ((2, 32), (2, 64), (2, 16)) if reduced else (
+        (2, 256), (2, 512), (2, 64))
+    tokens = _tokens(cfg, check_b, 5, dev)
+    train_tokens = _tokens(cfg, train_b, 6, dev)
+    prompts = _tokens(cfg, prompt, 7, dev)
+    opt = OptConfig(total_steps=2, warmup_steps=1)
+
+    def run(model):
+        with torch.no_grad():
+            params = model.init_params(0)
+            loss = float(model.loss_fn(params, {"tokens": tokens}, dtype=torch.float32))
+            toks, logits, _ = _generate(model, params, prompts, 5, torch.float32)
+        del params
+        params, state = init_train_state(model, 0)
+        step = make_train_step(model, opt)
+        metrics = []
+        for _ in range(2):
+            params, state, m = step(params, state, {"tokens": train_tokens})
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        flags = sharded_flags(model.tp.specs) if model.tp else [True] * len(leaves(params))
+        rep = [p.detach().cpu().numpy().tobytes() for p, f in zip(leaves(params), flags)
+               if not f]
+        return loss, toks, logits, metrics, rep
+
+    loss1, toks1, logits1, metrics1, _ = run(build_model(cfg, dev))
+    _sync(dev)
+    reset_launches()
+    t = time.perf_counter()
+    loss, toks, logits, metrics, rep = run(build_model(cfg, dev, tp=mesh))
+    _sync(dev)
+    path_s = time.perf_counter() - t
+    counts = launches()
+    return {
+        "rank": dist.get_rank(), "loss": loss, "loss_one": loss1,
+        "loss_rel": abs(loss - loss1) / abs(loss1),
+        "logits_rel": float((logits - logits1).abs().max() / logits1.abs().max()),
+        "tokens": toks.tolist(), "tokens_one": toks1.tolist(),
+        "bf16_metrics": metrics, "bf16_metrics_one": metrics1,
+        "replicated_leaves": len(rep),
+        "replicated_sha": hashlib.sha256(b"".join(rep)).hexdigest(),
+        "launches": counts, "path_s": path_s, "seconds": time.perf_counter() - t0,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="tools/tensor_parallel.py")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--backend", default=None, help="default: nccl on the card, gloo on the CPU")
+    ap.add_argument("--runs", default="olmo,granite,command-r")
+    args = ap.parse_args(argv)
+    cuda = args.device == "cuda"
+    dist.init_process_group(args.backend or ("nccl" if cuda else "gloo"),
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        if cuda:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                               % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        else:
+            dev = torch.device("cpu")
+        if args.smoke:
+            print("RESULT " + json.dumps(smoke(dev, args.reduced)), flush=True)
+            return 0
+        card = "cpu"
+        if cuda:
+            cards = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, check=True, timeout=60).stdout.split("\n")
+            cards = [c.strip() for c in cards if c.strip()]
+            card = f"{cards[0]} (x{len(cards)})" if len(set(cards)) == 1 else "; ".join(cards)
+        _say(f"[card] {card}; torch {torch.__version__}; world {dist.get_world_size()} "
+             f"({dist.get_backend()})")
+        world = dist.get_world_size()
+        res = {"card": card, "world": world}
+        get = (lambda n: get_config(n).reduced()) if args.reduced else get_config
+        check_shape, time_shape = ((4, 32), (8, 64)) if args.reduced else ((4, 256), (8, 2048))
+        runs = args.runs.split(",")
+        if "olmo" in runs:
+            cfg = get("olmo-1b")
+            meshes = [(world // 2, 2), (1, world)]
+            res["olmo-1b"] = {"check": check(cfg, meshes, check_shape, dev)}
+            for m in meshes + ["host"]:
+                mesh = make_host_mesh("data", dev) if m == "host" else make_mesh(
+                    m, ("data", "model"), dev)
+                got = time_steps(cfg, mesh, time_shape, dev)
+                key = m if m == "host" else f"{m[0]}x{m[1]}"
+                res["olmo-1b"][key] = got
+                _say(f"[time] olmo-1b {key} bf16 {list(time_shape)}: median {got['median_ms']:.2f} "
+                     f"ms a step of {[round(x, 2) for x in got['ms']]}, "
+                     f"{got['tokens_per_s']:.0f} tokens/s, peak {got['peak_gib_by_rank']} GiB, "
+                     f"model-axis collectives {100 * got['model_collective_share']:.2f} % "
+                     f"({got['model_collectives_per_step']} a step), K6 {got['k6']} K6b "
+                     f"{got['k6b']} over 7 steps; one traced step {got['traced_step']} [{card}]")
+        if "granite" in runs:
+            cfg = get("granite-3-8b")
+            res["granite-3-8b"] = {"check": check(cfg, [(1, world)], check_shape, dev)}
+            got = time_steps(cfg, make_mesh((1, world), ("data", "model"), dev), time_shape, dev)
+            res["granite-3-8b"][f"1x{world}"] = got
+            _say(f"[time] granite-3-8b 1x{world} bf16 {list(time_shape)}: median "
+                 f"{got['median_ms']:.2f} ms a step of {[round(x, 2) for x in got['ms']]}, "
+                 f"{got['tokens_per_s']:.0f} tokens/s, peak {got['peak_gib_by_rank']} GiB, "
+                 f"model-axis collectives {100 * got['model_collective_share']:.2f} %, "
+                 f"{got['gathered_bytes_per_step']} bytes gathered a step, K6 {got['k6']} K6b "
+                 f"{got['k6b']}; one traced step {got['traced_step']} [{card}]; --mesh host: not run (the whole model's fp32 params, "
+                 f"gradients and AdamW moments, 131 GB, exceed a card)")
+        if "command-r" in runs:
+            res["command-r-plus-104b"] = command_r(get("command-r-plus-104b"), dev, args.reduced)
+        _say("RESULT " + json.dumps(res))
+        _say(f"[card] {card}")
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.exit(main())
