@@ -365,7 +365,22 @@ Phases:
      2e-2 of the whole model's, the replicated leaves the same bits on
      both (olmo-1b has none: its LayerNorm has no parameters and its table
      splits on the vocab); K6's and K6b's launches on each rank, counted
-     over the split path alone; the phase's seconds.
+     over the split path alone; the phase's seconds;
+ 59. expert parallelism (``_ep_phase``): as phase 58, with
+     ``tools/expert_parallel.py --smoke``: qwen2-moe-a2.7b at full width
+     cut to depth 2 with 8 replica slots at capacity factor 1.25, split
+     over "model" (30 experts and 4 replica slots a rank, the replica
+     slots' weights fetched from their owners), against the whole model on
+     one rank: the fp32 loss of [2, 256] tokens and the prefill
+     logits (``moe.prefill``) of [2, 64] prompts to 1e-4 relative, each
+     layer's integer dispatch (slot loads, drops, the replica slots'
+     experts) equal, 5 greedy tokens equal; two bf16 train steps on [2,
+     512] whose losses and global norms are the same bits on both ranks and
+     within 2e-2 of the whole model's, the replicated leaves the same bits
+     on both; K6's and K6b's launches on each rank over the split path
+     alone; the phase's seconds.  The two ranks share the one-rank run
+     (the first its checks, the second its steps), and phases 58 and 59
+     run their four processes at once (their seconds overlap).
 
 Every kernel's time is device time per call of everything the wrapper
 launches, from CUDA events around the replay of a CUDA graph of repeated
@@ -388,7 +403,7 @@ on each other path: ``launches_speculative``, ``launches_distributed``, ...,
 ``launches_hybrid``, ``launches_rwkv_train``, ``launches_launcher`` and
 ``launches_qwen3``, ``launches_granite``, ``launches_gemma3``,
 ``launches_internvl2``, ``launches_hubert`` (phases 43-44, ..., 55-56),
-``launches_tp`` (phase 58, both ranks);
+``launches_tp`` (phase 58, both ranks), ``launches_ep`` (phase 59, both ranks);
 K7b's entry, ``wkv6_bwd``, counts phase 39's), each phase group's seconds,
 and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -1656,22 +1671,20 @@ def _launcher_phase(dev, shape=(2, 512), reduced=False):
     return launches
 
 
-def _tp_phase(dev, reduced=False):
-    """Phase 58: ``tools/tensor_parallel.py --smoke`` as two ranks on this
-    card over gloo (``reduced``, a CPU rehearsal: on the CPU at the reduced
-    config).  Holds each rank's results to the phase's checks and returns
-    the kernel launches summed over the ranks."""
+def _two_ranks(tool, dev, reduced=False):
+    """Starts ``tools/<tool> --smoke`` as two ranks on this card over gloo
+    (on the CPU at the reduced config where ``reduced``); returns a
+    function that waits for them and gives each rank's ``RESULT``."""
     import os
     import socket
     import threading
 
-    t = time.perf_counter()
     with socket.socket() as sock:  # a free port on this host for the ranks' store
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     env = {**os.environ, "PYTHONPATH": str(SRC), "MASTER_ADDR": "127.0.0.1",
            "MASTER_PORT": str(port), "WORLD_SIZE": "2"}
-    argv = [sys.executable, str(ROOT / "tools" / "tensor_parallel.py"), "--smoke", "--backend",
+    argv = [sys.executable, str(ROOT / "tools" / tool), "--smoke", "--backend",
             "gloo", "--device", dev.type] + (["--reduced"] if reduced else [])
     procs = [subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                               cwd=ROOT, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
@@ -1679,18 +1692,32 @@ def _tp_phase(dev, reduced=False):
     watchdogs = [threading.Timer(300, p.kill) for p in procs]
     for w in watchdogs:
         w.start()
-    try:
-        outs = [p.communicate()[0] for p in procs]
-    finally:
-        for w, p in zip(watchdogs, procs):
-            w.cancel()
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-4000:]
-    res = [json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1][7:])
-           for out in outs]
+
+    def wait():
+        try:
+            outs = [p.communicate()[0] for p in procs]
+        finally:
+            for w, p in zip(watchdogs, procs):
+                w.cancel()
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out[-4000:]
+        return [json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1][7:])
+                for out in outs]
+
+    return wait
+
+
+def _tp_phase(dev, reduced=False, ranks=None):
+    """Phase 58: ``tools/tensor_parallel.py --smoke`` as two ranks on this
+    card over gloo (``reduced``, a CPU rehearsal: on the CPU at the reduced
+    config; ``ranks``: the ranks' wait, where ``_two_ranks`` started them
+    already).  Holds each rank's results to the phase's checks and returns
+    the kernel launches summed over the ranks."""
+    t = time.perf_counter()
+    res = (ranks or _two_ranks("tensor_parallel.py", dev, reduced))()
     for r in res:
         _say(f"[tp] rank {r['rank']} of a (1, 2) mesh on one card over gloo: fp32 loss "
              f"{r['loss']!r} vs one rank's {r['loss_one']!r} (rel {r['loss_rel']:.3g}), prefill "
@@ -1712,6 +1739,40 @@ def _tp_phase(dev, reduced=False):
         assert r["launches"]["flash_attention_bwd"] == 2 * n_attn, r["launches"]
     total = {k: res[0]["launches"][k] + res[1]["launches"][k] for k in res[0]["launches"]}
     _say(f"[tp] phase 58: {time.perf_counter() - t:.1f} s (both ranks' launches {total})")
+    return total
+
+
+def _ep_phase(dev, reduced=False, ranks=None):
+    """Phase 59: ``tools/expert_parallel.py --smoke`` as two ranks on this
+    card over gloo (``reduced``: the CPU rehearsal), as phase 58.  Holds
+    each rank's results to the phase's checks and returns the kernel
+    launches summed over the ranks."""
+    t = time.perf_counter()
+    res = (ranks or _two_ranks("expert_parallel.py", dev, reduced))()
+    for r in res:
+        _say(f"[ep] rank {r['rank']} of a (1, 2) mesh on one card over gloo, qwen2-moe-a2.7b "
+             f"cut to 2 layers, 8 replica slots: fp32 loss {r['loss']!r} vs one rank's "
+             f"{r['loss_one']!r} (rel {r['loss_rel']:.3g}, tol 1e-4), prefill logits "
+             f"{r['logits_rel']:.3g} of the largest off (tol 1e-4); each layer's slot loads, "
+             f"drops {r['dropped']} and replica slots' experts {r['slot_expert']} (layer 0) "
+             f"equal one rank's: {r['dispatch_equal']}; greedy {r['tokens']} (one rank "
+             f"{r['tokens_one']}); bf16 (loss, global norm) of two steps {r['bf16_metrics']} "
+             f"(one rank {r['bf16_metrics_one']}); {r['replicated_leaves']} replicated leaves; "
+             f"replica-slot fetch {r['fetch_bytes_per_layer']} bytes a layer's forward; K6 "
+             f"{r['launches']['flash_attention']}, K6b {r['launches']['flash_attention_bwd']} "
+             f"launches; the split path {r['path_s']:.2f} s of the rank's {r['seconds']:.2f} s")
+        assert r["loss_rel"] <= 1e-4 and r["logits_rel"] <= 1e-4, r
+        assert r["dispatch_equal"] and r["tokens"] == r["tokens_one"], r
+        for (loss, _), (want, _) in zip(r["bf16_metrics"], r["bf16_metrics_one"]):
+            assert abs(loss - want) <= 2e-2 * abs(want), r
+    for key in ("bf16_metrics", "replicated_sha", "tokens"):
+        assert res[0][key] == res[1][key], (key, res[0][key], res[1][key])
+    n_attn = 2 if dev.type == "cuda" else 0  # 2 layers; the CPU launches none
+    for r in res:  # the fp32 loss, the prefill, two steps of forward + remat
+        assert r["launches"]["flash_attention"] == 6 * n_attn, r["launches"]
+        assert r["launches"]["flash_attention_bwd"] == 2 * n_attn, r["launches"]
+    total = {k: res[0]["launches"][k] + res[1]["launches"][k] for k in res[0]["launches"]}
+    _say(f"[ep] phase 59: {time.perf_counter() - t:.1f} s (both ranks' launches {total})")
     return total
 
 
@@ -4322,10 +4383,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     _say(f"[K6] phase 57: {time.perf_counter() - t:.1f} s")
 
-    # ---- 58. tensor parallelism: two ranks of a (1, 2) mesh on this card ------
+    # ---- 58 and 59. tensor and expert parallelism: two ranks of a (1, 2) mesh
+    # on this card each, the two phases' four processes at once -------------
     gc.collect()
     torch.cuda.empty_cache()
-    tp_launches = _tp_phase(dev)
+    t = time.perf_counter()
+    ep_ranks = _two_ranks("expert_parallel.py", dev)
+    tp_launches = _tp_phase(dev, ranks=_two_ranks("tensor_parallel.py", dev))
+    ep_launches = _ep_phase(dev, ranks=ep_ranks)
+    _say(f"[tp] phases 58 and 59 together: {time.perf_counter() - t:.1f} s")
 
     # beside each path's own count, phases 4b's, 6b's, 10b's, 10c's, 24's,
     # 29 + 30's, 34 + 35's, 39's, 41's (the launcher's own counts, summed
@@ -4343,6 +4409,7 @@ def main() -> int:
         entry["launches_rwkv_train"] = rwkv_train_launches.get(entry["name"], 0)
         entry["launches_launcher"] = launcher_launches.get(entry["name"], 0)
         entry["launches_tp"] = tp_launches.get(entry["name"], 0)
+        entry["launches_ep"] = ep_launches.get(entry["name"], 0)
         for name, counts in full_launches.items():
             entry[f"launches_{name.split('-')[0]}"] = counts.get(entry["name"], 0)
         entry.update(d80.get(entry["name"], {}))

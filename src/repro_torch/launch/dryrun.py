@@ -14,14 +14,23 @@ the port's own ``init_params`` / ``init_cache`` run under
 ``FakeTensorMode``: nothing is allocated, so a 104B model's cell takes
 seconds.
 
+Beside them, ``split_params_bytes`` is what a rank of the port itself
+holds of the fp32 parameters where its family splits over "model" (the
+dense, vlm, audio and moe families, ``models.tensor_parallel``; the moe
+family's experts by expert parallelism).  The port splits over "model"
+alone (no FSDP, as the JAX launcher's ``--mesh prod``), so these are the
+rules' bytes without the "data" split of large leaves, the blocks that
+``init_params`` keeps under ``tp``; None for the ssm and hybrid families,
+which do not split yet (ROADMAP items 27, 28).
+
 FLOPs are left out.  The JAX dry run's are per device, read from the
 partitioned program XLA compiles; the port compiles none (its layers split
-over "model" by hand, ``models.tensor_parallel``, and only the dense, vlm
-and audio families split), so a count would mean tracing a full-size step
-under ``FakeTensorMode`` through the plain versions the CPU runs: 8 s for
-olmo-1b at train_4k, but 321 s for rwkv6-3b at 256 tokens a sequence (its
-plain recurrence steps token by token; train_4k has 4,096), timed on a CPU
-host.  Nor are collectives reckoned, for the same reason.
+over "model" by hand, ``models.tensor_parallel``), so a count would mean
+tracing a full-size step under ``FakeTensorMode`` through the plain
+versions the CPU runs: 8 s for olmo-1b at train_4k, but 321 s for rwkv6-3b
+at 256 tokens a sequence (its plain recurrence steps token by token;
+train_4k has 4,096), timed on a CPU host.  Nor are collectives reckoned,
+for the same reason.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes [--out DIR]
@@ -41,6 +50,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import SHAPES, all_configs, get_config, skip_reason
 from repro_torch.models import build_model
+from repro_torch.models.zoo import NOT_SPLIT
 from repro_torch.train.optimizer import init_opt_state
 
 from . import sharding as rules
@@ -97,9 +107,12 @@ def reckon_cell(arch: str, shape: str, multi_pod: bool) -> dict:
             cache = model.init_cache(spec.global_batch, spec.seq_len)
             parts["cache"] = rules.device_bytes(
                 cache, rules.cache_specs(cache, dp, axes["model"]), axes)
+        split = None
+        if cfg.family not in NOT_SPLIT:
+            split = rules.device_bytes(params, rules.param_specs(params, axes["model"]), axes)
     record.update(n_devices=math.prod(axes.values()), bytes_per_device=parts,
-                  total_bytes_per_device=sum(parts.values()), flops=None,
-                  flops_note=FLOPS_NOTE)
+                  total_bytes_per_device=sum(parts.values()), split_params_bytes=split,
+                  flops=None, flops_note=FLOPS_NOTE)
     return record
 
 
@@ -109,7 +122,8 @@ def _write(out_dir: Path, record: dict) -> None:
     path.write_text(json.dumps(record, indent=1))
     extra = ""
     if record["status"] == "ok":
-        extra = f" bytes/dev={record['total_bytes_per_device']:.3e} {record['bytes_per_device']}"
+        extra = (f" bytes/dev={record['total_bytes_per_device']:.3e} "
+                 f"{record['bytes_per_device']} split_params={record['split_params_bytes']}")
     print(f"[dryrun] {record['mesh']} {record['arch']} {record['shape']}: "
           f"{record['status']}{extra}", flush=True)
 

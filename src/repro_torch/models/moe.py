@@ -37,13 +37,24 @@ Parameters are the JAX package's tree with ``blocks`` a list: per layer
 ``w_up`` [E, d, f], ``w_down`` [E, f, d]) and, with a shared expert,
 ``shared`` (a gated MLP of width ``d_ff``) and ``shared_gate`` [d, 1].
 Attention is the dense family's (K6 on the card, K6b under a gradient).
-The JAX package's sharding hooks (``constrain_activations``,
-``constrain_moe_dispatch``) are not ported: the dense families split over
-"model" (``tensor_parallel``), and expert parallelism over "model" with
-SharesSkew's replica slots is ROADMAP item 26 (``build_model`` refuses a
-model axis for this family); nor are ``expert_pad`` and the
-``REPRO_EXPERT_PAD`` environment knob, which pad the expert dim to tile a
-TPU mesh axis.
+
+Every function takes ``tp`` (``tensor_parallel.TensorParallel``; None: the
+whole model on this rank), the counterpart of the JAX package's
+``constrain_moe_dispatch`` under ``--mesh prod``: attention on this rank's
+heads, the shared expert on its MLP columns, the embedding and readout on
+its vocab block, as the dense family splits them; the router and
+``shared_gate`` are used whole.  The residual stream is whole on every rank
+of a model group, so every rank computes the same routing and the same
+integer dispatch, and no all-to-all is needed: a rank computes the buffer
+rows of its own slots (its experts' primary slots and its share of the
+replica slots, whose weights ``TensorParallel.fetch_slots`` shares), or,
+where the experts do not divide the axis, every slot on its block of the
+expert width; its weighted partial sums, with the shared expert's, join
+one ``reduce``.  The tokens and the top-k weights go through ``copy`` first,
+since a rank's dispatch and combine read only its own rows of them; the
+aux loss is computed alike on every rank and is not summed over the group.
+Not ported: ``expert_pad`` and the ``REPRO_EXPERT_PAD`` environment knob,
+which pad the expert dim to tile a TPU mesh axis.
 """
 from __future__ import annotations
 
@@ -55,6 +66,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.sharding import shard_slices, shard_tree
 from repro_torch.mapreduce.executor import _device
 from repro_torch.mapreduce.hashing import mix32_torch
 from repro_torch.mapreduce.local_join import group_by_reducer
@@ -66,11 +78,13 @@ from .layers import (
     chunked_cross_entropy,
     embed,
     init_norm,
+    local_mlp,
     mlp,
     remat as remat_block,
 )
 from .transformer import _layer_flags, _readout, attn_config, init_attention, logits_table
 from .transformer import init_kv_cache  # noqa: F401  (the dense family's cache)
+from .transformer import prefill_with, split_table
 
 REPLICA_SEED = 0xD15C  # mix32 seed that spreads a hot expert's tokens over its replicas
 
@@ -78,16 +92,22 @@ REPLICA_SEED = 0xD15C  # mix32 seed that spreads a hot expert's tokens over its 
 # ----------------------------------------------------------------------- init
 def init_params(
     cfg: ArchConfig, seed: int, device: torch.device | str = "cuda",
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, tp=None,
 ) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``,
     from the distributions of ``repro.models.moe.init_params``: N(0, 1/n)
     with n the leading dim (so the experts' ``w_gate`` and ``w_up`` take
     1/E, as ``_dense_init`` draws them there; ``w_down`` 1/f), the embedding
     N(0, 0.02^2), biases 0, norm scales 1.  Each tensor is drawn in fp32 and
-    cast to ``dtype`` at once, so a bf16 model never holds an fp32 copy."""
+    cast to ``dtype`` at once, so a bf16 model never holds an fp32 copy.
+    Under ``tp`` every rank draws every whole leaf in the same order, a
+    block at a time, and keeps its block of each: the one-rank model's
+    parameters, sliced."""
     dev = _device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    def keep(tree, spec):
+        return tree if tp is None else shard_tree(tree, spec, tp.mesh)
 
     def dense(*shape: int, fan: int | None = None) -> torch.Tensor:
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
@@ -95,7 +115,7 @@ def init_params(
 
     d, e, fe = cfg.d_model, cfg.n_experts, cfg.d_expert
     blocks = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         blk = {
             "ln1": init_norm(cfg.norm, d, dev, dtype),
             "attn": init_attention(cfg, dense, dev, dtype),
@@ -111,8 +131,10 @@ def init_params(
             blk["shared"] = {"w_up": dense(d, cfg.d_ff), "w_down": dense(cfg.d_ff, d),
                              "w_gate": dense(d, cfg.d_ff)}
             blk["shared_gate"] = dense(d, 1)
-        blocks.append(blk)
+        blocks.append(keep(blk, tp and tp.specs["blocks"][i]))
     table = torch.randn((cfg.vocab, d), generator=gen, device=dev, dtype=torch.float32)
+    if tp is not None:  # the slice before the scale: one whole fp32 table at a time
+        table = table[shard_slices(table.shape, tp.specs["embed"]["table"], tp.mesh)]
     params = {
         "embed": {"table": (table * 0.02).to(dtype)},
         "blocks": blocks,
@@ -120,7 +142,7 @@ def init_params(
     }
     del table
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": dense(d, cfg.vocab)}
+        params["lm_head"] = keep({"w": dense(d, cfg.vocab)}, tp and tp.specs["lm_head"])
     return params
 
 
@@ -354,31 +376,123 @@ def _gather(x: torch.Tensor, disp: Dispatch, n_slots: int) -> torch.Tensor:
     return _Dispatch.apply(x.reshape(-1, d), disp.src, disp.pos, k).view(n_slots, -1, d)
 
 
+_W = ("w_gate", "w_up", "w_down")
+
+
+def _ffn(xs, wg, wu, wd):
+    return torch.bmm(F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu), wd)
+
+
 def _expert_mlp(xa: torch.Tensor, w: dict, disp: Dispatch, n_experts: int) -> torch.Tensor:
     """silu(xa W_gate) * (xa W_up) W_down, slot by slot: the E primary slots
     on the experts' own weights, the replica slots on the weights of the
     experts they serve (gathered, the paper's "replicate the small side")."""
     dt = xa.dtype
-
-    def ffn(xs, wg, wu, wd):
-        return torch.bmm(F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu), wd)
-
-    y = ffn(xa[:n_experts], w["w_gate"].to(dt), w["w_up"].to(dt), w["w_down"].to(dt))
+    y = _ffn(xa[:n_experts], *(w[name].to(dt) for name in _W))
     if disp.slot_expert is None:
         return y
     sx = disp.slot_expert[n_experts:].long()
-    wx = [_SlotWeights.apply(w[name], sx).to(dt) for name in ("w_gate", "w_up", "w_down")]
-    y_x = ffn(xa[n_experts:], *wx)
+    wx = [_SlotWeights.apply(w[name], sx).to(dt) for name in _W]
+    y_x = _ffn(xa[n_experts:], *wx)
     return torch.cat([y, y_x])
+
+
+def _combine_rows(y: torch.Tensor, pos: torch.Tensor, choice: torch.Tensor,
+                  topw: torch.Tensor) -> torch.Tensor:
+    """[g, tg, d]: each token's choices' rows of ``y`` (``pos``; -1 for a
+    choice dropped or not in ``y``), weighted and summed."""
+    g, tg, k = topw.shape
+    d = y.shape[-1]
+    w = torch.where(pos >= 0, topw.reshape(-1), 0.0).to(y.dtype)
+    return _Combine.apply(y.reshape(-1, d), w, pos, choice, k).view(g, tg, d)
 
 
 def _combine(y: torch.Tensor, disp: Dispatch, topw: torch.Tensor) -> torch.Tensor:
     """[g, tg, d]: each token's kept choices' outputs, weighted and summed
     (a dropped choice adds 0)."""
-    g, tg, k = topw.shape
-    d = y.shape[-1]
-    w = torch.where(disp.pos >= 0, topw.reshape(-1), 0.0).to(y.dtype)
-    return _Combine.apply(y.reshape(-1, d), w, disp.pos, disp.choice, k).view(g, tg, d)
+    return _combine_rows(y, disp.pos, disp.choice, topw)
+
+
+def _own_rows(disp: Dispatch, spans: list[tuple[int, int]]) -> tuple:
+    """The dispatch restricted to the buffer rows of the slots in
+    ``spans`` (each [lo, hi) slots), in that order: (src, choice) of those
+    rows, and each choice's row among them (``pos``; -1 where its row is
+    another rank's or it was dropped)."""
+    g = disp.loads.shape[1]
+    rows = disp.src.numel() // disp.loads.numel() * g  # g * cap rows a slot
+    src, choice, pos, at = [], [], torch.full_like(disp.pos, -1), 0
+    for lo, hi in spans:
+        a, b = lo * rows, hi * rows
+        src.append(disp.src[a:b])
+        choice.append(disp.choice[a:b])
+        inside = (disp.pos >= a) & (disp.pos < b)
+        pos = torch.where(inside, disp.pos - a + at, pos)
+        at += b - a
+    return torch.cat(src), torch.cat(choice), pos
+
+
+def _expert_parallel(w: dict, x: torch.Tensor, topw: torch.Tensor, disp: Dispatch,
+                     n_experts: int, tp) -> torch.Tensor:
+    """This rank's partial routed output under expert parallelism: the rows
+    of its experts' primary slots and of its replica slots (the weights of
+    the experts those serve fetched from their owners), weighted by their
+    choices' top-k weights and summed a token; zero for the other ranks'
+    choices.  ``x`` and ``topw`` come through ``tp.copy``."""
+    extra = disp.loads.shape[0] - n_experts
+    p0, p1 = tp.expert_block(n_experts)
+    x0, x1 = tp.replica_block(extra)
+    src, choice, pos = _own_rows(disp, [(p0, p1), (n_experts + x0, n_experts + x1)])
+    d, k, dt = x.shape[-1], topw.shape[-1], x.dtype
+    xa = _Dispatch.apply(x.reshape(-1, d), src, pos, k).view(p1 - p0 + x1 - x0, -1, d)
+    y = _ffn(xa[:p1 - p0], *(w[name].to(dt) for name in _W))
+    if disp.slot_expert is not None:
+        # every rank takes part in the fetch, also one that computes no replica slot
+        sx = disp.slot_expert[n_experts:].long()
+        wx = [tp.fetch_slots(w[name], sx, dt)[x0:x1] for name in _W]
+        y = torch.cat([y, _ffn(xa[p1 - p0:], *wx)])
+    return _combine_rows(y, pos, choice, topw)
+
+
+def fetch_bytes(cfg: ArchConfig, extra_slots: int, dtype: torch.dtype, tp) -> int:
+    """Bytes one layer's replica-slot weight fetch sums over the model
+    group in one forward (``TensorParallel.fetch_slots``: [X, d, f] of each
+    of the three expert weights in the compute dtype); its backward moves
+    as many in the gradients' dtype.  0 where no fetch runs."""
+    if tp is None or not extra_slots or tp.expert_block(cfg.n_experts) is None:
+        return 0
+    return 3 * extra_slots * cfg.d_model * cfg.d_expert * dtype.itemsize
+
+
+def expert_split(tp, n_experts: int) -> tuple[str | None, tuple[int, int] | None]:
+    """How this rank runs the routed experts under ``tp``: ("experts", its
+    experts [lo, hi)) where the rules split them on the expert dim (expert
+    parallelism), ("width", its columns [lo, hi) of the expert width f)
+    where they split f, else (None, None): the whole experts (gathered
+    where the rules split them otherwise), as on one rank."""
+    if tp is None:
+        return None, None
+    block = tp.expert_block(n_experts)
+    if block is not None:
+        return "experts", block
+    cols = tp.block(tp.leaf_split["experts/w_gate"][0][-1])
+    return ("width", cols) if cols is not None else (None, None)
+
+
+def _routed(blk: dict, x: torch.Tensor, topw: torch.Tensor, disp: Dispatch, n_experts: int,
+            tp, split: tuple) -> torch.Tensor:
+    """The routed experts' output [g, tg, d]: under a ``split``
+    (``expert_split``) this rank's partial sum, ``x`` and ``topw`` then
+    come through ``tp.copy``."""
+    w, s = blk["experts"], disp.loads.shape[0]
+    mode, cols = split
+    if mode == "experts":
+        return _expert_parallel(w, x, topw, disp, n_experts, tp)
+    if mode == "width":
+        w = {name: tp.local(w[name], f"experts/{name}", 1 if name == "w_down" else 2, *cols)
+             for name in _W}
+    elif tp is not None:
+        w = {name: tp.whole(w[name], f"experts/{name}") for name in _W}
+    return _combine(_expert_mlp(_gather(x, disp, s), w, disp, n_experts), disp, topw)
 
 
 class _SumOver(torch.autograd.Function):
@@ -425,43 +539,63 @@ def moe_ffn(
     extra_slots: int = 0,
     return_stats: bool = False,
     group=None,
+    tp=None,
 ):
     """Routed experts (+ the shared expert) of one layer; one dispatch group
     per sequence.  Returns (out [B, L, d], aux), and with ``return_stats``
     a third item: ``dropped``, ``drop_rate``, ``slot_loads`` [E +
-    extra_slots] and ``aux_loss``.  ``group``: the data-parallel process
-    group whose global batch this batch is a share of (the replica plan and
-    the aux loss are the global batch's, as the JAX package's SPMD host mesh
-    computes them: ``data_parallel_batch``); None, or a group of one rank,
-    takes this batch alone."""
+    extra_slots], ``aux_loss`` and ``slot_expert`` (None without replica
+    slots).  ``group``: the data-parallel process group whose global batch
+    this batch is a share of (the replica plan and the aux loss are the
+    global batch's, as the JAX package's SPMD host mesh computes them:
+    ``data_parallel_batch``); None, or a group of one rank, takes this
+    batch alone.  ``tp``: this rank's part of a model split over "model"
+    (the output whole on every rank of the model group)."""
     g, tg, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     s = e + extra_slots
     cap = max(8, int(math.ceil(tg * k * capacity_factor / s)))
-    probs, topw, topi = route(blk, x, k)
+    whole = (lambda name: blk[name]) if tp is None else (lambda name: tp.whole(blk[name], name))
+    probs, topw, topi = route({"router": whole("router")}, x, k)
     dp = data_parallel_batch(topi, e, group)
     disp = dispatch(topi, e, cap, extra_slots, dp)
-    y = _expert_mlp(_gather(x, disp, s), blk["experts"], disp, e)
-    out = _combine(y, disp, topw)
+    split = expert_split(tp, e)
+    partial = split[0] is not None
+    shared, shared_split = local_mlp(blk["shared"], tp) if cfg.n_shared else (None, False)
+    # one copy for every partial use of the tokens
+    xc = tp.copy(x) if partial or shared_split else x
+    out = _routed(blk, xc if partial else x, tp.copy(topw) if partial else topw, disp, e, tp,
+                  split)
     if cfg.n_shared:
-        gate = torch.sigmoid((x @ blk["shared_gate"].to(x.dtype)).float()).to(x.dtype)
-        out = out + gate * mlp(blk["shared"], x, cfg.act)
+        gate = torch.sigmoid((x @ whole("shared_gate").to(x.dtype)).float()).to(x.dtype)
+        b_down = shared.pop("b_down", None) if shared_split else None
+        y = mlp(shared, xc if shared_split else x, cfg.act)
+        if partial and shared_split:  # one reduce for both; the gate's gradient summed
+            out = tp.reduce(out + tp.copy(gate) * y)
+        else:
+            out = ((tp.reduce(out) if partial else out)
+                   + gate * (tp.reduce(y) if shared_split else y))
+        if b_down is not None:
+            out = out + gate * b_down.to(x.dtype)
+    elif partial:
+        out = tp.reduce(out)
 
     aux = _aux_loss(probs, topi, e, group, dp)  # load-balance auxiliary loss (Switch-style)
     if not return_stats:
         return out, aux
     dropped = g * tg * k - (disp.pos >= 0).sum()
     return out, aux, {"dropped": dropped, "drop_rate": dropped / (g * tg * k),
-                      "slot_loads": disp.loads.sum(1), "aux_loss": aux}
+                      "slot_loads": disp.loads.sum(1), "aux_loss": aux,
+                      "slot_expert": disp.slot_expert}
 
 
 # ------------------------------------------------------------------ the model
-def _block_apply(cfg: ArchConfig, cap_factor: float, extra_slots: int, group, blk: dict,
+def _block_apply(cfg: ArchConfig, cap_factor: float, extra_slots: int, group, tp, blk: dict,
                  x: torch.Tensor, is_global: bool):
     h = apply_norm(cfg.norm, blk["ln1"], x)
-    x = x + attention(blk["attn"], attn_config(cfg), h, is_global)
+    x = x + attention(blk["attn"], attn_config(cfg), h, is_global, tp)
     h = apply_norm(cfg.norm, blk["ln2"], x)
-    y, aux = moe_ffn(blk, h, cfg, cap_factor, extra_slots, group=group)
+    y, aux = moe_ffn(blk, h, cfg, cap_factor, extra_slots, group=group, tp=tp)
     return x + y, aux
 
 
@@ -475,16 +609,17 @@ def forward_hidden(
     capacity_factor: float = 1.25,
     extra_slots: int = 0,
     group=None,
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (final-norm hidden [B, L*, d], the layers' mean aux loss);
-    ``remat``: recompute each block in the backward; ``group``: as
+    ``remat``: recompute each block in the backward; ``group``, ``tp``: as
     ``moe_ffn``'s."""
-    x = embed(params["embed"], tokens, dtype)
+    x = embed(params["embed"], tokens, dtype, tp)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     auxs = []
     for blk, is_global in zip(params["blocks"], _layer_flags(cfg)):
-        args = (cfg, capacity_factor, extra_slots, group, blk, x, is_global)
+        args = (cfg, capacity_factor, extra_slots, group, tp, blk, x, is_global)
         x, aux = remat_block(_block_apply, *args) if remat else _block_apply(*args)
         auxs.append(aux)
     return apply_norm(cfg.norm, params["final_norm"], x), torch.stack(auxs).mean()
@@ -501,17 +636,24 @@ def loss_fn(
     extra_slots: int = 0,
     aux_coef: float = 0.01,
     group=None,
+    tp=None,
 ) -> torch.Tensor:
     """Next-token cross entropy plus ``aux_coef`` times the mean aux loss;
     differentiable, each block rematerialised in the backward under
     ``remat``.  ``group``: as ``moe_ffn``'s (the launcher's at a world
-    above one)."""
+    above one); ``tp``: the readout on this rank's vocab block, as the
+    dense family's."""
     tokens = batch["tokens"]
     h, aux = forward_hidden(cfg, params, tokens, batch.get("prefix_embeds"), dtype=dtype,
                             remat=remat, capacity_factor=capacity_factor,
-                            extra_slots=extra_slots, group=group)
-    ce = chunked_cross_entropy(h[:, :-1, :], logits_table(cfg, params), tokens[:, 1:],
-                               chunk=loss_chunk)
+                            extra_slots=extra_slots, group=group, tp=tp)
+    if tp is None:
+        ce = chunked_cross_entropy(h[:, :-1, :], logits_table(cfg, params), tokens[:, 1:],
+                                   chunk=loss_chunk)
+    else:
+        table, split = split_table(cfg, params, h.dtype, tp)
+        ce = chunked_cross_entropy(h[:, :-1, :], table, tokens[:, 1:], chunk=loss_chunk,
+                                   tp=tp if split else None)
     return ce + aux_coef * aux
 
 
@@ -525,17 +667,37 @@ def decode_step(
     dtype: torch.dtype = torch.bfloat16,
     capacity_factor: float = 2.0,
     extra_slots: int = 0,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One autoregressive step; returns (logits [B, V] fp32, cache), the
     cache updated in place at ``pos``.  Each sequence is its own dispatch
-    group of one token."""
-    x = embed(params["embed"], tokens, dtype)
+    group of one token.  Under ``tp`` the cache holds this rank's KV heads
+    (``transformer.init_kv_cache(tp=)``) and the logits are whole on every
+    rank."""
+    x = embed(params["embed"], tokens, dtype, tp)
     acfg = attn_config(cfg)
     for i, (blk, is_global) in enumerate(zip(params["blocks"], _layer_flags(cfg))):
         h = apply_norm(cfg.norm, blk["ln1"], x)
         x = x + attention_decode(blk["attn"], acfg, h, cache["k"][i], cache["v"][i], int(pos),
-                                 is_global)
+                                 is_global, tp)
         h = apply_norm(cfg.norm, blk["ln2"], x)
-        y, _ = moe_ffn(blk, h, cfg, capacity_factor, extra_slots)
+        y, _ = moe_ffn(blk, h, cfg, capacity_factor, extra_slots, tp=tp)
         x = x + y
-    return _readout(cfg, params, x), cache
+    return _readout(cfg, params, x, tp), cache
+
+
+def prefill(
+    cfg: ArchConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [B, L]
+    cache: dict,
+    dtype: torch.dtype = torch.bfloat16,
+    capacity_factor: float = 2.0,
+    extra_slots: int = 0,
+    tp=None,
+) -> tuple[torch.Tensor, dict]:
+    """The parallel prefill (``transformer.prefill``: K6 on the card) with
+    each layer's routed experts, one dispatch group a prompt, at the decode
+    step's capacity factor.  Returns (last-position logits, cache)."""
+    return prefill_with(cfg, params, tokens, cache, dtype, tp, lambda blk, h: moe_ffn(
+        blk, h, cfg, capacity_factor, extra_slots, tp=tp)[0])

@@ -28,6 +28,21 @@ rank a card), over gloo on the CPU, and over gloo with several ranks on one
 card.  K6 and K6b are custom autograd functions and run unchanged on each
 rank's heads: the layers work on local tensors, not on DTensors.
 
+The MoE family splits its experts as ``_EXPERT_RULES`` place them (expert
+parallelism): where the expert count divides the axis, a rank holds
+experts [r E/m, (r+1) E/m) and computes only those primary slots' rows of
+the dispatch buffer, and the SharesSkew replica slots are spread over the
+ranks as ``constrain_moe_dispatch`` splits the JAX package's replica buffer
+(``replica_block``).  A replica slot serves an expert chosen at run time,
+whose weights usually live on another rank: ``fetch_slots`` shares them
+over the group (each owner writes its experts' rows into zeros, one
+``all_reduce``), and its backward shares the slots' gradients the same way
+before each owner adds them to its experts, one slot at a time in slot
+order.  Where the experts do not divide, the rules split each expert's
+width f (``w_gate``/``w_up`` columns, ``w_down`` rows) and every rank runs
+every slot on its block.  Either way a rank's routed output is partial and
+joins one ``reduce``.
+
 The residual stream stays whole on every rank of a model group (the JAX
 launcher's ``P(dp, "model", None)`` also splits its sequence over "model":
 sequence parallelism, ROADMAP item 29).  The results are the same; the
@@ -157,6 +172,38 @@ class TensorParallel:
         n = total // self.size
         return self.rank * n, (self.rank + 1) * n
 
+    def expert_block(self, n_experts: int) -> tuple[int, int] | None:
+        """This rank's experts [lo, hi) where the rules split the experts
+        on their expert dim (``_EXPERT_RULES``), else None."""
+        return self.block(n_experts) if self.split_dim("experts/w_gate") == 0 else None
+
+    def replica_block(self, extra_slots: int) -> tuple[int, int]:
+        """This rank's replica slots [lo, hi) (0 being slot E), as
+        ``constrain_moe_dispatch`` splits the replica buffer's slot dim
+        over "model": an equal share where ``extra_slots`` divides the axis;
+        where it does not, that dim stays whole and the group's first rank
+        computes every replica slot (the others none)."""
+        return self.block(extra_slots) or ((0, extra_slots) if self.rank == 0 else (0, 0))
+
+    def slot_ranks(self, n_experts: int, extra_slots: int) -> list[int] | None:
+        """The rank that computes each of the E + X slots where the experts
+        split (``expert_block``), else None: every rank then runs every
+        slot on its block of the expert width."""
+        if self.expert_block(n_experts) is None:
+            return None
+        per = n_experts // self.size
+        x = extra_slots // self.size if extra_slots % self.size == 0 else 0
+        return ([e // per for e in range(n_experts)]
+                + [j // x if x else 0 for j in range(extra_slots)])
+
+    def fetch_slots(self, w: torch.Tensor, slot_expert: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+        """The weights of the experts ``slot_expert`` [X] in ``dtype`` from
+        this rank's expert block ``w`` and the others' (``_FetchSlots``);
+        every rank of the group calls it."""
+        lo = self.expert_block(w.shape[0] * self.size)[0]
+        return _FetchSlots.apply(w, slot_expert, lo, dtype, self.group)
+
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the group (no gradient)."""
         x = x.detach().clone(memory_format=torch.contiguous_format)
@@ -169,6 +216,39 @@ class TensorParallel:
         return x
 
 
+class _FetchSlots(torch.autograd.Function):
+    """This rank's experts ``w`` [n, ...] (experts [lo, lo + n)) -> the
+    weights [X, ...] of the experts ``sx`` [X] that the replica slots
+    serve, in ``dtype``, on every rank: each owner writes its experts' rows
+    into zeros and one ``all_reduce`` sums them (one term is not zero:
+    exact).  Backward: the slots' gradients summed the same way (each slot
+    has one rank that computes it), then each owner adds them to its
+    experts in fp32, one slot after another in slot order, so two steps
+    from one state agree bit for bit."""
+
+    @staticmethod
+    def forward(ctx, w, sx, lo, dtype, group):
+        n = w.shape[0]
+        mine = (sx >= lo) & (sx < lo + n)
+        row = torch.where(mine, sx - lo, n)  # n: a row past this rank's experts
+        out = w.index_select(0, row.clamp(max=n - 1)).to(dtype)
+        out.mul_(mine.view((-1,) + (1,) * (w.dim() - 1)).to(dtype))
+        dist.all_reduce(out, group=group)
+        ctx.save_for_backward(row)
+        ctx.n, ctx.dtype, ctx.group = n, w.dtype, group
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (row,) = ctx.saved_tensors
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        out = grad.new_zeros((ctx.n + 1,) + tuple(grad.shape[1:]), dtype=ctx.dtype)
+        for j in range(grad.shape[0]):
+            out.index_add_(0, row[j:j + 1], grad[j:j + 1].to(ctx.dtype))
+        return out[:ctx.n], None, None, None, None
+
+
 def _split(leaf, spec) -> tuple:
     dims = [d for d, e in enumerate(spec) if e == "model"]
     return tuple(leaf.shape), dims[0] if dims else None
@@ -176,15 +256,17 @@ def _split(leaf, spec) -> tuple:
 
 def leaf_split(specs: dict, params: dict) -> dict:
     """(whole shape, split dim) by leaf name, from the first block's leaves
-    and the embedding / head; every block of a config has the same specs."""
+    and the embedding / head; every block of a config has the same specs.
+    MoE's expert leaves are named ``experts/w_gate`` and so on, apart from
+    the shared expert's ``w_gate``."""
     out = {}
 
-    def visit(tree, spec):
+    def visit(tree, spec, prefix=""):
         for key, sub in tree.items():
             if isinstance(sub, dict):
-                visit(sub, spec[key])
+                visit(sub, spec[key], "experts/" if key == "experts" else "")
             elif sub is not None:
-                out[key] = _split(sub, spec[key])
+                out[prefix + key] = _split(sub, spec[key])
 
     if params.get("blocks"):
         visit(params["blocks"][0], specs["blocks"][0])

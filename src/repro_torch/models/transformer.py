@@ -293,6 +293,14 @@ def prefill(
     rotated k and v are written into positions [0, L) of the cache in place.
     Returns (last-position logits, cache).  On the card each full-window
     layer's attention is one K6 launch (under ``tp``, on this rank's heads)."""
+    return prefill_with(cfg, params, tokens, cache, dtype, tp,
+                        lambda blk, h: mlp(blk["mlp"], h, cfg.act, tp))
+
+
+def prefill_with(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict,
+                 dtype: torch.dtype, tp, ffn) -> tuple[torch.Tensor, dict]:
+    """``prefill`` with each block's feed-forward ``ffn(blk, h)`` (the MoE
+    family's routed experts in ``moe.prefill``)."""
     x = embed(params["embed"], tokens, dtype, tp)
     l = tokens.shape[1]
     for i, (blk, is_global) in enumerate(zip(params["blocks"], _layer_flags(cfg))):
@@ -306,5 +314,5 @@ def prefill(
         y = attention_output(attn, acfg, attention_core(q, k, v, acfg, is_global))
         x = x + (tp.reduce(y) if split else y)
         h = apply_norm(cfg.norm, blk["ln2"], x)
-        x = x + mlp(blk["mlp"], h, cfg.act, tp)
+        x = x + ffn(blk, h)
     return _readout(cfg, params, x, tp), cache

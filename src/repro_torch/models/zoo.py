@@ -10,10 +10,12 @@ without a card raises.  ``dense``, ``vlm`` and ``audio`` run on
 (RWKV-6) on ``rwkv6`` and ``hybrid`` (Zamba2: Mamba2 blocks and a shared
 attention block) on ``mamba2``.
 
-``build_model(cfg, device, tp=mesh)`` splits a ``dense``, ``vlm`` or
-``audio`` model over the mesh's "model" axis (``tensor_parallel``): the
-rules' specs (``launch.sharding.param_specs`` at that axis's size, no FSDP,
-as the JAX launcher) are reckoned from the whole model's shapes under
+``build_model(cfg, device, tp=mesh)`` splits a ``dense``, ``vlm``,
+``audio`` or ``moe`` model over the mesh's "model" axis
+(``tensor_parallel``; for ``moe`` expert parallelism with SharesSkew's
+replica slots spread over the ranks): the rules' specs
+(``launch.sharding.param_specs`` at that axis's size, no FSDP, as the JAX
+launcher) are reckoned from the whole model's shapes under
 ``FakeTensorMode``, and every member of the ``ModelApi`` works on this
 rank's blocks.  The other families raise there, naming their ROADMAP items:
 none silently replicates.
@@ -36,7 +38,6 @@ from .tensor_parallel import TensorParallel, leaf_split
 
 # families whose layers do not yet split over "model", and the ROADMAP item of each
 NOT_SPLIT = {
-    "moe": "item 26 (expert parallelism over 'model' with SharesSkew replica slots)",
     "ssm": "item 27 (RWKV-6: the time-mix Wv row rule splits the input dim)",
     "hybrid": "item 28 (Zamba2: in_proj's column split cuts across its segments)",
 }
@@ -59,9 +60,11 @@ class ModelApi:
 
 
 def tensor_parallel(cfg: ArchConfig, mesh) -> TensorParallel:
-    """The split of ``cfg``'s transformer over ``mesh``'s "model" axis."""
+    """The split of ``cfg``'s model over ``mesh``'s "model" axis, its specs
+    from the whole tree of the family's own ``init_params``."""
+    family = moe if cfg.family == "moe" else transformer
     with FakeTensorMode():
-        whole = transformer.init_params(cfg, 0, "cpu")
+        whole = family.init_params(cfg, 0, "cpu")
     specs = param_specs(whole, mesh.size("model"))
     return TensorParallel(mesh, specs, leaf_split(specs, whole))
 
@@ -107,23 +110,25 @@ def build_model(cfg: ArchConfig, device: torch.device | str = "cuda", tp=None) -
             forward_hidden=lambda params, batch, **kw: rwkv6.forward_hidden(
                 cfg, params, batch["tokens"], **kw),
         )
+    tp = tensor_parallel(cfg, tp) if tp is not None else None
     if fam == "moe":
         return ModelApi(
             cfg=cfg,
             device=dev,
-            init_params=lambda seed, dtype=torch.float32: moe.init_params(cfg, seed, dev, dtype),
-            loss_fn=lambda params, batch, **kw: moe.loss_fn(cfg, params, batch, **kw),
+            init_params=lambda seed, dtype=torch.float32: moe.init_params(
+                cfg, seed, dev, dtype, tp),
+            loss_fn=lambda params, batch, **kw: moe.loss_fn(cfg, params, batch, tp=tp, **kw),
             init_cache=lambda batch, max_seq, dtype=torch.bfloat16: moe.init_kv_cache(
-                cfg, batch, max_seq, dtype, dev),
+                cfg, batch, max_seq, dtype, dev, tp),
             decode_step=lambda params, cache, tokens, pos, **kw: moe.decode_step(
-                cfg, params, cache, tokens, pos, **kw),
+                cfg, params, cache, tokens, pos, tp=tp, **kw),
             forward_hidden=lambda params, batch, **kw: moe.forward_hidden(
-                cfg, params, batch["tokens"], batch.get("prefix_embeds"), **kw),
+                cfg, params, batch["tokens"], batch.get("prefix_embeds"), tp=tp, **kw),
+            tp=tp,
         )
     if fam not in ("dense", "vlm", "audio"):
         raise ValueError(f"unknown family {fam}")
     decoder = fam != "audio"  # hubert is encoder-only
-    tp = tensor_parallel(cfg, tp) if tp is not None else None
     return ModelApi(
         cfg=cfg,
         device=dev,

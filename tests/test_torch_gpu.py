@@ -1596,3 +1596,94 @@ def test_hybrid_train_step_on_card_through_k6b(cuda):
     (l_a, s_a), (l_b, s_b) = runs
     assert l_a == l_b and all(np.isfinite(l_a))
     assert all(torch.equal(a, b) for a, b in zip(s_a, s_b))
+
+
+_EP_RANK = """
+import sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch import configs
+from repro_torch.kernels import launches, reset_launches
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.sharding import gather_tree
+from repro_torch.models import build_model
+from repro_torch.train.optimizer import leaves
+
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=2)
+cfg = configs.get_config(sys.argv[4]).reduced()
+dev = torch.device("cuda", 0)
+toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+                        .astype(np.int32)).to(dev)
+kw = dict(dtype=torch.float32, extra_slots=4, capacity_factor=1.0)
+mesh = make_mesh((1, 2), ("data", "model"), dev)
+res = {}
+for tag, model in (("one", build_model(cfg, dev)), ("split", build_model(cfg, dev, tp=mesh))):
+    params = model.init_params(1)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    reset_launches()
+    hidden, aux = model.forward_hidden(params, {"tokens": toks}, **kw)
+    loss = model.loss_fn(params, {"tokens": toks}, **kw)
+    loss.backward()
+    grads = [p.grad for p in leaves(params)]
+    if model.tp is not None:
+        specs = model.tp.specs
+        it = iter(grads)
+        def build(node):
+            if isinstance(node, dict):
+                return {k: build(node[k]) for k in sorted(node)}
+            if isinstance(node, list):
+                return [build(s) for s in node]
+            return next(it)
+        grads = leaves(gather_tree(build(specs), specs, mesh))
+    res[tag + "_hidden"] = hidden.detach().cpu().numpy()
+    res[tag + "_loss"] = np.float64(loss.item())
+    res[tag + "_k6"] = np.int64(launches()["flash_attention"])
+    for j, g in enumerate(grads):
+        res[f"{tag}_grad{j}"] = g.detach().cpu().numpy()
+np.savez(f"{out}.{rank}.npz", **res)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
+def test_split_moe_two_ranks_on_card_match_one_rank(cuda, name, tmp_path):
+    """Two ranks on one card over gloo (CUDA tensors), a (1, 2) mesh, the
+    reduced MoE config in fp32 with 4 replica slots: the split model's
+    hidden states (K6 on each rank's heads), loss and gradients (K6b) against
+    the whole model on one rank, each rank's own run: hidden states to 1e-5
+    of the largest entry, the loss to 1e-5 relative, every gradient to 1e-4
+    of its leaf's largest entry."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs = [subprocess.Popen([sys.executable, "-c", _EP_RANK, str(r), str(tmp_path / "store"),
+                               str(tmp_path / "out"), name], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=30)
+    cfg = tconfigs.get_config(name).reduced()
+    for r in range(2):
+        got = np.load(tmp_path / f"out.{r}.npz")
+        assert int(got["split_k6"]) == int(got["one_k6"]) >= 2 * cfg.n_layers
+        want = got["one_hidden"]
+        assert np.abs(got["split_hidden"] - want).max() <= 1e-5 * np.abs(want).max()
+        assert abs(float(got["split_loss"]) - float(got["one_loss"])) <= 1e-5 * abs(
+            float(got["one_loss"]))
+        j = 0
+        while f"one_grad{j}" in got:
+            want = got[f"one_grad{j}"]
+            assert np.abs(got[f"split_grad{j}"] - want).max() <= 1e-4 * np.abs(want).max(), j
+            j += 1
+        assert j > 0

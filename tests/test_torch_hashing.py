@@ -131,3 +131,23 @@ def test_port_imports_with_jax_blocked():
         "quickstart_torch.py", "serve_lm_torch.py", "streaming_join_torch.py",
         "multiway_join_torch.py"}
     assert len(mods) >= 60
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/expert_parallel.py",
+                                    "tools/tensor_parallel.py"])
+def test_chip_scripts_import_with_jax_blocked(script):
+    """The scripts that drive the port on cards import with JAX unavailable
+    and load no ``repro`` module (in a subprocess)."""
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import sys, importlib.util\n"
+        "sys.modules['jax'] = None\n"
+        f"spec = importlib.util.spec_from_file_location('script', {str(root / script)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "assert not any(k == 'repro' or k.startswith('repro.') for k in sys.modules)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -267,13 +267,13 @@ def time_steps(cfg, mesh, shape, dev, steps=5, warm=2) -> dict:
     return out
 
 
-def _generate(model, params, prompts, n, dtype):
-    """Prefill (K6 on the card) then greedy decode steps; the model group's
-    first rank's argmax on every rank.  Returns (tokens [B, n], prefill
-    logits, decode-step ms)."""
+def _generate(model, params, prompts, n, dtype, prefill=transformer.prefill):
+    """``prefill`` (K6 on the card) then greedy decode steps; the model
+    group's first rank's argmax on every rank.  Returns (tokens [B, n],
+    prefill logits, decode-step ms)."""
     b, l = prompts.shape
     cache = model.init_cache(b, l + n, dtype)
-    logits, cache = transformer.prefill(model.cfg, params, prompts, cache, dtype, tp=model.tp)
+    logits, cache = prefill(model.cfg, params, prompts, cache, dtype, tp=model.tp)
     first = logits
     tok = _argmax(model, logits)
     out, ms = [tok], []
@@ -288,7 +288,11 @@ def _generate(model, params, prompts, n, dtype):
     return torch.stack(out, 1), first, ms
 
 
-def command_r(cfg, dev, reduced: bool) -> dict:
+def serve_split(cfg, dev, reduced: bool, tag: str = "command-r",
+                prefill=transformer.prefill) -> dict:
+    """``cfg`` split over every rank's "model" axis: at depth 2 in fp32
+    against one card (rank 0's), then at full size in bf16 (the build's
+    peak, prefills, decode steps); ``prefill`` is the family's."""
     out = {}
     world = dist.get_world_size()
     mesh = make_mesh((1, world), ("data", "model"), dev)
@@ -298,19 +302,19 @@ def command_r(cfg, dev, reduced: bool) -> dict:
     model = build_model(small, dev, tp=mesh)
     with torch.no_grad():
         params = model.init_params(0)
-        toks, logits, _ = _generate(model, params, prompts, 8, torch.float32)
+        toks, logits, _ = _generate(model, params, prompts, 8, torch.float32, prefill)
     del params, model
     dist.barrier()
     if dist.get_rank() == 0:
         one = build_model(small, dev)
         with torch.no_grad():
             params = one.init_params(0)
-            want_toks, want_logits, _ = _generate(one, params, prompts, 8, torch.float32)
+            want_toks, want_logits, _ = _generate(one, params, prompts, 8, torch.float32, prefill)
         del params, one
         rel = float((logits - want_logits).abs().max() / want_logits.abs().max())
         same = bool(torch.equal(toks, want_toks))
         out["depth2"] = {"logits_rel": rel, "tokens_equal": same, "tokens": toks.tolist()}
-        _say(f"[command-r] depth 2 fp32 at model {world}: prefill logits {rel:.3g} of the "
+        _say(f"[{tag}] {cfg.name} depth 2 fp32 at model {world}: prefill logits {rel:.3g} of the "
              f"largest off one card's (tol {LOGIT_TOL}); 8 greedy tokens equal: {same}")
         assert rel <= LOGIT_TOL and same, out
     dist.barrier()
@@ -332,15 +336,15 @@ def command_r(cfg, dev, reduced: bool) -> dict:
             cache = model.init_cache(b, l, torch.bfloat16)
             _sync(dev)
             t = time.perf_counter()
-            transformer.prefill(cfg, params, big, cache, torch.bfloat16, tp=model.tp)
+            prefill(cfg, params, big, cache, torch.bfloat16, tp=model.tp)
             _sync(dev)
             pre.append((time.perf_counter() - t) * 1e3)
         cache_gib = sum(c.numel() * c.element_size() for c in cache.values()) / GiB
         del cache
         k6 = launches()["flash_attention"]
-        toks, _, dec = _generate(model, params, big[:, :16], 8, torch.bfloat16)
+        toks, _, dec = _generate(model, params, big[:, :16], 8, torch.bfloat16, prefill)
         cache = model.init_cache(b, 24, torch.bfloat16)
-        transformer.prefill(cfg, params, big[:, :16], cache, torch.bfloat16, tp=model.tp)
+        prefill(cfg, params, big[:, :16], cache, torch.bfloat16, tp=model.tp)
         dist.barrier()
         _, trace = traced(lambda: model.decode_step(params, cache, toks[:, :1], 16,
                                                     dtype=torch.bfloat16), dev)
@@ -351,7 +355,7 @@ def command_r(cfg, dev, reduced: bool) -> dict:
                    "kv_cache_gib_per_rank": cache_gib, "decode_ms": dec,
                    "decode_median_ms": statistics.median(dec), "peak_gib": peak,
                    "k6_prefill": k6, "traced_decode_step": trace}
-    _say(f"[command-r] {cfg.n_layers} layers bf16 at model {world}: {held:.2f} GiB of "
+    _say(f"[{tag}] {cfg.name} {cfg.n_layers} layers bf16 at model {world}: {held:.2f} GiB of "
          f"parameters a rank, {build_peak:.2f} GiB at the build's peak ({build_s:.1f} s); "
          f"prefill {[b, l]} {pre} ms (K6 {k6} launches over both, KV cache {cache_gib:.3f} GiB "
          f"a rank); decode-step median of 7 after a 16-token prompt "
@@ -476,7 +480,7 @@ def main(argv=None) -> int:
                  f"{got['k6b']}; one traced step {got['traced_step']} [{card}]; --mesh host: not run (the whole model's fp32 params, "
                  f"gradients and AdamW moments, 131 GB, exceed a card)")
         if "command-r" in runs:
-            res["command-r-plus-104b"] = command_r(get("command-r-plus-104b"), dev, args.reduced)
+            res["command-r-plus-104b"] = serve_split(get("command-r-plus-104b"), dev, args.reduced)
         _say("RESULT " + json.dumps(res))
         _say(f"[card] {card}")
         return 0
