@@ -361,8 +361,12 @@ Phases:
      prefill logits of [2, 64] prompts (K6 on the rank's 8 heads) to 1e-4
      relative, 5 greedy tokens (the prefill's, then 4 decode steps) equal;
      two bf16 train steps on [2, 512] (K6 and K6b on the rank's heads) whose
-     losses and global norms are the same bits on both ranks and within
-     2e-2 of the whole model's, the replicated leaves the same bits on
+     losses and global norms are the same bits on both ranks, the losses
+     within 2e-2 of the whole model's, and before each step the split's
+     bf16 gradients against the whole model's at the same weights (the
+     norms within 2e-2, or twice the whole model's bf16 distance from its
+     fp32 gradient; the split's distance from that fp32 gradient at most
+     twice the whole model's plus 1e-2 of its norm), the replicated leaves the same bits on
      both (olmo-1b has none: its LayerNorm has no parameters and its table
      splits on the vocab); K6's and K6b's launches on each rank, counted
      over the split path alone; the phase's seconds;
@@ -380,7 +384,23 @@ Phases:
      on both; K6's and K6b's launches on each rank over the split path
      alone; the phase's seconds.  The two ranks share the one-rank run
      (the first its checks, the second its steps), and phases 58 and 59
-     run their four processes at once (their seconds overlap).
+     run their four processes at once (their seconds overlap);
+ 60. tensor parallelism of the recurrent families (``_tp_recurrent_phase``):
+     as phase 58, with ``tools/tensor_parallel.py --smoke --recurrent``:
+     rwkv6-3b at full width cut to depth 2 (20 of its 40 heads a rank: K7,
+     and K7b under a gradient, on [B, L, 20, 64]) and zamba2-2.7b cut to
+     one group (6 Mamba2 layers, 40 of 80 SSM heads a rank, and the shared
+     block: K6 and K6b at D = 80 on 16 of its 32 heads), each against the
+     whole model on one rank: the fp32 loss of [2, 256] tokens and the
+     last position's logits of a forward over [2, 64] prompts to 1e-4
+     relative, 5 greedy tokens after 8 prompt tokens equal, two bf16 steps
+     on [2, 512] the same bits on both ranks, their losses within 2e-2 of
+     the whole model's and their gradients held to the whole model's at the
+     same weights (as phase 58's: ``tools/tensor_parallel.py::
+     _same_weights``), the replicated leaves the same bits on both, K7/K7b (rwkv6)
+     and K6/K6b (zamba2) launches on each rank over the split path alone;
+     its two processes start when phases 58 and 59 have ended (six
+     processes at once ran the card out of memory).
 
 Every kernel's time is device time per call of everything the wrapper
 launches, from CUDA events around the replay of a CUDA graph of repeated
@@ -403,7 +423,8 @@ on each other path: ``launches_speculative``, ``launches_distributed``, ...,
 ``launches_hybrid``, ``launches_rwkv_train``, ``launches_launcher`` and
 ``launches_qwen3``, ``launches_granite``, ``launches_gemma3``,
 ``launches_internvl2``, ``launches_hubert`` (phases 43-44, ..., 55-56),
-``launches_tp`` (phase 58, both ranks), ``launches_ep`` (phase 59, both ranks);
+``launches_tp`` (phase 58, both ranks), ``launches_ep`` (phase 59, both ranks),
+``launches_tp_recurrent`` (phase 60, both ranks and both configurations);
 K7b's entry, ``wkv6_bwd``, counts phase 39's), each phase group's seconds,
 and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Needs one CUDA card.
@@ -1671,9 +1692,9 @@ def _launcher_phase(dev, shape=(2, 512), reduced=False):
     return launches
 
 
-def _two_ranks(tool, dev, reduced=False):
-    """Starts ``tools/<tool> --smoke`` as two ranks on this card over gloo
-    (on the CPU at the reduced config where ``reduced``); returns a
+def _two_ranks(tool, dev, reduced=False, args=()):
+    """Starts ``tools/<tool> --smoke [args]`` as two ranks on this card over
+    gloo (on the CPU at the reduced config where ``reduced``); returns a
     function that waits for them and gives each rank's ``RESULT``."""
     import os
     import socket
@@ -1685,7 +1706,7 @@ def _two_ranks(tool, dev, reduced=False):
     env = {**os.environ, "PYTHONPATH": str(SRC), "MASTER_ADDR": "127.0.0.1",
            "MASTER_PORT": str(port), "WORLD_SIZE": "2"}
     argv = [sys.executable, str(ROOT / "tools" / tool), "--smoke", "--backend",
-            "gloo", "--device", dev.type] + (["--reduced"] if reduced else [])
+            "gloo", "--device", dev.type, *args] + (["--reduced"] if reduced else [])
     procs = [subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                               cwd=ROOT, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
              for r in range(2)]
@@ -1723,7 +1744,8 @@ def _tp_phase(dev, reduced=False, ranks=None):
              f"{r['loss']!r} vs one rank's {r['loss_one']!r} (rel {r['loss_rel']:.3g}), prefill "
              f"logits {r['logits_rel']:.3g} of the largest off (tol 1e-4); greedy {r['tokens']} "
              f"(one rank {r['tokens_one']}); bf16 (loss, global norm) of two steps "
-             f"{r['bf16_metrics']} (one rank {r['bf16_metrics_one']}); {r['replicated_leaves']} "
+             f"{r['bf16_metrics']} (one rank {r['bf16_metrics_one']}); before each step "
+             f"{_same_weights_text(r['same_weights'])}; {r['replicated_leaves']} "
              f"replicated leaves; K6 {r['launches']['flash_attention']}, K6b "
              f"{r['launches']['flash_attention_bwd']} launches; the split path "
              f"{r['path_s']:.2f} s of the rank's {r['seconds']:.2f} s")
@@ -1731,6 +1753,7 @@ def _tp_phase(dev, reduced=False, ranks=None):
         assert r["tokens"] == r["tokens_one"], r
         for (loss, _), (want, _) in zip(r["bf16_metrics"], r["bf16_metrics_one"]):
             assert abs(loss - want) <= 2e-2 * abs(want), r
+        assert len(r["same_weights"]) == 2 and all(w["ok"] for w in r["same_weights"]), r
     for key in ("bf16_metrics", "replicated_sha", "tokens"):
         assert res[0][key] == res[1][key], (key, res[0][key], res[1][key])
     n_attn = 2 if dev.type == "cuda" else 0  # olmo-1b cut to 2 layers; the CPU launches none
@@ -1739,6 +1762,64 @@ def _tp_phase(dev, reduced=False, ranks=None):
         assert r["launches"]["flash_attention_bwd"] == 2 * n_attn, r["launches"]
     total = {k: res[0]["launches"][k] + res[1]["launches"][k] for k in res[0]["launches"]}
     _say(f"[tp] phase 58: {time.perf_counter() - t:.1f} s (both ranks' launches {total})")
+    return total
+
+
+def _same_weights_text(same) -> str:
+    """``tools/tensor_parallel.py``'s same-weights gradient checks, a step each."""
+    return "; ".join(
+        f"the split's bf16 global norm {w['norm']:.6g} vs the whole model's {w['norm_one']:.6g} "
+        f"at the same weights (tol {w['norm_tol']:.4g}: 2e-2 of it, or twice its bf16 "
+        f"gradient's distance {w['off_fp32_one']:.4g} from its fp32 one, norm "
+        f"{w['norm_fp32']:.6g}), the split's distance from the fp32 gradient {w['off_fp32']:.4g} "
+        f"(tol twice the whole model's + 1e-2 of the fp32 norm): ok {w['ok']}" for w in same)
+
+
+def _tp_recurrent_phase(dev, reduced=False):
+    """Phase 60: ``tools/tensor_parallel.py --smoke --recurrent`` as two
+    ranks on this card over gloo (``reduced``: the CPU rehearsal), as phase
+    58, for rwkv6-3b cut to depth 2 and zamba2-2.7b cut to one group (6
+    Mamba2 layers and the shared block).  Holds each rank's results to the
+    phase's checks and returns the kernel launches summed over the ranks
+    and both configurations."""
+    t = time.perf_counter()
+    res = _two_ranks("tensor_parallel.py", dev, reduced, ("--recurrent",))()
+    cuda = dev.type == "cuda"  # the CPU launches no kernel
+    # per rank: rwkv6's fp32 loss (2 layers) and forward logits (2), 12 decode
+    # steps (8 prompt tokens, 4 more) x 2, two steps of forward + remat (8);
+    # K7b once a layer and step.  zamba2's one shared block: the loss, the
+    # logits, two steps of forward + remat; decode attends without K6.
+    want = {"rwkv6-3b": {"wkv6": 36, "wkv6_bwd": 4},
+            "zamba2-2.7b": {"flash_attention": 6, "flash_attention_bwd": 2}}
+    total = {}
+    for name in ("rwkv6-3b", "zamba2-2.7b"):
+        got = [r["configs"][name] for r in res]
+        for r in got:
+            _say(f"[tp-rec] rank {r['rank']} of a (1, 2) mesh on one card over gloo, {name} cut "
+                 f"to {r['layers']} layers: fp32 loss {r['loss']!r} vs one rank's "
+                 f"{r['loss_one']!r} (rel {r['loss_rel']:.3g}), the prompts' logits "
+                 f"{r['logits_rel']:.3g} of the largest off (tol 1e-4); greedy {r['tokens']} (one "
+                 f"rank {r['tokens_one']}); bf16 (loss, global norm) of two steps "
+                 f"{r['bf16_metrics']} (one rank {r['bf16_metrics_one']}); before each step "
+                 f"{_same_weights_text(r['same_weights'])}; "
+                 f"{r['replicated_leaves']} replicated leaves; launches "
+                 f"{ {k: v for k, v in r['launches'].items() if v} }; the split path "
+                 f"{r['path_s']:.2f} s of {r['seconds']:.2f} s")
+            assert r["loss_rel"] <= 1e-4 and r["logits_rel"] <= 1e-4, r
+            assert r["tokens"] == r["tokens_one"], r
+            for (loss, _), (want_loss, _) in zip(r["bf16_metrics"], r["bf16_metrics_one"]):
+                assert abs(loss - want_loss) <= 2e-2 * abs(want_loss), r
+            assert len(r["same_weights"]) == 2 and all(w["ok"] for w in r["same_weights"]), r
+            for kernel, n in want[name].items():
+                assert r["launches"][kernel] == (n if cuda else 0), (name, r["launches"])
+        for key in ("bf16_metrics", "replicated_sha", "tokens"):
+            assert got[0][key] == got[1][key], (name, key, got[0][key], got[1][key])
+        for r in got:
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+    _say(f"[tp-rec] phase 60: {time.perf_counter() - t:.1f} s (the ranks' own "
+         f"{max(r['seconds'] for r in res):.1f} s; both ranks' launches "
+         f"{ {k: v for k, v in total.items() if v} })")
     return total
 
 
@@ -4383,8 +4464,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     _say(f"[K6] phase 57: {time.perf_counter() - t:.1f} s")
 
-    # ---- 58 and 59. tensor and expert parallelism: two ranks of a (1, 2) mesh
-    # on this card each, the two phases' four processes at once -------------
+    # ---- 58, 59 and 60. tensor and expert parallelism: two ranks of a (1, 2)
+    # mesh on this card each, 58's and 59's four processes at once, then 60's
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -4392,6 +4473,9 @@ def main() -> int:
     tp_launches = _tp_phase(dev, ranks=_two_ranks("tensor_parallel.py", dev))
     ep_launches = _ep_phase(dev, ranks=ep_ranks)
     _say(f"[tp] phases 58 and 59 together: {time.perf_counter() - t:.1f} s")
+    # after them: with phase 60's two processes beside their four the card ran
+    # out of memory (78.76 GiB in use)
+    rec_launches = _tp_recurrent_phase(dev)
 
     # beside each path's own count, phases 4b's, 6b's, 10b's, 10c's, 24's,
     # 29 + 30's, 34 + 35's, 39's, 41's (the launcher's own counts, summed
@@ -4410,6 +4494,7 @@ def main() -> int:
         entry["launches_launcher"] = launcher_launches.get(entry["name"], 0)
         entry["launches_tp"] = tp_launches.get(entry["name"], 0)
         entry["launches_ep"] = ep_launches.get(entry["name"], 0)
+        entry["launches_tp_recurrent"] = rec_launches.get(entry["name"], 0)
         for name, counts in full_launches.items():
             entry[f"launches_{name.split('-')[0]}"] = counts.get(entry["name"], 0)
         entry.update(d80.get(entry["name"], {}))

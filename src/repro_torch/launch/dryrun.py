@@ -15,13 +15,12 @@ the port's own ``init_params`` / ``init_cache`` run under
 seconds.
 
 Beside them, ``split_params_bytes`` is what a rank of the port itself
-holds of the fp32 parameters where its family splits over "model" (the
-dense, vlm, audio and moe families, ``models.tensor_parallel``; the moe
-family's experts by expert parallelism).  The port splits over "model"
-alone (no FSDP, as the JAX launcher's ``--mesh prod``), so these are the
-rules' bytes without the "data" split of large leaves, the blocks that
-``init_params`` keeps under ``tp``; None for the ssm and hybrid families,
-which do not split yet (ROADMAP items 27, 28).
+holds of the fp32 parameters split over "model" (every family,
+``models.tensor_parallel``; the moe family's experts by expert
+parallelism).  The port splits over "model" alone (no FSDP, as the JAX
+launcher's ``--mesh prod``), so these are the rules' bytes without the
+"data" split of large leaves, the blocks that ``init_params`` keeps under
+``tp``.
 
 FLOPs are left out.  The JAX dry run's are per device, read from the
 partitioned program XLA compiles; the port compiles none (its layers split
@@ -50,7 +49,6 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import SHAPES, all_configs, get_config, skip_reason
 from repro_torch.models import build_model
-from repro_torch.models.zoo import NOT_SPLIT
 from repro_torch.train.optimizer import init_opt_state
 
 from . import sharding as rules
@@ -107,9 +105,7 @@ def reckon_cell(arch: str, shape: str, multi_pod: bool) -> dict:
             cache = model.init_cache(spec.global_batch, spec.seq_len)
             parts["cache"] = rules.device_bytes(
                 cache, rules.cache_specs(cache, dp, axes["model"]), axes)
-        split = None
-        if cfg.family not in NOT_SPLIT:
-            split = rules.device_bytes(params, rules.param_specs(params, axes["model"]), axes)
+        split = rules.device_bytes(params, rules.param_specs(params, axes["model"]), axes)
     record.update(n_devices=math.prod(axes.values()), bytes_per_device=parts,
                   total_bytes_per_device=sum(parts.values()), split_params_bytes=split,
                   flops=None, flops_note=FLOPS_NOTE)

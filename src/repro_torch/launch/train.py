@@ -40,12 +40,11 @@ on the card, K6/K6b or K7/K7b ran).
 (16, 16) and (2, 16, 16) meshes (below 256 / 512 ranks they raise, naming
 the world size); ``--model-axis N`` makes ``--mesh host`` a (world / N, N)
 ("data", "model") mesh, and ``run(args, mesh)`` trains on any mesh of
-``launch.mesh.make_mesh``.  Over "model" the dense, vlm, audio and moe
-families split as the rules place each leaf (``models.tensor_parallel``:
-tensor parallelism, and for moe expert parallelism with the
-``--extra-slots`` replica slots spread over the ranks; no FSDP, as the JAX
-launcher); the ssm and hybrid families raise there, naming their ROADMAP
-items.  The data axes carry the rows:
+``launch.mesh.make_mesh``.  Over "model" every family splits as the rules
+place each leaf (``models.tensor_parallel``: tensor parallelism; for moe
+expert parallelism with the ``--extra-slots`` replica slots spread over
+the ranks; for ssm and hybrid the RWKV-6 and Mamba2 heads; no FSDP, as the
+JAX launcher).  The data axes carry the rows:
 each data group takes its rows of the global batch, the gradients are
 averaged over the data group, and the logged loss is the data group's mean
 (every rank of a model group holds the same loss).  A checkpoint holds the

@@ -192,8 +192,8 @@ def local_attention(params: Params, cfg: AttnConfig, tp) -> tuple[Params, AttnCo
     if split is None:
         if tp is None:
             return params, cfg, False
-        return {key: leaf if isinstance(leaf, dict) else tp.whole(leaf, key)  # qk-norm: never split
-                for key, leaf in params.items()}, cfg, False
+        return {key: leaf if isinstance(leaf, dict) else tp.whole(leaf, f"attn/{key}")
+                for key, leaf in params.items()}, cfg, False  # qk-norm: never split
     (q0, q1), (k0, k1) = split
     hd = cfg.head_dim
     where = {"wq": (1, q0, q1), "wk": (1, k0, k1), "wv": (1, k0, k1), "wo": (0, q0, q1),
@@ -202,7 +202,7 @@ def local_attention(params: Params, cfg: AttnConfig, tp) -> tuple[Params, AttnCo
     for key, leaf in params.items():
         if key in where:
             dim, lo, hi = where[key]
-            out[key] = tp.local(leaf, key, dim, lo * hd, hi * hd)
+            out[key] = tp.local(leaf, f"attn/{key}", dim, lo * hd, hi * hd)
         else:  # q_norm / k_norm: one [hd] scale that every head uses
             out[key] = {k: tp.local(v, None, 0, 0, v.shape[0]) for k, v in leaf.items()}
     return out, dataclasses.replace(cfg, n_heads=q1 - q0, n_kv=k1 - k0), True
@@ -402,19 +402,21 @@ def _act(name: str):
     }[name]
 
 
-def local_mlp(params: Params, tp) -> tuple[Params, bool]:
-    """(the leaves, split?) with which this rank runs the MLP: its block of
-    the d_ff columns of ``w_up``/``w_gate``/``b_up`` and rows of ``w_down``
+def local_mlp(params: Params, tp, name: str = "mlp") -> tuple[Params, bool]:
+    """(the leaves, split?) with which this rank runs the MLP at ``name`` in
+    its block (``mlp``; MoE's shared expert ``shared``): its block of the
+    d_ff columns of ``w_up``/``w_gate``/``b_up`` and rows of ``w_down``
     where d_ff splits (the caller then puts the input through ``tp.copy``
     and the output, before ``b_down``, through ``tp.reduce``), else the
     whole leaves."""
-    cols = tp.block(tp.leaf_split["w_up"][0][1]) if tp is not None else None
+    cols = tp.block(tp.leaf_split[f"{name}/w_up"][0][1]) if tp is not None else None
     if cols is None:
         if tp is None:
             return params, False
-        return {key: tp.whole(leaf, key) for key, leaf in params.items()}, False
+        return {key: tp.whole(leaf, f"{name}/{key}") for key, leaf in params.items()}, False
     dims = {"w_up": 1, "w_gate": 1, "b_up": 0, "w_down": 0}
-    return {key: (tp.local(leaf, key, dims[key], *cols) if key in dims else tp.whole(leaf, key))
+    return {key: (tp.local(leaf, f"{name}/{key}", dims[key], *cols) if key in dims
+                  else tp.whole(leaf, f"{name}/{key}"))
             for key, leaf in params.items()}, True
 
 

@@ -27,6 +27,40 @@ at use; ``A_log``, ``D`` and ``dt_bias`` stay float32 in every dtype, as the
 JAX package computes with them in float32.  Not carried over: the
 activation-sharding hook (``constrain_activations``, with ``launch/``) and
 ``REPRO_SSD_UNROLL``, which sets the unroll of XLA's scan.
+
+Every function takes ``tp`` (``tensor_parallel.TensorParallel``; None: the
+whole model on this rank), the counterpart of the JAX package's
+``constrain_activations`` under ``--mesh prod``: a rank runs SSM heads
+[h0, h1) (``tp.block(ssm_heads)``), each ``d_inner / ssm_heads`` channels,
+as ``launch.sharding.param_specs`` places each leaf:
+
+  * ``in_proj`` [d, 2 di + 2 s + H] is column-parallel, and its split cuts
+    across the segments z, x, B, C and dt (zamba2-2.7b's 10,448 columns are
+    5,224 a rank at model 2).  A rank needs its heads' z, x and dt columns
+    and the whole B and C (one group: every head reads them), so it gathers
+    ``in_proj`` whole in the compute dtype once a layer (53 MB in bf16 at
+    full size) and takes those columns through
+    ``copy`` (``tp.local``), its input through ``copy`` too.  A placement by
+    segment is later work (ROADMAP).
+  * ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias`` and
+    ``norm_scale`` are replicated; a rank takes its channels or heads of
+    each through ``tp.local``, whose ``copy`` sums their gradients.  The
+    SSD runs on the rank's [B, L, H/m, p].
+  * the gated RMSNorm normalises over the whole d_inner: the sum of squares
+    of the rank's channels goes through ``tp.sum`` ([B, L, 1], its gradient
+    summed too, since each rank uses it on its own channels);
+    ``out_proj`` is row-parallel: its rows are the rank's channels, one
+    ``reduce``.
+  * the shared block attends with the rank's heads and runs its MLP
+    columns (``layers.attention`` / ``mlp`` under ``tp``: K6 and K6b on
+    the rank's heads); the vocab-split tied table feeds ``layers.embed`` and
+    the vocab-parallel cross entropy.
+
+Where the SSM heads do not divide the axis every rank runs every head on
+whole leaves.  The decode state holds the rank's part: ``ssm`` [L, B,
+H/m, p, s], ``conv`` [L, B, K-1, di/m] (its heads' channels, the block
+``cache_specs``' last-dim split gives), and the shared block's KV heads
+(``transformer.init_kv_cache``).
 """
 from __future__ import annotations
 
@@ -36,6 +70,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.sharding import shard_slices, shard_tree
 from repro_torch.mapreduce.executor import _device
 
 from .layers import (
@@ -44,12 +79,13 @@ from .layers import (
     attention_decode,
     chunked_cross_entropy,
     embed,
+    head_split,
     init_norm,
     mlp,
     remat as remat_block,
-    rms_norm,
 )
-from .transformer import attn_config, init_attention, logits_table
+from .tensor_parallel import parts
+from .transformer import _readout, attn_config, init_attention, logits_table, split_table
 
 _CONV_K = 4
 
@@ -57,7 +93,7 @@ _CONV_K = 4
 # ---------------------------------------------------------------------- init
 def init_params(
     cfg: ArchConfig, seed: int, device: torch.device | str = "cuda",
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, tp=None,
 ) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``,
     from the distributions of ``repro.models.mamba2``: dense weights
@@ -65,8 +101,14 @@ def init_params(
     ``A_log`` 0 (A = -1), ``D`` 1, ``dt_bias`` -1, biases 0, norm scales 1.
     Each tensor is drawn in fp32 and cast to ``dtype`` at once.  (``jax.random``
     draws other numbers: tests carry JAX weights across with
-    ``convert.params_from_jax``.)"""
+    ``convert.params_from_jax``.)  Under ``tp`` every rank draws every whole
+    leaf in the same order, a block at a time, and keeps its block of each:
+    the one-rank model's parameters, sliced."""
     dev = _device(device)
+
+    def keep(tree, spec):
+        return tree if tp is None else shard_tree(tree, spec, tp.mesh)
+
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     f32 = torch.float32
 
@@ -79,8 +121,8 @@ def init_params(
 
     d, di, st, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     blocks = []
-    for _ in range(cfg.n_layers):
-        blocks.append({
+    for i in range(cfg.n_layers):
+        blocks.append(keep({
             "ln": init_norm(cfg.norm, d, dev, dtype),
             "in_proj": dense(d, 2 * di + 2 * st + h),
             "conv_w": normal((_CONV_K, di), 0.5),
@@ -90,21 +132,24 @@ def init_params(
             "dt_bias": torch.full((h,), -1.0, dtype=f32, device=dev),
             "norm_scale": torch.ones(di, dtype=dtype, device=dev),
             "out_proj": dense(di, d),
-        })
+        }, tp and tp.specs["blocks"][i]))
+    table = torch.randn((cfg.vocab, d), generator=gen, device=dev, dtype=f32)
+    if tp is not None:  # the slice before the scale: one whole fp32 table at a time
+        table = table[shard_slices(table.shape, tp.specs["embed"]["table"], tp.mesh)]
     params = {
-        "embed": {"table": normal((cfg.vocab, d), 0.02)},
+        "embed": {"table": (table * 0.02).to(dtype)},
         "blocks": blocks,
         "final_norm": init_norm(cfg.norm, d, dev, dtype),
     }
     if cfg.hybrid_period:
-        params["shared_attn"] = {
+        params["shared_attn"] = keep({
             "ln1": init_norm(cfg.norm, d, dev, dtype),
             "attn": init_attention(cfg, dense, dev, dtype),
             "ln2": init_norm(cfg.norm, d, dev, dtype),
             "mlp": {"w_up": dense(d, cfg.d_ff), "w_down": dense(cfg.d_ff, d)},
-        }
+        }, tp and tp.specs["shared_attn"])
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": dense(d, cfg.vocab)}
+        params["lm_head"] = keep({"w": dense(d, cfg.vocab)}, tp and tp.specs["lm_head"])
     return params
 
 
@@ -180,26 +225,45 @@ def ssd(
 
 
 def mamba_mix(p: dict, x: torch.Tensor, cfg: ArchConfig, ssm_state=None, conv_state=None,
-              chunk: int = 64):
+              chunk: int = 64, tp=None):
     """One Mamba2 mixer on x [B, L, d]: returns (output [B, L, d], SSM state
-    [B, H, p, s] f32, conv state [B, K-1, di])."""
+    [B, H, p, s] f32, conv state [B, K-1, di]).  Under ``tp``: this rank's
+    heads (states [B, H/m, p, s] and [B, K-1, di/m]), the output summed
+    over the group."""
     b, l, _ = x.shape
     di, st, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     hd = di // h
-    proj = x @ p["in_proj"].to(x.dtype)
-    z, xin, bmat, cmat, dtr = torch.split(proj, [di, di, st, st, h], dim=-1)
-    xin, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"], conv_state)
+    heads = tp.block(h) if tp is not None else None
+    h0, h1 = heads or (0, h)
+    c0, c1 = h0 * hd, h1 * hd
+    part = parts(p, "", tp, heads is not None)
+    w_in = part("in_proj", 1, 0, 2 * di + 2 * st + h, x.dtype)
+    if heads is not None:  # the whole leaf through ``copy``; its columns of z, x, B, C, dt
+        full = w_in
+        w_in = torch.cat([full[:, c0:c1], full[:, di + c0:di + c1], full[:, 2 * di:2 * di + 2 * st],
+                          full[:, 2 * di + 2 * st + h0:2 * di + 2 * st + h1]], dim=1)
+        x = tp.copy(x)
+    n, dn = h1 - h0, c1 - c0
+    proj = x @ w_in
+    z, xin, bmat, cmat, dtr = torch.split(proj, [dn, dn, st, st, n], dim=-1)
+    xin, conv_state = _causal_conv(xin, part("conv_w", 1, c0, c1), part("conv_b", 0, c0, c1),
+                                   conv_state)
     xin = F.silu(xin)
-    dt = F.softplus(dtr.float() + p["dt_bias"].float())  # [B, L, H]
-    log_decay = dt * -torch.exp(p["A_log"].float())
-    xh = xin.reshape(b, l, h, hd)
+    dt = F.softplus(dtr.float() + part("dt_bias", 0, h0, h1).float())  # [B, L, H]
+    log_decay = dt * -torch.exp(part("A_log", 0, h0, h1).float())
+    xh = xin.reshape(b, l, n, hd)
     if ssm_state is None:
-        ssm_state = torch.zeros((b, h, hd, st), dtype=torch.float32, device=x.device)
+        ssm_state = torch.zeros((b, n, hd, st), dtype=torch.float32, device=x.device)
     y, s = ssd(xh.float(), dt, log_decay, bmat.float(), cmat.float(), ssm_state, chunk)
-    y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(b, l, di).to(x.dtype)
-    y = rms_norm(None, y * F.silu(z)) * p["norm_scale"].to(x.dtype)
-    return y @ p["out_proj"].to(x.dtype), s, conv_state
+    y = y + part("D", 0, h0, h1).float()[None, None, :, None] * xh.float()
+    y = y.reshape(b, l, dn).to(x.dtype)
+    yf = (y * F.silu(z)).float()  # the gated RMSNorm over the whole d_inner
+    ss = (yf * yf).sum(-1, keepdim=True)
+    if heads is not None:  # every rank's channels
+        ss = tp.sum(ss)
+    y = (yf * torch.rsqrt(ss / di + 1e-6)).to(x.dtype) * part("norm_scale", 0, c0, c1).to(x.dtype)
+    out = y @ part("out_proj", 0, c0, c1, x.dtype)
+    return (out if heads is None else tp.reduce(out)), s, conv_state
 
 
 # ------------------------------------------------------------------- forward
@@ -210,16 +274,16 @@ def _groups(cfg: ArchConfig) -> tuple[int, int]:
     return cfg.n_layers // period, period
 
 
-def _mamba_body(cfg: ArchConfig, blk: dict, x: torch.Tensor, chunk: int) -> torch.Tensor:
-    y, _, _ = mamba_mix(blk, apply_norm(cfg.norm, blk["ln"], x), cfg, chunk=chunk)
+def _mamba_body(cfg: ArchConfig, blk: dict, x: torch.Tensor, chunk: int, tp=None) -> torch.Tensor:
+    y, _, _ = mamba_mix(blk, apply_norm(cfg.norm, blk["ln"], x), cfg, chunk=chunk, tp=tp)
     return x + y
 
 
-def _shared_apply(cfg: ArchConfig, shared: dict, x: torch.Tensor) -> torch.Tensor:
+def _shared_apply(cfg: ArchConfig, shared: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     h = apply_norm(cfg.norm, shared["ln1"], x)
-    x = x + attention(shared["attn"], attn_config(cfg), h)
+    x = x + attention(shared["attn"], attn_config(cfg), h, tp=tp)
     h = apply_norm(cfg.norm, shared["ln2"], x)
-    return x + mlp(shared["mlp"], h, cfg.act)
+    return x + mlp(shared["mlp"], h, cfg.act, tp)
 
 
 def forward_hidden(
@@ -230,20 +294,21 @@ def forward_hidden(
     dtype: torch.dtype = torch.bfloat16,
     remat: bool = True,
     chunk: int = 64,
+    tp=None,
 ) -> torch.Tensor:
     """Token (+ prefix) embeddings -> final-norm hidden states [B, L*, d].
     ``remat``: recompute each Mamba block and each invocation of the shared
     block in the backward."""
-    x = embed(params["embed"], tokens, dtype)
+    x = embed(params["embed"], tokens, dtype, tp)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     n_groups, period = _groups(cfg)
     run = remat_block if remat else (lambda fn, *args: fn(*args))
     for g in range(n_groups):
         for blk in params["blocks"][g * period:(g + 1) * period]:
-            x = run(_mamba_body, cfg, blk, x, chunk)
+            x = run(_mamba_body, cfg, blk, x, chunk, tp)
         if cfg.hybrid_period:
-            x = run(_shared_apply, cfg, params["shared_attn"], x)
+            x = run(_shared_apply, cfg, params["shared_attn"], x, tp)
     return apply_norm(cfg.norm, params["final_norm"], x)
 
 
@@ -254,33 +319,44 @@ def loss_fn(
     dtype: torch.dtype = torch.bfloat16,
     remat: bool = True,
     loss_chunk: int = 512,
+    tp=None,
 ) -> torch.Tensor:
     """Next-token cross entropy through the tied embedding (or the head);
-    differentiable."""
+    differentiable.  Under ``tp`` the readout on this rank's vocab block."""
     tokens = batch["tokens"]
-    h = forward_hidden(cfg, params, tokens, dtype=dtype, remat=remat)
-    return chunked_cross_entropy(h[:, :-1, :], logits_table(cfg, params), tokens[:, 1:],
-                                 chunk=loss_chunk)
+    h = forward_hidden(cfg, params, tokens, dtype=dtype, remat=remat, tp=tp)
+    if tp is None:
+        return chunked_cross_entropy(h[:, :-1, :], logits_table(cfg, params), tokens[:, 1:],
+                                     chunk=loss_chunk)
+    table, split = split_table(cfg, params, h.dtype, tp)
+    return chunked_cross_entropy(h[:, :-1, :], table, tokens[:, 1:], chunk=loss_chunk,
+                                 tp=tp if split else None)
 
 
 # ------------------------------------------------------------------ serving
 def init_state(
     cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype = torch.bfloat16,
-    device: torch.device | str = "cuda",
+    device: torch.device | str = "cuda", tp=None,
 ) -> dict:
     """Zeroed decode state in the JAX package's layout: ``ssm`` [n_layers, B,
     H, p, s] float32, ``conv`` [n_layers, B, K-1, di] and one KV cache for
     each invocation of the shared block, ``k`` and ``v`` [n_groups, B, n_kv,
-    max_seq, hd], in ``dtype``.  ``decode_step`` updates it in place."""
+    max_seq, hd], in ``dtype``.  ``decode_step`` updates it in place.  Under
+    ``tp`` this rank's SSM heads and their channels, and the KV heads of its
+    attention heads."""
     dev = _device(device)
     l, h, st, di = cfg.n_layers, cfg.ssm_heads, cfg.ssm_state, cfg.d_inner
+    heads = tp.block(h) if tp is not None else None
+    n = h if heads is None else heads[1] - heads[0]
     n_groups, _ = _groups(cfg)
     state = {
-        "ssm": torch.zeros((l, batch, h, di // h, st), dtype=torch.float32, device=dev),
-        "conv": torch.zeros((l, batch, _CONV_K - 1, di), dtype=dtype, device=dev),
+        "ssm": torch.zeros((l, batch, n, di // h, st), dtype=torch.float32, device=dev),
+        "conv": torch.zeros((l, batch, _CONV_K - 1, n * (di // h)), dtype=dtype, device=dev),
     }
     if cfg.hybrid_period:
-        shape = (n_groups, batch, cfg.n_kv, max_seq, cfg.hd)
+        split = head_split(attn_config(cfg), tp)
+        n_kv = cfg.n_kv if split is None else split[1][1] - split[1][0]
+        shape = (n_groups, batch, n_kv, max_seq, cfg.hd)
         state["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         state["v"] = torch.zeros(shape, dtype=dtype, device=dev)
     return state
@@ -293,10 +369,12 @@ def decode_step(
     tokens: torch.Tensor,  # [B, 1]
     pos: int,  # tokens already in the KV caches
     dtype: torch.dtype = torch.bfloat16,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One token step; returns (logits [B, V] float32, state), the state
-    updated in place."""
-    x = embed(params["embed"], tokens, dtype)
+    updated in place.  Under ``tp`` the logits are put together over the
+    vocab, the same on every rank."""
+    x = embed(params["embed"], tokens, dtype, tp)
     n_groups, period = _groups(cfg)
     acfg = attn_config(cfg)
     for g in range(n_groups):
@@ -304,7 +382,7 @@ def decode_step(
             blk = params["blocks"][li]
             y, s, cs = mamba_mix(blk, apply_norm(cfg.norm, blk["ln"], x), cfg,
                                  ssm_state=state["ssm"][li], conv_state=state["conv"][li],
-                                 chunk=1)
+                                 chunk=1, tp=tp)
             x = x + y
             state["ssm"][li] = s
             state["conv"][li] = cs
@@ -312,8 +390,7 @@ def decode_step(
             shared = params["shared_attn"]
             h = apply_norm(cfg.norm, shared["ln1"], x)
             x = x + attention_decode(shared["attn"], acfg, h, state["k"][g], state["v"][g],
-                                     int(pos))
+                                     int(pos), tp=tp)
             h = apply_norm(cfg.norm, shared["ln2"], x)
-            x = x + mlp(shared["mlp"], h, cfg.act)
-    x = apply_norm(cfg.norm, params["final_norm"], x)
-    return (x[:, -1, :] @ logits_table(cfg, params).to(x.dtype).T).float(), state
+            x = x + mlp(shared["mlp"], h, cfg.act, tp)
+    return _readout(cfg, params, x, tp), state

@@ -85,6 +85,7 @@ from .layers import (
 from .transformer import _layer_flags, _readout, attn_config, init_attention, logits_table
 from .transformer import init_kv_cache  # noqa: F401  (the dense family's cache)
 from .transformer import prefill_with, split_table
+from .tensor_parallel import _Sum
 
 REPLICA_SEED = 0xD15C  # mix32 seed that spreads a hot expert's tokens over its replicas
 
@@ -495,39 +496,19 @@ def _routed(blk: dict, x: torch.Tensor, topw: torch.Tensor, disp: Dispatch, n_ex
     return _combine(_expert_mlp(_gather(x, disp, s), w, disp, n_experts), disp, topw)
 
 
-class _SumOver(torch.autograd.Function):
-    """A SUM ``all_reduce`` over ``group`` that autograd sees: its backward
-    is the same ``all_reduce`` of the gradient, since every rank's loss
-    reads the sum (each input's gradient is the sum of the ranks'
-    gradients of the output)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        out = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=ctx.group)
-        return out, None
-
-
 def _aux_loss(probs: torch.Tensor, topi: torch.Tensor, e: int, group, dp) -> torch.Tensor:
     """The Switch-style load-balance loss e·Σ_e frac_e·mean(P_e) of the
     batch ``dp`` (``data_parallel_batch``) describes: each expert's share of
     the routed choices times its mean router probability.  Over a
     data-parallel ``group`` of more than one rank the probability sums are
-    added over the ranks through ``_SumOver`` before the product, so each
+    added over the ranks through ``tensor_parallel._Sum`` before the product, so each
     rank's router gradient is that of the global aux times the world size
     (the launcher's mean divides it back)."""
     g, tg, k = topi.shape
     counts, groups, _ = dp
     frac = counts.float() / (groups * tg * k)
     p = probs.reshape(-1, e)
-    mean = _SumOver.apply(p.sum(0), group) / (groups * tg) if _spans_ranks(group) else p.mean(0)
+    mean = _Sum.apply(p.sum(0), group) / (groups * tg) if _spans_ranks(group) else p.mean(0)
     return e * torch.sum(frac * mean)
 
 
@@ -561,7 +542,7 @@ def moe_ffn(
     disp = dispatch(topi, e, cap, extra_slots, dp)
     split = expert_split(tp, e)
     partial = split[0] is not None
-    shared, shared_split = local_mlp(blk["shared"], tp) if cfg.n_shared else (None, False)
+    shared, shared_split = local_mlp(blk["shared"], tp, "shared") if cfg.n_shared else (None, False)
     # one copy for every partial use of the tokens
     xc = tp.copy(x) if partial or shared_split else x
     out = _routed(blk, xc if partial else x, tp.copy(topw) if partial else topw, disp, e, tp,

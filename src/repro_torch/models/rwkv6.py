@@ -30,6 +30,48 @@ Training: ``loss_fn`` differentiates on either device (``wkv6``'s
 reverse on the CPU), and ``forward_hidden(remat=True)`` recomputes each
 block's activations in the backward (``layers.remat``, the JAX package's
 ``jax.checkpoint`` of a block).
+
+Every function takes ``tp`` (``tensor_parallel.TensorParallel``; None: the
+whole model on this rank), the counterpart of the JAX package's
+``constrain_activations`` under ``--mesh prod``: a rank runs heads [h0, h1)
+of the time mix (``tp.block(n_heads)``) and its block of the channel mix's
+d_ff, as ``launch.sharding.param_specs`` places each leaf:
+
+  * time mix: ``Wr``, ``Wk``, ``Wg`` are column-parallel, so a rank's
+    column block gives r, k and g for its heads.  ``Wv`` is row-parallel
+    (the rules split its input dim), so a rank's block would give a partial
+    v over every head; the rank instead gathers ``Wv`` whole in the compute
+    dtype and takes its heads' columns (``tp.local``): d² a layer (13 MB in
+    bf16 at rwkv6-3b's d = 2560, whatever the batch), where a ``reduce`` of
+    the partial v would move [B, L, d] (42 MB at [4, 2048]) and need its
+    gradient summed too.  The decay LoRA's ``wA`` (split on d by the generic
+    rule at full size) is gathered whole in fp32 (655 KB): ``tanh`` needs
+    the whole [B, L, 64] product; ``wB``'s column block is the rank's
+    channels.  ``mu_*``, ``w0``, ``u`` and ``ln_x`` are replicated and a
+    rank takes its part of each through ``tp.local``, whose ``copy`` sums
+    their gradients over the group.  The input x goes through ``copy`` once:
+    every lerp ``x + (shift(x) - x) mu`` is linear in x and in mu, so with
+    each mu through ``copy`` too, one [B, L, d] ``all_reduce`` of x's
+    gradient sums all five lerp outputs' gradients.  K7 (K7b under a
+    gradient) runs on the rank's [B, L, H/m, hd], the per-head group norm
+    is local, and ``Wo`` is row-parallel: one ``reduce``.
+  * channel mix: ``Wk`` (column-parallel) and ``Wv`` (row-parallel) pair
+    up Megatron's way, the ``mu_k`` lerp's output through ``copy`` and the
+    partial v through one ``reduce``.  ``Wr`` is column-parallel, but
+    ``sigmoid(r)`` multiplies the whole v: every rank takes ``Wr`` whole
+    (gathered in the compute dtype, d² a layer) and computes the whole r
+    alike, where multiplying its r columns by v's and gathering the product
+    would move [B, L, d] and need v's gradient summed.
+  * the vocab-split table goes through ``layers.embed(tp=)``, the untied
+    head's vocab block feeds the vocab-parallel cross entropy, and decode
+    logits are put together over the vocab.
+
+Where the heads do not divide the axis (rwkv6-3b's 40 at model 16), every
+rank runs every head of the time mix on whole leaves (gathered where the
+rules split them).  The decode state's ``wkv`` holds the rank's heads
+[L, B, H/m, hd, hd], as ``cache_specs`` splits it; ``x_tm`` and ``x_cm``
+stay whole [L, B, d] on every rank, where ``cache_specs`` splits their d:
+a rank's lerps read the whole previous token, since the stream is whole.
 """
 from __future__ import annotations
 
@@ -41,10 +83,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.launch.sharding import shard_tree
 from repro_torch.mapreduce.executor import _device
 
 from .layers import chunked_cross_entropy, embed, init_norm, layer_norm
 from .layers import remat as remat_block
+from .tensor_parallel import parts
+from .transformer import _readout, split_table
 
 _LORA = 64
 _MU = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")
@@ -53,15 +98,21 @@ _MU = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")
 # ---------------------------------------------------------------------- init
 def init_params(
     cfg: ArchConfig, seed: int, device: torch.device | str = "cuda",
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, tp=None,
 ) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``,
     from the distributions of ``repro.models.rwkv6``: dense weights
     N(0, 1/fan_in), ``wB`` N(0, 0.01^2), the embedding N(0, 0.02^2),
     ``mu_*`` = 0.5, ``w0`` = -2, ``u`` = 0, norm scales 1 and biases 0, an
     untied ``lm_head``.  (``jax.random`` draws other numbers: tests carry JAX
-    weights across with ``convert.params_from_jax``.)"""
+    weights across with ``convert.params_from_jax``.)  Under ``tp`` every
+    rank draws every whole leaf in the same order, a block at a time, and
+    keeps its block of each: the one-rank model's parameters, sliced."""
     dev = _device(device)
+
+    def keep(tree, spec):
+        return tree if tp is None else shard_tree(tree, spec, tp.mesh)
+
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     f32 = torch.float32
 
@@ -77,7 +128,7 @@ def init_params(
 
     d, h, hd, f = cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff
     blocks = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         tm = {mu: full((d,), 0.5, dtype) for mu in _MU}
         tm.update(
             w0=full((d,), -2.0),
@@ -89,14 +140,15 @@ def init_params(
         )
         cm = {"mu_k": full((d,), 0.5, dtype), "mu_r": full((d,), 0.5, dtype),
               "Wk": dense(d, f), "Wv": dense(f, d), "Wr": dense(d, d)}
-        blocks.append({"ln1": init_norm("layer", d, dev), "tm": tm,
-                       "ln2": init_norm("layer", d, dev), "cm": cm})
+        blocks.append(keep({"ln1": init_norm("layer", d, dev), "tm": tm,
+                            "ln2": init_norm("layer", d, dev), "cm": cm},
+                           tp and tp.specs["blocks"][i]))
     return {
-        "embed": {"table": normal((cfg.vocab, d), 0.02)},
+        "embed": keep({"table": normal((cfg.vocab, d), 0.02)}, tp and tp.specs["embed"]),
         "ln0": init_norm("layer", d, dev),
         "blocks": blocks,
         "final_norm": init_norm("layer", d, dev),
-        "lm_head": {"w": dense(d, cfg.vocab)},
+        "lm_head": keep({"w": dense(d, cfg.vocab)}, tp and tp.specs["lm_head"]),
     }
 
 
@@ -110,53 +162,76 @@ def _shift(x: torch.Tensor, prev: torch.Tensor | None = None) -> torch.Tensor:
 
 def time_mix(
     tm: dict, x: torch.Tensor, cfg: ArchConfig, s0: torch.Tensor | None = None,
-    x_prev: torch.Tensor | None = None, state_out: torch.Tensor | None = None,
+    x_prev: torch.Tensor | None = None, state_out: torch.Tensor | None = None, tp=None,
 ):
     """Returns (output [B, L, d], final wkv state [B, H, hd, hd] f32, last
     token of x); the state is written into ``state_out`` when given (which
-    may be ``s0``)."""
+    may be ``s0``).  Under ``tp``: this rank's heads (the state [B, H/m, hd,
+    hd]), the output summed over the group."""
     b, l, d = x.shape
-    h, hd = cfg.n_heads, cfg.hd
+    hd = cfg.hd
+    heads = tp.block(cfg.n_heads) if tp is not None else None
+    h0, h1 = heads or (0, cfg.n_heads)
+    c0, c1 = h0 * hd, h1 * hd
+    part = parts(tm, "tm/", tp, heads is not None)
+    if heads is not None:
+        x = tp.copy(x)  # every lerp's gradient summed, with each mu's (``part``)
+    dt = x.dtype
     dx = _shift(x, x_prev) - x  # once for the five interpolations
 
     def lerp(mu):
-        return x + dx * mu.to(x.dtype)
+        return x + dx * part(mu, 0, 0, d).to(dt)
 
-    r = (lerp(tm["mu_r"]) @ tm["Wr"].to(x.dtype)).reshape(b, l, h, hd)
-    k = (lerp(tm["mu_k"]) @ tm["Wk"].to(x.dtype)).reshape(b, l, h, hd)
-    v = (lerp(tm["mu_v"]) @ tm["Wv"].to(x.dtype)).reshape(b, l, h, hd)
-    g = F.silu(lerp(tm["mu_g"]) @ tm["Wg"].to(x.dtype))
-    lw = lerp(tm["mu_w"]).float()
+    r = (lerp("mu_r") @ part("Wr", 1, c0, c1, dt)).reshape(b, l, h1 - h0, hd)
+    k = (lerp("mu_k") @ part("Wk", 1, c0, c1, dt)).reshape(b, l, h1 - h0, hd)
+    v = (lerp("mu_v") @ part("Wv", 1, c0, c1, dt)).reshape(b, l, h1 - h0, hd)
+    g = F.silu(lerp("mu_g") @ part("Wg", 1, c0, c1, dt))
+    lw = lerp("mu_w").float()
+    f32 = torch.float32
     w = torch.exp(
-        -torch.exp(tm["w0"].float() + torch.tanh(lw @ tm["wA"].float()) @ tm["wB"].float())
-    ).reshape(b, l, h, hd)
-    y, s = wkv6(r.float(), k.float(), v.float(), w, tm["u"].float(), s0, state_out)
+        -torch.exp(part("w0", 0, c0, c1, f32)
+                   + torch.tanh(lw @ part("wA", 1, 0, _LORA, f32)) @ part("wB", 1, c0, c1, f32))
+    ).reshape(b, l, h1 - h0, hd)
+    y, s = wkv6(r.float(), k.float(), v.float(), w, part("u", 0, h0, h1, f32), s0, state_out)
     # per-head group norm: normalize within each head, scale per channel
     mu = y.mean(-1, keepdim=True)
     var = ((y - mu) ** 2).mean(-1, keepdim=True)
     yn = (y - mu) * torch.rsqrt(var + 1e-5)
-    y = (yn.reshape(b, l, d) * tm["ln_x"]["scale"].float() + tm["ln_x"]["bias"].float())
-    out = (y.to(x.dtype) * g) @ tm["Wo"].to(x.dtype)
-    return out, s, x[:, -1]
+    y = (yn.reshape(b, l, c1 - c0) * part("ln_x/scale", 0, c0, c1, f32)
+         + part("ln_x/bias", 0, c0, c1, f32))
+    out = (y.to(dt) * g) @ part("Wo", 0, c0, c1, dt)
+    return (out if heads is None else tp.reduce(out)), s, x[:, -1]
 
 
-def channel_mix(cm: dict, x: torch.Tensor, x_prev: torch.Tensor | None = None):
-    """Returns (output [B, L, d], last token of x)."""
+def channel_mix(cm: dict, x: torch.Tensor, x_prev: torch.Tensor | None = None, tp=None):
+    """Returns (output [B, L, d], last token of x).  Under ``tp``: this
+    rank's block of d_ff (where it divides the axis), v summed over the
+    group, r whole on every rank."""
+    d = x.shape[-1]
+    f = cm["Wk"].shape[-1] if tp is None else tp.leaf_split["cm/Wk"][0][1]
     dx = _shift(x, x_prev) - x
+    dt = x.dtype
+    cols = tp.block(f) if tp is not None else None
+    lo, hi = cols or (0, f)
+    split = parts(cm, "cm/", tp, cols is not None)
+    whole = parts(cm, "cm/", tp, False)
 
     def lerp(mu):
-        return x + dx * mu.to(x.dtype)
+        return x + dx * whole(mu, 0, 0, d).to(dt)
 
-    k = torch.square(F.relu(lerp(cm["mu_k"]) @ cm["Wk"].to(x.dtype)))
-    v = k @ cm["Wv"].to(x.dtype)
-    r = torch.sigmoid(lerp(cm["mu_r"]) @ cm["Wr"].to(x.dtype))
+    xk = lerp("mu_k") if cols is None else tp.copy(lerp("mu_k"))
+    k = torch.square(F.relu(xk @ split("Wk", 1, lo, hi, dt)))
+    v = k @ split("Wv", 0, lo, hi, dt)
+    if cols is not None:
+        v = tp.reduce(v)
+    r = torch.sigmoid(lerp("mu_r") @ whole("Wr", 1, 0, d, dt))
     return r * v, x[:, -1]
 
 
-def _block_apply(cfg: ArchConfig, blk: dict, x: torch.Tensor) -> torch.Tensor:
-    y, _, _ = time_mix(blk["tm"], layer_norm(blk["ln1"], x), cfg)
+def _block_apply(cfg: ArchConfig, blk: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    y, _, _ = time_mix(blk["tm"], layer_norm(blk["ln1"], x), cfg, tp=tp)
     x = x + y
-    y, _ = channel_mix(blk["cm"], layer_norm(blk["ln2"], x))
+    y, _ = channel_mix(blk["cm"], layer_norm(blk["ln2"], x), tp=tp)
     return x + y
 
 
@@ -166,14 +241,15 @@ def forward_hidden(
     tokens: torch.Tensor,  # [B, L]
     dtype: torch.dtype = torch.bfloat16,
     remat: bool = True,
+    tp=None,
 ) -> torch.Tensor:
     """Token embeddings -> final-norm hidden states [B, L, d]; every layer's
     recurrence starts from a zero state.  ``remat``: each block's
     activations are recomputed in the backward (only where one will run)."""
-    x = layer_norm(params["ln0"], embed(params["embed"], tokens, dtype))
+    x = layer_norm(params["ln0"], embed(params["embed"], tokens, dtype, tp))
     run = remat_block if remat else (lambda fn, *args: fn(*args))
     for blk in params["blocks"]:
-        x = run(partial(_block_apply, cfg), blk, x)
+        x = run(partial(_block_apply, cfg, tp=tp), blk, x)
     return layer_norm(params["final_norm"], x)
 
 
@@ -184,26 +260,34 @@ def loss_fn(
     dtype: torch.dtype = torch.bfloat16,
     remat: bool = True,
     loss_chunk: int = 512,
+    tp=None,
 ) -> torch.Tensor:
     """Next-token cross entropy through the untied head; differentiable,
     each block rematerialised in the backward under ``remat``."""
     tokens = batch["tokens"]
-    h = forward_hidden(cfg, params, tokens, dtype=dtype, remat=remat)
-    return chunked_cross_entropy(h[:, :-1, :], params["lm_head"]["w"].T, tokens[:, 1:],
-                                 chunk=loss_chunk)
+    h = forward_hidden(cfg, params, tokens, dtype=dtype, remat=remat, tp=tp)
+    if tp is None:
+        return chunked_cross_entropy(h[:, :-1, :], params["lm_head"]["w"].T, tokens[:, 1:],
+                                     chunk=loss_chunk)
+    table, split = split_table(cfg, params, h.dtype, tp)
+    return chunked_cross_entropy(h[:, :-1, :], table, tokens[:, 1:], chunk=loss_chunk,
+                                 tp=tp if split else None)
 
 
 # ------------------------------------------------------------------ serving
 def init_state(
     cfg: ArchConfig, batch: int, dtype: torch.dtype = torch.bfloat16,
-    device: torch.device | str = "cuda",
+    device: torch.device | str = "cuda", tp=None,
 ) -> dict:
     """Zeroed recurrent state in the JAX package's layout: ``wkv``
     ``[n_layers, B, H, hd, hd]`` float32, ``x_tm`` and ``x_cm``
     ``[n_layers, B, d]`` in ``dtype`` (the compute dtype).  Its size does not
     grow with the context.  ``decode_step`` updates it in place (the JAX
-    package returns a new state)."""
-    l, h, hd, d = cfg.n_layers, cfg.n_heads, cfg.hd, cfg.d_model
+    package returns a new state).  Under ``tp`` ``wkv`` holds this rank's
+    heads (all of them where they do not split)."""
+    l, hd, d = cfg.n_layers, cfg.hd, cfg.d_model
+    heads = tp.block(cfg.n_heads) if tp is not None else None
+    h = cfg.n_heads if heads is None else heads[1] - heads[0]
     dev = _device(device)
     return {
         "wkv": torch.zeros((l, batch, h, hd, hd), dtype=torch.float32, device=dev),
@@ -212,15 +296,15 @@ def init_state(
     }
 
 
-def _block_step(cfg: ArchConfig, blk: dict, x: torch.Tensor, state: dict, i: int):
+def _block_step(cfg: ArchConfig, blk: dict, x: torch.Tensor, state: dict, i: int, tp=None):
     """Layer i of ``decode_step`` on x [B, 1, d]; the layer's state is
     updated in place."""
     wkv = state["wkv"][i]
     y, _, last = time_mix(blk["tm"], layer_norm(blk["ln1"], x), cfg, s0=wkv,
-                          x_prev=state["x_tm"][i], state_out=wkv)
+                          x_prev=state["x_tm"][i], state_out=wkv, tp=tp)
     state["x_tm"][i] = last
     x = x + y
-    y, last = channel_mix(blk["cm"], layer_norm(blk["ln2"], x), x_prev=state["x_cm"][i])
+    y, last = channel_mix(blk["cm"], layer_norm(blk["ln2"], x), x_prev=state["x_cm"][i], tp=tp)
     state["x_cm"][i] = last
     return x + y
 
@@ -232,11 +316,13 @@ def decode_step(
     tokens: torch.Tensor,  # [B, 1]
     pos=None,  # unused: the state is position-free
     dtype: torch.dtype = torch.bfloat16,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One token step; returns (logits [B, V] float32, state), the state
-    updated in place (each layer's wkv state by the recurrence itself)."""
-    x = layer_norm(params["ln0"], embed(params["embed"], tokens, dtype))
+    updated in place (each layer's wkv state by the recurrence itself).
+    Under ``tp`` the logits are put together over the vocab, the same on
+    every rank."""
+    x = layer_norm(params["ln0"], embed(params["embed"], tokens, dtype, tp))
     for i, blk in enumerate(params["blocks"]):
-        x = _block_step(cfg, blk, x, state, i)
-    x = layer_norm(params["final_norm"], x)
-    return (x[:, -1, :] @ params["lm_head"]["w"].to(x.dtype)).float(), state
+        x = _block_step(cfg, blk, x, state, i, tp)
+    return _readout(cfg, params, x, tp), state

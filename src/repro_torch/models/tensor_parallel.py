@@ -1,5 +1,5 @@
-"""Tensor parallelism over a mesh's "model" axis for the transformer
-families: the counterpart of the JAX package's activation-sharding hooks
+"""Tensor parallelism over a mesh's "model" axis for every family: the
+counterpart of the JAX package's activation-sharding hooks
 (``repro.models.layers.set_activation_sharding`` and ``constrain_*``, which
 the JAX launcher sets under ``--mesh prod``).
 
@@ -7,26 +7,32 @@ Where the JAX package states the shardings and lets XLA partition the step,
 the port computes on each rank's blocks and places the collectives by hand,
 Megatron's way:
 
-  * column-parallel ``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``: the input
-    goes through ``copy`` (identity forward, ``all_reduce`` of its gradient);
-  * row-parallel ``wo``, ``w_down``: the partial outputs go through
+  * column-parallel ``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up`` (RWKV-6's
+    ``Wr``, ``Wk``, ``Wg``): the input goes through ``copy`` (identity
+    forward, ``all_reduce`` of its gradient);
+  * row-parallel ``wo``, ``w_down`` (RWKV-6's ``Wo`` and channel-mix
+    ``Wv``, Mamba2's ``out_proj``): the partial outputs go through
     ``reduce`` (``all_reduce`` forward, identity backward); a bias such as
     ``b_down`` is added once, after it;
+  * a sum that each rank then uses on its own part (Mamba2's gated RMSNorm
+    over the whole d_inner, of which a rank holds its heads' channels) goes
+    through ``sum``: ``all_reduce`` forward and backward;
   * a vocab-split embedding looks up its own rows (the others masked to 0)
     and ``reduce``s; a vocab-split readout feeds ``layers.
     chunked_cross_entropy``'s vocab-parallel form (a MAX ``all_reduce`` of
     the row max, SUM of the exponent sums and of the gold logit);
   * a leaf whose split is not the one its use site computes on (the rules
     split columns wherever the column count divides, not heads: internvl2-1b's
-    ``wk`` at model = 4; an embedding split on d where the vocab does not
-    divide) is put together whole (``gather``: an ``all_reduce`` of the
-    block placed in zeros) and sliced.
+    ``wk`` at model = 4, RWKV-6's time-mix ``Wv`` split on its input dim,
+    Mamba2's ``in_proj`` cut across its segments; an embedding split on d
+    where the vocab does not divide) is put together whole (``gather``: an
+    ``all_reduce`` of the block placed in zeros) and sliced.
 
 Only ``all_reduce`` and ``broadcast`` go over the model group: the
 collectives gloo takes on CUDA tensors, so one code path runs over NCCL (a
 rank a card), over gloo on the CPU, and over gloo with several ranks on one
-card.  K6 and K6b are custom autograd functions and run unchanged on each
-rank's heads: the layers work on local tensors, not on DTensors.
+card.  K6, K6b, K7 and K7b are custom autograd functions and run unchanged
+on each rank's heads: the layers work on local tensors, not on DTensors.
 
 The MoE family splits its experts as ``_EXPERT_RULES`` place them (expert
 parallelism): where the expert count divides the axis, a rank holds
@@ -43,12 +49,29 @@ width f (``w_gate``/``w_up`` columns, ``w_down`` rows) and every rank runs
 every slot on its block.  Either way a rank's routed output is partial and
 joins one ``reduce``.
 
+The recurrent families split their heads: RWKV-6's time mix runs K7 (K7b
+under a gradient) on a rank's heads, its channel mix is Megatron's MLP
+(``models.rwkv6``); Mamba2 runs the SSD on a rank's SSM heads and Zamba2's
+shared block attends with its attention heads (``models.mamba2``).  Where
+the heads do not divide the axis every rank runs every head on whole
+leaves, as attention does.
+
 The residual stream stays whole on every rank of a model group (the JAX
 launcher's ``P(dp, "model", None)`` also splits its sequence over "model":
 sequence parallelism, ROADMAP item 29).  The results are the same; the
 activation memory is not.  Norm scales and ``b_down`` act on the whole
 stream and stay bit-identical across a model group: each rank computes the
-same gradient for them.
+same gradient for them.  A replicated leaf that a rank uses only on its own
+part (RWKV-6's ``mu_*``, ``w0``, ``u``, ``ln_x``; Mamba2's ``conv_w``,
+``A_log``, ``D``, ``dt_bias``, ``norm_scale``) is taken through ``local``,
+whose ``copy`` sums its gradient over the group, so it too stays
+bit-identical.
+
+``leaf_split`` keys a leaf by its path inside its block (``attn/wq``,
+``mlp/w_down``, ``experts/w_gate``, MoE's shared expert ``shared/w_up``,
+RWKV-6's ``tm/Wv`` and ``cm/Wv``, which the rules split on different dims,
+Mamba2's ``in_proj``); Zamba2's shared block has a transformer block's
+paths.
 """
 from __future__ import annotations
 
@@ -87,6 +110,25 @@ class _Reduce(torch.autograd.Function):
         return grad, None
 
 
+class _Sum(torch.autograd.Function):
+    """The sum over the group forward, and the gradient summed over the
+    group: for a sum whose result each rank uses on its own part, so that
+    each rank's gradient of it is partial."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class _Gather(torch.autograd.Function):
     """The whole tensor from each rank's block along ``dim`` (placed in
     zeros, summed over the group: exact); the gradient's own block back.
@@ -114,9 +156,10 @@ class TensorParallel:
     """One rank's part of a model split over ``mesh``'s "model" axis.
 
     ``specs`` is the parameter tree's specs (``launch.sharding.
-    param_specs``), ``leaf_split`` maps a leaf's name (``wq``, ``w_down``,
-    ... of a block; ``table`` for the embedding, ``lm_head`` for the
-    untied head) to (its whole shape, the dim "model" splits or None)."""
+    param_specs``), ``leaf_split`` maps a leaf's path inside its block
+    (``attn/wq``, ``mlp/w_down``, ``tm/Wv``, ...; ``table`` for the
+    embedding, ``lm_head`` for the untied head) to (its whole shape, the
+    dim "model" splits or None)."""
 
     mesh: object  # launch.mesh.Mesh
     specs: dict
@@ -139,6 +182,9 @@ class TensorParallel:
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return _Reduce.apply(x, self.group)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return _Sum.apply(x, self.group)
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return _Gather.apply(x, dim % x.dim(), self.rank, self.size, self.group)
@@ -249,27 +295,53 @@ class _FetchSlots(torch.autograd.Function):
         return out[:ctx.n], None, None, None, None
 
 
+def parts(tree: dict, prefix: str, tp: TensorParallel | None, split: bool):
+    """``part(path, dim, lo, hi, dtype=None)``: the leaf at ``path``
+    (``ln_x/scale``) of a block's subtree ``tree``, whose paths in
+    ``leaf_split`` start with ``prefix``, cast to ``dtype`` (before any
+    gather: fewer bytes), as this rank works with it.  ``split``: its
+    entries [lo, hi) along ``dim``, its gradient summed over the group
+    (``tp.local``); else the whole leaf (gathered where the rules split
+    it); ``tp`` None: the leaf."""
+
+    def part(path, dim, lo, hi, dtype=None):
+        leaf = tree
+        for key in path.split("/"):
+            leaf = leaf[key]
+        leaf = leaf if dtype is None else leaf.to(dtype)
+        if tp is None:
+            return leaf
+        if split:
+            return tp.local(leaf, prefix + path, dim, lo, hi)
+        return tp.whole(leaf, prefix + path)
+
+    return part
+
+
 def _split(leaf, spec) -> tuple:
     dims = [d for d, e in enumerate(spec) if e == "model"]
     return tuple(leaf.shape), dims[0] if dims else None
 
 
 def leaf_split(specs: dict, params: dict) -> dict:
-    """(whole shape, split dim) by leaf name, from the first block's leaves
-    and the embedding / head; every block of a config has the same specs.
-    MoE's expert leaves are named ``experts/w_gate`` and so on, apart from
-    the shared expert's ``w_gate``."""
+    """(whole shape, split dim) by a leaf's path inside its block
+    (``attn/wq``, ``experts/w_gate``, ``tm/Wv``, ``in_proj``, ...), from the
+    first block's leaves and Zamba2's shared block (every block of a config
+    has the same specs), and ``table`` / ``lm_head`` for the embedding and
+    the untied head."""
     out = {}
 
     def visit(tree, spec, prefix=""):
         for key, sub in tree.items():
             if isinstance(sub, dict):
-                visit(sub, spec[key], "experts/" if key == "experts" else "")
+                visit(sub, spec[key], f"{prefix}{key}/")
             elif sub is not None:
                 out[prefix + key] = _split(sub, spec[key])
 
     if params.get("blocks"):
         visit(params["blocks"][0], specs["blocks"][0])
+    if "shared_attn" in params:
+        visit(params["shared_attn"], specs["shared_attn"])
     out["table"] = _split(params["embed"]["table"], specs["embed"]["table"])
     if "lm_head" in params:
         out["lm_head"] = _split(params["lm_head"]["w"], specs["lm_head"]["w"])

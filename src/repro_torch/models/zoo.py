@@ -10,15 +10,15 @@ without a card raises.  ``dense``, ``vlm`` and ``audio`` run on
 (RWKV-6) on ``rwkv6`` and ``hybrid`` (Zamba2: Mamba2 blocks and a shared
 attention block) on ``mamba2``.
 
-``build_model(cfg, device, tp=mesh)`` splits a ``dense``, ``vlm``,
-``audio`` or ``moe`` model over the mesh's "model" axis
-(``tensor_parallel``; for ``moe`` expert parallelism with SharesSkew's
-replica slots spread over the ranks): the rules' specs
+``build_model(cfg, device, tp=mesh)`` splits any model over the mesh's
+"model" axis (``tensor_parallel``: heads and MLP columns, the vocab, for
+``moe`` expert parallelism with SharesSkew's replica slots spread over the
+ranks, for ``ssm`` RWKV-6's heads and channel-mix columns, for ``hybrid``
+the Mamba2 heads and the shared block's heads): the rules' specs
 (``launch.sharding.param_specs`` at that axis's size, no FSDP, as the JAX
 launcher) are reckoned from the whole model's shapes under
 ``FakeTensorMode``, and every member of the ``ModelApi`` works on this
-rank's blocks.  The other families raise there, naming their ROADMAP items:
-none silently replicates.
+rank's blocks.
 """
 from __future__ import annotations
 
@@ -35,13 +35,6 @@ from repro_torch.mapreduce.executor import _device
 
 from . import mamba2, moe, rwkv6, transformer
 from .tensor_parallel import TensorParallel, leaf_split
-
-# families whose layers do not yet split over "model", and the ROADMAP item of each
-NOT_SPLIT = {
-    "ssm": "item 27 (RWKV-6: the time-mix Wv row rule splits the input dim)",
-    "hybrid": "item 28 (Zamba2: in_proj's column split cuts across its segments)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
@@ -62,7 +55,7 @@ class ModelApi:
 def tensor_parallel(cfg: ArchConfig, mesh) -> TensorParallel:
     """The split of ``cfg``'s model over ``mesh``'s "model" axis, its specs
     from the whole tree of the family's own ``init_params``."""
-    family = moe if cfg.family == "moe" else transformer
+    family = {"moe": moe, "ssm": rwkv6, "hybrid": mamba2}.get(cfg.family, transformer)
     with FakeTensorMode():
         whole = family.init_params(cfg, 0, "cpu")
     specs = param_specs(whole, mesh.size("model"))
@@ -75,42 +68,38 @@ def build_model(cfg: ArchConfig, device: torch.device | str = "cuda", tp=None) -
     axis of one rank: the whole model here)."""
     dev = _device(device)
     fam = cfg.family
-    if tp is not None and "model" in tp.mesh_dim_names and tp.size("model") > 1:
-        if fam in NOT_SPLIT:
-            raise NotImplementedError(
-                f"{cfg.name}: the {fam} family does not split over 'model' "
-                f"({tp.size('model')} ranks); ROADMAP {NOT_SPLIT[fam]}")
-    else:
-        tp = None
+    split = tp is not None and "model" in tp.mesh_dim_names and tp.size("model") > 1
+    tp = tensor_parallel(cfg, tp) if split else None
     if fam == "hybrid":
         return ModelApi(
             cfg=cfg,
             device=dev,
             init_params=lambda seed, dtype=torch.float32: mamba2.init_params(
-                cfg, seed, dev, dtype),
-            loss_fn=lambda params, batch, **kw: mamba2.loss_fn(cfg, params, batch, **kw),
+                cfg, seed, dev, dtype, tp),
+            loss_fn=lambda params, batch, **kw: mamba2.loss_fn(cfg, params, batch, tp=tp, **kw),
             init_cache=lambda batch, max_seq, dtype=torch.bfloat16: mamba2.init_state(
-                cfg, batch, max_seq, dtype, dev),
+                cfg, batch, max_seq, dtype, dev, tp),
             decode_step=lambda params, cache, tokens, pos, **kw: mamba2.decode_step(
-                cfg, params, cache, tokens, pos, **kw),
+                cfg, params, cache, tokens, pos, tp=tp, **kw),
             forward_hidden=lambda params, batch, **kw: mamba2.forward_hidden(
-                cfg, params, batch["tokens"], batch.get("prefix_embeds"), **kw),
+                cfg, params, batch["tokens"], batch.get("prefix_embeds"), tp=tp, **kw),
+            tp=tp,
         )
     if fam == "ssm":
         return ModelApi(
             cfg=cfg,
             device=dev,
             init_params=lambda seed, dtype=torch.float32: rwkv6.init_params(
-                cfg, seed, dev, dtype),
-            loss_fn=lambda params, batch, **kw: rwkv6.loss_fn(cfg, params, batch, **kw),
+                cfg, seed, dev, dtype, tp),
+            loss_fn=lambda params, batch, **kw: rwkv6.loss_fn(cfg, params, batch, tp=tp, **kw),
             init_cache=lambda batch, max_seq=0, dtype=torch.bfloat16: rwkv6.init_state(
-                cfg, batch, dtype, dev),
+                cfg, batch, dtype, dev, tp),
             decode_step=lambda params, cache, tokens, pos=None, **kw: rwkv6.decode_step(
-                cfg, params, cache, tokens, pos, **kw),
+                cfg, params, cache, tokens, pos, tp=tp, **kw),
             forward_hidden=lambda params, batch, **kw: rwkv6.forward_hidden(
-                cfg, params, batch["tokens"], **kw),
+                cfg, params, batch["tokens"], tp=tp, **kw),
+            tp=tp,
         )
-    tp = tensor_parallel(cfg, tp) if tp is not None else None
     if fam == "moe":
         return ModelApi(
             cfg=cfg,

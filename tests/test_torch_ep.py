@@ -119,7 +119,7 @@ def test_awkward_splits_are_the_ones_named(model, name, mode, slots):
         # each of the three weights' [X, d, f] in bf16
         assert fetch_bytes(cfg, extra, torch.bfloat16, tp) == 3 * extra * 64 * 32 * 2
     # the shared expert's leaves keep their own names, split on d_ff
-    assert tp.leaf_split["w_up"] == ((64, 128), 1)
+    assert tp.leaf_split["shared/w_up"] == ((64, 128), 1)
 
 
 @pytest.mark.parametrize("model", [2, 4, 16])

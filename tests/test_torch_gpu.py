@@ -1687,3 +1687,98 @@ def test_split_moe_two_ranks_on_card_match_one_rank(cuda, name, tmp_path):
             assert np.abs(got[f"split_grad{j}"] - want).max() <= 1e-4 * np.abs(want).max(), j
             j += 1
         assert j > 0
+
+
+_REC_RANK = """
+import sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch import configs
+from repro_torch.kernels import launches, reset_launches
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.sharding import gather_tree
+from repro_torch.models import build_model
+from repro_torch.train.optimizer import leaves
+
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=2)
+cfg = configs.get_config(sys.argv[4]).reduced()
+dev = torch.device("cuda", 0)
+toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+                        .astype(np.int32)).to(dev)
+mesh = make_mesh((1, 2), ("data", "model"), dev)
+res = {}
+for tag, model in (("one", build_model(cfg, dev)), ("split", build_model(cfg, dev, tp=mesh))):
+    params = model.init_params(1)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    reset_launches()
+    hidden = model.forward_hidden(params, {"tokens": toks}, dtype=torch.float32)
+    loss = model.loss_fn(params, {"tokens": toks}, dtype=torch.float32)
+    loss.backward()
+    grads = [p.grad for p in leaves(params)]
+    if model.tp is not None:
+        specs = model.tp.specs
+        it = iter(grads)
+        def build(node):
+            if isinstance(node, dict):
+                return {k: build(node[k]) for k in sorted(node)}
+            if isinstance(node, list):
+                return [build(s) for s in node]
+            return next(it)
+        grads = leaves(gather_tree(build(specs), specs, mesh))
+    res[tag + "_hidden"] = hidden.detach().cpu().numpy()
+    res[tag + "_loss"] = np.float64(loss.item())
+    counts = launches()
+    for name in ("wkv6", "wkv6_bwd", "flash_attention", "flash_attention_bwd"):
+        res[f"{tag}_{name}"] = np.int64(counts[name])
+    for j, g in enumerate(grads):
+        res[f"{tag}_grad{j}"] = g.detach().cpu().numpy()
+np.savez(f"{out}.{rank}.npz", **res)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("name,kernels", [("rwkv6-3b", ("wkv6", "wkv6_bwd")),
+                                          ("zamba2-2.7b", ("flash_attention",
+                                                           "flash_attention_bwd"))])
+def test_split_recurrent_two_ranks_on_card_match_one_rank(cuda, name, kernels, tmp_path):
+    """Two ranks on one card over gloo (CUDA tensors), a (1, 2) mesh, the
+    reduced rwkv6-3b (K7 and K7b on each rank's 2 heads) or zamba2-2.7b (its
+    SSD on 2 SSM heads a rank, K6 and K6b on 2 attention heads) in fp32: the
+    split model's hidden states, loss and gradients against the whole model
+    on one rank, each rank's own run: hidden states to 1e-5 of the largest
+    entry, the loss to 1e-5 relative, every gradient to 1e-4 of its leaf's
+    largest entry; the split launches each kernel as often as one rank."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs = [subprocess.Popen([sys.executable, "-c", _REC_RANK, str(r), str(tmp_path / "store"),
+                               str(tmp_path / "out"), name], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=30)
+    for r in range(2):
+        got = np.load(tmp_path / f"out.{r}.npz")
+        for kernel in kernels:
+            assert int(got[f"split_{kernel}"]) == int(got[f"one_{kernel}"]) > 0, kernel
+        want = got["one_hidden"]
+        assert np.abs(got["split_hidden"] - want).max() <= 1e-5 * np.abs(want).max()
+        assert abs(float(got["split_loss"]) - float(got["one_loss"])) <= 1e-5 * abs(
+            float(got["one_loss"]))
+        j = 0
+        while f"one_grad{j}" in got:
+            want = got[f"one_grad{j}"]
+            assert np.abs(got[f"split_grad{j}"] - want).max() <= 1e-4 * np.abs(want).max(), j
+            j += 1
+        assert j > 0

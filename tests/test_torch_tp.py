@@ -60,7 +60,7 @@ from repro_torch.launch.sharding import (
 )
 from repro_torch.models import build_model, transformer
 from repro_torch.models.layers import head_split
-from repro_torch.models.zoo import NOT_SPLIT, tensor_parallel
+from repro_torch.models.zoo import tensor_parallel
 from repro_torch.train import load_checkpoint
 from repro_torch.train.optimizer import leaves
 
@@ -102,16 +102,15 @@ def test_shard_round_trip_at_full_shapes(name, model):
     """Every configuration's full-size parameters under ``FakeTensorMode``:
     the ranks' blocks of each leaf (``shard_tree``) tile it along the one
     dim "model" splits and, put back together in rank order, have its
-    shape; a model the split covers draws exactly those blocks
-    (``init_params`` under ``tp``); the others refuse a model axis."""
+    shape; every model draws exactly those blocks (``init_params`` under
+    ``tp``), the ssm and hybrid families (RWKV-6's ``tm/Wv`` split on its
+    input dim, Mamba2's ``in_proj`` across its segments) too."""
     cfg = tconfigs.get_config(name)
     with FakeTensorMode():
         whole = build_model(cfg, "cpu").init_params(0)
         specs = param_specs(whole, model)
         per_rank = [shard_tree(whole, specs, _fake_mesh(model, r)) for r in range(model)]
-        drawn = None
-        if cfg.family not in NOT_SPLIT:
-            drawn = build_model(cfg, "cpu", tp=_fake_mesh(model, 1)).init_params(0)
+        drawn = build_model(cfg, "cpu", tp=_fake_mesh(model, 1)).init_params(0)
         flags = sharded_flags(specs)
         for j, (leaf, spec) in enumerate(zip(leaves(whole), spec_leaves(specs))):
             blocks = [leaves(t)[j] for t in per_rank]
@@ -126,11 +125,9 @@ def test_shard_round_trip_at_full_shapes(name, model):
             assert [s.start for s in spans] == [i * leaf.shape[d] // model for i in range(model)]
             assert spans[-1].stop == leaf.shape[d]
             assert tuple(torch.cat(blocks, d).shape) == tuple(leaf.shape)
-            if drawn is not None:
-                assert tuple(leaves(drawn)[j].shape) == tuple(blocks[1].shape)
-    if cfg.family in NOT_SPLIT:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 2[678]"):
-            build_model(cfg, "cpu", tp=_fake_mesh(model))
+            assert tuple(leaves(drawn)[j].shape) == tuple(blocks[1].shape)
+    assert len(leaves(drawn)) == len(leaves(whole))
+    assert [tuple(p.shape) for p in leaves(drawn)] == [tuple(b.shape) for b in leaves(per_rank[1])]
 
 
 def test_awkward_splits_are_the_ones_named():
@@ -143,11 +140,11 @@ def test_awkward_splits_are_the_ones_named():
         split = head_split(transformer.attn_config(cfg), tp)
         if want == "kv gathered":
             assert split == ((0, 1), (0, 1))
-            assert tp.leaf_split["wk"] == ((64, 32), 1)  # 8 columns a rank, half a head
+            assert tp.leaf_split["attn/wk"] == ((64, 32), 1)  # 8 columns a rank, half a head
         elif want == "heads":
             assert split == ((0, 3), (0, 1))
         elif want == "whole":
-            assert split is None and tp.leaf_split["wq"] == ((64, 96), 1)
+            assert split is None and tp.leaf_split["attn/wq"] == ((64, 96), 1)
         elif want == "d":
             assert tp.leaf_split["table"] == ((4099, 1024), 1)
         else:
@@ -339,12 +336,13 @@ _PORT_STEP = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "granite-3-8b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-3-8b", "rwkv6-3b", "zamba2-2.7b"])
 def test_two_by_two_losses_equal_jax_sharded_step(tmp_path, arch):
     """The port's (2, 2) steps against ``repro``'s jitted train step on a
     (2, 2) mesh of forced host devices under the same rules, from the same
     weights, fp32, no weight decay: both losses to 1e-5 relative (measured
-    at most 1.5e-7)."""
+    at most 1.5e-7), the recurrent families (``tests/test_torch_tp_
+    recurrent.py``) too."""
     cfg = jconfigs.get_config(arch).reduced()
     params = jax.tree.map(lambda a: np.asarray(a, np.float32),
                           jax_init_train_state(jax_build(cfg), jax.random.PRNGKey(3))[0])

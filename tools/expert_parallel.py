@@ -274,7 +274,7 @@ def time_steps(cfg, mesh, shape, extra, dev, steps=5, warm=2) -> dict:
     med = statistics.median(ms)
     fetch = moe.fetch_bytes(cfg, extra, torch.bfloat16, model.tp)
     out = {"ms": ms, "median_ms": med, "tokens_per_s": shape[0] * shape[1] / med * 1e3,
-           "peak_gib": _peak_gib(dev), "model_collective_share": sum(w for w, _ in waits) / sum(ms),
+           "peak_gib": _peak_gib(dev), "model_collective_share": sum(w[0] for w in waits) / sum(ms),
            "model_collectives_per_step": waits[0][1], "metrics": metrics,
            "metrics_and_replicated_same_bits": same,
            # forward, the rematerialised forward, and the backward's gradients

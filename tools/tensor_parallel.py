@@ -1,6 +1,6 @@
-"""Tensor parallelism over "model" on cards: the transformer split over a
-(data, model) mesh (``repro_torch.models.tensor_parallel``) held against
-data parallelism alone, and timed.
+"""Tensor parallelism over "model" on cards: a model split over a (data,
+model) mesh (``repro_torch.models.tensor_parallel``) held against data
+parallelism alone, and timed.
 
   PYTHONPATH=src torchrun --standalone --nproc_per_node 4 tools/tensor_parallel.py
   OMP_NUM_THREADS=1 PYTHONPATH=src torchrun --standalone --nproc_per_node 4 \\
@@ -31,10 +31,28 @@ every configuration and shape):
    build's peak, the prefill of [4, 2048] prompts (ms, the KV cache's
    GiB), and the median decode-step ms of the 7 steps after a prefill of
    16-token prompts.
+3. ``--runs rwkv6,zamba2``, the recurrent families (``models.rwkv6``,
+   ``models.mamba2`` under ``tp``): rwkv6-3b at depth 2 and zamba2-2.7b at
+   depth 6 (one group: six Mamba2 layers and the shared block; no shallower
+   cut keeps its pattern) checked in fp32 as olmo-1b is, on (2, 2) and (1,
+   4); bf16 steps at full depth (32 and 54 layers) on (1, 4) and on
+   ``--mesh host`` on a global [8, 2048] batch, timed as above, with K7/K7b
+   or K6/K6b launches and the bytes all-reduced over the model group a
+   step; served at model = 4 at the same depths in fp32 against one card
+   (the logits after a [2, 64] prompt, fed token by token as
+   ``greedy_generate`` does, to 1e-4 relative, and 8 greedy tokens equal).
+
+Beside each check stands the unsplit model run with the split run's rows
+(each data group's on every rank of it) against ``--mesh host``: how far
+the rows a rank sums move the gradients with no split at all.
 
 ``--smoke`` is ``chip_smoke.py``'s phase 58: two ranks on one card over
 gloo (CUDA tensors), a (1, 2) mesh, olmo-1b at full width cut to depth 2,
-each rank printing one ``RESULT`` line.
+each rank printing one ``RESULT`` line; ``--smoke --recurrent`` is phase
+60: rwkv6-3b at full width cut to depth 2 and zamba2-2.7b cut to depth 6
+on the same mesh (the logits of the prompts from a parallel forward: K7,
+or the SSD and K6, on the rank's heads; 5 greedy tokens after 8 prompt
+tokens).
 
 Every figure is printed beside the card's name and power limit.  Exits
 non-zero when a check misses its tolerance.
@@ -56,16 +74,19 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import launches, reset_launches
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
-from repro_torch.launch.sharding import shard_slices, sharded_flags, spec_leaves
+from repro_torch.launch.sharding import (gather_leaf, gather_tree, shard_slices, sharded_flags,
+                                         spec_leaves)
 from repro_torch.launch.train import _mean_over
 from repro_torch.models import build_model, transformer
-from repro_torch.serve.engine import _argmax
+from repro_torch.serve import greedy_generate
+from repro_torch.serve.engine import _argmax, scan_prefill
 from repro_torch.train import OptConfig, init_train_state, make_train_step
-from repro_torch.train.optimizer import leaves
+from repro_torch.train.optimizer import leaves, map_tree
 
 LOSS_TOL, GRAD_TOL, LOGIT_TOL = 1e-5, 1e-4, 1e-4
 GiB = 1 << 30
@@ -98,7 +119,7 @@ class CollectiveClock:
     wrapper of ``torch.distributed``'s functions, for this tool only.)"""
 
     def __init__(self, group, dev):
-        self.group, self.dev, self.on, self.pairs = group, dev, False, []
+        self.group, self.dev, self.on, self.pairs, self.bytes = group, dev, False, [], 0
         self._orig = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
         for name, fn in self._orig.items():
             setattr(dist, name, self._wrap(fn))
@@ -107,6 +128,7 @@ class CollectiveClock:
         def timed(tensor, *a, group=None, **kw):
             if not (self.on and group is self.group and self.dev.type == "cuda"):
                 return fn(tensor, *a, group=group, **kw)
+            self.bytes += tensor.numel() * tensor.element_size()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             out = fn(tensor, *a, group=group, **kw)
@@ -115,12 +137,13 @@ class CollectiveClock:
             return out
         return timed
 
-    def take_ms(self) -> tuple[float, int]:
+    def take_ms(self) -> tuple[float, int, int]:
+        """(ms, calls, bytes) since the last take."""
         _sync(self.dev)
         ms = sum(s.elapsed_time(e) for s, e in self.pairs)
-        n = len(self.pairs)
-        self.pairs = []
-        return ms, n
+        out = ms, len(self.pairs), self.bytes
+        self.pairs, self.bytes = [], 0
+        return out
 
     def close(self) -> None:
         for name, fn in self._orig.items():
@@ -169,10 +192,12 @@ def _mean(x: torch.Tensor, mesh) -> torch.Tensor:
     return x / mesh.size(mesh.data_axes)
 
 
-def _loss_and_grads(cfg, mesh, tokens, dev):
+def _loss_and_grads(cfg, mesh, tokens, dev, split=True):
     """fp32 loss (data groups' mean) and this rank's gradients (data-group
-    mean), on the host, with their specs (None: whole leaves)."""
-    model = build_model(cfg, dev, tp=mesh)
+    mean), on the host, with the split (None: whole leaves).  ``split``
+    False: the whole model on every rank of ``mesh``, its rows as
+    ``mesh`` deals them (the same batch layout, no model split)."""
+    model = build_model(cfg, dev, tp=mesh if split else None)
     params = model.init_params(0)  # no AdamW moments: granite's whole model is 33 GB a copy
     for p in leaves(params):
         p.requires_grad_(True)
@@ -185,29 +210,59 @@ def _loss_and_grads(cfg, mesh, tokens, dev):
     return out
 
 
+def _paths(tree, prefix="") -> list[str]:
+    """Each leaf's path, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree) for p in _paths(tree[key], f"{prefix}/{key}")]
+    if isinstance(tree, list):
+        return [p for i, sub in enumerate(tree) for p in _paths(sub, f"{prefix}/{i}")]
+    return [] if tree is None else [prefix]
+
+
+def _worst(grads, want, tp, names, dev) -> tuple[float, str]:
+    """The largest gradient error of a split run over the whole leaves
+    ``want``, relative to each leaf's largest entry, and its leaf."""
+    worst = (0.0, "")
+    for g, w, spec, name in zip(grads, want, spec_leaves(tp.specs), names):
+        block = w[shard_slices(tuple(w.shape), spec, tp.mesh)]
+        err = torch.tensor([float((g - block).abs().max())], device=dev)
+        dist.all_reduce(err, op=dist.ReduceOp.MAX, group=tp.group)
+        worst = max(worst, (float(err) / max(float(w.abs().max()), 1e-30), name))
+    return worst
+
+
 def check(cfg, meshes, shape, dev) -> dict:
     """The split runs' loss and gradients against ``--mesh host`` at this
-    world."""
+    world (``ok`` where they hold ``LOSS_TOL`` and ``GRAD_TOL``), beside
+    the unsplit model's with the split run's batch layout (each data
+    group's rows on every rank of it) against the same: what the rows a
+    rank sums alone move, the noise the tolerance must clear."""
     tokens = _tokens(cfg, shape, 1, dev)
-    split = {m: _loss_and_grads(cfg, make_mesh(m, ("data", "model"), dev), tokens, dev)
-             for m in meshes}
     _reset_peak(dev)
     host_loss, host_grads, _ = _loss_and_grads(cfg, make_host_mesh("data", dev), tokens, dev)
+    with FakeTensorMode():
+        names = _paths(build_model(cfg, "cpu").init_params(0))
     out = {}
-    for m, (loss, grads, tp) in split.items():
-        worst = 0.0
-        for g, want, spec in zip(grads, host_grads, spec_leaves(tp.specs)):
-            block = want[shard_slices(tuple(want.shape), spec, tp.mesh)]
-            err = torch.tensor([float((g - block).abs().max())], device=dev)
-            dist.all_reduce(err, op=dist.ReduceOp.MAX, group=tp.group)
-            worst = max(worst, float(err) / max(float(want.abs().max()), 1e-30))
+    for m in meshes:
+        mesh = make_mesh(m, ("data", "model"), dev)
+        loss, grads, tp = _loss_and_grads(cfg, mesh, tokens, dev)
+        _, same_grads, _ = _loss_and_grads(cfg, mesh, tokens, dev, split=False)
+        host, same = _worst(grads, host_grads, tp, names, dev), _worst(grads, same_grads, tp,
+                                                                        names, dev)
+        layout = max((float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30), name)
+                     for a, b, name in zip(same_grads, host_grads, names))
         rel = abs(loss - host_loss) / abs(host_loss)
-        out[f"{m[0]}x{m[1]}"] = {"loss": loss, "host_loss": host_loss, "loss_rel": rel,
-                                 "grad_rel_max": worst}
-        _say(f"[check] {cfg.name} {m}: fp32 loss {loss!r} vs --mesh host {host_loss!r} "
-             f"(rel {rel:.3g}, tol {LOSS_TOL}); gradients {worst:.3g} of each leaf's largest "
-             f"entry at most (tol {GRAD_TOL})")
-        assert rel <= LOSS_TOL and worst <= GRAD_TOL, out
+        out[f"{m[0]}x{m[1]}"] = {
+            "loss": loss, "host_loss": host_loss, "loss_rel": rel,
+            "grad_rel_max": host[0], "worst_leaf": host[1],
+            "grad_rel_max_same_layout": same[0], "worst_leaf_same_layout": same[1],
+            "layout_alone_grad_rel_max": layout[0], "layout_alone_worst_leaf": layout[1],
+            "ok": rel <= LOSS_TOL and host[0] <= GRAD_TOL}
+        _say(f"[check] {cfg.name} {m}: fp32 loss {loss!r} vs --mesh host {host_loss!r} (rel "
+             f"{rel:.3g}, tol {LOSS_TOL}); gradients {host[0]:.3g} of each leaf's largest entry "
+             f"off --mesh host's at most ({host[1]}; tol {GRAD_TOL}); the unsplit model with this "
+             f"mesh's rows {layout[0]:.3g} off --mesh host's ({layout[1]}), the split "
+             f"{same[0]:.3g} off it ({same[1]})")
     return out
 
 
@@ -252,13 +307,14 @@ def time_steps(cfg, mesh, shape, dev, steps=5, warm=2) -> dict:
     finally:
         clock.close()
     med = statistics.median(ms)
-    share = sum(w for w, _ in waits) / sum(ms)
+    share = sum(w[0] for w in waits) / sum(ms)
     out = {"ms": ms, "median_ms": med, "tokens_per_s": shape[0] * shape[1] / med * 1e3,
            "peak_gib": _peak_gib(dev), "model_collective_share": share,
-           "model_collectives_per_step": waits[0][1], "losses": losses,
+           "model_collectives_per_step": waits[0][1],
+           "model_allreduce_bytes_per_step": waits[0][2], "losses": losses,
            "gathered_bytes_per_step": _gathered_bytes(model.tp, torch.bfloat16),
            "k6": counts["flash_attention"], "k6b": counts["flash_attention_bwd"],
-           "traced_step": trace}
+           "k7": counts["wkv6"], "k7b": counts["wkv6_bwd"], "traced_step": trace}
     peaks = torch.zeros(dist.get_world_size(), dtype=torch.float64, device=dev)
     peaks[dist.get_rank()] = out["peak_gib"]
     dist.all_reduce(peaks)
@@ -288,36 +344,57 @@ def _generate(model, params, prompts, n, dtype, prefill=transformer.prefill):
     return torch.stack(out, 1), first, ms
 
 
+def _cut(cfg, depth: int):
+    """``cfg`` cut to ``depth`` layers; a hybrid to one group of its
+    pattern (``hybrid_period`` Mamba2 layers and the shared block)."""
+    return dataclasses.replace(cfg, n_layers=cfg.hybrid_period or depth)
+
+
+def scan_prefill_of(model):
+    """``transformer.prefill``'s signature over ``serve.scan_prefill``: the
+    recurrent families feed a prompt token by token (decode steps)."""
+    return lambda cfg, params, prompts, cache, dtype, tp=None: scan_prefill(
+        model, params, cache, prompts, dtype)
+
+
 def serve_split(cfg, dev, reduced: bool, tag: str = "command-r",
-                prefill=transformer.prefill) -> dict:
-    """``cfg`` split over every rank's "model" axis: at depth 2 in fp32
-    against one card (rank 0's), then at full size in bf16 (the build's
-    peak, prefills, decode steps); ``prefill`` is the family's."""
+                prefill=transformer.prefill, full: bool = True) -> dict:
+    """``cfg`` split over every rank's "model" axis: at depth 2 (a hybrid:
+    one group) in fp32 against one card (rank 0's), then, with ``full``, at
+    full size in bf16 (the build's peak, prefills, decode steps);
+    ``prefill`` is the family's (None: token by token)."""
     out = {}
     world = dist.get_world_size()
     mesh = make_mesh((1, world), ("data", "model"), dev)
     # depth 2 in fp32 against one card
-    small = dataclasses.replace(cfg, n_layers=2)
+    small = _cut(cfg, 2)
+    pre = prefill
     prompts = _tokens(small, (2, 16 if reduced else 64), 3, dev)
     model = build_model(small, dev, tp=mesh)
     with torch.no_grad():
         params = model.init_params(0)
-        toks, logits, _ = _generate(model, params, prompts, 8, torch.float32, prefill)
+        toks, logits, _ = _generate(model, params, prompts, 8, torch.float32,
+                                    pre or scan_prefill_of(model))
     del params, model
     dist.barrier()
     if dist.get_rank() == 0:
         one = build_model(small, dev)
         with torch.no_grad():
             params = one.init_params(0)
-            want_toks, want_logits, _ = _generate(one, params, prompts, 8, torch.float32, prefill)
+            want_toks, want_logits, _ = _generate(one, params, prompts, 8, torch.float32,
+                                                  pre or scan_prefill_of(one))
         del params, one
         rel = float((logits - want_logits).abs().max() / want_logits.abs().max())
         same = bool(torch.equal(toks, want_toks))
-        out["depth2"] = {"logits_rel": rel, "tokens_equal": same, "tokens": toks.tolist()}
-        _say(f"[{tag}] {cfg.name} depth 2 fp32 at model {world}: prefill logits {rel:.3g} of the "
-             f"largest off one card's (tol {LOGIT_TOL}); 8 greedy tokens equal: {same}")
+        out["depth2"] = {"layers": small.n_layers, "logits_rel": rel, "tokens_equal": same,
+                         "tokens": toks.tolist()}
+        _say(f"[{tag}] {cfg.name} depth {small.n_layers} fp32 at model {world}: prefill logits "
+             f"{rel:.3g} of the largest off one card's (tol {LOGIT_TOL}); 8 greedy tokens equal: "
+             f"{same}")
         assert rel <= LOGIT_TOL and same, out
     dist.barrier()
+    if not full:
+        return out
     _reset_peak(dev)
     # full width and depth in bf16
     t = time.perf_counter()
@@ -364,11 +441,72 @@ def serve_split(cfg, dev, reduced: bool, tag: str = "command-r",
     return out
 
 
-def smoke(dev, reduced: bool) -> dict:
-    """Phase 58 of ``chip_smoke.py``: this rank's results."""
+def _forward_logits(model, params, prompts, dtype):
+    """The last position's logits [B, V] of a parallel forward, put
+    together over the vocab (the recurrent families' prompt: K7, or the SSD
+    and K6, at the prompt's length)."""
+    cfg, tp = model.cfg, model.tp
+    h = model.forward_hidden(params, {"tokens": prompts}, dtype=dtype, remat=False)[:, -1]
+    if tp is None:
+        return (h @ transformer.logits_table(cfg, params).to(dtype).T).float()
+    table, split = transformer.split_table(cfg, params, dtype, tp)
+    logits = h @ table.T
+    return (tp.gather(logits, -1) if split else logits).float()
+
+
+def _grads(model, params, batch, dtype) -> list[torch.Tensor]:
+    """The gradients of ``model``'s loss at ``params`` (left without a
+    ``.grad``)."""
+    for p in leaves(params):
+        p.grad = None
+    with torch.enable_grad():
+        model.loss_fn(params, batch, dtype=dtype).backward()
+    out = [p.grad for p in leaves(params)]
+    for p in leaves(params):
+        p.grad = None
+    return out
+
+
+def _tree_norm(gs) -> float:
+    return float(torch.sqrt(sum(torch.sum(torch.square(g.double())) for g in gs)))
+
+
+def _same_weights(cfg, dev, split, params, batch) -> dict:
+    """The split's bf16 gradients at ``params`` (this rank's blocks), put
+    together, against the whole model's at the same weights: in bf16, and
+    in fp32 as the yardstick of bf16's rounding.  ``ok``: the global norms
+    within 2e-2 of the whole model's, or within twice its bf16 gradient's
+    distance from its fp32 one (the triangle inequality's bound for two
+    gradients each that far from the fp32 one), and the split's distance
+    from the fp32 gradient at most twice the whole model's plus 1e-2 of the
+    fp32 norm: where one rank rounds a sum of the stream's gradient to bf16
+    once, two ranks round each partial and then the sum (the vocab-parallel
+    cross entropy, every ``copy``), and these models amplify that rounding
+    (a wrong leaf moves its gradient by its whole size)."""
+    specs, mesh = split.tp.specs, split.tp.mesh
+    got = [gather_leaf(g, spec, mesh)
+           for g, spec in zip(_grads(split, params, batch, torch.bfloat16), spec_leaves(specs))]
+    whole = map_tree(lambda p: p.detach().requires_grad_(True),
+                     gather_tree(params, specs, mesh))
+    one = build_model(cfg, dev)
+    g16, g32 = _grads(one, whole, batch, torch.bfloat16), _grads(one, whole, batch, torch.float32)
+    n, n16, n32 = _tree_norm(got), _tree_norm(g16), _tree_norm(g32)
+    e16 = _tree_norm([a.double() - b.double() for a, b in zip(g16, g32)])
+    e = _tree_norm([a.double() - b.double() for a, b in zip(got, g32)])
+    del got, whole, g16, g32
+    norm_tol = max(2e-2 * n16, 2 * e16)
+    return {"norm": n, "norm_one": n16, "norm_fp32": n32, "off_fp32": e, "off_fp32_one": e16,
+            "norm_tol": norm_tol,
+            "ok": abs(n - n16) <= norm_tol and e <= 2 * e16 + 1e-2 * n32}
+
+
+def _smoke_config(cfg, dev, reduced: bool) -> dict:
+    """``cfg`` split over a (1, world) mesh against the whole model on this
+    rank: fp32 loss, the prompts' logits, 5 greedy tokens, two bf16 steps,
+    the replicated leaves; the kernel launches of the split path alone;
+    before each split step, its bf16 gradients against the whole model's at
+    the same weights (``_same_weights``)."""
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=2)
-    cfg = cfg.reduced() if reduced else cfg
     mesh = make_mesh((1, dist.get_world_size()), ("data", "model"), dev)
     check_b, train_b, prompt = ((2, 32), (2, 64), (2, 16)) if reduced else (
         (2, 256), (2, 512), (2, 64))
@@ -376,42 +514,70 @@ def smoke(dev, reduced: bool) -> dict:
     train_tokens = _tokens(cfg, train_b, 6, dev)
     prompts = _tokens(cfg, prompt, 7, dev)
     opt = OptConfig(total_steps=2, warmup_steps=1)
+    recurrent = cfg.family in ("ssm", "hybrid")
 
     def run(model):
         with torch.no_grad():
             params = model.init_params(0)
             loss = float(model.loss_fn(params, {"tokens": tokens}, dtype=torch.float32))
-            toks, logits, _ = _generate(model, params, prompts, 5, torch.float32)
+            if recurrent:  # no parallel prefill: the logits of a forward, tokens after 8
+                logits = _forward_logits(model, params, prompts, torch.float32)
+                toks = torch.from_numpy(greedy_generate(
+                    model, params, prompts[:, :8].cpu().numpy(), 5, dtype=torch.float32))
+            else:
+                toks, logits, _ = _generate(model, params, prompts, 5, torch.float32)
         del params
         params, state = init_train_state(model, 0)
         step = make_train_step(model, opt)
-        metrics = []
+        metrics, same = [], []
         for _ in range(2):
+            if model.tp is not None:  # its launches are not the split path's
+                before = launches()
+                same.append(_same_weights(cfg, dev, model, params, {"tokens": train_tokens}))
+                for k, n in launches().items():
+                    witness[k] = witness.get(k, 0) + n - before.get(k, 0)
             params, state, m = step(params, state, {"tokens": train_tokens})
             metrics.append([float(m["loss"]), float(m["grad_norm"])])
         flags = sharded_flags(model.tp.specs) if model.tp else [True] * len(leaves(params))
         rep = [p.detach().cpu().numpy().tobytes() for p, f in zip(leaves(params), flags)
                if not f]
-        return loss, toks, logits, metrics, rep
+        return loss, toks, logits, metrics, rep, same
 
-    loss1, toks1, logits1, metrics1, _ = run(build_model(cfg, dev))
+    witness = {}
+    loss1, toks1, logits1, metrics1, _, _ = run(build_model(cfg, dev))
     _sync(dev)
     reset_launches()
     t = time.perf_counter()
-    loss, toks, logits, metrics, rep = run(build_model(cfg, dev, tp=mesh))
+    loss, toks, logits, metrics, rep, same = run(build_model(cfg, dev, tp=mesh))
     _sync(dev)
     path_s = time.perf_counter() - t
-    counts = launches()
+    counts = {k: n - witness.get(k, 0) for k, n in launches().items()}
     return {
-        "rank": dist.get_rank(), "loss": loss, "loss_one": loss1,
+        "rank": dist.get_rank(), "layers": cfg.n_layers, "loss": loss, "loss_one": loss1,
         "loss_rel": abs(loss - loss1) / abs(loss1),
         "logits_rel": float((logits - logits1).abs().max() / logits1.abs().max()),
         "tokens": toks.tolist(), "tokens_one": toks1.tolist(),
-        "bf16_metrics": metrics, "bf16_metrics_one": metrics1,
+        "bf16_metrics": metrics, "bf16_metrics_one": metrics1, "same_weights": same,
         "replicated_leaves": len(rep),
         "replicated_sha": hashlib.sha256(b"".join(rep)).hexdigest(),
         "launches": counts, "path_s": path_s, "seconds": time.perf_counter() - t0,
     }
+
+
+def smoke(dev, reduced: bool, recurrent: bool = False) -> dict:
+    """Phase 58 of ``chip_smoke.py`` (olmo-1b cut to depth 2), or with
+    ``recurrent`` phase 60 (rwkv6-3b cut to depth 2, zamba2-2.7b to one
+    group): this rank's results."""
+    if not recurrent:
+        cfg = _cut(get_config("olmo-1b"), 2)
+        return _smoke_config(cfg.reduced() if reduced else cfg, dev, reduced)
+    t0 = time.perf_counter()
+    out = {"rank": dist.get_rank(), "configs": {}}
+    for name in ("rwkv6-3b", "zamba2-2.7b"):
+        cfg = get_config(name).reduced() if reduced else get_config(name)
+        out["configs"][name] = _smoke_config(_cut(cfg, 2), dev, reduced)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def main(argv=None) -> int:
@@ -419,6 +585,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--recurrent", action="store_true",
+                    help="--smoke: phase 60 (rwkv6-3b, zamba2-2.7b) in place of 58")
     ap.add_argument("--backend", default=None, help="default: nccl on the card, gloo on the CPU")
     ap.add_argument("--runs", default="olmo,granite,command-r")
     args = ap.parse_args(argv)
@@ -435,7 +603,7 @@ def main(argv=None) -> int:
         else:
             dev = torch.device("cpu")
         if args.smoke:
-            print("RESULT " + json.dumps(smoke(dev, args.reduced)), flush=True)
+            print("RESULT " + json.dumps(smoke(dev, args.reduced, args.recurrent)), flush=True)
             return 0
         card = "cpu"
         if cuda:
@@ -481,9 +649,33 @@ def main(argv=None) -> int:
                  f"gradients and AdamW moments, 131 GB, exceed a card)")
         if "command-r" in runs:
             res["command-r-plus-104b"] = serve_split(get("command-r-plus-104b"), dev, args.reduced)
+        for name in ("rwkv6-3b", "zamba2-2.7b"):
+            if name.split("-")[0] not in runs:
+                continue
+            cfg = get(name)
+            res[name] = {"check": check(_cut(cfg, 2), [(world // 2, 2), (1, world)], check_shape,
+                                        dev)}
+            for m in [(1, world), "host"]:
+                mesh = make_host_mesh("data", dev) if m == "host" else make_mesh(
+                    m, ("data", "model"), dev)
+                got = time_steps(cfg, mesh, time_shape, dev)
+                key = m if m == "host" else f"{m[0]}x{m[1]}"
+                res[name][key] = got
+                _say(f"[time] {name} {key} bf16 {list(time_shape)}, {cfg.n_layers} layers: median "
+                     f"{got['median_ms']:.2f} ms a step of {[round(x, 2) for x in got['ms']]}, "
+                     f"{got['tokens_per_s']:.0f} tokens/s, peak {got['peak_gib_by_rank']} GiB, "
+                     f"model-axis collectives {100 * got['model_collective_share']:.2f} % "
+                     f"({got['model_collectives_per_step']} a step, "
+                     f"{got['model_allreduce_bytes_per_step']} bytes), K7 {got['k7']} K7b "
+                     f"{got['k7b']} K6 {got['k6']} K6b {got['k6b']} over 7 steps; losses "
+                     f"{got['losses']}; one traced step {got['traced_step']} [{card}]")
+            res[name]["serve"] = serve_split(cfg, dev, args.reduced, "serve", None, full=False)
         _say("RESULT " + json.dumps(res))
         _say(f"[card] {card}")
-        return 0
+        missed = [(name, m) for name, r in res.items() if isinstance(r, dict) and "check" in r
+                  for m, c in r["check"].items() if isinstance(c, dict) and not c["ok"]]
+        _say(f"[check] missed their tolerances: {missed or 'none'}")
+        return 1 if missed else 0
     finally:
         dist.destroy_process_group()
 
