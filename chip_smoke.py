@@ -356,8 +356,12 @@ Phases:
      gloo (CUDA tensors), a (1, 2) ("data", "model") mesh,
      ``tools/tensor_parallel.py --smoke`` in two processes: olmo-1b at full
      width cut to depth 2, split over "model"
-     (``build_model(cfg, tp=mesh)``).  Each rank holds the whole model on
-     one rank, built beside it: the fp32 loss of [2, 256] tokens and the
+     (``build_model(cfg, tp=mesh)``), the residual stream's sequence split
+     over the two ranks between blocks (sequence parallelism: each rank
+     prints the stream's shape at a block's entry, [2, 128, 2048] in the
+     fp32 loss, asserted).  Each rank
+     holds the whole model on one rank, built beside it: the fp32 loss of
+     [2, 256] tokens and the
      prefill logits of [2, 64] prompts (K6 on the rank's 8 heads) to 1e-4
      relative, 5 greedy tokens (the prefill's, then 4 decode steps) equal;
      two bf16 train steps on [2, 512] (K6 and K6b on the rank's heads) whose
@@ -374,7 +378,8 @@ Phases:
      ``tools/expert_parallel.py --smoke``: qwen2-moe-a2.7b at full width
      cut to depth 2 with 8 replica slots at capacity factor 1.25, split
      over "model" (30 experts and 4 replica slots a rank, the replica
-     slots' weights fetched from their owners), against the whole model on
+     slots' weights fetched from their owners; the stream's sequence split
+     as phase 58's, gathered before the router), against the whole model on
      one rank: the fp32 loss of [2, 256] tokens and the prefill
      logits (``moe.prefill``) of [2, 64] prompts to 1e-4 relative, each
      layer's integer dispatch (slot loads, drops, the replica slots'
@@ -390,7 +395,8 @@ Phases:
      rwkv6-3b at full width cut to depth 2 (20 of its 40 heads a rank: K7,
      and K7b under a gradient, on [B, L, 20, 64]) and zamba2-2.7b cut to
      one group (6 Mamba2 layers, 40 of 80 SSM heads a rank, and the shared
-     block: K6 and K6b at D = 80 on 16 of its 32 heads), each against the
+     block: K6 and K6b at D = 80 on 16 of its 32 heads), the stream's
+     sequence split as phase 58's ([2, 128, 2560] a rank), each against the
      whole model on one rank: the fp32 loss of [2, 256] tokens and the
      last position's logits of a forward over [2, 64] prompts to 1e-4
      relative, 5 greedy tokens after 8 prompt tokens equal, two bf16 steps
@@ -1740,7 +1746,8 @@ def _tp_phase(dev, reduced=False, ranks=None):
     t = time.perf_counter()
     res = (ranks or _two_ranks("tensor_parallel.py", dev, reduced))()
     for r in res:
-        _say(f"[tp] rank {r['rank']} of a (1, 2) mesh on one card over gloo: fp32 loss "
+        _say(f"[tp] rank {r['rank']} of a (1, 2) mesh on one card over gloo: "
+             f"{_stream_text(r)}; fp32 loss "
              f"{r['loss']!r} vs one rank's {r['loss_one']!r} (rel {r['loss_rel']:.3g}), prefill "
              f"logits {r['logits_rel']:.3g} of the largest off (tol 1e-4); greedy {r['tokens']} "
              f"(one rank {r['tokens_one']}); bf16 (loss, global norm) of two steps "
@@ -1754,6 +1761,7 @@ def _tp_phase(dev, reduced=False, ranks=None):
         for (loss, _), (want, _) in zip(r["bf16_metrics"], r["bf16_metrics_one"]):
             assert abs(loss - want) <= 2e-2 * abs(want), r
         assert len(r["same_weights"]) == 2 and all(w["ok"] for w in r["same_weights"]), r
+        _assert_stream_split(r)
     for key in ("bf16_metrics", "replicated_sha", "tokens"):
         assert res[0][key] == res[1][key], (key, res[0][key], res[1][key])
     n_attn = 2 if dev.type == "cuda" else 0  # olmo-1b cut to 2 layers; the CPU launches none
@@ -1763,6 +1771,19 @@ def _tp_phase(dev, reduced=False, ranks=None):
     total = {k: res[0]["launches"][k] + res[1]["launches"][k] for k in res[0]["launches"]}
     _say(f"[tp] phase 58: {time.perf_counter() - t:.1f} s (both ranks' launches {total})")
     return total
+
+
+def _stream_text(r) -> str:
+    """A smoke rank's residual stream at a block's entry."""
+    return (f"the stream at a block's entry {r['stream']} a rank (the whole model's "
+            f"{r['stream_one']})")
+
+
+def _assert_stream_split(r) -> None:
+    """Sequence parallelism: the check's length divides the two ranks, so
+    each holds [B, S/2, d] of the stream at every block's entry."""
+    b, length, d = r["stream_one"]
+    assert r["stream"] == [b, length // 2, d] and r["stream_same"], r["stream"]
 
 
 def _same_weights_text(same) -> str:
@@ -1796,7 +1817,7 @@ def _tp_recurrent_phase(dev, reduced=False):
         got = [r["configs"][name] for r in res]
         for r in got:
             _say(f"[tp-rec] rank {r['rank']} of a (1, 2) mesh on one card over gloo, {name} cut "
-                 f"to {r['layers']} layers: fp32 loss {r['loss']!r} vs one rank's "
+                 f"to {r['layers']} layers: {_stream_text(r)}; fp32 loss {r['loss']!r} vs one rank's "
                  f"{r['loss_one']!r} (rel {r['loss_rel']:.3g}), the prompts' logits "
                  f"{r['logits_rel']:.3g} of the largest off (tol 1e-4); greedy {r['tokens']} (one "
                  f"rank {r['tokens_one']}); bf16 (loss, global norm) of two steps "
@@ -1810,6 +1831,7 @@ def _tp_recurrent_phase(dev, reduced=False):
             for (loss, _), (want_loss, _) in zip(r["bf16_metrics"], r["bf16_metrics_one"]):
                 assert abs(loss - want_loss) <= 2e-2 * abs(want_loss), r
             assert len(r["same_weights"]) == 2 and all(w["ok"] for w in r["same_weights"]), r
+            _assert_stream_split(r)
             for kernel, n in want[name].items():
                 assert r["launches"][kernel] == (n if cuda else 0), (name, r["launches"])
         for key in ("bf16_metrics", "replicated_sha", "tokens"):
@@ -1832,7 +1854,7 @@ def _ep_phase(dev, reduced=False, ranks=None):
     res = (ranks or _two_ranks("expert_parallel.py", dev, reduced))()
     for r in res:
         _say(f"[ep] rank {r['rank']} of a (1, 2) mesh on one card over gloo, qwen2-moe-a2.7b "
-             f"cut to 2 layers, 8 replica slots: fp32 loss {r['loss']!r} vs one rank's "
+             f"cut to 2 layers, 8 replica slots: {_stream_text(r)}; fp32 loss {r['loss']!r} vs one rank's "
              f"{r['loss_one']!r} (rel {r['loss_rel']:.3g}, tol 1e-4), prefill logits "
              f"{r['logits_rel']:.3g} of the largest off (tol 1e-4); each layer's slot loads, "
              f"drops {r['dropped']} and replica slots' experts {r['slot_expert']} (layer 0) "
@@ -1846,6 +1868,7 @@ def _ep_phase(dev, reduced=False, ranks=None):
         assert r["dispatch_equal"] and r["tokens"] == r["tokens_one"], r
         for (loss, _), (want, _) in zip(r["bf16_metrics"], r["bf16_metrics_one"]):
             assert abs(loss - want) <= 2e-2 * abs(want), r
+        _assert_stream_split(r)
     for key in ("bf16_metrics", "replicated_sha", "tokens"):
         assert res[0][key] == res[1][key], (key, res[0][key], res[1][key])
     n_attn = 2 if dev.type == "cuda" else 0  # 2 layers; the CPU launches none

@@ -18,7 +18,11 @@ their counterpart in ``tensor_parallel``: ``attention``,
 ``attention_decode``, ``mlp``, ``embed`` and ``chunked_cross_entropy`` take a
 ``tp`` (a ``tensor_parallel.TensorParallel``, None for the whole model on
 one rank) and compute on this rank's heads, MLP columns and vocab block,
-with the collectives of a model axis around them.
+with the collectives of a model axis around them.  Where ``tp.seq`` (the
+stream's sequence split over the model group, ``TensorParallel.over``) the
+stream comes in as this rank's rows: a mixer gathers the whole sequence at
+its entry and leaves its rows at its exit (``TensorParallel.enter`` /
+``leave``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
+
+from .tensor_parallel import row_leaves
 
 Params = dict
 
@@ -185,9 +191,10 @@ def local_attention(params: Params, cfg: AttnConfig, tp) -> tuple[Params, AttnCo
     """(the leaves, the config, split?) with which this rank attends.  Split:
     its heads' columns of ``wq``/``wk``/``wv`` and the biases, its heads'
     rows of ``wo``, the qk-norm scales through ``tp.copy``, and the config
-    of its heads; the caller puts the input through ``tp.copy`` and the
-    output through ``tp.reduce``.  Not split (``tp`` None, or heads that do
-    not split): the whole leaves (gathered where the rules split them)."""
+    of its heads; the caller puts the input through ``tp.enter(x, True)``
+    (``copy``, or the sequence gather) and the output through ``tp.leave``.
+    Not split (``tp`` None, or heads that do not split): the whole leaves
+    (gathered where the rules split them)."""
     split = head_split(cfg, tp)
     if split is None:
         if tp is None:
@@ -324,13 +331,14 @@ def attention(
     tp=None,
 ) -> torch.Tensor:
     """Full attention; ``is_global=False`` applies cfg.window (Gemma-style
-    local layers).  Under ``tp``, this rank's heads (``local_attention``)."""
+    local layers).  Under ``tp``, this rank's heads (``local_attention``),
+    over the whole sequence gathered from the ranks' rows where ``tp.seq``."""
     params, cfg, split = local_attention(params, cfg, tp)
-    if split:
-        x = tp.copy(x)
+    if tp is not None:
+        x = tp.enter(x, split)
     q, k, v = rotated_qkv(params, cfg, x)
     y = attention_output(params, cfg, attention_core(q, k, v, cfg, is_global))
-    return tp.reduce(y) if split else y
+    return y if tp is None else tp.leave(y, split)
 
 
 def attention_output(params: Params, cfg: AttnConfig, out: torch.Tensor) -> torch.Tensor:
@@ -363,8 +371,8 @@ def attention_decode(
     window for Gemma-style global layers.  Under ``tp`` the caches hold the
     KV heads of this rank's query heads (``local_attention``)."""
     params, cfg, split = local_attention(params, cfg, tp)
-    if split:
-        x = tp.copy(x)
+    if tp is not None:
+        x = tp.enter(x, split)
     b = x.shape[0]
     q, k, v = _qkv(params, cfg, x)  # q [B,H,1,D], k/v [B,Hkv,1,D]
     cos, sin = rotary_angles(torch.full((1,), pos, device=x.device), cfg.head_dim,
@@ -388,7 +396,7 @@ def attention_decode(
     out = out.reshape(b, cfg.n_heads, 1, cfg.head_dim).to(x.dtype)
     y = out.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
     y = y @ _cast(params["wo"], x)
-    return tp.reduce(y) if split else y
+    return y if tp is None else tp.leave(y, split)
 
 
 # ---------------------------------------------------------------------- MLPs
@@ -406,8 +414,8 @@ def local_mlp(params: Params, tp, name: str = "mlp") -> tuple[Params, bool]:
     """(the leaves, split?) with which this rank runs the MLP at ``name`` in
     its block (``mlp``; MoE's shared expert ``shared``): its block of the
     d_ff columns of ``w_up``/``w_gate``/``b_up`` and rows of ``w_down``
-    where d_ff splits (the caller then puts the input through ``tp.copy``
-    and the output, before ``b_down``, through ``tp.reduce``), else the
+    where d_ff splits (the caller then puts the input through ``tp.enter``
+    and the output, before ``b_down``, through ``tp.leave``), else the
     whole leaves."""
     cols = tp.block(tp.leaf_split[f"{name}/w_up"][0][1]) if tp is not None else None
     if cols is None:
@@ -421,9 +429,12 @@ def local_mlp(params: Params, tp, name: str = "mlp") -> tuple[Params, bool]:
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "silu", tp=None) -> torch.Tensor:
+    """The MLP; under ``tp`` on this rank's d_ff columns (``local_mlp``),
+    the stream entering and leaving as ``attention``'s; ``b_down`` added
+    once, on the rows the stream leaves with."""
     params, split = local_mlp(params, tp)
-    if split:
-        x = tp.copy(x)
+    if tp is not None:
+        x = tp.enter(x, split)
     a = _act(act)
     up = x @ _cast(params["w_up"], x)
     if "b_up" in params:
@@ -433,10 +444,10 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu", tp=None) -> torch.Te
     else:
         h = a(up)
     y = h @ _cast(params["w_down"], x)
-    if split:
-        y = tp.reduce(y)
+    if tp is not None:
+        y = tp.leave(y, split)
     if "b_down" in params:
-        y = y + _cast(params["b_down"], x)
+        y = y + _cast(row_leaves(tp, params["b_down"]), x)
     return y
 
 
@@ -444,18 +455,20 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu", tp=None) -> torch.Te
 def embed(params: Params, tokens: torch.Tensor, dtype=torch.bfloat16, tp=None) -> torch.Tensor:
     """The tokens' rows of the table.  Under ``tp``: a vocab-split table
     looks up the rows of its block (others 0) and sums over the model
-    group; a table split on d looks up its columns and puts them together."""
+    group; a table split on d looks up its columns and puts them together;
+    where ``tp.seq`` this rank keeps its positions' rows (the vocab-split
+    sum reduce-scattered)."""
     table = params["table"].to(dtype)
     split = tp.split_dim("table") if tp is not None else None
     if split is None:
-        return table[tokens]
+        return table[tokens] if tp is None else tp.leave(table[tokens], False)
     if split == 1:
-        return tp.gather(table[tokens], -1)
+        return tp.leave(tp.gather(table[tokens], -1), False)
     n = table.shape[0]
     local = tokens.long() - tp.rank * n
     inside = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)]
-    return tp.reduce(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
+    return tp.leave(torch.where(inside[..., None], rows, torch.zeros_like(rows)), True)
 
 
 def chunked_cross_entropy(

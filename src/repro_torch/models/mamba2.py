@@ -57,7 +57,13 @@ as ``launch.sharding.param_specs`` places each leaf:
     the vocab-parallel cross entropy.
 
 Where the SSM heads do not divide the axis every rank runs every head on
-whole leaves.  The decode state holds the rank's part: ``ssm`` [L, B,
+whole leaves.  Where the sequence length (a prefix joined on) divides the
+axis, the stream's sequence is split over it between blocks
+(``TensorParallel.over``): each block's norm and residual add act on a
+rank's rows (``ln`` through ``copy``), ``mamba_mix`` gathers the whole
+sequence at its entry (the causal conv and the SSD run on it, so their
+states are the whole sequence's) and reduce-scatters its output; the gated
+RMSNorm's sum stays a sum over channels for each token.  The decode state holds the rank's part: ``ssm`` [L, B,
 H/m, p, s], ``conv`` [L, B, K-1, di/m] (its heads' channels, the block
 ``cache_specs``' last-dim split gives), and the shared block's KV heads
 (``transformer.init_kv_cache``).
@@ -85,7 +91,16 @@ from .layers import (
     remat as remat_block,
 )
 from .tensor_parallel import parts
-from .transformer import _readout, attn_config, init_attention, logits_table, split_table
+from .transformer import (
+    _readout,
+    attn_config,
+    init_attention,
+    logits_table,
+    norm,
+    split_table,
+    stream_in,
+    stream_out,
+)
 
 _CONV_K = 4
 
@@ -229,11 +244,14 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ArchConfig, ssm_state=None, conv_st
     """One Mamba2 mixer on x [B, L, d]: returns (output [B, L, d], SSM state
     [B, H, p, s] f32, conv state [B, K-1, di]).  Under ``tp``: this rank's
     heads (states [B, H/m, p, s] and [B, K-1, di/m]), the output summed
-    over the group."""
-    b, l, _ = x.shape
+    over the group (``x`` and the output this rank's rows where ``tp.seq``,
+    the states the whole sequence's)."""
     di, st, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    hd = di // h
     heads = tp.block(h) if tp is not None else None
+    if tp is not None:
+        x = tp.enter(x, heads is not None)
+    b, l, _ = x.shape
+    hd = di // h
     h0, h1 = heads or (0, h)
     c0, c1 = h0 * hd, h1 * hd
     part = parts(p, "", tp, heads is not None)
@@ -242,7 +260,6 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ArchConfig, ssm_state=None, conv_st
         full = w_in
         w_in = torch.cat([full[:, c0:c1], full[:, di + c0:di + c1], full[:, 2 * di:2 * di + 2 * st],
                           full[:, 2 * di + 2 * st + h0:2 * di + 2 * st + h1]], dim=1)
-        x = tp.copy(x)
     n, dn = h1 - h0, c1 - c0
     proj = x @ w_in
     z, xin, bmat, cmat, dtr = torch.split(proj, [dn, dn, st, st, n], dim=-1)
@@ -263,7 +280,7 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ArchConfig, ssm_state=None, conv_st
         ss = tp.sum(ss)
     y = (yf * torch.rsqrt(ss / di + 1e-6)).to(x.dtype) * part("norm_scale", 0, c0, c1).to(x.dtype)
     out = y @ part("out_proj", 0, c0, c1, x.dtype)
-    return (out if heads is None else tp.reduce(out)), s, conv_state
+    return (out if tp is None else tp.leave(out, heads is not None)), s, conv_state
 
 
 # ------------------------------------------------------------------- forward
@@ -275,14 +292,14 @@ def _groups(cfg: ArchConfig) -> tuple[int, int]:
 
 
 def _mamba_body(cfg: ArchConfig, blk: dict, x: torch.Tensor, chunk: int, tp=None) -> torch.Tensor:
-    y, _, _ = mamba_mix(blk, apply_norm(cfg.norm, blk["ln"], x), cfg, chunk=chunk, tp=tp)
+    y, _, _ = mamba_mix(blk, norm(cfg, blk["ln"], x, tp), cfg, chunk=chunk, tp=tp)
     return x + y
 
 
 def _shared_apply(cfg: ArchConfig, shared: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
-    h = apply_norm(cfg.norm, shared["ln1"], x)
+    h = norm(cfg, shared["ln1"], x, tp)
     x = x + attention(shared["attn"], attn_config(cfg), h, tp=tp)
-    h = apply_norm(cfg.norm, shared["ln2"], x)
+    h = norm(cfg, shared["ln2"], x, tp)
     return x + mlp(shared["mlp"], h, cfg.act, tp)
 
 
@@ -296,12 +313,12 @@ def forward_hidden(
     chunk: int = 64,
     tp=None,
 ) -> torch.Tensor:
-    """Token (+ prefix) embeddings -> final-norm hidden states [B, L*, d].
-    ``remat``: recompute each Mamba block and each invocation of the shared
-    block in the backward."""
-    x = embed(params["embed"], tokens, dtype, tp)
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
+    """Token (+ prefix) embeddings -> final-norm hidden states [B, L*, d],
+    whole on every rank.  ``remat``: recompute each Mamba block and each
+    invocation of the shared block in the backward.  Under ``tp`` the
+    sequence is split between blocks where its length divides the model
+    axis (``transformer.stream_in``)."""
+    x, tp = stream_in(params, tokens, prefix_embeds, dtype, tp)
     n_groups, period = _groups(cfg)
     run = remat_block if remat else (lambda fn, *args: fn(*args))
     for g in range(n_groups):
@@ -309,7 +326,7 @@ def forward_hidden(
             x = run(_mamba_body, cfg, blk, x, chunk, tp)
         if cfg.hybrid_period:
             x = run(_shared_apply, cfg, params["shared_attn"], x, tp)
-    return apply_norm(cfg.norm, params["final_norm"], x)
+    return stream_out(cfg, params, x, tp)
 
 
 def loss_fn(

@@ -43,16 +43,21 @@ whole model on this rank), the counterpart of the JAX package's
 ``constrain_moe_dispatch`` under ``--mesh prod``: attention on this rank's
 heads, the shared expert on its MLP columns, the embedding and readout on
 its vocab block, as the dense family splits them; the router and
-``shared_gate`` are used whole.  The residual stream is whole on every rank
-of a model group, so every rank computes the same routing and the same
-integer dispatch, and no all-to-all is needed: a rank computes the buffer
-rows of its own slots (its experts' primary slots and its share of the
-replica slots, whose weights ``TensorParallel.fetch_slots`` shares), or,
-where the experts do not divide the axis, every slot on its block of the
-expert width; its weighted partial sums, with the shared expert's, join
-one ``reduce``.  The tokens and the top-k weights go through ``copy`` first,
-since a rank's dispatch and combine read only its own rows of them; the
-aux loss is computed alike on every rank and is not summed over the group.
+``shared_gate`` are used whole.  The stream enters ``moe_ffn`` whole on
+every rank of a model group (where its sequence is split over the group,
+gathered first: ``TensorParallel.enter``), so every rank computes the same
+routing and the same integer dispatch, and no all-to-all is needed: a rank
+computes the buffer rows of its own slots (its experts' primary slots and
+its share of the replica slots, whose weights ``TensorParallel.fetch_slots``
+shares), or, where the experts do not divide the axis, every slot on its
+block of the expert width; its weighted partial sums, with the shared
+expert's, join one ``reduce`` (a reduce-scatter to the rank's rows where
+the sequence is split: ``leave``).  The tokens and the top-k weights go
+through ``copy`` first (the sequence gather, whose gradient is
+reduce-scattered, where the sequence is split; the router's use of it then
+goes through ``TensorParallel.alike``), since a rank's dispatch and combine
+read only its own rows of them; the aux loss is computed alike on every
+rank and is not summed over the group.
 Not ported: ``expert_pad`` and the ``REPRO_EXPERT_PAD`` environment knob,
 which pad the expert dim to tile a TPU mesh axis.
 """
@@ -84,8 +89,8 @@ from .layers import (
 )
 from .transformer import _layer_flags, _readout, attn_config, init_attention, logits_table
 from .transformer import init_kv_cache  # noqa: F401  (the dense family's cache)
-from .transformer import prefill_with, split_table
-from .tensor_parallel import _Sum
+from .transformer import norm, prefill_with, split_table, stream_in, stream_out
+from .tensor_parallel import _Sum, row_leaves
 
 REPLICA_SEED = 0xD15C  # mix32 seed that spreads a hot expert's tokens over its replicas
 
@@ -531,35 +536,46 @@ def moe_ffn(
     global batch's, as the JAX package's SPMD host mesh computes them:
     ``data_parallel_batch``); None, or a group of one rank, takes this
     batch alone.  ``tp``: this rank's part of a model split over "model"
-    (the output whole on every rank of the model group)."""
-    g, tg, _ = x.shape
+    (the output whole on every rank of the model group; where ``tp.seq``,
+    ``x`` and the output are this rank's rows of the sequence, and the
+    router, the replica plan and the dispatch see the whole of it)."""
     e, k = cfg.n_experts, cfg.top_k
+    split = expert_split(tp, e)
+    partial = split[0] is not None
+    shared, shared_split = local_mlp(blk["shared"], tp, "shared") if cfg.n_shared else (None, False)
+    # one copy (or sequence gather) for every partial use of the tokens
+    if tp is not None and tp.seq:
+        xc = tp.enter(x, partial or shared_split)
+        x = tp.alike(xc) if partial or shared_split else xc
+    else:
+        xc = tp.copy(x) if partial or shared_split else x
+    g, tg, _ = x.shape
     s = e + extra_slots
     cap = max(8, int(math.ceil(tg * k * capacity_factor / s)))
     whole = (lambda name: blk[name]) if tp is None else (lambda name: tp.whole(blk[name], name))
     probs, topw, topi = route({"router": whole("router")}, x, k)
     dp = data_parallel_batch(topi, e, group)
     disp = dispatch(topi, e, cap, extra_slots, dp)
-    split = expert_split(tp, e)
-    partial = split[0] is not None
-    shared, shared_split = local_mlp(blk["shared"], tp, "shared") if cfg.n_shared else (None, False)
-    # one copy for every partial use of the tokens
-    xc = tp.copy(x) if partial or shared_split else x
     out = _routed(blk, xc if partial else x, tp.copy(topw) if partial else topw, disp, e, tp,
                   split)
+    # a partial sum joins the group's (reduce, or reduce-scatter to this
+    # rank's rows); a term every rank computes alike is kept as it is, or
+    # on this rank's rows
+    summed = (lambda z: z) if tp is None else (lambda z: tp.leave(z, True))
+    mine = (lambda z: z) if tp is None else (lambda z: tp.leave(z, False))
     if cfg.n_shared:
         gate = torch.sigmoid((x @ whole("shared_gate").to(x.dtype)).float()).to(x.dtype)
         b_down = shared.pop("b_down", None) if shared_split else None
         y = mlp(shared, xc if shared_split else x, cfg.act)
         if partial and shared_split:  # one reduce for both; the gate's gradient summed
-            out = tp.reduce(out + tp.copy(gate) * y)
+            out = summed(out + tp.copy(gate) * y)
         else:
-            out = ((tp.reduce(out) if partial else out)
-                   + gate * (tp.reduce(y) if shared_split else y))
+            out = ((summed(out) if partial else mine(out))
+                   + (mine(gate) * summed(y) if shared_split else mine(gate * y)))
         if b_down is not None:
-            out = out + gate * b_down.to(x.dtype)
-    elif partial:
-        out = tp.reduce(out)
+            out = out + mine(gate) * row_leaves(tp, b_down).to(x.dtype)
+    else:
+        out = summed(out) if partial else mine(out)
 
     aux = _aux_loss(probs, topi, e, group, dp)  # load-balance auxiliary loss (Switch-style)
     if not return_stats:
@@ -573,9 +589,9 @@ def moe_ffn(
 # ------------------------------------------------------------------ the model
 def _block_apply(cfg: ArchConfig, cap_factor: float, extra_slots: int, group, tp, blk: dict,
                  x: torch.Tensor, is_global: bool):
-    h = apply_norm(cfg.norm, blk["ln1"], x)
+    h = norm(cfg, blk["ln1"], x, tp)
     x = x + attention(blk["attn"], attn_config(cfg), h, is_global, tp)
-    h = apply_norm(cfg.norm, blk["ln2"], x)
+    h = norm(cfg, blk["ln2"], x, tp)
     y, aux = moe_ffn(blk, h, cfg, cap_factor, extra_slots, group=group, tp=tp)
     return x + y, aux
 
@@ -594,16 +610,15 @@ def forward_hidden(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (final-norm hidden [B, L*, d], the layers' mean aux loss);
     ``remat``: recompute each block in the backward; ``group``, ``tp``: as
-    ``moe_ffn``'s."""
-    x = embed(params["embed"], tokens, dtype, tp)
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
+    ``moe_ffn``'s (the sequence split between blocks where its length
+    divides the model axis, as ``transformer.forward_hidden`` splits it)."""
+    x, tp = stream_in(params, tokens, prefix_embeds, dtype, tp)
     auxs = []
     for blk, is_global in zip(params["blocks"], _layer_flags(cfg)):
         args = (cfg, capacity_factor, extra_slots, group, tp, blk, x, is_global)
         x, aux = remat_block(_block_apply, *args) if remat else _block_apply(*args)
         auxs.append(aux)
-    return apply_norm(cfg.norm, params["final_norm"], x), torch.stack(auxs).mean()
+    return stream_out(cfg, params, x, tp), torch.stack(auxs).mean()
 
 
 def loss_fn(
@@ -680,5 +695,5 @@ def prefill(
     """The parallel prefill (``transformer.prefill``: K6 on the card) with
     each layer's routed experts, one dispatch group a prompt, at the decode
     step's capacity factor.  Returns (last-position logits, cache)."""
-    return prefill_with(cfg, params, tokens, cache, dtype, tp, lambda blk, h: moe_ffn(
+    return prefill_with(cfg, params, tokens, cache, dtype, tp, lambda blk, h, tp: moe_ffn(
         blk, h, cfg, capacity_factor, extra_slots, tp=tp)[0])

@@ -61,14 +61,25 @@ d_ff, as ``launch.sharding.param_specs`` places each leaf:
     ``sigmoid(r)`` multiplies the whole v: every rank takes ``Wr`` whole
     (gathered in the compute dtype, d² a layer) and computes the whole r
     alike, where multiplying its r columns by v's and gathering the product
-    would move [B, L, d] and need v's gradient summed.
+    would move [B, L, d] and need v's gradient summed.  Where the sequence
+    is split (below), r is computed on the rank's own rows only, against
+    the whole ``Wr`` through ``copy``.
   * the vocab-split table goes through ``layers.embed(tp=)``, the untied
     head's vocab block feeds the vocab-parallel cross entropy, and decode
     logits are put together over the vocab.
 
 Where the heads do not divide the axis (rwkv6-3b's 40 at model 16), every
 rank runs every head of the time mix on whole leaves (gathered where the
-rules split them).  The decode state's ``wkv`` holds the rank's heads
+rules split them).
+
+Where the sequence length divides the model axis, the stream's sequence is
+split over it between blocks (``TensorParallel.over``, the JAX package's
+``P(dp, "model", None)``): ``ln0``, ``ln1``, ``ln2``, the final norm and
+the residual adds act on a rank's rows (their leaves through ``copy``,
+``row_leaves``); each mix gathers the whole sequence at its
+entry (``TensorParallel.enter``: the token shift, the lerps and the decay
+run on it, as one gather serves the five lerps) and reduce-scatters its
+output (``leave``).  The decode state's ``wkv`` holds the rank's heads
 [L, B, H/m, hd, hd], as ``cache_specs`` splits it; ``x_tm`` and ``x_cm``
 stay whole [L, B, d] on every rank, where ``cache_specs`` splits their d:
 a rank's lerps read the whole previous token, since the stream is whole.
@@ -88,8 +99,8 @@ from repro_torch.mapreduce.executor import _device
 
 from .layers import chunked_cross_entropy, embed, init_norm, layer_norm
 from .layers import remat as remat_block
-from .tensor_parallel import parts
-from .transformer import _readout, split_table
+from .tensor_parallel import parts, row_leaves
+from .transformer import _readout, split_table, stream_in
 
 _LORA = 64
 _MU = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")
@@ -167,15 +178,16 @@ def time_mix(
     """Returns (output [B, L, d], final wkv state [B, H, hd, hd] f32, last
     token of x); the state is written into ``state_out`` when given (which
     may be ``s0``).  Under ``tp``: this rank's heads (the state [B, H/m, hd,
-    hd]), the output summed over the group."""
+    hd]), the output summed over the group (``x`` and the output this rank's
+    rows where ``tp.seq``; the last token that of the whole sequence)."""
+    heads = tp.block(cfg.n_heads) if tp is not None else None
+    if tp is not None:  # every lerp's gradient summed, with each mu's (``part``)
+        x = tp.enter(x, heads is not None)
     b, l, d = x.shape
     hd = cfg.hd
-    heads = tp.block(cfg.n_heads) if tp is not None else None
     h0, h1 = heads or (0, cfg.n_heads)
     c0, c1 = h0 * hd, h1 * hd
     part = parts(tm, "tm/", tp, heads is not None)
-    if heads is not None:
-        x = tp.copy(x)  # every lerp's gradient summed, with each mu's (``part``)
     dt = x.dtype
     dx = _shift(x, x_prev) - x  # once for the five interpolations
 
@@ -200,38 +212,49 @@ def time_mix(
     y = (yn.reshape(b, l, c1 - c0) * part("ln_x/scale", 0, c0, c1, f32)
          + part("ln_x/bias", 0, c0, c1, f32))
     out = (y.to(dt) * g) @ part("Wo", 0, c0, c1, dt)
-    return (out if heads is None else tp.reduce(out)), s, x[:, -1]
+    return (out if tp is None else tp.leave(out, heads is not None)), s, x[:, -1]
 
 
 def channel_mix(cm: dict, x: torch.Tensor, x_prev: torch.Tensor | None = None, tp=None):
     """Returns (output [B, L, d], last token of x).  Under ``tp``: this
     rank's block of d_ff (where it divides the axis), v summed over the
-    group, r whole on every rank."""
+    group, r whole on every rank; where ``tp.seq``, ``x`` and the output are
+    this rank's rows, v is reduce-scattered to them and r computed on them
+    alone."""
     d = x.shape[-1]
     f = cm["Wk"].shape[-1] if tp is None else tp.leaf_split["cm/Wk"][0][1]
+    cols = tp.block(f) if tp is not None else None
+    rows = cols is not None and tp.seq  # r on this rank's rows
+    if tp is not None and tp.seq:
+        x = tp.enter(x, cols is not None)
     dx = _shift(x, x_prev) - x
     dt = x.dtype
-    cols = tp.block(f) if tp is not None else None
     lo, hi = cols or (0, f)
     split = parts(cm, "cm/", tp, cols is not None)
     whole = parts(cm, "cm/", tp, False)
+    # a mu used on this rank's part has its gradient summed over the group
+    mu = split if rows else whole
 
-    def lerp(mu):
-        return x + dx * whole(mu, 0, 0, d).to(dt)
+    def lerp(name, xs=x, dxs=dx):
+        return xs + dxs * mu(name, 0, 0, d).to(dt)
 
-    xk = lerp("mu_k") if cols is None else tp.copy(lerp("mu_k"))
+    xk = tp.copy(lerp("mu_k")) if cols is not None and not rows else lerp("mu_k")
     k = torch.square(F.relu(xk @ split("Wk", 1, lo, hi, dt)))
     v = k @ split("Wv", 0, lo, hi, dt)
+    if rows:
+        r0, r1 = tp.block(x.shape[1])
+        r = torch.sigmoid(lerp("mu_r", x[:, r0:r1], dx[:, r0:r1]) @ split("Wr", 1, 0, d, dt))
+        return r * tp.leave(v, True), x[:, -1]
     if cols is not None:
         v = tp.reduce(v)
     r = torch.sigmoid(lerp("mu_r") @ whole("Wr", 1, 0, d, dt))
-    return r * v, x[:, -1]
+    return (r * v if tp is None else tp.leave(r * v, False)), x[:, -1]
 
 
 def _block_apply(cfg: ArchConfig, blk: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
-    y, _, _ = time_mix(blk["tm"], layer_norm(blk["ln1"], x), cfg, tp=tp)
+    y, _, _ = time_mix(blk["tm"], layer_norm(row_leaves(tp, blk["ln1"]), x), cfg, tp=tp)
     x = x + y
-    y, _ = channel_mix(blk["cm"], layer_norm(blk["ln2"], x), tp=tp)
+    y, _ = channel_mix(blk["cm"], layer_norm(row_leaves(tp, blk["ln2"]), x), tp=tp)
     return x + y
 
 
@@ -243,14 +266,18 @@ def forward_hidden(
     remat: bool = True,
     tp=None,
 ) -> torch.Tensor:
-    """Token embeddings -> final-norm hidden states [B, L, d]; every layer's
-    recurrence starts from a zero state.  ``remat``: each block's
-    activations are recomputed in the backward (only where one will run)."""
-    x = layer_norm(params["ln0"], embed(params["embed"], tokens, dtype, tp))
+    """Token embeddings -> final-norm hidden states [B, L, d], whole on
+    every rank; every layer's recurrence starts from a zero state.
+    ``remat``: each block's activations are recomputed in the backward
+    (only where one will run).  Under ``tp`` the sequence is split between
+    blocks where its length divides the model axis."""
+    x, tp = stream_in(params, tokens, None, dtype, tp)
+    x = layer_norm(row_leaves(tp, params["ln0"]), x)
     run = remat_block if remat else (lambda fn, *args: fn(*args))
     for blk in params["blocks"]:
         x = run(partial(_block_apply, cfg, tp=tp), blk, x)
-    return layer_norm(params["final_norm"], x)
+    x = layer_norm(row_leaves(tp, params["final_norm"]), x)
+    return x if tp is None else tp.enter(x, False)
 
 
 def loss_fn(

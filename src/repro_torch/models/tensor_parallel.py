@@ -28,11 +28,13 @@ Megatron's way:
     where the vocab does not divide) is put together whole (``gather``: an
     ``all_reduce`` of the block placed in zeros) and sliced.
 
-Only ``all_reduce`` and ``broadcast`` go over the model group: the
-collectives gloo takes on CUDA tensors, so one code path runs over NCCL (a
-rank a card), over gloo on the CPU, and over gloo with several ranks on one
-card.  K6, K6b, K7 and K7b are custom autograd functions and run unchanged
-on each rank's heads: the layers work on local tensors, not on DTensors.
+Over the model group go ``all_reduce`` and ``broadcast`` and, for the
+stream's sequence, ``all_gather_into_tensor`` and ``reduce_scatter_tensor``:
+NCCL (a rank a card) and gloo, on the CPU and with several ranks on one card
+(CUDA tensors; torch 2.11 on an H100), take all four, so one code path runs
+over each.  K6, K6b, K7 and K7b are custom autograd functions and run
+unchanged on each rank's heads: the layers work on local tensors, not on
+DTensors.
 
 The MoE family splits its experts as ``_EXPERT_RULES`` place them (expert
 parallelism): where the expert count divides the axis, a rank holds
@@ -47,7 +49,7 @@ before each owner adds them to its experts, one slot at a time in slot
 order.  Where the experts do not divide, the rules split each expert's
 width f (``w_gate``/``w_up`` columns, ``w_down`` rows) and every rank runs
 every slot on its block.  Either way a rank's routed output is partial and
-joins one ``reduce``.
+joins one ``reduce`` (``leave``).
 
 The recurrent families split their heads: RWKV-6's time mix runs K7 (K7b
 under a gradient) on a rank's heads, its channel mix is Megatron's MLP
@@ -56,16 +58,28 @@ shared block attends with its attention heads (``models.mamba2``).  Where
 the heads do not divide the axis every rank runs every head on whole
 leaves, as attention does.
 
-The residual stream stays whole on every rank of a model group (the JAX
-launcher's ``P(dp, "model", None)`` also splits its sequence over "model":
-sequence parallelism, ROADMAP item 29).  The results are the same; the
-activation memory is not.  Norm scales and ``b_down`` act on the whole
-stream and stay bit-identical across a model group: each rank computes the
-same gradient for them.  A replicated leaf that a rank uses only on its own
-part (RWKV-6's ``mu_*``, ``w0``, ``u``, ``ln_x``; Mamba2's ``conv_w``,
-``A_log``, ``D``, ``dt_bias``, ``norm_scale``) is taken through ``local``,
-whose ``copy`` sums its gradient over the group, so it too stays
-bit-identical.
+Sequence parallelism: the residual stream's sequence is split over the
+model group between blocks, as the JAX launcher's ``P(dp, "model", None)``
+splits it (``constrain_activations`` at each block's entry): where the
+stream's length S (a prefix joined on) divides the group's size m, rank r
+holds rows [r S/m, (r+1) S/m) of the [B, S, d] stream (``over``, which
+sets ``seq``); otherwise (decode at L = 1, an odd length) the stream is
+whole on every rank, as ``_apply_spec`` leaves a dim that does not divide.
+There is no switch: the reference splits whenever the model axis is above
+one.  A column-parallel mixer's entry gathers the sequence (``enter``: the
+all-gather, its gradient reduce-scattered, Megatron's g in place of
+``copy``) and its row-parallel exit reduce-scatters the partial outputs
+(``leave``: in place of ``reduce``, the gradient all-gathered); a mixer
+whose heads or columns do not split computes the whole sequence alike on
+every rank from the gathered stream and keeps its rows.  The norms, the
+residual adds and ``b_down`` act on a rank's rows, so their leaves' gradients
+are partial and go through ``copy`` (``row_leaves``); a replicated leaf
+that a rank uses on its own heads or columns (RWKV-6's ``mu_*``, ``w0``,
+``u``, ``ln_x``; Mamba2's ``conv_w``, ``A_log``, ``D``, ``dt_bias``,
+``norm_scale``) is taken through ``local``, whose ``copy`` sums its
+gradient over the group, so every replicated leaf stays bit-identical
+across a model group.  The final norm's rows are gathered for the readout
+(``enter(x, False)``), which stays as it was.
 
 ``leaf_split`` keys a leaf by its path inside its block (``attn/wq``,
 ``mlp/w_down``, ``experts/w_gate``, MoE's shared expert ``shared/w_up``,
@@ -151,6 +165,122 @@ class _Gather(torch.autograd.Function):
         return block.contiguous(), None, None, None, None
 
 
+def _all_gather_rows(x: torch.Tensor, tp) -> torch.Tensor:
+    """The group's blocks [B, n, ...] of a tensor split on dim 1, in rank
+    order: [B, m n, ...], as ``torch.cat`` along dim 1 gives them."""
+    n, m = x.shape[1], tp.size
+    # the collective works on dim 0: each rank's block is one contiguous [B, n, ...]
+    rest = tuple(x.shape[2:])
+    out = x.new_empty((m * x.shape[0], n) + rest)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=tp.group)
+    return out.view((m, x.shape[0], n) + rest).movedim(0, 1).reshape((x.shape[0], m * n) + rest)
+
+
+def _reduce_scatter_rows(x: torch.Tensor, tp) -> torch.Tensor:
+    """The sum over the group of [B, m n, ...]; this rank's rows [B, n, ...]."""
+    m = tp.size
+    n = x.shape[1] // m
+    rest = tuple(x.shape[2:])
+    blocks = x.reshape((x.shape[0], m, n) + rest).movedim(1, 0).reshape((m * x.shape[0], n) + rest)
+    out = x.new_empty((x.shape[0], n) + rest)
+    dist.reduce_scatter_tensor(out, blocks, group=tp.group)
+    return out
+
+
+def _own_rows(x: torch.Tensor, tp) -> torch.Tensor:
+    n = x.shape[1] // tp.size
+    return x.narrow(1, tp.rank * n, n).contiguous()
+
+
+class _SeqGather(torch.autograd.Function):
+    """The whole sequence from the ranks' rows (all-gather); the gradient,
+    a partial sum on each rank, reduce-scattered: for a mixer that computes
+    this rank's part (its heads, its columns) from the whole sequence."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _all_gather_rows(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter_rows(grad, ctx.tp), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """The sum over the group of a partial [B, S, ...], this rank's rows
+    (reduce-scatter); the gradient of the rows all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _reduce_scatter_rows(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_rows(grad, ctx.tp), None
+
+
+class _SeqWhole(torch.autograd.Function):
+    """The whole sequence from the ranks' rows (all-gather), for work that
+    every rank of the group does alike; the gradient, the same on every
+    rank, its own rows back."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _all_gather_rows(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_rows(grad, ctx.tp), None
+
+
+class _SeqSplit(torch.autograd.Function):
+    """This rank's rows of a whole [B, S, ...] that every rank computes
+    alike; the gradient of the rows all-gathered (the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _own_rows(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_rows(grad, ctx.tp), None
+
+
+class _Alike(torch.autograd.Function):
+    """Identity forward on a sequence gathered for partial work
+    (``_SeqGather``), for a use that every rank makes alike (MoE's router):
+    the gradient, the same on every rank, kept on this rank's rows only (0
+    elsewhere), so the gather's reduce-scatter counts it once."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tp = ctx.tp
+        n = grad.shape[1] // tp.size
+        out = torch.zeros_like(grad, memory_format=torch.contiguous_format)
+        out.narrow(1, tp.rank * n, n).copy_(grad.narrow(1, tp.rank * n, n))
+        return out, None
+
+
+def row_leaves(tp, tree):
+    """``tree`` (a norm's leaves, a leaf, or None) for work on this rank's
+    rows of the stream: each tensor through ``copy`` where the stream is
+    split (a rank's gradient is its rows' part), as it is otherwise."""
+    if tp is None or not tp.seq or tree is None:
+        return tree
+    if isinstance(tree, dict):
+        return {key: row_leaves(tp, sub) for key, sub in tree.items()}
+    return tp.copy(tree)
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """One rank's part of a model split over ``mesh``'s "model" axis.
@@ -159,11 +289,13 @@ class TensorParallel:
     param_specs``), ``leaf_split`` maps a leaf's path inside its block
     (``attn/wq``, ``mlp/w_down``, ``tm/Wv``, ...; ``table`` for the
     embedding, ``lm_head`` for the untied head) to (its whole shape, the
-    dim "model" splits or None)."""
+    dim "model" splits or None).  ``seq``: the stream's sequence is split
+    over the group (``over``)."""
 
     mesh: object  # launch.mesh.Mesh
     specs: dict
     leaf_split: dict
+    seq: bool = False
 
     @property
     def size(self) -> int:
@@ -176,6 +308,37 @@ class TensorParallel:
     @property
     def group(self) -> dist.ProcessGroup:
         return self.mesh.group("model")
+
+    def over(self, length: int) -> "TensorParallel":
+        """This split for a stream of ``length`` positions: its sequence
+        split over the group (``seq``) where ``length`` divides the group's
+        size, whole otherwise."""
+        seq = self.size > 1 and length % self.size == 0
+        return self if seq == self.seq else dataclasses.replace(self, seq=seq)
+
+    def enter(self, x: torch.Tensor, split: bool) -> torch.Tensor:
+        """A mixer's input from the stream as this rank holds it: where the
+        sequence is split, gathered whole (``split``: for this rank's part,
+        the gradient reduce-scattered; else for work every rank does alike);
+        else ``x``, through ``copy`` where ``split``."""
+        if self.seq:
+            return (_SeqGather if split else _SeqWhole).apply(x, self)
+        return self.copy(x) if split else x
+
+    def leave(self, y: torch.Tensor, split: bool) -> torch.Tensor:
+        """A mixer's output as the stream takes it: ``split``, this rank's
+        partial sum, summed over the group (reduce-scattered to this rank's
+        rows where the sequence is split); else a whole output every rank
+        computed alike (this rank's rows of it where the sequence is
+        split)."""
+        if self.seq:
+            return (_SeqScatter if split else _SeqSplit).apply(y, self)
+        return self.reduce(y) if split else y
+
+    def alike(self, x: torch.Tensor) -> torch.Tensor:
+        """A sequence gathered by ``enter(x, True)``, for a use every rank
+        makes alike (``_Alike``; the sequence is split)."""
+        return _Alike.apply(x, self)
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         return _Copy.apply(x, self.group)

@@ -20,7 +20,11 @@ whole model on this rank): ``init_params`` then keeps this rank's blocks of
 the leaves, the layers compute on its heads and MLP columns, the readout on
 its vocab block (logits put together over the vocab for serving), and the
 KV cache holds the KV heads of its query heads, as ``cache_specs`` places
-them where the KV heads split.
+them where the KV heads split.  Where the stream's length (a prefix joined
+on) divides the model axis, its sequence is split over it between blocks
+(``TensorParallel.over``): the norms and residual adds act on a rank's rows,
+each mixer gathers the sequence, and the final norm's rows are gathered for
+the readout; the KV cache keeps a rank's heads over the whole sequence.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from .layers import (
     remat as remat_block,
     rotated_qkv,
 )
+from .tensor_parallel import row_leaves
 
 
 def attn_config(cfg: ArchConfig) -> AttnConfig:
@@ -147,12 +152,44 @@ def _layer_flags(cfg: ArchConfig) -> list[bool]:
     return [True] * cfg.n_layers
 
 
+def norm(cfg: ArchConfig, params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``cfg``'s norm of the stream ``x`` as this rank holds it (its rows
+    where ``tp.seq``: the leaves' gradients summed, ``row_leaves``)."""
+    return apply_norm(cfg.norm, row_leaves(tp, params), x)
+
+
 def _block_apply(cfg: ArchConfig, blk: dict, x: torch.Tensor, is_global: bool,
                  tp=None) -> torch.Tensor:
-    h = apply_norm(cfg.norm, blk["ln1"], x)
+    h = norm(cfg, blk["ln1"], x, tp)
     x = x + attention(blk["attn"], attn_config(cfg), h, is_global, tp)
-    h = apply_norm(cfg.norm, blk["ln2"], x)
+    h = norm(cfg, blk["ln2"], x, tp)
     return x + mlp(blk["mlp"], h, cfg.act, tp)
+
+
+def stream_in(params: dict, tokens: torch.Tensor | None, prefix_embeds: torch.Tensor | None,
+              dtype: torch.dtype, tp) -> tuple[torch.Tensor, object]:
+    """The stream entering the first block, (x, the split for its length):
+    the token embeddings, the prefix joined ahead of them; where the joined
+    length divides the model axis, this rank's rows of it."""
+    if tokens is None:
+        if prefix_embeds is None:
+            raise ValueError("need tokens and/or prefix_embeds")
+        x = prefix_embeds.to(dtype)
+        sp = tp.over(x.shape[1]) if tp is not None else None
+        return (x if sp is None else sp.leave(x, False)), sp
+    n = tokens.shape[1] + (prefix_embeds.shape[1] if prefix_embeds is not None else 0)
+    sp = tp.over(n) if tp is not None else None
+    if prefix_embeds is None:
+        return embed(params["embed"], tokens, dtype, sp), sp
+    x = torch.cat([prefix_embeds.to(dtype), embed(params["embed"], tokens, dtype, tp)], dim=1)
+    return (x if sp is None else sp.leave(x, False)), sp
+
+
+def stream_out(cfg: ArchConfig, params: dict, x: torch.Tensor, tp) -> torch.Tensor:
+    """The final norm of the stream, whole on every rank (this rank's rows
+    normed, then gathered, where ``tp.seq``)."""
+    x = norm(cfg, params["final_norm"], x, tp)
+    return x if tp is None else tp.enter(x, False)
 
 
 def forward_hidden(
@@ -164,22 +201,16 @@ def forward_hidden(
     remat: bool = True,
     tp=None,
 ) -> torch.Tensor:
-    """Token (+ prefix) embeddings -> final-norm hidden states [B, L*, d].
-    ``remat``: recompute each block's activations in the backward."""
-    if tokens is None:
-        if prefix_embeds is None:
-            raise ValueError("need tokens and/or prefix_embeds")
-        x = prefix_embeds.to(dtype)
-    else:
-        x = embed(params["embed"], tokens, dtype, tp)
-        if prefix_embeds is not None:
-            x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
+    """Token (+ prefix) embeddings -> final-norm hidden states [B, L*, d],
+    whole on every rank.  ``remat``: recompute each block's activations in
+    the backward."""
+    x, tp = stream_in(params, tokens, prefix_embeds, dtype, tp)
     for blk, is_global in zip(params["blocks"], _layer_flags(cfg)):
         if remat:
             x = remat_block(_block_apply, cfg, blk, x, is_global, tp)
         else:
             x = _block_apply(cfg, blk, x, is_global, tp)
-    return apply_norm(cfg.norm, params["final_norm"], x)
+    return stream_out(cfg, params, x, tp)
 
 
 def logits_table(cfg: ArchConfig, params: dict) -> torch.Tensor:
@@ -250,8 +281,9 @@ def init_kv_cache(
 def _readout(cfg: ArchConfig, params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """Final norm, then last-position logits [B, V] in float32 (the matmul
     runs in the compute dtype, as in the JAX package); under ``tp`` the
-    vocab blocks' logits put together, the same on every rank."""
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+    vocab blocks' logits put together, the same on every rank (``x`` this
+    rank's rows where ``tp.seq``)."""
+    x = stream_out(cfg, params, x, tp)
     if tp is None:
         return (x[:, -1, :] @ logits_table(cfg, params).to(x.dtype).T).float()
     table, split = split_table(cfg, params, x.dtype, tp)
@@ -294,25 +326,28 @@ def prefill(
     Returns (last-position logits, cache).  On the card each full-window
     layer's attention is one K6 launch (under ``tp``, on this rank's heads)."""
     return prefill_with(cfg, params, tokens, cache, dtype, tp,
-                        lambda blk, h: mlp(blk["mlp"], h, cfg.act, tp))
+                        lambda blk, h, tp: mlp(blk["mlp"], h, cfg.act, tp))
 
 
 def prefill_with(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict,
                  dtype: torch.dtype, tp, ffn) -> tuple[torch.Tensor, dict]:
-    """``prefill`` with each block's feed-forward ``ffn(blk, h)`` (the MoE
-    family's routed experts in ``moe.prefill``)."""
-    x = embed(params["embed"], tokens, dtype, tp)
+    """``prefill`` with each block's feed-forward ``ffn(blk, h, tp)`` (the
+    MoE family's routed experts in ``moe.prefill``).  Under ``tp`` the
+    prompt's sequence is split as ``forward_hidden`` splits it, and each
+    layer's k and v, the rank's heads over the whole prompt, come from the
+    gathered sequence."""
+    x, tp = stream_in(params, tokens, None, dtype, tp)
     l = tokens.shape[1]
     for i, (blk, is_global) in enumerate(zip(params["blocks"], _layer_flags(cfg))):
-        h = apply_norm(cfg.norm, blk["ln1"], x)
+        h = norm(cfg, blk["ln1"], x, tp)
         attn, acfg, split = local_attention(blk["attn"], attn_config(cfg), tp)
-        if split:
-            h = tp.copy(h)
+        if tp is not None:
+            h = tp.enter(h, split)
         q, k, v = rotated_qkv(attn, acfg, h)
         cache["k"][i, :, :, :l] = k.to(cache["k"].dtype)
         cache["v"][i, :, :, :l] = v.to(cache["v"].dtype)
         y = attention_output(attn, acfg, attention_core(q, k, v, acfg, is_global))
-        x = x + (tp.reduce(y) if split else y)
-        h = apply_norm(cfg.norm, blk["ln2"], x)
-        x = x + ffn(blk, h)
+        x = x + (y if tp is None else tp.leave(y, split))
+        h = norm(cfg, blk["ln2"], x, tp)
+        x = x + ffn(blk, h, tp)
     return _readout(cfg, params, x, tp), cache

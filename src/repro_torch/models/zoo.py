@@ -18,7 +18,8 @@ the Mamba2 heads and the shared block's heads): the rules' specs
 (``launch.sharding.param_specs`` at that axis's size, no FSDP, as the JAX
 launcher) are reckoned from the whole model's shapes under
 ``FakeTensorMode``, and every member of the ``ModelApi`` works on this
-rank's blocks.
+rank's blocks.  Where a stream's length divides the axis, its sequence
+is split over it between blocks (sequence parallelism, ``tensor_parallel``).
 """
 from __future__ import annotations
 

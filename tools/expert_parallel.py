@@ -40,7 +40,8 @@ every configuration and shape):
 
 ``--smoke`` is ``chip_smoke.py``'s phase 59: two ranks on one card over
 gloo (CUDA tensors), a (1, 2) mesh, qwen2-moe-a2.7b at full width cut to
-depth 2 with 8 replica slots, each rank printing one ``RESULT`` line.
+depth 2 with 8 replica slots, each rank printing one ``RESULT`` line (with
+the stream's shape at a block's entry: the sequence split over "model").
 
 Every figure is printed beside the card's name and power limit, and the
 whole record is written to ``build/expert_parallel.json``.  Exits
@@ -74,6 +75,7 @@ from tensor_parallel import (  # noqa: E402  (the sibling tool's helpers)
     _say,
     _sync,
     _tokens,
+    block_entries,
     serve_split,
     traced,
 )
@@ -275,7 +277,8 @@ def time_steps(cfg, mesh, shape, extra, dev, steps=5, warm=2) -> dict:
     fetch = moe.fetch_bytes(cfg, extra, torch.bfloat16, model.tp)
     out = {"ms": ms, "median_ms": med, "tokens_per_s": shape[0] * shape[1] / med * 1e3,
            "peak_gib": _peak_gib(dev), "model_collective_share": sum(w[0] for w in waits) / sum(ms),
-           "model_collectives_per_step": waits[0][1], "metrics": metrics,
+           "model_collectives_per_step": waits[0][1],
+           "model_bytes_by_kind_per_step": waits[0][3], "metrics": metrics,
            "metrics_and_replicated_same_bits": same,
            # forward, the rematerialised forward, and the backward's gradients
            "fetch_bytes_per_layer": fetch, "fetch_bytes_per_step": 3 * cfg.n_layers * fetch,
@@ -330,11 +333,13 @@ def smoke(dev, reduced: bool) -> dict:
         with torch.no_grad():
             params = model.init_params(0)
             LOG.on = True
-            loss = float(model.loss_fn(params, {"tokens": tokens}, dtype=torch.float32, **kw))
+            with block_entries(cfg) as shapes:
+                loss = float(model.loss_fn(params, {"tokens": tokens}, dtype=torch.float32, **kw))
             ints = [[d.loads.sum(1).tolist(), int((d.pos < 0).sum()), d.slot_expert.tolist()]
                     for d in LOG.take()]
             toks, logits, _ = _generate(model, params, prompts, 5, torch.float32, moe.prefill)
-        return {"loss": loss, "ints": ints, "tokens": toks.tolist(), "logits": logits.cpu()}
+        return {"loss": loss, "ints": ints, "tokens": toks.tolist(), "logits": logits.cpu(),
+                "stream": shapes[0], "stream_same": all(x == shapes[0] for x in shapes)}
 
     def train_part(model):
         params, state = init_train_state(model, 0)
@@ -363,6 +368,7 @@ def smoke(dev, reduced: bool) -> dict:
     logits_rel = float((got["logits"] - one["logits"]).abs().max() / one["logits"].abs().max())
     return {
         "rank": dist.get_rank(), "loss": got["loss"], "loss_one": one["loss"],
+        "stream": got["stream"], "stream_one": one["stream"], "stream_same": got["stream_same"],
         "loss_rel": abs(got["loss"] - one["loss"]) / abs(one["loss"]),
         "logits_rel": logits_rel, "dispatch_equal": got["ints"] == one["ints"],
         "dropped": [i[1] for i in got["ints"]], "slot_expert": got["ints"][0][2],
@@ -429,7 +435,8 @@ def main(argv=None) -> int:
                      f"{[round(x, 2) for x in got['ms']]}, {got['tokens_per_s']:.0f} tokens/s, "
                      f"peak {got['peak_gib_by_rank']} GiB, model-axis collectives "
                      f"{100 * got['model_collective_share']:.2f} % "
-                     f"({got['model_collectives_per_step']} a step), replica-slot fetch "
+                     f"({got['model_collectives_per_step']} a step, "
+                     f"{got['model_bytes_by_kind_per_step']} bytes by kind), replica-slot fetch "
                      f"{got['fetch_bytes_per_step']} bytes a step ({got['fetch_bytes_per_layer']} a "
                      f"layer's forward); drop rate {ld['drop_rate']:.4f}, arrivals a rank "
                      f"{ld['arrivals']['by_rank']} (max/mean {ld['arrivals']['max_over_mean']:.4f}),"

@@ -2,7 +2,7 @@
 the witnesses that the checks of ``tools/tensor_parallel.py --runs
 rwkv6,zamba2`` and of ``chip_smoke.py``'s phase 60 are read against.
 
-  PYTHONPATH=src python tools/recurrent_precision.py [--parts kernels,fp32,bf16]
+  PYTHONPATH=src python tools/recurrent_precision.py [--parts kernels,fp32,bf16,seeds]
   PYTHONPATH=src python tools/recurrent_precision.py --device cpu --reduced
 
 ``--parts`` (every one by default):
@@ -32,6 +32,12 @@ rwkv6,zamba2`` and of ``chip_smoke.py``'s phase 60 are read against.
   the whole model's fp32 gradient at the same weights: the global norms,
   the distances, and the leaves where the split lies furthest beyond the
   whole model.
+* ``seeds``: phases 58 and 60's same-weights factor witnessed over weight
+  and batch seeds 0-3 (``SEEDS``) of phase 60's two configurations at its
+  [2, 512] shape, under its (1, 2) split (sequence parallelism: the stream
+  split two ways between blocks; two ranks over gloo on the one card): each
+  seed's split bf16 distance from the whole model's fp32 gradient over the
+  whole model's own, and, where it exceeds 1.5, that ratio for each leaf.
 
 Prints one ``RESULT`` JSON line and, before it, the card's name and power
 limit.  Measures, asserts nothing.
@@ -39,6 +45,7 @@ limit.  Measures, asserts nothing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -167,9 +174,9 @@ def _names(cfg) -> list[str]:
         return _paths(build_model(cfg, "cpu").init_params(0))
 
 
-def _grads(cfg, dev, tokens, dtype) -> tuple[float, list[torch.Tensor]]:
+def _grads(cfg, dev, tokens, dtype, seed: int = 0) -> tuple[float, list[torch.Tensor]]:
     model = build_model(cfg, dev)
-    params = model.init_params(0)
+    params = model.init_params(seed)
     for p in leaves(params):
         p.requires_grad_(True)
     loss = model.loss_fn(params, {"tokens": tokens}, dtype=dtype)
@@ -177,18 +184,26 @@ def _grads(cfg, dev, tokens, dtype) -> tuple[float, list[torch.Tensor]]:
     return float(loss), [p.grad.detach() for p in leaves(params)]
 
 
-def f64_worker(name: str, reduced: bool, dev: str, out: str) -> None:
-    """The four-card check's gradients in float64 on the CPU: the weights
-    drawn in fp32 on ``dev`` (each device's generator draws its own
-    numbers), then the model's fp32 read as float64 (``Tensor.float``,
-    ``torch.float32``) for this process."""
+def f64_worker(name: str, reduced: bool, dev: str, out: str, layers: int | None = None,
+               ready: str | None = None) -> None:
+    """The four-card check's gradients in float64 on the CPU: ``name`` cut
+    to ``layers`` (default: as ``_cfg`` cuts it), the weights drawn in fp32
+    on ``dev`` (each device's generator draws its own numbers; ``ready`` is
+    written once they have left the device), then the model's fp32 read as
+    float64 (``Tensor.float``, ``torch.float32``) for this process."""
     torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
     cfg = _cfg(name, reduced)
+    if layers is not None:
+        base = get_config(name)
+        cfg = dataclasses.replace(base.reduced() if reduced else base, n_layers=layers)
     model = build_model(cfg, "cpu")
     params = map_tree(lambda p: p.cpu(), build_model(cfg, dev).init_params(0))
     torch.cuda.empty_cache()
+    if ready:
+        Path(ready).write_text("drawn")
     tokens = _tokens(cfg, (4, 32) if reduced else (4, 256), 1, "cpu")
     import repro_torch.kernels.wkv6 as k7
+    single = torch.float32  # the saved gradients' dtype, before fp32 reads as float64
     torch.Tensor.float = torch.Tensor.double
     torch.float32 = torch.float64
     k7.INPUT_DTYPES = k7.INPUT_DTYPES + (torch.float64,)
@@ -197,8 +212,7 @@ def f64_worker(name: str, reduced: bool, dev: str, out: str) -> None:
         p.requires_grad_(True)
     loss = model.loss_fn(params, {"tokens": tokens}, dtype=torch.float64)
     loss.backward()
-    torch.save({"loss": float(loss), "grads": [p.grad.to(torch.float32) for p in leaves(params)]},
-               out)
+    torch.save({"loss": float(loss), "grads": [p.grad.to(single) for p in leaves(params)]}, out)
 
 
 def _worst(got: list[torch.Tensor], want: list[torch.Tensor], names: list[str], n: int = 3):
@@ -358,16 +372,96 @@ def bf16(dev, reduced: bool, tmp: str) -> dict:
     return out
 
 
+SEEDS = range(4)
+
+
+def _seed_tokens(cfg, reduced: bool, seed: int, dev):
+    return _tokens(cfg, (2, 64) if reduced else (2, 512), seed, dev)
+
+
+def seeds_split_worker(rank: int, reduced: bool, dev: str, out: str) -> None:
+    """Rank ``rank`` of two over gloo on one device: phase 60's (1, 2)
+    split, under sequence parallelism, at weight and batch seeds 0-3, the
+    first step's bf16 gradients put together whole; rank 0 saves them."""
+    dist.init_process_group("gloo", init_method=f"file://{out}.store", rank=rank,
+                            world_size=2)
+    dev = torch.device(dev)
+    mesh, got = make_mesh((1, 2), ("data", "model"), dev), {}
+    for name in NAMES:
+        cfg = _cfg(name, reduced)
+        model = build_model(cfg, dev, tp=mesh)
+        for seed in SEEDS:
+            params = model.init_params(seed)
+            for p in leaves(params):
+                p.requires_grad_(True)
+            grads = tp_grads(model, params, {"tokens": _seed_tokens(cfg, reduced, seed, dev)},
+                             torch.bfloat16)
+            got[(name, seed)] = [gather_leaf(g, spec, mesh).cpu()
+                                 for g, spec in zip(grads, spec_leaves(model.tp.specs))]
+            del params, grads
+    if rank == 0:
+        torch.save(got, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def seeds(dev, reduced: bool, tmp: str) -> dict:
+    """Item 34's witness of phases 58 and 60's same-weights factor: for each
+    weight and batch seed 0-3 of phase 60's two configurations, the split's
+    bf16 distance from the whole model's fp32 gradient over the whole
+    model's own bf16 distance (the factor the check holds to 2); where it
+    exceeds 1.5, the same ratio for each leaf."""
+    split_path = os.path.join(tmp, "seeds_split.pt")
+    flag = ["--reduced"] * reduced + ["--device", str(dev)]
+    workers = [_start(["--seeds-split-worker", str(r), split_path] + flag) for r in range(2)]
+    assert all(p.wait() == 0 for p in workers), "the split runs failed"
+    split = torch.load(split_path)
+    out = {}
+    for name in NAMES:
+        cfg = _cfg(name, reduced)
+        names = _names(cfg)
+        for seed in SEEDS:
+            tokens = _seed_tokens(cfg, reduced, seed, dev)
+            _, g16 = _grads(cfg, dev, tokens, torch.bfloat16, seed)
+            _, g32 = _grads(cfg, dev, tokens, torch.float32, seed)
+            g16, g32 = [g.cpu().double() for g in g16], [g.cpu().double() for g in g32]
+            gs = [g.double() for g in split[(name, seed)]]
+            e16 = _tree_norm([a - b for a, b in zip(g16, g32)])
+            es = _tree_norm([a - b for a, b in zip(gs, g32)])
+            r = out[f"{name}/{seed}"] = {"off_fp32_whole": e16, "off_fp32_split": es,
+                                         "ratio": es / e16, "norm_fp32": _tree_norm(g32)}
+            if r["ratio"] > 1.5:
+                leaf = sorted(((float((s_ - w).norm() / max(float((a - w).norm()), 1e-30)), n)
+                               for a, s_, w, n in zip(g16, gs, g32, names)), reverse=True)
+                r["leaf_ratios"] = [[round(x, 4), n] for x, n in leaf]
+            _say(f"[seeds] {name} depth {cfg.n_layers}, weights and batch seed {seed}, "
+                 f"[{tokens.shape[0]}, {tokens.shape[1]}]: the first step's bf16 gradient off the "
+                 f"whole model's fp32 one: the whole model {e16:.6g}, the (1, 2) split {es:.6g} "
+                 f"(ratio {r['ratio']:.4f}; the check holds it to 2)"
+                 + (f"; by leaf, the largest {r['leaf_ratios'][:8]}" if "leaf_ratios" in r else ""))
+    worst = max(r["ratio"] for r in out.values())
+    _say(f"[seeds] the largest ratio over {len(out)} runs: {worst:.4f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tools/recurrent_precision.py")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--parts", default="kernels,fp32,bf16")
+    ap.add_argument("--parts", default="kernels,fp32,bf16,seeds")
     ap.add_argument("--f64-worker", nargs=2, metavar=("NAME", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--layers", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--ready", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--split-worker", nargs=2, metavar=("RANK", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--bf16-split-worker", nargs=2, metavar=("RANK", "OUT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--seeds-split-worker", nargs=2, metavar=("RANK", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.seeds_split_worker:
+        seeds_split_worker(int(args.seeds_split_worker[0]), args.reduced, args.device,
+                           args.seeds_split_worker[1])
+        return 0
     if args.bf16_split_worker:
         bf16_split_worker(int(args.bf16_split_worker[0]), args.reduced, args.device,
                           args.bf16_split_worker[1])
@@ -379,7 +473,8 @@ def main(argv=None) -> int:
         split_worker(int(args.split_worker[0]), args.reduced, args.device, args.split_worker[1])
         return 0
     if args.f64_worker:
-        f64_worker(args.f64_worker[0], args.reduced, args.device, args.f64_worker[1])
+        f64_worker(args.f64_worker[0], args.reduced, args.device, args.f64_worker[1],
+                   args.layers, args.ready)
         return 0
     dev = torch.device(args.device)
     card = "cpu"
@@ -400,6 +495,9 @@ def main(argv=None) -> int:
     if "bf16" in parts:
         with tempfile.TemporaryDirectory() as tmp:
             res["bf16"] = bf16(dev, args.reduced, tmp)
+    if "seeds" in parts:
+        with tempfile.TemporaryDirectory() as tmp:
+            res["seeds"] = seeds(dev, args.reduced, tmp)
     res["seconds"] = time.perf_counter() - t0
     _say(f"[card] {card}")
     _say("RESULT " + json.dumps(res))

@@ -18,9 +18,11 @@ every configuration and shape):
    data-group mean on a global [8, 2048] batch, two to warm up, then the
    median ms of five, tokens a second, each rank's peak memory, and the
    share of a step the compute stream waits on model-axis collectives
-   (CUDA events around each ``all_reduce``/``broadcast`` over the model
-   group), with ``--mesh host``'s step beside them where the whole model
-   and its AdamW state fit a card (olmo-1b; granite-3-8b's 8.2e9
+   (CUDA events around each ``all_reduce``, ``broadcast``,
+   ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` over the model
+   group; their buffers' bytes by kind), with ``--mesh host``'s step
+   beside them where the whole model and its AdamW state fit a card
+   (olmo-1b; granite-3-8b's 8.2e9
    parameters take 131 GB of fp32 state a card, so its host step does
    not run).  The bytes a step's leaf gathers move (leaves the rules split
    otherwise than their use: granite's tied table split on d) are counted.
@@ -42,13 +44,22 @@ every configuration and shape):
    (the logits after a [2, 64] prompt, fed token by token as
    ``greedy_generate`` does, to 1e-4 relative, and 8 greedy tokens equal).
 
-Beside each check stands the unsplit model run with the split run's rows
-(each data group's on every rank of it) against ``--mesh host``: how far
-the rows a rank sums move the gradients with no split at all.
+Every split runs under sequence parallelism where the length divides the
+model axis (the stream [B, S/m, d] a rank between blocks).  Beside each check stands the
+unsplit model run with the split run's rows (each data group's on every
+rank of it) against ``--mesh host``: how far the rows a rank sums move the
+gradients with no split at all; and the float64 witness
+(``Float64Witness``: the same weights in float64 on the CPU, run by
+``tools/recurrent_precision.py``'s ``f64_worker`` while the cards work):
+each split's and ``--mesh host``'s worst-leaf gradient error against it,
+the split passing where its error is at most the host's plus
+``GRAD_TOL``.  The 1e-4 check against ``--mesh host`` alone decides the
+exit code.
 
 ``--smoke`` is ``chip_smoke.py``'s phase 58: two ranks on one card over
 gloo (CUDA tensors), a (1, 2) mesh, olmo-1b at full width cut to depth 2,
-each rank printing one ``RESULT`` line; ``--smoke --recurrent`` is phase
+each rank printing one ``RESULT`` line (with the stream's shape at a
+block's entry, ``block_entries``); ``--smoke --recurrent`` is phase
 60: rwkv6-3b at full width cut to depth 2 and zamba2-2.7b cut to depth 6
 on the same mesh (the logits of the prompts from a parallel forward: K7,
 or the SSD and K6, on the rank's heads; 5 greedy tokens after 8 prompt
@@ -60,14 +71,18 @@ non-zero when a check misses its tolerance.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import hashlib
+import inspect
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -82,7 +97,7 @@ from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.launch.sharding import (gather_leaf, gather_tree, shard_slices, sharded_flags,
                                          spec_leaves)
 from repro_torch.launch.train import _mean_over
-from repro_torch.models import build_model, transformer
+from repro_torch.models import build_model, mamba2, moe, rwkv6, transformer
 from repro_torch.serve import greedy_generate
 from repro_torch.serve.engine import _argmax, scan_prefill
 from repro_torch.train import OptConfig, init_train_state, make_train_step
@@ -113,36 +128,49 @@ def _reset_peak(dev) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
 
 
+# the collectives over the model group, and which argument holds the whole
+# buffer: an all-gather's output, a reduce-scatter's input
+KINDS = {"all_reduce": 0, "broadcast": 0, "all_gather_into_tensor": 0,
+         "reduce_scatter_tensor": 1}
+
+
 class CollectiveClock:
-    """CUDA events around every ``all_reduce`` and ``broadcast`` over one
-    group, while ``on``: the time the compute stream waits on them.  (A
-    wrapper of ``torch.distributed``'s functions, for this tool only.)"""
+    """CUDA events around every ``all_reduce``, ``broadcast``,
+    ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` over one group,
+    while ``on``: the time the compute stream waits on them, and the bytes
+    of each one's whole buffer by kind (an all-reduce's tensor, an
+    all-gather's output, a reduce-scatter's input: on a ring an all-reduce
+    moves (m-1)/m of its buffer twice, the other two once).  (A wrapper of
+    ``torch.distributed``'s functions, for this tool only.)"""
 
     def __init__(self, group, dev):
-        self.group, self.dev, self.on, self.pairs, self.bytes = group, dev, False, [], 0
-        self._orig = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+        self.group, self.dev, self.on, self.pairs = group, dev, False, []
+        self.bytes = dict.fromkeys(KINDS, 0)
+        self._orig = {name: getattr(dist, name) for name in KINDS}
         for name, fn in self._orig.items():
-            setattr(dist, name, self._wrap(fn))
+            setattr(dist, name, self._wrap(name, fn))
 
-    def _wrap(self, fn):
-        def timed(tensor, *a, group=None, **kw):
+    def _wrap(self, name, fn):
+        def timed(*a, group=None, **kw):
             if not (self.on and group is self.group and self.dev.type == "cuda"):
-                return fn(tensor, *a, group=group, **kw)
-            self.bytes += tensor.numel() * tensor.element_size()
+                return fn(*a, group=group, **kw)
+            whole = a[KINDS[name]]
+            self.bytes[name] += whole.numel() * whole.element_size()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            out = fn(tensor, *a, group=group, **kw)
+            out = fn(*a, group=group, **kw)
             end.record()
             self.pairs.append((start, end))
             return out
         return timed
 
-    def take_ms(self) -> tuple[float, int, int]:
-        """(ms, calls, bytes) since the last take."""
+    def take_ms(self) -> tuple[float, int, int, dict]:
+        """(ms, calls, bytes, bytes by kind) since the last take."""
         _sync(self.dev)
         ms = sum(s.elapsed_time(e) for s, e in self.pairs)
-        out = ms, len(self.pairs), self.bytes
-        self.pairs, self.bytes = [], 0
+        kinds = {k: v for k, v in self.bytes.items() if v}
+        out = ms, len(self.pairs), sum(kinds.values()), kinds
+        self.pairs, self.bytes = [], dict.fromkeys(KINDS, 0)
         return out
 
     def close(self) -> None:
@@ -174,6 +202,34 @@ def traced(fn, dev) -> tuple:
     return out, {"host_ms": wall[0], "busy_ms": sum(us.values()) / 1e3,
                  "nccl_ms": sum(v for k, v in us.items() if "nccl" in k.lower()) / 1e3,
                  "top_ms": {k[:80]: v / 1e3 for k, v in top}}
+
+
+# each family's functions that take the stream at a block's entry
+_BLOCKS = {"moe": (moe, ("_block_apply",)), "ssm": (rwkv6, ("_block_apply",)),
+           "hybrid": (mamba2, ("_mamba_body", "_shared_apply"))}
+
+
+@contextlib.contextmanager
+def block_entries(cfg):
+    """A list of the stream's shape each time one of ``cfg``'s blocks is
+    entered, while inside: [B, S/m, d] on a rank whose stream is split (a
+    wrapper of the family's block functions, for this tool only)."""
+    mod, names = _BLOCKS.get(cfg.family, (transformer, ("_block_apply",)))
+    shapes, saved = [], {}
+    for name in names:
+        fn = saved[name] = getattr(mod, name)
+        sig = inspect.signature(fn)
+
+        def recorded(*a, _fn=fn, _sig=sig, **kw):
+            shapes.append(list(_sig.bind(*a, **kw).arguments["x"].shape))
+            return _fn(*a, **kw)
+
+        setattr(mod, name, recorded)
+    try:
+        yield shapes
+    finally:
+        for name, fn in saved.items():
+            setattr(mod, name, fn)
 
 
 def _tokens(cfg, shape, seed, dev) -> torch.Tensor:
@@ -231,17 +287,99 @@ def _worst(grads, want, tp, names, dev) -> tuple[float, str]:
     return worst
 
 
-def check(cfg, meshes, shape, dev) -> dict:
+class Float64Witness:
+    """``tools/recurrent_precision.py``'s ``f64_worker`` started by rank 0:
+    ``cfg``'s gradients on the check's batch in float64 on the CPU while the
+    cards work, from the weights the cards draw (it draws them on rank 0's
+    device first; ``start`` returns once they have left it).  ``grads()``:
+    every rank's view of them (a memory map of one file).  Not started
+    where the host has too little memory for a float64 model beside the
+    ranks' fp32 copies (``fits``)."""
+
+    def __init__(self, cfg, reduced: bool, dev):
+        self.cfg, self.reduced, self.dev, self.proc, self.dir = cfg, reduced, dev, None, None
+        with FakeTensorMode():
+            self.n = sum(p.numel() for p in leaves(build_model(cfg, "cpu").init_params(0)))
+        self.need = 20 * self.n  # float64 parameters and gradients, one fp32 copy
+        self.why = ""
+
+    def fits(self) -> bool:
+        """Within half the host's available memory (the ranks hold fp32
+        copies of the whole gradient beside it), its fp32 gradients' file
+        within half the free disk."""
+        self.dir = tempfile.mkdtemp(prefix="f64_")
+        mem = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        disk = shutil.disk_usage(self.dir).free
+        self.why = (f"the float64 model's {self.need / GiB:.0f} GiB against {mem / GiB:.0f} GiB "
+                    f"of available memory, its {4 * self.n / GiB:.0f} GiB file against "
+                    f"{disk / GiB:.0f} GiB of free disk")
+        return 2 * self.need <= mem and 8 * self.n <= disk
+
+    def start(self) -> bool:
+        go = self.fits() if dist.get_rank() == 0 else False
+        if go:
+            ready = os.path.join(self.dir, "ready")
+            self.proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "tools" / "recurrent_precision.py"), "--f64-worker",
+                 self.cfg.name, os.path.join(self.dir, "grads.pt"), "--layers",
+                 str(self.cfg.n_layers), "--ready", ready, "--device", self.dev.type]
+                + ["--reduced"] * self.reduced, env=dict(os.environ))
+            while not os.path.exists(ready):
+                if self.proc.poll() is not None:
+                    go, self.why = False, (f"the float64 worker exited {self.proc.returncode} "
+                                           f"before its weights were drawn")
+                    break
+                time.sleep(0.5)
+        flag = [go]
+        dist.broadcast_object_list(flag, src=0)
+        return flag[0]
+
+    def grads(self) -> list[torch.Tensor] | None:
+        """The float64 gradients (rounded to fp32), or None where the
+        worker exited with an error (``why`` says so)."""
+        path = [None]
+        if dist.get_rank() == 0:
+            rc = self.proc.wait()
+            path = [os.path.join(self.dir, "grads.pt") if rc == 0 else None]
+            self.why = f"the float64 worker exited {rc}"
+        dist.broadcast_object_list(path, src=0)
+        return torch.load(path[0], mmap=True)["grads"] if path[0] else None
+
+    def close(self) -> None:
+        dist.barrier()
+        if self.proc is not None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.dir:
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _rel_worst(got, want, names) -> tuple[float, str]:
+    """The largest error of ``got`` over whole leaves ``want``, relative to
+    each leaf's largest entry, and its leaf."""
+    return max((float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30), name)
+               for a, b, name in zip(got, want, names))
+
+
+def check(cfg, meshes, shape, dev, reduced=False) -> dict:
     """The split runs' loss and gradients against ``--mesh host`` at this
     world (``ok`` where they hold ``LOSS_TOL`` and ``GRAD_TOL``), beside
     the unsplit model's with the split run's batch layout (each data
     group's rows on every rank of it) against the same: what the rows a
-    rank sums alone move, the noise the tolerance must clear."""
+    rank sums alone move, the noise the tolerance must clear.  Beside
+    them, the float64 witness (``Float64Witness``): the split's and
+    ``--mesh host``'s worst-leaf errors against the same weights in
+    float64, ``f64_ok`` where the split's is at most the host's plus
+    ``GRAD_TOL``.  ``ok`` alone decides the tool's exit code."""
     tokens = _tokens(cfg, shape, 1, dev)
     _reset_peak(dev)
+    witness = Float64Witness(cfg, reduced, dev)
+    witnessed = witness.start()
     host_loss, host_grads, _ = _loss_and_grads(cfg, make_host_mesh("data", dev), tokens, dev)
     with FakeTensorMode():
         names = _paths(build_model(cfg, "cpu").init_params(0))
+    f64 = witness.grads() if witnessed else None
+    host_f64 = _rel_worst(host_grads, f64, names) if f64 is not None else None
     out = {}
     for m in meshes:
         mesh = make_mesh(m, ("data", "model"), dev)
@@ -249,10 +387,11 @@ def check(cfg, meshes, shape, dev) -> dict:
         _, same_grads, _ = _loss_and_grads(cfg, mesh, tokens, dev, split=False)
         host, same = _worst(grads, host_grads, tp, names, dev), _worst(grads, same_grads, tp,
                                                                         names, dev)
-        layout = max((float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30), name)
-                     for a, b, name in zip(same_grads, host_grads, names))
+        layout = _rel_worst(same_grads, host_grads, names)
+        del same_grads
         rel = abs(loss - host_loss) / abs(host_loss)
-        out[f"{m[0]}x{m[1]}"] = {
+        key = f"{m[0]}x{m[1]}"
+        out[key] = {
             "loss": loss, "host_loss": host_loss, "loss_rel": rel,
             "grad_rel_max": host[0], "worst_leaf": host[1],
             "grad_rel_max_same_layout": same[0], "worst_leaf_same_layout": same[1],
@@ -263,6 +402,19 @@ def check(cfg, meshes, shape, dev) -> dict:
              f"off --mesh host's at most ({host[1]}; tol {GRAD_TOL}); the unsplit model with this "
              f"mesh's rows {layout[0]:.3g} off --mesh host's ({layout[1]}), the split "
              f"{same[0]:.3g} off it ({same[1]})")
+        if f64 is None:
+            _say(f"[f64] {cfg.name} {m}: not run ({witness.why})")
+            continue
+        split_f64 = _worst(grads, f64, tp, names, dev)
+        out[key].update({"f64_grad_rel_max": split_f64[0], "f64_worst_leaf": split_f64[1],
+                         "host_f64_grad_rel_max": host_f64[0], "host_f64_worst_leaf": host_f64[1],
+                         "f64_ok": split_f64[0] <= host_f64[0] + GRAD_TOL})
+        _say(f"[f64] {cfg.name} {m}: against the same weights in float64, the split's gradients "
+             f"{split_f64[0]:.3g} of each leaf's largest entry off at most ({split_f64[1]}), "
+             f"--mesh host's {host_f64[0]:.3g} ({host_f64[1]}); the split within the host's "
+             f"error plus {GRAD_TOL}: {out[key]['f64_ok']}")
+    del f64
+    witness.close()
     return out
 
 
@@ -311,7 +463,8 @@ def time_steps(cfg, mesh, shape, dev, steps=5, warm=2) -> dict:
     out = {"ms": ms, "median_ms": med, "tokens_per_s": shape[0] * shape[1] / med * 1e3,
            "peak_gib": _peak_gib(dev), "model_collective_share": share,
            "model_collectives_per_step": waits[0][1],
-           "model_allreduce_bytes_per_step": waits[0][2], "losses": losses,
+           "model_collective_bytes_per_step": waits[0][2],
+           "model_bytes_by_kind_per_step": waits[0][3], "losses": losses,
            "gathered_bytes_per_step": _gathered_bytes(model.tp, torch.bfloat16),
            "k6": counts["flash_attention"], "k6b": counts["flash_attention_bwd"],
            "k7": counts["wkv6"], "k7b": counts["wkv6_bwd"], "traced_step": trace}
@@ -519,7 +672,9 @@ def _smoke_config(cfg, dev, reduced: bool) -> dict:
     def run(model):
         with torch.no_grad():
             params = model.init_params(0)
-            loss = float(model.loss_fn(params, {"tokens": tokens}, dtype=torch.float32))
+            with block_entries(cfg) as shapes:
+                loss = float(model.loss_fn(params, {"tokens": tokens}, dtype=torch.float32))
+            stream.append(shapes)
             if recurrent:  # no parallel prefill: the logits of a forward, tokens after 8
                 logits = _forward_logits(model, params, prompts, torch.float32)
                 toks = torch.from_numpy(greedy_generate(
@@ -543,17 +698,21 @@ def _smoke_config(cfg, dev, reduced: bool) -> dict:
                if not f]
         return loss, toks, logits, metrics, rep, same
 
-    witness = {}
+    witness, stream = {}, []
     loss1, toks1, logits1, metrics1, _, _ = run(build_model(cfg, dev))
     _sync(dev)
     reset_launches()
     t = time.perf_counter()
-    loss, toks, logits, metrics, rep, same = run(build_model(cfg, dev, tp=mesh))
+    split = build_model(cfg, dev, tp=mesh)
+    loss, toks, logits, metrics, rep, same = run(split)
     _sync(dev)
     path_s = time.perf_counter() - t
     counts = {k: n - witness.get(k, 0) for k, n in launches().items()}
     return {
         "rank": dist.get_rank(), "layers": cfg.n_layers, "loss": loss, "loss_one": loss1,
+        # the stream at each block's entry of the fp32 loss: the whole model's, this rank's
+        "stream_one": stream[0][0], "stream": stream[1][0],
+        "stream_blocks": len(stream[1]), "stream_same": all(x == stream[1][0] for x in stream[1]),
         "loss_rel": abs(loss - loss1) / abs(loss1),
         "logits_rel": float((logits - logits1).abs().max() / logits1.abs().max()),
         "tokens": toks.tolist(), "tokens_one": toks1.tolist(),
@@ -591,8 +750,9 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", default="olmo,granite,command-r")
     args = ap.parse_args(argv)
     cuda = args.device == "cuda"
+    # the float64 witness of a large model may hold the ranks for minutes
     dist.init_process_group(args.backend or ("nccl" if cuda else "gloo"),
-                            timeout=datetime.timedelta(seconds=300))
+                            timeout=datetime.timedelta(seconds=1800))
     try:
         if cuda:
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
@@ -622,7 +782,7 @@ def main(argv=None) -> int:
         if "olmo" in runs:
             cfg = get("olmo-1b")
             meshes = [(world // 2, 2), (1, world)]
-            res["olmo-1b"] = {"check": check(cfg, meshes, check_shape, dev)}
+            res["olmo-1b"] = {"check": check(cfg, meshes, check_shape, dev, args.reduced)}
             for m in meshes + ["host"]:
                 mesh = make_host_mesh("data", dev) if m == "host" else make_mesh(
                     m, ("data", "model"), dev)
@@ -633,18 +793,22 @@ def main(argv=None) -> int:
                      f"ms a step of {[round(x, 2) for x in got['ms']]}, "
                      f"{got['tokens_per_s']:.0f} tokens/s, peak {got['peak_gib_by_rank']} GiB, "
                      f"model-axis collectives {100 * got['model_collective_share']:.2f} % "
-                     f"({got['model_collectives_per_step']} a step), K6 {got['k6']} K6b "
+                     f"({got['model_collectives_per_step']} a step, "
+                     f"{got['model_bytes_by_kind_per_step']} bytes by kind), K6 {got['k6']} K6b "
                      f"{got['k6b']} over 7 steps; one traced step {got['traced_step']} [{card}]")
         if "granite" in runs:
             cfg = get("granite-3-8b")
-            res["granite-3-8b"] = {"check": check(cfg, [(1, world)], check_shape, dev)}
+            res["granite-3-8b"] = {"check": check(cfg, [(1, world)], check_shape, dev,
+                                                  args.reduced)}
             got = time_steps(cfg, make_mesh((1, world), ("data", "model"), dev), time_shape, dev)
             res["granite-3-8b"][f"1x{world}"] = got
             _say(f"[time] granite-3-8b 1x{world} bf16 {list(time_shape)}: median "
                  f"{got['median_ms']:.2f} ms a step of {[round(x, 2) for x in got['ms']]}, "
                  f"{got['tokens_per_s']:.0f} tokens/s, peak {got['peak_gib_by_rank']} GiB, "
-                 f"model-axis collectives {100 * got['model_collective_share']:.2f} %, "
-                 f"{got['gathered_bytes_per_step']} bytes gathered a step, K6 {got['k6']} K6b "
+                 f"model-axis collectives {100 * got['model_collective_share']:.2f} % "
+                 f"({got['model_collectives_per_step']} a step, "
+                 f"{got['model_bytes_by_kind_per_step']} bytes by kind), "
+                 f"{got['gathered_bytes_per_step']} bytes of leaves gathered a step, K6 {got['k6']} K6b "
                  f"{got['k6b']}; one traced step {got['traced_step']} [{card}]; --mesh host: not run (the whole model's fp32 params, "
                  f"gradients and AdamW moments, 131 GB, exceed a card)")
         if "command-r" in runs:
@@ -654,7 +818,7 @@ def main(argv=None) -> int:
                 continue
             cfg = get(name)
             res[name] = {"check": check(_cut(cfg, 2), [(world // 2, 2), (1, world)], check_shape,
-                                        dev)}
+                                        dev, args.reduced)}
             for m in [(1, world), "host"]:
                 mesh = make_host_mesh("data", dev) if m == "host" else make_mesh(
                     m, ("data", "model"), dev)
@@ -666,7 +830,8 @@ def main(argv=None) -> int:
                      f"{got['tokens_per_s']:.0f} tokens/s, peak {got['peak_gib_by_rank']} GiB, "
                      f"model-axis collectives {100 * got['model_collective_share']:.2f} % "
                      f"({got['model_collectives_per_step']} a step, "
-                     f"{got['model_allreduce_bytes_per_step']} bytes), K7 {got['k7']} K7b "
+                     f"{got['model_collective_bytes_per_step']} bytes: "
+                     f"{got['model_bytes_by_kind_per_step']}), K7 {got['k7']} K7b "
                      f"{got['k7b']} K6 {got['k6']} K6b {got['k6b']} over 7 steps; losses "
                      f"{got['losses']}; one traced step {got['traced_step']} [{card}]")
             res[name]["serve"] = serve_split(cfg, dev, args.reduced, "serve", None, full=False)
