@@ -126,13 +126,18 @@ def _mesh(args: argparse.Namespace, world_size: int, dev: torch.device):
     return make_mesh((world_size // args.model_axis, args.model_axis), ("data", "model"), dev)
 
 
-def run(args: argparse.Namespace, mesh=None) -> dict:
+def run(args: argparse.Namespace, mesh=None, dtype: torch.dtype = torch.bfloat16,
+        cfg=None) -> dict:
     """The training loop on ``mesh`` (default: the one ``args`` names, over
     the default group); returns {"start", "losses" (the global mean loss of
-    each step run, as floats), "params", "opt"} of this rank (its blocks)."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    each step run, as floats), "params", "opt"} of this rank (its blocks).
+    ``dtype``: the loss's compute dtype (bf16 over fp32 masters, as the
+    JAX launcher; fp32 for a check that rounding cannot pass off as noise);
+    ``cfg``: a configuration in place of ``--arch``'s (e.g. cut in depth)."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     with world(_device(args.device)) as (group, dev):
         if mesh is None:
             mesh = _mesh(args, group.size(), dev)
@@ -152,6 +157,7 @@ def run(args: argparse.Namespace, mesh=None) -> dict:
         opt_cfg = OptConfig(total_steps=args.steps, warmup_steps=max(5, args.steps // 20))
         loss_kwargs = ({"extra_slots": args.extra_slots, "group": data_group}
                        if cfg.family == "moe" else {})
+        loss_kwargs["dtype"] = dtype
         step_fn = make_train_step(model, opt_cfg, loss_kwargs,
                                   reduce_grads=_mean_over(data_group))
         params, opt_state = init_train_state(model, 0)

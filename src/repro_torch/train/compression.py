@@ -27,8 +27,16 @@ from .optimizer import leaves, map_tree
 _LEVELS = 127.0
 
 
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded once, on every device: with a Python number as the
+    divisor PyTorch's CUDA kernel multiplies by its reciprocal, which rounds
+    twice and moves the shared scale by an ulp off the CPU's and the JAX
+    package's."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
 def quantize(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = g.abs().max() / _LEVELS + 1e-12
+    scale = _div(g.abs().max(), _LEVELS) + 1e-12
     q = torch.clamp(torch.round(g / scale), -_LEVELS, _LEVELS).to(torch.int8)
     return q, scale
 
@@ -50,13 +58,13 @@ def compressed_psum(
     ``torch.round`` rounds half to even, as ``jnp.round`` does."""
     group = resolve_group(group, grad.device)
     g = grad.to(torch.float32) + residual
-    scale = g.abs().max() / _LEVELS + 1e-12
+    scale = _div(g.abs().max(), _LEVELS) + 1e-12
     dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)  # shared grid
     q = torch.clamp(torch.round(g / scale), -_LEVELS, _LEVELS)
     new_residual = g - q * scale  # error feedback
     total = q.to(torch.int32)
     dist.all_reduce(total, group=group)
-    return total.to(torch.float32) * scale / group.size(), new_residual
+    return _div(total.to(torch.float32) * scale, group.size()), new_residual
 
 
 def init_residuals(grads_template: Any) -> Any:

@@ -1468,6 +1468,23 @@ def test_compressed_psum_on_card_world_one(cuda):
     assert torch.equal(mean, ttrain.dequantize(q, scale))
 
 
+def test_compressed_scale_divides_on_card(cuda):
+    """The shared scale is the largest entry divided by 127, rounded once on
+    the card as on the CPU: 13.69 / 127 is 0.10779528 where 13.69 times
+    fp32(1 / 127), what CUDA's kernel computes for a Python divisor, is
+    0.10779527."""
+    from repro_torch import train as ttrain
+
+    g = torch.tensor([13.69, -2.0, 0.5], device=cuda)
+    _, scale = ttrain.quantize(g)
+    _, want = ttrain.quantize(g.cpu())
+    assert scale.item() == want.item() == float(np.float32(13.69) / np.float32(127.0)
+                                                + np.float32(1e-12))
+    mean, res = ttrain.compressed_psum(g, torch.zeros_like(g))
+    want_mean, want_res = ttrain.compressed_psum(g.cpu(), torch.zeros(3))
+    assert torch.equal(mean.cpu(), want_mean) and torch.equal(res.cpu(), want_res)
+
+
 
 def test_one_rank_nccl_group_exits_promptly(cuda, tmp_path):
     """A process that used the one-rank NCCL group exits at once and leaves

@@ -134,8 +134,8 @@ def test_port_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/expert_parallel.py",
-                                    "tools/launcher_split.py", "tools/recurrent_precision.py",
-                                    "tools/tensor_parallel.py"])
+                                    "tools/launcher_split.py", "tools/multi_card.py",
+                                    "tools/recurrent_precision.py", "tools/tensor_parallel.py"])
 def test_chip_scripts_import_with_jax_blocked(script):
     """The scripts that drive the port on cards import with JAX unavailable
     and load no ``repro`` module (in a subprocess)."""

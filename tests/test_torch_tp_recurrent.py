@@ -392,6 +392,14 @@ _LAUNCH = textwrap.dedent("""
     rank, world, store, ckpt, steps, model_axis = sys.argv[1:7]
     dist.init_process_group("gloo", init_method="file://" + store, rank=int(rank),
                             world_size=int(world))
+    if len(sys.argv) > 7:  # tools/launcher_split.py's fp32 rank: ARCH SEQ, files under ckpt
+        sys.path.insert(0, "tools")
+        import launcher_split
+        arch, seq = sys.argv[7:9]
+        launcher_split.rank_main(ckpt, "fp32", 0, [
+            "--arch", arch, "--reduced", "--steps", steps, "--batch", "4", "--seq", seq,
+            "--device", "cpu", "--mesh", "host", "--model-axis", model_axis])
+        sys.exit(0)
     argv = ["--arch", "rwkv6-3b", "--reduced", "--steps", steps, "--batch", "4", "--seq", "24",
             "--device", "cpu", "--ckpt-dir", ckpt, "--ckpt-every", "2"]
     if int(world) == 4:  # the production mesh's path, on a (2, 2) stand-in for (16, 16)
@@ -453,6 +461,31 @@ def test_checkpoint_of_rwkv6_resumes_on_another_mesh(tmp_path):
          "--device", "cpu"]))
     got = first[0]["losses"] + second[0]["losses"]
     assert np.allclose(got, one["losses"], rtol=2e-3, atol=0), (got, one["losses"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_launcher_split_holds_fp32_bars_with_the_stream_split(arch, tmp_path):
+    """``tools/launcher_split.py --fp32``'s check on two gloo ranks: the
+    launcher (``run(dtype=torch.float32)``) on a (1, 2) mesh against data
+    parallelism on (2, 1), [4, 32] tokens, which 2 divides, so the stream
+    enters every block as a rank's [4, 16, d]; the first step's loss within
+    1e-5 relative and every gradient (put together from the ranks) within
+    1e-4 of its leaf's largest entry."""
+    sys.path.insert(0, str(_ROOT / "tools"))
+    import launcher_split
+
+    runs = {}
+    for axis in (2, 1):
+        out = tmp_path / str(axis)
+        out.mkdir()
+        _spawn(lambda r: ["-c", _LAUNCH, str(r), "2", str(tmp_path / f"store{axis}"), str(out),
+                          "1", str(axis), arch, "31"], 2)
+        runs[axis] = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    d = tconfigs.get_config(arch).reduced().d_model
+    assert runs[2][0]["stream"] == [4, 16, d] and runs[1][0]["stream"] == [2, 32, d]
+    chk = launcher_split._fp32_check(str(tmp_path / "2"), str(tmp_path / "1"), runs[2], runs[1],
+                                     ["--arch", arch, "--reduced"], 0)
+    assert chk["ok"], chk
 
 
 def test_init_blocks_equal_shard_tree_of_the_whole_draw():
